@@ -1,0 +1,65 @@
+// fused_bidirectional_attention: LightGlue's shared-QK cross-attention in
+// both directions (replaces `fused_bidirectional_attention` /
+// `_bidir_kernel` of gluefactory_tpu/ops/pallas_attention.py):
+//   m0 = rowsoftmax(sim, columns masked by mask1) v1,
+//   m1 = colsoftmax(sim, rows masked by mask0)^T v0,   sim = qk0 qk1^T / sqrt(D),
+// with masked query rows zeroed and fully masked opposite sets giving 0.
+//
+// The TPU kernel forms sim once and accumulates the column softmax online
+// across its sequential grid (three matmuls). Blocks on Hopper run in no
+// order, so this first design makes two passes of the attention tile kernel
+// (attention_tile.cuh): rows of sim^T = qk1 qk0^T are the columns of sim,
+// so pass 2 is the same online row softmax with the roles swapped. That is
+// four matmuls instead of three; the column pass reuses no similarity from
+// the row pass. Bound: operations (see attention_tile.cuh).
+
+#include "attention_tile.cuh"
+
+// qk0/v0/out0 (B,H,M,D), qk1/v1/out1 (B,H,N,D) with element strides
+// strides[0..17] = qk0, qk1, v0, v1, out0, out1 as (batch, head, token);
+// strides[18..19] = mask0, mask1 batch strides. Returns a cudaError_t.
+extern "C" int gf_fused_bidirectional_attention(
+    const void* qk0, const void* qk1, const void* v0, const void* v1,
+    const void* mask0, const void* mask1, void* out0, void* out1,
+    const long long* strides, int B, int H, int M, int N, int D, float scale,
+    int dtype, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  gf::AttnArgs rows;  // m0: queries qk0, keys qk1, values v1
+  rows.q = qk0;
+  rows.k = qk1;
+  rows.v = v1;
+  rows.kmask = static_cast<const uint8_t*>(mask1);
+  rows.qmask = static_cast<const uint8_t*>(mask0);
+  rows.out = out0;
+  rows.q_sb = strides[0], rows.q_sh = strides[1], rows.q_sn = strides[2];
+  rows.k_sb = strides[3], rows.k_sh = strides[4], rows.k_sn = strides[5];
+  rows.v_sb = strides[9], rows.v_sh = strides[10], rows.v_sn = strides[11];
+  rows.o_sb = strides[12], rows.o_sh = strides[13], rows.o_sn = strides[14];
+  rows.kmask_sb = strides[19];
+  rows.qmask_sb = strides[18];
+  rows.H = H;
+  rows.M = M;
+  rows.N = N;
+  rows.scale = scale;
+  cudaError_t err = gf::launch_attention(rows, B * H, D, dtype, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  gf::AttnArgs cols;  // m1: queries qk1, keys qk0, values v0
+  cols.q = qk1;
+  cols.k = qk0;
+  cols.v = v0;
+  cols.kmask = static_cast<const uint8_t*>(mask0);
+  cols.qmask = static_cast<const uint8_t*>(mask1);
+  cols.out = out1;
+  cols.q_sb = strides[3], cols.q_sh = strides[4], cols.q_sn = strides[5];
+  cols.k_sb = strides[0], cols.k_sh = strides[1], cols.k_sn = strides[2];
+  cols.v_sb = strides[6], cols.v_sh = strides[7], cols.v_sn = strides[8];
+  cols.o_sb = strides[15], cols.o_sh = strides[16], cols.o_sn = strides[17];
+  cols.kmask_sb = strides[18];
+  cols.qmask_sb = strides[19];
+  cols.H = H;
+  cols.M = N;
+  cols.N = M;
+  cols.scale = scale;
+  return static_cast<int>(gf::launch_attention(cols, B * H, D, dtype, s));
+}

@@ -1,0 +1,227 @@
+"""LightGlue: attentional sparse-feature matcher, dense inference forward
+(counterpart of `gluefactory_tpu/models/matchers/lightglue.py`).
+
+Parameters carry the names and layout of the official LightGlue release
+(`transformers.{i}.self_attn.Wqkv`, `...cross_attn.to_qk`, `log_assignment.{i}`,
+`token_confidence.{i}.token.0`, ...; Wqkv packs rows as (head, dim, q/k/v)),
+so official checkpoints load without a second converter.
+`compat/jax_params.py` converts the JAX package's parameters to this layout.
+
+As in the JAX package, both views go through self-attention as one stacked
+batch, the cross-attention projections run once over the stacked views, and
+attention is the hand-written CUDA kernels on the card (`ops/attention.py`).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ...ops.assignment import filter_matches, sigmoid_log_double_softmax
+from ...ops.attention import apply_rotary, bidirectional_attention, mha
+from ..base_model import BaseModel
+
+
+def normalize_keypoints(kpts: torch.Tensor, size: torch.Tensor) -> torch.Tensor:
+    """Center and scale keypoints by image size (B, 2) [w, h]."""
+    size = size.to(kpts.dtype)
+    shift = size / 2.0
+    scale = size.max(dim=-1, keepdim=True).values / 2.0
+    return (kpts - shift[:, None, :]) / scale[:, None, :]
+
+
+class LearnableFourierPosEnc(nn.Module):
+    """Keypoints (B, N, 2) -> per-pair rotary angles' (cos, sin), (B, N, head_dim/2)."""
+
+    def __init__(self, in_dim: int, head_dim: int):
+        super().__init__()
+        self.Wr = nn.Linear(in_dim, head_dim // 2, bias=False)
+
+    def forward(self, x: torch.Tensor):
+        # in the keypoints' f32 whatever the weights' dtype (as flax promotes)
+        theta = F.linear(x, self.Wr.weight.to(x.dtype))
+        return torch.cos(theta), torch.sin(theta)
+
+
+def _ffn(dim: int) -> nn.Sequential:
+    """Linear(2d->2d), LayerNorm(eps 1e-5), exact GELU, Linear(2d->d)."""
+    return nn.Sequential(
+        nn.Linear(2 * dim, 2 * dim), nn.LayerNorm(2 * dim, eps=1e-5), nn.GELU(), nn.Linear(2 * dim, dim)
+    )
+
+
+def split_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
+    B, N, D = x.shape
+    return x.reshape(B, N, num_heads, D // num_heads).transpose(1, 2)
+
+
+def merge_heads(x: torch.Tensor) -> torch.Tensor:
+    B, H, N, Dh = x.shape
+    return x.transpose(1, 2).reshape(B, N, H * Dh)
+
+
+class SelfBlock(nn.Module):
+    def __init__(self, dim: int, num_heads: int, flash: bool):
+        super().__init__()
+        self.num_heads = num_heads
+        self.flash = flash
+        self.Wqkv = nn.Linear(dim, 3 * dim)
+        self.out_proj = nn.Linear(dim, dim)
+        self.ffn = _ffn(dim)
+
+    def forward(self, x, enc, mask=None):
+        cos, sin = enc
+        B, N, _ = x.shape
+        # official packing: rows as (head, dim, q/k/v)
+        qkv = self.Wqkv(x).reshape(B, N, self.num_heads, -1, 3).transpose(1, 2)
+        q, k, v = qkv[..., 0], qkv[..., 1], qkv[..., 2]
+        q = apply_rotary(q, cos[:, None], sin[:, None])
+        k = apply_rotary(k, cos[:, None], sin[:, None])
+        ctx = mha(q, k, v.contiguous(), mask_q=mask, mask_k=mask, flash=self.flash)
+        message = self.out_proj(merge_heads(ctx))
+        return x + self.ffn(torch.cat([x, message], dim=-1))
+
+
+class CrossBlock(nn.Module):
+    def __init__(self, dim: int, num_heads: int, flash: bool):
+        super().__init__()
+        self.num_heads = num_heads
+        self.flash = flash
+        self.to_qk = nn.Linear(dim, dim)
+        self.to_v = nn.Linear(dim, dim)
+        self.to_out = nn.Linear(dim, dim)
+        self.ffn = _ffn(dim)
+
+    def forward(self, x0, x1, mask0=None, mask1=None):
+        B = x0.shape[0]
+        stacked = x0.shape == x1.shape
+        if stacked:  # one shared-weight projection pass over both views
+            x01 = torch.cat([x0, x1], dim=0)
+            qk01 = split_heads(self.to_qk(x01), self.num_heads)
+            v01 = split_heads(self.to_v(x01), self.num_heads)
+            qk0, qk1, v0, v1 = qk01[:B], qk01[B:], v01[:B], v01[B:]
+        else:
+            qk0 = split_heads(self.to_qk(x0), self.num_heads)
+            qk1 = split_heads(self.to_qk(x1), self.num_heads)
+            v0 = split_heads(self.to_v(x0), self.num_heads)
+            v1 = split_heads(self.to_v(x1), self.num_heads)
+        m0, m1 = bidirectional_attention(qk0, qk1, v0, v1, mask0, mask1, flash=self.flash)
+        if stacked:
+            x01 = torch.cat([x0, x1], dim=0)
+            m01 = self.to_out(merge_heads(torch.cat([m0, m1], dim=0)))
+            y01 = x01 + self.ffn(torch.cat([x01, m01], dim=-1))
+            return y01[:B], y01[B:]
+        m0 = self.to_out(merge_heads(m0))
+        m1 = self.to_out(merge_heads(m1))
+        return x0 + self.ffn(torch.cat([x0, m0], -1)), x1 + self.ffn(torch.cat([x1, m1], -1))
+
+
+class TransformerLayer(nn.Module):
+    def __init__(self, dim: int, num_heads: int, flash: bool):
+        super().__init__()
+        self.self_attn = SelfBlock(dim, num_heads, flash)
+        self.cross_attn = CrossBlock(dim, num_heads, flash)
+
+    def forward(self, desc0, desc1, enc0, enc1, mask0=None, mask1=None):
+        if desc0.shape == desc1.shape:
+            # both views through one batched self-attention pass
+            B = desc0.shape[0]
+            x = torch.cat([desc0, desc1], dim=0)
+            enc = tuple(torch.cat([e0, e1], dim=0) for e0, e1 in zip(enc0, enc1))
+            if mask0 is None and mask1 is None:
+                mask = None
+            else:
+                ones = torch.ones(desc0.shape[:2], dtype=torch.bool, device=desc0.device)
+                mask = torch.cat([ones if mask0 is None else mask0,
+                                  ones if mask1 is None else mask1], dim=0)
+            x = self.self_attn(x, enc, mask)
+            desc0, desc1 = x[:B], x[B:]
+        else:
+            desc0 = self.self_attn(desc0, enc0, mask0)
+            desc1 = self.self_attn(desc1, enc1, mask1)
+        return self.cross_attn(desc0, desc1, mask0, mask1)
+
+
+class MatchAssignment(nn.Module):
+    def __init__(self, dim: int):
+        super().__init__()
+        self.dim = dim
+        self.matchability = nn.Linear(dim, 1)
+        self.final_proj = nn.Linear(dim, dim)
+
+    def forward(self, desc0, desc1, mask0=None, mask1=None):
+        scale = 1.0 / self.dim**0.25
+        mdesc0 = self.final_proj(desc0) * scale
+        mdesc1 = self.final_proj(desc1) * scale
+        # similarity in f32 (the products of bf16 values are exact in f32)
+        sim = torch.einsum("bmd,bnd->bmn", mdesc0.float(), mdesc1.float())
+        z0 = self.matchability(desc0).squeeze(-1).float()
+        z1 = self.matchability(desc1).squeeze(-1).float()
+        scores = sigmoid_log_double_softmax(sim, z0, z1, mask0, mask1)
+        return scores, sim, z0, z1
+
+
+class TokenConfidence(nn.Module):
+    """Token-confidence head. Only its parameters are ported: it serves the
+    pruned forward and the loss, which later slices bring."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.token = nn.Sequential(nn.Linear(dim, 1), nn.Sigmoid())
+
+
+class LightGlue(BaseModel):
+    default_conf = {
+        "input_dim": 256,
+        "descriptor_dim": 256,
+        "add_scale_ori": False,
+        "n_layers": 9,
+        "num_heads": 4,
+        "flash": True,  # the CUDA attention kernels on the card
+        "depth_confidence": -1.0,
+        "width_confidence": -1.0,
+        "pruning_min_kpts": "auto",
+        "int8_similarity": False,
+        "filter_threshold": 0.1,
+        "checkpointed": True,
+        "weights": None,
+        "loss": {"gamma": 1.0, "fn": "nll", "nll_balancing": 0.5, "confidence_weight": 1.0},
+    }
+    required_data_keys = ["keypoints0", "keypoints1", "descriptors0", "descriptors1"]
+
+    def _init(self, conf):
+        if conf.add_scale_ori or conf.int8_similarity:
+            raise NotImplementedError("add_scale_ori and int8_similarity are not ported yet")
+        d = conf.descriptor_dim
+        self.input_proj = nn.Linear(conf.input_dim, d)
+        self.posenc = LearnableFourierPosEnc(2, d // conf.num_heads)
+        self.transformers = nn.ModuleList(
+            [TransformerLayer(d, conf.num_heads, bool(conf.flash)) for _ in range(conf.n_layers)]
+        )
+        self.log_assignment = nn.ModuleList([MatchAssignment(d) for _ in range(conf.n_layers)])
+        self.token_confidence = nn.ModuleList([TokenConfidence(d) for _ in range(conf.n_layers - 1)])
+
+    def _forward(self, data: dict) -> dict:
+        c = self.conf
+        if c.depth_confidence > 0 or c.width_confidence > 0:
+            raise NotImplementedError("adaptive depth/width pruning is not ported yet")
+        mask0 = data.get("keypoint_mask0")
+        mask1 = data.get("keypoint_mask1")
+        size0 = data["view0"]["image_size"] if "view0" in data else data["image_size0"]
+        size1 = data["view1"]["image_size"] if "view1" in data else data["image_size1"]
+        enc0 = self.posenc(normalize_keypoints(data["keypoints0"], size0))
+        enc1 = self.posenc(normalize_keypoints(data["keypoints1"], size1))
+        desc0 = self.input_proj(data["descriptors0"])
+        desc1 = self.input_proj(data["descriptors1"])
+        for layer in self.transformers:
+            desc0, desc1 = layer(desc0, desc1, enc0, enc1, mask0, mask1)
+        scores, _, _, _ = self.log_assignment[-1](desc0, desc1, mask0, mask1)
+        m0, m1, mscores0, mscores1 = filter_matches(scores, c.filter_threshold, mask0, mask1)
+        return {
+            "log_assignment": scores,
+            "matches0": m0,
+            "matches1": m1,
+            "matching_scores0": mscores0,
+            "matching_scores1": mscores1,
+        }

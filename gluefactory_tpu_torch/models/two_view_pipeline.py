@@ -1,0 +1,81 @@
+"""Two-view pipeline: extractor -> matcher, inference forward (counterpart of
+`gluefactory_tpu/models/two_view_pipeline.py`).
+
+Per-view inputs live under `data["view0"/"view1"]`; extractor outputs are
+suffixed `0`/`1` into the flat prediction dict. With `batch_extraction`,
+views of one image shape go through the extractor as one stacked batch.
+Submodules are named `extractor` and `matcher`, as in glue-factory's
+checkpoints.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import get_model
+from .base_model import BaseModel
+
+# per-view inputs the extractor may consume, stacked with the images
+_STACKED_KEYS = ("image", "image_size")
+
+
+class TwoViewPipeline(BaseModel):
+    default_conf = {
+        "extractor": {"name": None},
+        "matcher": {"name": None},
+        "filter": {"name": None},
+        "solver": {"name": None},
+        "ground_truth": {"name": None},
+        "allow_no_extract": False,
+        "run_gt_in_forward": False,
+        "batch_extraction": True,
+    }
+    required_data_keys = ["view0", "view1"]
+    strict_conf = False
+
+    def _init(self, conf):
+        for comp in ("filter", "solver", "ground_truth"):
+            if conf[comp].get("name"):
+                raise NotImplementedError(f"pipeline component {comp} is not ported yet")
+        for comp in ("extractor", "matcher"):
+            sub = conf[comp]
+            model = None
+            if sub.get("name"):
+                cls = get_model(sub.name)
+                model = cls(cls.resolve_conf({k: v for k, v in sub.to_dict().items() if k != "name"}))
+            setattr(self, comp, model)
+
+    def extract_view(self, data: dict, i: str, generator=None) -> dict:
+        data_i = data[f"view{i}"]
+        pred_i = dict(data_i.get("cache", {}))
+        skip_extract = len(pred_i) > 0 and self.conf.allow_no_extract
+        if self.extractor is not None and not skip_extract:
+            pred_i = {**self.extractor({**data_i, **pred_i}, generator=generator), **pred_i}
+        return pred_i
+
+    def _can_batch_extraction(self, data: dict) -> bool:
+        if not self.conf.batch_extraction or self.extractor is None:
+            return False
+        v0, v1 = data["view0"], data["view1"]
+        if "cache" in v0 or "cache" in v1:
+            return False
+        return "image" in v0 and "image" in v1 and v0["image"].shape == v1["image"].shape
+
+    def _extract_stacked(self, data: dict, generator=None):
+        v0, v1 = data["view0"], data["view1"]
+        B = v0["image"].shape[0]
+        stacked = {k: torch.cat([v0[k], v1[k]], dim=0) for k in _STACKED_KEYS if k in v0 and k in v1}
+        pred = self.extractor(stacked, generator=generator)
+        return {k: v[:B] for k, v in pred.items()}, {k: v[B:] for k, v in pred.items()}
+
+    def _forward(self, data: dict, generator: torch.Generator | None = None) -> dict:
+        """`generator` goes to the extractor (SuperPoint's keypoint fill)."""
+        if self._can_batch_extraction(data):
+            pred0, pred1 = self._extract_stacked(data, generator)
+        else:
+            pred0 = self.extract_view(data, "0", generator)
+            pred1 = self.extract_view(data, "1", generator)
+        pred = {**{k + "0": v for k, v in pred0.items()}, **{k + "1": v for k, v in pred1.items()}}
+        if self.matcher is not None:
+            pred = {**pred, **self.matcher({**data, **pred})}
+        return pred

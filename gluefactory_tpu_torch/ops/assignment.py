@@ -1,0 +1,74 @@
+"""LightGlue's assignment head and match filtering (counterpart of
+`gluefactory_tpu/ops/assignment.py`: `sigmoid_log_double_softmax`,
+`filter_matches`).
+
+Mask-aware: padded keypoints get -1e9 scores and never match (-1).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+NEG_INF = -1e9
+
+
+def _mask_sim(sim, mask0, mask1):
+    if mask0 is not None:
+        sim = sim.masked_fill(~mask0[..., :, None], NEG_INF)
+    if mask1 is not None:
+        sim = sim.masked_fill(~mask1[..., None, :], NEG_INF)
+    return sim
+
+
+def sigmoid_log_double_softmax(sim, z0, z1, mask0=None, mask1=None) -> torch.Tensor:
+    """(B,M,N) similarity + matchability logits z0 (B,M), z1 (B,N) ->
+    (B,M+1,N+1) log assignment:
+
+    scores[:M,:N] = log_softmax_rows + log_softmax_cols + logsig(z0) + logsig(z1)
+    scores[:, N]  = logsig(-z0);  scores[M, :] = logsig(-z1).
+    """
+    B, M, N = sim.shape
+    certainties = F.logsigmoid(z0)[..., :, None] + F.logsigmoid(z1)[..., None, :]
+    simm = _mask_sim(sim, mask0, mask1)
+    inner = simm.log_softmax(2) + simm.log_softmax(1) + certainties
+    inner = _mask_sim(inner, mask0, mask1)
+    un0 = F.logsigmoid(-z0)
+    un1 = F.logsigmoid(-z1)
+    if mask0 is not None:
+        un0 = un0.masked_fill(~mask0, NEG_INF)
+    if mask1 is not None:
+        un1 = un1.masked_fill(~mask1, NEG_INF)
+    scores = sim.new_full((B, M + 1, N + 1), NEG_INF)
+    scores[:, :M, :N] = inner
+    scores[:, :M, N] = un0
+    scores[:, M, :N] = un1
+    return scores
+
+
+def filter_matches(scores: torch.Tensor, th: float, mask0=None, mask1=None):
+    """Mutual-nearest + threshold matches from an (M+1, N+1) log assignment.
+
+    Returns (matches0 (B,M), matches1 (B,N) int32, -1 if unmatched or
+    invalid; mscores0 (B,M), mscores1 (B,N))."""
+    inner = scores[:, :-1, :-1]
+    B, M, N = inner.shape
+    max0, m0 = inner.max(dim=2)
+    _, m1 = inner.max(dim=1)
+    ar0 = torch.arange(M, device=scores.device)[None]
+    ar1 = torch.arange(N, device=scores.device)[None]
+    mutual0 = ar0 == m1.gather(1, m0)
+    mutual1 = ar1 == m0.gather(1, m1)
+    mscores0 = torch.where(mutual0, max0.exp(), torch.zeros_like(max0))
+    mscores1 = torch.where(mutual1, mscores0.gather(1, m1), torch.zeros_like(mscores0[:, :1]))
+    valid0 = mutual0 & (mscores0 > th)
+    valid1 = mutual1 & valid0.gather(1, m1)
+    if mask0 is not None:
+        valid0 = valid0 & mask0
+        mscores0 = mscores0 * mask0
+    if mask1 is not None:
+        valid1 = valid1 & mask1
+        mscores1 = mscores1 * mask1
+    matches0 = torch.where(valid0, m0, -1).to(torch.int32)
+    matches1 = torch.where(valid1, m1, -1).to(torch.int32)
+    return matches0, matches1, mscores0, mscores1
