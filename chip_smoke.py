@@ -17,10 +17,19 @@ Phases, in order; any failure exits non-zero before the last line:
    through its entry point on 4 pairs; launch counts reset just before and
    read just after; outputs checked; the matcher rerun on 512 keypoints per
    view with the plain versions forced in, against the kernel run;
-5. a torch.profiler window over one forward: device time by kernel.
+5. a torch.profiler window over one forward: device time by kernel;
+6. path B: SuperPoint + SuperGlue (`superpoint+superglue-official.yaml`'s
+   model section: 2048 keypoints, nms_radius 3, SuperGlue d=256, 4 heads,
+   9 layer pairs, 50 Sinkhorn iterations), driven, checked, compared with
+   the plain versions at 512 keypoints and profiled as in phases 4-5;
+7. path C: the main path with SuperPoint's `fused_detect` and
+   `fused_backbone` on, driven and profiled as in phases 4-5; its keypoints,
+   scores and descriptors against the opt-ins-off extractor in f32 and bf16.
 
-Prints the kernel JSON line, the card line, and as its last line
-{"ok": true, "device": {...}}. Full results go to chiprun_out/chip_smoke.json.
+Each path resets every launch count just before its timed run and reads
+them just after. Prints the kernel JSON line, the card line, and as its last
+line {"ok": true, "device": {...}}. Full results go to
+chiprun_out/chip_smoke.json.
 """
 
 from __future__ import annotations
@@ -37,20 +46,39 @@ import numpy as np
 import torch
 
 from gluefactory_tpu_torch.models import get_model
-from gluefactory_tpu_torch.ops import _build, cuda_attention
+from gluefactory_tpu_torch.ops import _build, cuda_attention, cuda_conv, cuda_detect, cuda_sinkhorn
+from gluefactory_tpu_torch.ops.assignment import log_optimal_transport
 
 ROOT = Path(__file__).resolve().parent
 OUT_DIR = ROOT / "chiprun_out"
+DEVICE = "cuda"
 
 # H100 SXM published peaks (dense): bf16 tensor cores, f32 outside them, HBM
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_BYTES = 3.35e12
+# special-function units (exp2, log2): 16 results per clock per SM (the CUDA
+# programming guide's throughput table for compute capability 9.0) x 132 SMs
+# x 1.98 GHz boost clock
+PEAK_SFU = 16 * 132 * 1.98e9
+
+KERNEL_MODULES = (cuda_attention, cuda_sinkhorn, cuda_detect, cuda_conv)
 
 # main path (bench.py's configuration)
 PAIRS, IMAGE, KEYPOINTS, LAYERS, DIM, HEADS = 4, 1024, 2048, 9, 256, 4
 HEAD_DIM = DIM // HEADS
-FORWARDS = 5  # timed forwards on the main path (after one warm-up)
+FORWARDS = 20  # timed forwards of each path (after one warm-up)
 REDUCED_KEYPOINTS = 512
+
+# path B: gluefactory_tpu/configs/superpoint+superglue-official.yaml, model
+# section (plus force_num_keypoints, as on the main path)
+SUPERGLUE_CONF = {
+    "extractor": {"name": "superpoint", "max_num_keypoints": KEYPOINTS,
+                  "detection_threshold": 0.0, "nms_radius": 3, "force_num_keypoints": True,
+                  "trainable": False},
+    "matcher": {"name": "superglue", "filter_threshold": 0.2, "sinkhorn_iterations": 50,
+                "descriptor_dim": DIM, "num_heads": HEADS, "n_layers": LAYERS},
+}
+SINKHORN_ITERS = 50
 
 # kernel vs plain on the card. f32: both sum f32 products in another order.
 # bf16: outputs round to bf16 (step 2^-9 at |x| ~ 0.5) and the kernel rounds
@@ -60,6 +88,25 @@ KERNEL_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
 def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAIL: {msg}")
+
+
+def all_launches() -> dict:
+    out = {}
+    for mod in KERNEL_MODULES:
+        out.update(mod.launches)
+    return out
+
+
+def reset_all_launches() -> None:
+    for mod in KERNEL_MODULES:
+        mod.reset_launches()
+
+
+def restore_launches(saved: dict) -> None:
+    """Put back counts saved before launches that are not a path's own
+    (parity checks, timing, profiling)."""
+    for mod in KERNEL_MODULES:
+        mod.launches.update({k: saved[k] for k in mod.launches})
 
 
 def cuda_time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -219,7 +266,7 @@ def phase_kernels(dev: torch.device) -> list[dict]:
             elem = torch.finfo(dtype).bits // 8
             n_bytes = (n_in + n_out) * BH * M * HEAD_DIM * elem + (m0.numel() + m1.numel())
             bound_ms, bound_by = _bound(n_ops, n_bytes, dtype)
-            before = dict(cuda_attention.launches)
+            before = all_launches()
             timing = {
                 "ms": cuda_time_ms(lambda: kernel(*args)),
                 "plain_ms": cuda_time_ms(lambda: plain(*args), reps=5),
@@ -228,7 +275,7 @@ def phase_kernels(dev: torch.device) -> list[dict]:
                 "bound_by": bound_by,
                 "timed_shape": [BH // HEADS, HEADS, M, HEAD_DIM],
             }
-            cuda_attention.launches.update(before)  # timing launches are not the main path's
+            restore_launches(before)  # timing launches are not the main path's
         bf16 = [p["max_abs_err"] for p in parity if p["dtype"] == "bfloat16"]
         results.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -241,20 +288,237 @@ def phase_kernels(dev: torch.device) -> list[dict]:
     return results
 
 
+def _finite_log_err(got, want) -> float:
+    """Max abs error over the finite log-probabilities (|x| < 1e6); fails
+    unless infinities agree and the -1e9-scale masked entries (f32 step 64
+    there) agree to 1e-6 relatively."""
+    fin = torch.isfinite(want)
+    if not torch.equal(torch.isfinite(got), fin):
+        fail("log_sinkhorn: infinities differ from the plain version")
+    small = fin & (want.abs() < 1e6)
+    big = fin & ~small
+    if not ((got - want)[big].abs() <= 1e-6 * want[big].abs()).all():
+        fail("log_sinkhorn: masked entries differ from the plain version")
+    return float((got - want)[small].abs().max())
+
+
+def check_sinkhorn(dev, gen) -> dict:
+    """Through `log_optimal_transport` at SuperGlue's shapes (4 pairs, 2048
+    keypoints, 50 iterations): all valid, partial, side 0 fully masked.
+    f32 log-sum-exps in another order over 50 iterations: 1e-4."""
+    B, K = PAIRS, KEYPOINTS
+    tol = 1e-4
+    scores = torch.randn(B, K, K, generator=gen, device=dev) * 2.0
+    bin_score = torch.tensor(1.0, device=dev)
+    m0 = torch.rand(B, K, generator=gen, device=dev) > 0.3
+    m1 = torch.rand(B, K, generator=gen, device=dev) > 0.3
+    side0 = m0.clone()
+    side0[0] = False
+    parity = []
+    saved = all_launches()
+    for case, (a, b) in {"all_valid": (None, None), "partial": (m0, m1),
+                         "side0_masked": (side0, m1)}.items():
+        got = log_optimal_transport(scores, bin_score, SINKHORN_ITERS, a, b)
+        want = log_optimal_transport(scores, bin_score, SINKHORN_ITERS, a, b, flash=False)
+        torch.cuda.synchronize()
+        err = _finite_log_err(got, want)
+        parity.append({"dtype": "float32", "masks": case, "max_abs_err": err, "tol": tol})
+        if not err <= tol:
+            fail(f"log_sinkhorn {case}: max abs err {err} > {tol}")
+    # the kernel's own inputs at the main shape: couplings with bins
+    M = N = K + 1
+    Z = torch.randn(B, M, N, generator=gen, device=dev)
+    log_mu = torch.full((B, M), -math.log(2 * K), device=dev)
+    log_nu = torch.full((B, N), -math.log(2 * K), device=dev)
+    exps = 2.0 * SINKHORN_ITERS * B * M * N  # one exponential per entry per pass
+    t_bytes = (2 * B * M * N * 4 + (M + N) * B * 4) / PEAK_BYTES * 1e3
+    t_ops = max(exps / PEAK_SFU, 4 * exps / PEAK_OPS[torch.float32]) * 1e3
+    res = {
+        "name": "log_sinkhorn", "route": "cuda", "source": "gluefactory_tpu_torch/csrc/log_sinkhorn.cu",
+        "replaces": "gluefactory_tpu/ops/pallas_sinkhorn.py:46",
+        "launches": 0, "max_abs_err": max(p["max_abs_err"] for p in parity), "tol": tol,
+        "ms": cuda_time_ms(lambda: cuda_sinkhorn.log_sinkhorn(Z, log_mu, log_nu, SINKHORN_ITERS)),
+        "plain_ms": cuda_time_ms(
+            lambda: cuda_sinkhorn.plain_log_sinkhorn(Z, log_mu, log_nu, SINKHORN_ITERS), reps=3),
+        "library_ms": None,
+        "bound_ms": max(t_bytes, t_ops), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "bound_detail": {"exponentials": exps, "sfu_ms": exps / PEAK_SFU * 1e3, "bytes_ms": t_bytes},
+        "timed_shape": [B, M, N, SINKHORN_ITERS], "parity": parity,
+    }
+    restore_launches(saved)
+    return res
+
+
+def check_detect(dev, gen) -> dict:
+    """At the main path's score maps (8 x 1024 x 1024): bf16 and f32, the
+    whole buffer and a smaller true size, radius 4 (the main path's) and 3,
+    one map with equal maxima planted in a tile. Comparisons only: the
+    kernel must equal its plain version (tolerance 0)."""
+    B, H = 2 * PAIRS, IMAGE
+    base = torch.rand(B, H, H, generator=gen, device=dev) * 0.99 + 0.01
+    base[0, 20, 42] = base[0, 23, 41] = 2.0  # tile (5, 10): dy 0 dx 2 and dy 3 dx 1
+    small = torch.tensor([[float(H - 100), float(H - 37)]] * B, device=dev)
+    parity = []
+    saved = all_launches()
+    for dtype in (torch.bfloat16, torch.float32):
+        s = base.to(dtype)
+        for radius in (4, 3):
+            for size_case, true_size in (("full", None), ("smaller", small)):
+                got = cuda_detect.fused_nms_tile_reduce(s, true_size, radius=radius)
+                want = cuda_detect.nms_tile_reduce_plain(s, true_size, radius=radius)
+                torch.cuda.synchronize()
+                err = _err(got, want)
+                parity.append({"dtype": str(dtype).split(".")[-1], "radius": radius,
+                               "true_size": size_case, "max_abs_err": err, "tol": 0.0})
+                if err != 0 or not torch.equal(got[1], want[1]):
+                    fail(f"fused_nms_tile_reduce {dtype} r{radius} {size_case}: differs from plain")
+                if got[1][0, 5, 10] != 13:
+                    fail("fused_nms_tile_reduce: planted tie not resolved to the smallest dx")
+    s = base.to(torch.bfloat16)
+    n_bytes = s.numel() * 2 + 2 * (B * (H // 4) ** 2 * 4)
+    res = {
+        "name": "fused_nms_tile_reduce", "route": "cuda",
+        "source": "gluefactory_tpu_torch/csrc/nms_tile_reduce.cu",
+        "replaces": "gluefactory_tpu/ops/pallas_detect.py:202",
+        "launches": 0, "max_abs_err": max(p["max_abs_err"] for p in parity), "tol": 0.0,
+        "ms": cuda_time_ms(lambda: cuda_detect.fused_nms_tile_reduce(s)),
+        "plain_ms": cuda_time_ms(lambda: cuda_detect.nms_tile_reduce_plain(s), reps=5),
+        "library_ms": None,
+        "bound_ms": n_bytes / PEAK_BYTES * 1e3, "bound_by": "bytes",
+        "timed_shape": [B, H, H], "parity": parity,
+    }
+    restore_launches(saved)
+    return res
+
+
+# path C's four blocks: (name, input NHWC, C_mid, C_out or None, pool)
+VGG_BLOCKS = [
+    ("conv1b_pool", (2 * PAIRS, IMAGE, IMAGE, 64), 64, None, True),
+    ("block2", (2 * PAIRS, IMAGE // 2, IMAGE // 2, 64), 64, 64, True),
+    ("block3", (2 * PAIRS, IMAGE // 4, IMAGE // 4, 64), 128, 128, True),
+    ("block4", (2 * PAIRS, IMAGE // 8, IMAGE // 8, 128), 128, 128, False),
+]
+
+
+def bf16_step(v: float) -> float:
+    """The spacing of bf16 values at magnitude v (8 significant bits)."""
+    return 2.0 ** (math.floor(math.log2(max(v, 2.0**-126))) - 7)
+
+
+def _vgg_inputs(gen, dev, shape, cm, co):
+    ci = shape[-1]
+    x = torch.relu(torch.randn(*shape, generator=gen, device=dev))
+    w = [torch.randn(3, 3, ci, cm, generator=gen, device=dev) * math.sqrt(2.0 / (9 * ci)),
+         torch.randn(cm, generator=gen, device=dev) * 0.1]
+    if co is not None:
+        w += [torch.randn(3, 3, cm, co, generator=gen, device=dev) * math.sqrt(2.0 / (9 * cm)),
+              torch.randn(co, generator=gen, device=dev) * 0.1]
+    return x, w
+
+
+def check_vgg(dev, gen) -> dict:
+    """Path C's four blocks (8 images: conv1b + pool at 1024^2 x 64, the
+    two-conv blocks with pool, block 4 without), f32 and bf16. f32: the same
+    products summed in another order, 1e-4 relative to the largest output.
+    bf16: twice the gap that bf16 rounding alone opens (plain bf16 against
+    plain f32 on the same bf16 inputs), plus one bf16 step at the largest
+    output, for a sum in another order that flips a rounding. Timed in
+    bf16 against the plain version and the cuDNN sequence conv2d, relu,
+    [conv2d, relu], [max_pool2d] in channels-last."""
+    F = torch.nn.functional
+    parity, blocks = [], []
+    saved = all_launches()
+    for name, shape, cm, co, pool in VGG_BLOCKS:
+        x, w = _vgg_inputs(gen, dev, shape, cm, co)
+        for dtype in (torch.float32, torch.bfloat16):
+            xd, wd = x.to(dtype), [a.to(dtype) for a in w]
+            got = cuda_conv.fused_vgg_block(xd, *wd, pool=pool)
+            want = cuda_conv.vgg_block_plain(xd, *wd, pool=pool)
+            torch.cuda.synchronize()
+            err = _err(got, want)
+            if dtype is torch.float32:
+                tol = 1e-4 * max(1.0, float(want.abs().max()))
+            else:
+                ref = cuda_conv.vgg_block_plain(xd.float(), *(a.float() for a in wd), pool=pool)
+                tol = 2.0 * _err(want, ref) + bf16_step(float(want.float().abs().max()))
+                del ref
+            parity.append({"block": name, "dtype": str(dtype).split(".")[-1],
+                           "max_abs_err": err, "tol": tol})
+            if not err <= tol:
+                fail(f"fused_vgg_block {name} {dtype}: max abs err {err} > {tol}")
+            del got, want
+        xd, wd = x.to(torch.bfloat16), [a.to(torch.bfloat16) for a in w]
+        xc = xd.permute(0, 3, 1, 2)  # NCHW view of NHWC memory: channels-last
+        wc = [a.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last) if a.dim() == 4
+              else a for a in wd]
+
+        def library():
+            y = F.relu(F.conv2d(xc, wc[0], wc[1], padding=1))
+            if co is not None:
+                y = F.relu(F.conv2d(y, wc[2], wc[3], padding=1))
+            return F.max_pool2d(y, 2, 2) if pool else y
+
+        B, H, W, ci = shape
+        flops = 2.0 * B * H * W * 9 * (ci * cm + (cm * co if co is not None else 0))
+        out_c = co if co is not None else cm
+        n_bytes = 2 * (xd.numel() + sum(a.numel() for a in wd)
+                       + B * H * W * out_c // (4 if pool else 1))
+        bound_ms, bound_by = _bound(flops, n_bytes, torch.bfloat16)
+        blocks.append({
+            "block": name, "shape": list(shape), "c_mid": cm, "c_out": out_c, "pool": pool,
+            "gflop": flops / 1e9,
+            "ms": cuda_time_ms(lambda: cuda_conv.fused_vgg_block(xd, *wd, pool=pool), reps=5),
+            "plain_ms": cuda_time_ms(lambda: cuda_conv.vgg_block_plain(xd, *wd, pool=pool), reps=5),
+            "library_ms": cuda_time_ms(library, reps=10),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+        })
+        print(f"  vgg {name}: {json.dumps(blocks[-1])}", flush=True)
+        del x, w, xd, wd, xc, wc
+    torch.cuda.empty_cache()
+    restore_launches(saved)
+    total = {k: sum(b[k] for b in blocks) for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    return {
+        "name": "fused_vgg_block", "route": "cuda", "source": "gluefactory_tpu_torch/csrc/vgg_block.cu",
+        "replaces": "gluefactory_tpu/ops/pallas_conv.py:177",
+        "launches": 0, "max_abs_err": max(p["max_abs_err"] for p in parity if p["dtype"] == "bfloat16"),
+        **total, "bound_by": "operations", "library": "sequence of cuDNN calls (conv2d, relu, "
+        "conv2d, relu, max_pool2d), channels-last bf16", "times": "sum over path C's four blocks",
+        "blocks": blocks, "parity": parity,
+    }
+
+
+def phase_new_kernels(dev: torch.device) -> list[dict]:
+    gen = torch.Generator(device=dev).manual_seed(1)
+    results = []
+    for check in (check_sinkhorn, check_detect, check_vgg):
+        r = check(dev, gen)
+        results.append(r)
+        print(f"kernel {r['name']}: parity ok ({len(r['parity'])} cases, max abs err "
+              f"{r['max_abs_err']:.3g}), {r['ms']:.3f} ms (plain {r['plain_ms']:.3f}, "
+              f"library {r['library_ms']}, bound {r['bound_ms']:.4f} {r['bound_by']})", flush=True)
+    return results
+
+
 # --------------------------------------------------------------------------
 # 4. main path
 # --------------------------------------------------------------------------
 
 
-def build_pipeline(device) -> torch.nn.Module:
+MAIN_CONF = {
+    "extractor": {"name": "superpoint", "max_num_keypoints": KEYPOINTS,
+                  "detection_threshold": 0.0, "force_num_keypoints": True,
+                  "trainable": False},
+    "matcher": {"name": "lightglue", "n_layers": LAYERS, "descriptor_dim": DIM,
+                "num_heads": HEADS, "checkpointed": False},
+}
+# launches per forward of each path's kernels (every other kernel: none)
+MAIN_LAUNCHES = {"fused_attention": LAYERS, "fused_bidirectional_attention": LAYERS}
+SUPERGLUE_LAUNCHES = {"fused_attention": 4 * LAYERS, "log_sinkhorn": 1}
+FUSED_LAUNCHES = {**MAIN_LAUNCHES, "fused_vgg_block": 4, "fused_nms_tile_reduce": 1}
+
+
+def build_pipeline(device, conf: dict) -> torch.nn.Module:
     torch.manual_seed(0)  # random weights from a seed
-    conf = {
-        "extractor": {"name": "superpoint", "max_num_keypoints": KEYPOINTS,
-                      "detection_threshold": 0.0, "force_num_keypoints": True,
-                      "trainable": False},
-        "matcher": {"name": "lightglue", "n_layers": LAYERS, "descriptor_dim": DIM,
-                    "num_heads": HEADS, "checkpointed": False},
-    }
     model = get_model("two_view_pipeline").from_conf(conf, device=device)
     return model.to(torch.bfloat16).eval()
 
@@ -311,8 +575,8 @@ def set_flash(model: torch.nn.Module, enabled: bool) -> None:
             m.flash = enabled
 
 
-def compare_with_plain(model, batch, pred) -> dict:
-    """The matcher on REDUCED_KEYPOINTS per view of the main path's features:
+def compare_with_plain(model, batch, pred, label: str) -> dict:
+    """The matcher on REDUCED_KEYPOINTS per view of the path's features:
     kernels vs plain versions, in f32 and in bf16. The bf16 gap is held to
     twice the gap between the plain bf16 and plain f32 runs (bf16 rounding
     alone moves the result that far)."""
@@ -320,10 +584,10 @@ def compare_with_plain(model, batch, pred) -> dict:
     feats = {"view0": {"image_size": batch["view0"]["image_size"]},
              "view1": {"image_size": batch["view1"]["image_size"]}}
     for i in "01":
-        for key in ("keypoints", "descriptors", "keypoint_mask"):
+        for key in ("keypoints", "keypoint_scores", "descriptors", "keypoint_mask"):
             feats[f"{key}{i}"] = pred[f"{key}{i}"][:, :R]
-    lg = model.matcher
-    lg32 = copy.deepcopy(lg).float()
+    matcher = model.matcher
+    matcher32 = copy.deepcopy(matcher).float()
     feats32 = {k: (v.float() if torch.is_tensor(v) and v.is_floating_point() else v)
                for k, v in feats.items()}
 
@@ -334,9 +598,11 @@ def compare_with_plain(model, batch, pred) -> dict:
         torch.cuda.synchronize()
         return out
 
-    k16, p16 = run(lg, feats, True), run(lg, feats, False)
-    k32, p32 = run(lg32, feats32, True), run(lg32, feats32, False)
-    set_flash(lg, True)
+    saved = all_launches()
+    k16, p16 = run(matcher, feats, True), run(matcher, feats, False)
+    k32, p32 = run(matcher32, feats32, True), run(matcher32, feats32, False)
+    set_flash(matcher, True)
+    restore_launches(saved)
     valid = p32["log_assignment"] > -1e8
 
     def gap(a, b):
@@ -351,21 +617,21 @@ def compare_with_plain(model, batch, pred) -> dict:
         "bf16_matches0_agreement": float((k16["matches0"] == p16["matches0"]).float().mean()),
     }
     res["bf16_tol"] = max(2.0 * res["bf16_plain_vs_f32_plain"], 1e-2)
-    print(f"main path vs plain at {R} keypoints: {json.dumps(res)}", flush=True)
+    print(f"{label} vs plain at {R} keypoints: {json.dumps(res)}", flush=True)
     if not res["f32_kernel_vs_plain"] <= res["f32_tol"]:
-        fail(f"f32 matcher: kernels vs plain {res['f32_kernel_vs_plain']}")
+        fail(f"{label}: f32 matcher kernels vs plain {res['f32_kernel_vs_plain']}")
     if not res["bf16_kernel_vs_plain"] <= res["bf16_tol"]:
-        fail(f"bf16 matcher: kernels vs plain {res['bf16_kernel_vs_plain']} > {res['bf16_tol']}")
+        fail(f"{label}: bf16 matcher kernels vs plain {res['bf16_kernel_vs_plain']} > {res['bf16_tol']}")
     return res
 
 
-def phase_main_path(device_info: dict) -> dict:
-    dev = torch.device("cuda")
-    model = build_pipeline(dev)
-    batch = make_batch(dev)
-    gen = torch.Generator(device=dev)
-
-    cuda_attention.reset_launches()
+def drive_path(label: str, model, batch, gen, per_forward: dict, device_info: dict):
+    """One warm-up forward and FORWARDS timed ones through the entry point,
+    every launch count reset just before and read just after; each kernel
+    must have launched exactly `per_forward` times per forward (0 if not
+    named). Returns (result, last prediction)."""
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_launches()
     with torch.no_grad():
         pred = model(batch, generator=gen.manual_seed(0))  # warm-up and first check
         torch.cuda.synchronize()
@@ -378,11 +644,11 @@ def phase_main_path(device_info: dict) -> dict:
         end.record()
         torch.cuda.synchronize()
         host_s = time.perf_counter() - t0
-    launches = dict(cuda_attention.launches)
-    expected = (FORWARDS + 1) * LAYERS
+    launches = all_launches()
     for name, n in launches.items():
+        expected = (FORWARDS + 1) * per_forward.get(name, 0)
         if n != expected:
-            fail(f"{name} launched {n} times on the main path, expected {expected}")
+            fail(f"{name} launched {n} times on {label}, expected {expected}")
     check_outputs(pred)
     ms = start.elapsed_time(end) / FORWARDS
     res = {
@@ -395,38 +661,149 @@ def phase_main_path(device_info: dict) -> dict:
         "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
         "card": device_info["nvidia_smi"],
     }
-    print(f"main path: {ms / PAIRS:.3f} ms/pair, {PAIRS * 1e3 / ms:.2f} pairs/s "
+    print(f"{label}: {ms / PAIRS:.3f} ms/pair, {PAIRS * 1e3 / ms:.2f} pairs/s "
           f"({device_info['nvidia_smi']}) launches {json.dumps(launches)}", flush=True)
-    res["vs_plain"] = compare_with_plain(model, batch, pred)
+    return res, pred
+
+
+def phase_main_path(device_info: dict, batch: dict):
+    dev = torch.device(DEVICE)
+    model = build_pipeline(dev, MAIN_CONF)
+    gen = torch.Generator(device=dev)
+    res, pred = drive_path("main path", model, batch, gen, MAIN_LAUNCHES, device_info)
+    res["vs_plain"] = compare_with_plain(model, batch, pred, "main path")
     res["profile"] = profile_forward(model, batch, gen)
-    return res
+    return res, model
 
 
 # --------------------------------------------------------------------------
 # 5. profile
 # --------------------------------------------------------------------------
 
+# device-kernel names of the port's kernels, by family
+KERNEL_SYMBOLS = {"attention": ("gf::attention",), "sinkhorn": ("sinkhorn_",),
+                  "detect": ("nms_tile_kernel",), "vgg": ("conv3x3_relu",)}
+
 
 def profile_forward(model, batch, gen) -> dict:
     """Device time by kernel over one forward (torch.profiler)."""
     from torch.profiler import ProfilerActivity, profile
 
-    before = dict(cuda_attention.launches)
+    before = all_launches()
     with torch.no_grad(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         model(batch, generator=gen.manual_seed(0))
         torch.cuda.synchronize()
-    cuda_attention.launches.update(before)
+    restore_launches(before)
     # device-side events only (kernels, copies): operator rows repeat their time
     rows = [(ev.key, ev.self_device_time_total / 1e3, ev.count)
             for ev in prof.key_averages()
             if ev.device_type == torch.autograd.DeviceType.CUDA and ev.self_device_time_total > 0]
     rows.sort(key=lambda r: -r[1])
     total = sum(r[1] for r in rows)
-    attn = sum(r[1] for r in rows if "gf::attention" in r[0])
+    port = {fam: sum(r[1] for r in rows if any(sym in r[0] for sym in syms))
+            for fam, syms in KERNEL_SYMBOLS.items()}
     top = [{"kernel": k[:120], "ms": ms, "calls": n} for k, ms, n in rows[:25]]
-    res = {"device_ms": total, "attention_kernel_ms": attn, "top": top}
-    print(f"profile: device {total:.2f} ms per forward, attention kernels {attn:.2f} ms",
-          flush=True)
+    res = {"device_ms": total, "attention_kernel_ms": port["attention"], "port_kernel_ms": port,
+           "top": top}
+    print(f"profile: device {total:.2f} ms per forward, port kernels "
+          + ", ".join(f"{k} {v:.2f} ms" for k, v in port.items()), flush=True)
+    return res
+
+
+# --------------------------------------------------------------------------
+# 6. path B: SuperPoint + SuperGlue
+# --------------------------------------------------------------------------
+
+
+def phase_superglue(device_info: dict, batch: dict) -> dict:
+    dev = torch.device(DEVICE)
+    model = build_pipeline(dev, SUPERGLUE_CONF)
+    gen = torch.Generator(device=dev)
+    res, pred = drive_path("path B (SuperPoint + SuperGlue)", model, batch, gen, SUPERGLUE_LAUNCHES,
+                           device_info)
+    res["conf"] = SUPERGLUE_CONF
+    res["vs_plain"] = compare_with_plain(model, batch, pred, "path B")
+    res["profile"] = profile_forward(model, batch, gen)
+    return res
+
+
+# --------------------------------------------------------------------------
+# 7. path C: SuperPoint's fused_detect and fused_backbone
+# --------------------------------------------------------------------------
+
+
+def _keypoint_agreement(a: dict, b: dict) -> dict:
+    """Keypoints of `a` also found in `b` (per image, any order), and the
+    largest score and descriptor gaps over those common keypoints."""
+    ids = [(d["keypoints"] - 0.5).round().long() for d in (a, b)]
+    ida = ids[0][..., 1] * IMAGE + ids[0][..., 0]
+    idb = ids[1][..., 1] * IMAGE + ids[1][..., 0]
+    sorted_b, order = idb.sort(dim=1)
+    pos = torch.searchsorted(sorted_b, ida).clamp(max=idb.shape[1] - 1)
+    found = sorted_b.gather(1, pos) == ida
+    j = order.gather(1, pos)
+    scores_b = b["keypoint_scores"].float().gather(1, j)
+    desc_b = b["descriptors"].float().gather(1, j[..., None].expand(-1, -1, b["descriptors"].shape[-1]))
+    return {
+        "agreement": float(found.float().mean()),
+        "score_gap": float((a["keypoint_scores"].float() - scores_b).abs()[found].max()),
+        "descriptor_gap": float((a["descriptors"].float() - desc_b).abs()[found].max()),
+    }
+
+
+def compare_extractors(plain_sp, fused_sp, batch, gen) -> dict:
+    """The fused extractor against the opt-ins-off one on the path's 8
+    images. f32: the same keypoints (at least 99%; scores within 1e-5 and
+    descriptors within 1e-3 on common keypoints: f32 sums in another
+    order). bf16: disagreement, score and descriptor gaps within twice what
+    bf16 rounding alone opens (plain bf16 against plain f32), plus one bf16
+    step."""
+    stacked = {k: torch.cat([batch["view0"][k], batch["view1"][k]]) for k in ("image", "image_size")}
+    stacked32 = {**stacked, "image": stacked["image"].float()}
+
+    def run(sp, data):
+        with torch.no_grad():
+            out = sp(data, generator=gen.manual_seed(0))
+        torch.cuda.synchronize()
+        return out
+
+    saved = all_launches()
+    p16, f16 = run(plain_sp, stacked), run(fused_sp, stacked)
+    p32 = run(copy.deepcopy(plain_sp).float(), stacked32)
+    f32 = run(copy.deepcopy(fused_sp).float(), stacked32)
+    restore_launches(saved)
+    res = {"f32": _keypoint_agreement(f32, p32), "bf16": _keypoint_agreement(f16, p16),
+           "bf16_rounding": _keypoint_agreement(p16, p32)}
+    step = 2.0**-8  # one bf16 step at 1 (scores and descriptor entries are below 1)
+    rnd = res["bf16_rounding"]
+    res["tol"] = {
+        "f32_agreement": 0.99, "f32_score_gap": 1e-5, "f32_descriptor_gap": 1e-3,
+        "bf16_disagreement": 2 * (1 - rnd["agreement"]) + 0.01,
+        "bf16_score_gap": 2 * rnd["score_gap"] + step,
+        "bf16_descriptor_gap": 2 * rnd["descriptor_gap"] + step,
+    }
+    print(f"path C vs opt-ins off: {json.dumps(res)}", flush=True)
+    t, f, b = res["tol"], res["f32"], res["bf16"]
+    if not (f["agreement"] >= t["f32_agreement"] and f["score_gap"] <= t["f32_score_gap"]
+            and f["descriptor_gap"] <= t["f32_descriptor_gap"]):
+        fail(f"path C f32 extractor differs from the opt-ins-off one: {f}")
+    if not (1 - b["agreement"] <= t["bf16_disagreement"] and b["score_gap"] <= t["bf16_score_gap"]
+            and b["descriptor_gap"] <= t["bf16_descriptor_gap"]):
+        fail(f"path C bf16 extractor differs beyond bf16 rounding: {b} vs {rnd}")
+    return res
+
+
+def phase_fused_superpoint(device_info: dict, batch: dict, main_model) -> dict:
+    dev = torch.device(DEVICE)
+    conf = copy.deepcopy(MAIN_CONF)
+    conf["extractor"].update(fused_detect=True, fused_backbone=True)
+    model = build_pipeline(dev, conf)
+    model.load_state_dict(main_model.state_dict())
+    gen = torch.Generator(device=dev)
+    res, _ = drive_path("path C (fused detect + backbone)", model, batch, gen, FUSED_LAUNCHES,
+                        device_info)
+    res["vs_opt_ins_off"] = compare_extractors(main_model.extractor, model.extractor, batch, gen)
+    res["profile"] = profile_forward(model, batch, gen)
     return res
 
 
@@ -434,12 +811,21 @@ def main() -> None:
     t0 = time.perf_counter()
     device_info = phase_device()
     build = phase_build()
-    kernels = phase_kernels(torch.device("cuda"))
-    main_path = phase_main_path(device_info)
+    dev = torch.device(DEVICE)
+    kernels = phase_kernels(dev) + phase_new_kernels(dev)
+    torch.cuda.empty_cache()
+    batch = make_batch(dev)
+    main_path, main_model = phase_main_path(device_info, batch)
+    path_b = phase_superglue(device_info, batch)
+    path_c = phase_fused_superpoint(device_info, batch, main_model)
+    # each kernel's launches from the path that runs it
+    from_path = {"fused_attention": main_path, "fused_bidirectional_attention": main_path,
+                 "log_sinkhorn": path_b, "fused_nms_tile_reduce": path_c, "fused_vgg_block": path_c}
     for k in kernels:
-        k["launches"] = main_path["launches"][k["name"]]
+        k["launches"] = from_path[k["name"]]["launches"][k["name"]]
     OUT_DIR.mkdir(exist_ok=True)
     record = {"device": device_info, "build": build, "kernels": kernels, "main_path": main_path,
+              "path_b_superglue": path_b, "path_c_fused_superpoint": path_c,
               "seconds": time.perf_counter() - t0}
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(record, indent=1))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",

@@ -16,7 +16,10 @@ is the inverse of `gluefactory_tpu/compat/torch_conversion.py`:
 
 LightGlue needs every per-layer head (`log_assignment_i` for each layer and
 `token_confidence_i` for all but the last), which the JAX model creates with
-`model.init(..., method="initialize")`.
+`model.init(..., method="initialize")`. SuperGlue also needs the
+`batch_stats` collection (BatchNorm running mean and variance); its
+attention heads go back from the JAX package's head-major channels to the
+official head-fastest packing (the inverse of `_head_permutation`).
 """
 
 from __future__ import annotations
@@ -106,22 +109,96 @@ def lightglue_state_dict(params: dict, num_heads: int) -> dict:
     return sd
 
 
-def from_jax_params(params: dict, model: str, num_heads: int = 4) -> dict:
-    """JAX `params` of `model` ("superpoint", "lightglue" or
-    "two_view_pipeline" holding those two) -> the port's state dict.
-    `num_heads` is LightGlue's head count (its conf `num_heads`)."""
+def head_fastest_permutation(dim: int, num_heads: int) -> np.ndarray:
+    """perm with jax_channel[i] = official_channel[perm[i]]: official channel
+    dh * H + h is JAX channel h * Dh + dh (`_head_permutation` of
+    `torch_conversion.py`)."""
+    Dh = dim // num_heads
+    h, dh = np.meshgrid(np.arange(num_heads), np.arange(Dh), indexing="ij")
+    return (dh * num_heads + h).reshape(-1)
+
+
+def _batch_norm(p: dict, stats: dict, prefix: str, sd: dict) -> None:
+    sd[f"{prefix}.weight"] = _tensor(_np(p["scale"]))
+    sd[f"{prefix}.bias"] = _tensor(_np(p["bias"]))
+    sd[f"{prefix}.running_mean"] = _tensor(_np(stats["mean"]))
+    sd[f"{prefix}.running_var"] = _tensor(_np(stats["var"]))
+    sd[f"{prefix}.num_batches_tracked"] = torch.tensor(0)
+
+
+def _conv1d(p: dict, prefix: str, sd: dict) -> None:
+    """flax Dense kernel (in, out) -> Conv1d weight (out, in, 1)."""
+    sd[f"{prefix}.weight"] = _tensor(_np(p["kernel"]).T[..., None])
+    sd[f"{prefix}.bias"] = _tensor(_np(p["bias"]))
+
+
+def _mlp(p: dict, stats: dict, prefix: str, sd: dict) -> None:
+    """Our MLP (dense_j, bn_j) -> official Sequential(Conv1d, BN, ReLU, ...,
+    Conv1d): conv j at index 3j, its BatchNorm at 3j + 1."""
+    n = sum(1 for k in p if k.startswith("dense_"))
+    for j in range(n):
+        _conv1d(p[f"dense_{j}"], f"{prefix}.{3 * j}", sd)
+        if j < n - 1:
+            _batch_norm(p[f"bn_{j}"], stats[f"bn_{j}"], f"{prefix}.{3 * j + 1}", sd)
+
+
+def superglue_state_dict(params: dict, num_heads: int, batch_stats: dict) -> dict:
+    """SuperGlue -> the official state dict layout (inverse of
+    `convert_superglue`)."""
+    sd: dict = {}
+    _mlp(params["kenc"], batch_stats["kenc"], "kenc.encoder", sd)
+    n_layers = sum(1 for k in params if k.startswith("gnn_"))
+    for i in range(n_layers):
+        p = params[f"gnn_{i}"]
+        t = f"gnn.layers.{i}"
+        for j, name in enumerate(("proj_q", "proj_k", "proj_v")):
+            w = _np(p[name]["kernel"]).T  # (out, in), rows head-major
+            perm = head_fastest_permutation(w.shape[0], num_heads)
+            w_off = np.empty_like(w)
+            b_off = np.empty_like(w[:, 0])
+            w_off[perm] = w
+            b_off[perm] = _np(p[name]["bias"])
+            sd[f"{t}.attn.proj.{j}.weight"] = _tensor(w_off[..., None])
+            sd[f"{t}.attn.proj.{j}.bias"] = _tensor(b_off)
+        wm = _np(p["merge"]["kernel"]).T  # (out, in), columns head-major
+        wm_off = np.empty_like(wm)
+        wm_off[:, head_fastest_permutation(wm.shape[1], num_heads)] = wm
+        sd[f"{t}.attn.merge.weight"] = _tensor(wm_off[..., None])
+        sd[f"{t}.attn.merge.bias"] = _tensor(_np(p["merge"]["bias"]))
+        _mlp(p["mlp"], batch_stats[f"gnn_{i}"]["mlp"], f"{t}.mlp", sd)
+    _conv1d(params["final_proj"], "final_proj", sd)
+    sd["bin_score"] = _tensor(_np(params["bin_score"]).reshape(()))
+    return sd
+
+
+_PIPELINE_COMPONENTS = ("extractor", "matcher")
+
+
+def from_jax_params(params: dict, model: str, num_heads: int = 4, batch_stats: dict | None = None,
+                    extractor: str = "superpoint", matcher: str = "lightglue") -> dict:
+    """JAX `params` of `model` ("superpoint", "lightglue", "superglue" or
+    "two_view_pipeline") -> the port's state dict. `num_heads` is the
+    matcher's head count (its conf `num_heads`); `batch_stats` the JAX
+    model's `batch_stats` collection (SuperGlue's BatchNorm statistics). A
+    pipeline's components are converted by the names given as `extractor`
+    and `matcher`."""
     if model == "superpoint":
         return superpoint_state_dict(params)
     if model == "lightglue":
         return lightglue_state_dict(params, num_heads)
+    if model == "superglue":
+        if batch_stats is None:
+            raise ValueError("superglue: its BatchNorm statistics (batch_stats) are needed")
+        return superglue_state_dict(params, num_heads, batch_stats)
     if model == "two_view_pipeline":
+        names = {"extractor": extractor, "matcher": matcher}
         sd: dict = {}
         for comp, sub in params.items():
-            if not comp.endswith("_model"):
-                raise KeyError(f"unexpected pipeline component {comp}")
             name = comp[: -len("_model")]
-            kind = "superpoint" if name == "extractor" else "lightglue"
-            for k, v in from_jax_params(sub, kind, num_heads).items():
+            if not comp.endswith("_model") or name not in _PIPELINE_COMPONENTS:
+                raise KeyError(f"unexpected pipeline component {comp}")
+            stats = (batch_stats or {}).get(comp)
+            for k, v in from_jax_params(sub, names[name], num_heads, stats).items():
                 sd[f"{name}.{k}"] = v
         return sd
     raise ValueError(f"no conversion for model {model!r}")

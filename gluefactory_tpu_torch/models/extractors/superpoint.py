@@ -1,12 +1,20 @@
 """SuperPoint keypoint detector and descriptor, vanilla variant
-(counterpart of `gluefactory_tpu/models/extractors/superpoint.py` with its
-non-fused decode).
+(counterpart of `gluefactory_tpu/models/extractors/superpoint.py`).
 
 Parameters carry the official MagicLeap names (`conv1a` ... `convDb`, each
 an `nn.Conv2d`), so `superpoint_v1.pth` loads as it is. The network runs
 channels-first; the data contract stays that of the JAX package: images
 (B, H, W, C) in [0, 1], keypoints in the COLMAP convention (+0.5), exactly
 `max_num_keypoints` keypoints per image with a `keypoint_mask`.
+
+Two opt-ins, off by default as in the JAX package, route through the
+hand-written CUDA kernels on the card (their plain versions on the CPU):
+  - `fused_backbone`: conv1b + pool and blocks 2-4 as `fused_vgg_block`
+    (NHWC, four launches per forward); conv1a (C_in = 1) stays an
+    `nn.Conv2d`;
+  - `fused_detect`: NMS, border and area masks and the 4x4 tile reduction
+    as `fused_nms_tile_reduce`, when `nms_radius >= 3` and H, W are
+    multiples of 4.
 """
 
 from __future__ import annotations
@@ -14,6 +22,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ...ops.cuda_conv import fused_vgg_block
+from ...ops.cuda_detect import detect_keypoints
 from ...ops.grid_sample import sample_descriptors
 from ...ops.nms import remove_borders, simple_nms, top_k_keypoints
 from ..base_model import BaseModel
@@ -50,6 +60,8 @@ class SuperPoint(BaseModel):
         "dense_outputs": False,
         "channels": [64, 64, 128, 128],
         "head_channels": 256,
+        "fused_detect": False,  # the decode through csrc/nms_tile_reduce.cu
+        "fused_backbone": False,  # the VGG blocks through csrc/vgg_block.cu
     }
     required_data_keys = ["image"]
 
@@ -72,15 +84,39 @@ class SuperPoint(BaseModel):
         image = rgb_to_grayscale(data["image"])
         x = image.permute(0, 3, 1, 2)
         relu = torch.relu
-        n_blocks = len(self.conf.channels)
-        for i in range(n_blocks):
-            x = relu(getattr(self, f"conv{i+1}a")(x))
-            x = relu(getattr(self, f"conv{i+1}b")(x))
-            if i < n_blocks - 1:
-                x = nn.functional.max_pool2d(x, 2, 2)
+        if self.conf.fused_backbone:
+            x = self._fused_backbone(x)
+        else:
+            n_blocks = len(self.conf.channels)
+            for i in range(n_blocks):
+                x = relu(getattr(self, f"conv{i+1}a")(x))
+                x = relu(getattr(self, f"conv{i+1}b")(x))
+                if i < n_blocks - 1:
+                    x = nn.functional.max_pool2d(x, 2, 2)
         logits = self.convPb(relu(self.convPa(x)))  # (B, 65, Hc, Wc)
         dense_desc = self.convDb(relu(self.convDa(x)))  # (B, D, Hc, Wc)
         return self._decode(data, image, logits, dense_desc, generator)
+
+    def _hwio(self, name: str):
+        conv = getattr(self, name)
+        return conv.weight.permute(2, 3, 1, 0), conv.bias
+
+    def _fused_backbone(self, x: torch.Tensor) -> torch.Tensor:
+        """The VGG blocks through `fused_vgg_block`, NHWC inside: conv1a as
+        an `nn.Conv2d` (channels-last, so its output is NHWC without a
+        copy), conv1b + pool as the single-conv variant, blocks 2-4 as the
+        two-conv variant, block 4 without pool. NCHW view out."""
+        x = torch.relu(self.conv1a(x.contiguous(memory_format=torch.channels_last)))
+        x = x.permute(0, 2, 3, 1)
+        n_blocks = len(self.conf.channels)
+        for i in range(n_blocks):
+            wb, bb = self._hwio(f"conv{i+1}b")
+            if i == 0:
+                x = fused_vgg_block(x, wb, bb, pool=n_blocks > 1)
+            else:
+                wa, ba = self._hwio(f"conv{i+1}a")
+                x = fused_vgg_block(x, wa, ba, wb, bb, pool=i < n_blocks - 1)
+        return x.permute(0, 3, 1, 2)
 
     def _decode(self, data, image, logits, dense_desc, generator):
         c = self.conf
@@ -90,19 +126,27 @@ class SuperPoint(BaseModel):
 
         # inference: the eval-time override applies
         k = int(c.max_num_keypoints if c.max_num_keypoints_val is None else c.max_num_keypoints_val)
-        nmsed = remove_borders(simple_nms(scores, c.nms_radius), c.remove_borders)
         true_size = data.get("image_size")
-        if true_size is not None:
-            # no detections beyond the true image area of a padded buffer
-            Hs, Ws = scores.shape[1:]
-            xs = torch.arange(Ws, dtype=torch.float32, device=scores.device)[None, None, :]
-            ys = torch.arange(Hs, dtype=torch.float32, device=scores.device)[None, :, None]
-            b_ = float(c.remove_borders)
-            in_area = (xs < true_size[:, 0, None, None] - b_) & (ys < true_size[:, 1, None, None] - b_)
-            nmsed = torch.where(in_area, nmsed, torch.zeros_like(nmsed))
-        kpts, kpt_scores, valid = top_k_keypoints(
-            nmsed, k, c.detection_threshold, nms_radius=c.nms_radius
-        )
+        Hs, Ws = scores.shape[1:]
+        # the 4x4-tile top-k is exact for r + 1 >= 4
+        if c.fused_detect and c.nms_radius >= 3 and Hs % 4 == 0 and Ws % 4 == 0:
+            kpts, kpt_scores, valid = detect_keypoints(
+                scores, k, c.detection_threshold, radius=c.nms_radius,
+                border=c.remove_borders, true_size=true_size,
+            )
+        else:
+            nmsed = remove_borders(simple_nms(scores, c.nms_radius), c.remove_borders)
+            if true_size is not None:
+                # no detections beyond the true image area of a padded buffer
+                xs = torch.arange(Ws, dtype=torch.float32, device=scores.device)[None, None, :]
+                ys = torch.arange(Hs, dtype=torch.float32, device=scores.device)[None, :, None]
+                b_ = float(c.remove_borders)
+                in_area = ((xs < true_size[:, 0, None, None] - b_)
+                           & (ys < true_size[:, 1, None, None] - b_))
+                nmsed = torch.where(in_area, nmsed, torch.zeros_like(nmsed))
+            kpts, kpt_scores, valid = top_k_keypoints(
+                nmsed, k, c.detection_threshold, nms_radius=c.nms_radius
+            )
 
         if c.force_num_keypoints:
             size = true_size

@@ -19,6 +19,8 @@ import subprocess
 import time
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_ext"
 NVCC_FLAGS = [
@@ -33,9 +35,18 @@ NVCC_FLAGS = [
 SOURCES = {
     "fused_attention": "fused_attention.cu",
     "fused_bidirectional_attention": "fused_bidirectional_attention.cu",
+    "log_sinkhorn": "log_sinkhorn.cu",
+    "fused_nms_tile_reduce": "nms_tile_reduce.cu",
+    "fused_vgg_block": "vgg_block.cu",
 }
 
 _libs: dict[str, ctypes.CDLL] = {}
+
+
+def uses_kernel(device: torch.device) -> bool:
+    """The dispatch rule of every kernel wrapper: tensors on a CUDA device go
+    to the kernel, tensors on the CPU to its plain version."""
+    return device.type == "cuda"
 
 
 def nvcc_path() -> str:
@@ -98,3 +109,12 @@ def load(name: str) -> ctypes.CDLL:
             build_all([name])
         lib = _libs[name] = ctypes.CDLL(str(target))
     return lib
+
+
+def function(name: str, argtypes: list):
+    """The C entry point `gf_<name>` of kernel `name` (built and loaded at
+    first use), typed with `argtypes`; it returns a cudaError_t."""
+    fn = getattr(load(name), "gf_" + name)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn

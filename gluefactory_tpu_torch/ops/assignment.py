@@ -1,6 +1,7 @@
-"""LightGlue's assignment head and match filtering (counterpart of
-`gluefactory_tpu/ops/assignment.py`: `sigmoid_log_double_softmax`,
-`filter_matches`).
+"""Assignment heads and match filtering (counterpart of
+`gluefactory_tpu/ops/assignment.py`): LightGlue's
+`sigmoid_log_double_softmax`, SuperGlue's log-domain optimal transport
+(`log_sinkhorn_iterations`, `log_optimal_transport`), `filter_matches`.
 
 Mask-aware: padded keypoints get -1e9 scores and never match (-1).
 """
@@ -9,6 +10,8 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from .cuda_sinkhorn import log_sinkhorn, plain_log_sinkhorn
 
 NEG_INF = -1e9
 
@@ -44,6 +47,41 @@ def sigmoid_log_double_softmax(sim, z0, z1, mask0=None, mask1=None) -> torch.Ten
     scores[:, :M, N] = un0
     scores[:, M, :N] = un1
     return scores
+
+
+def log_sinkhorn_iterations(Z, log_mu, log_nu, iters: int, flash: bool = True) -> torch.Tensor:
+    """Log-domain Sinkhorn normalisation, f32: the CUDA kernel
+    (`cuda_sinkhorn.log_sinkhorn`) for a CUDA tensor at every size, the plain
+    loop for a CPU tensor or with `flash=False`."""
+    if flash:
+        return log_sinkhorn(Z, log_mu, log_nu, iters)
+    return plain_log_sinkhorn(Z, log_mu, log_nu, iters)
+
+
+def log_optimal_transport(scores, bin_score, iters: int, mask0=None, mask1=None,
+                          flash: bool = True) -> torch.Tensor:
+    """Optimal transport with dustbins in log space: scores (B,M,N) ->
+    (B,M+1,N+1) f32 log assignment, whatever the input dtype. Every real
+    point has mass 1 and the bins absorb the rest; norm = -log(ms + ns) from
+    the mask counts. Padded rows and columns get -1e9 couplings and
+    marginals, so they carry no mass."""
+    scores = scores.float()
+    B, M, N = scores.shape
+    ms = mask0.sum(-1).float() if mask0 is not None else scores.new_full((B,), float(M))
+    ns = mask1.sum(-1).float() if mask1 is not None else scores.new_full((B,), float(N))
+    bin_score = torch.as_tensor(bin_score, device=scores.device).float()
+    couplings = bin_score.expand(B, M + 1, N + 1).clone()
+    couplings[:, :M, :N] = _mask_sim(scores, mask0, mask1)
+
+    norm = -torch.log(ms + ns)  # (B,)
+    log_mu = torch.cat([norm[:, None].expand(B, M), (torch.log(ns) + norm)[:, None]], dim=1)
+    log_nu = torch.cat([norm[:, None].expand(B, N), (torch.log(ms) + norm)[:, None]], dim=1)
+    if mask0 is not None:
+        log_mu[:, :M] = log_mu[:, :M].masked_fill(~mask0, NEG_INF)
+    if mask1 is not None:
+        log_nu[:, :N] = log_nu[:, :N].masked_fill(~mask1, NEG_INF)
+    Z = log_sinkhorn_iterations(couplings, log_mu, log_nu, iters, flash=flash)
+    return Z - norm[:, None, None]
 
 
 def filter_matches(scores: torch.Tensor, th: float, mask0=None, mask1=None):

@@ -20,6 +20,7 @@ import math
 import torch
 
 from . import _build
+from ._build import uses_kernel
 
 NEG_INF = -1e9
 HEAD_DIMS = (32, 64)
@@ -31,11 +32,6 @@ launches = {"fused_attention": 0, "fused_bidirectional_attention": 0}
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
-
-
-def uses_kernel(device: torch.device) -> bool:
-    """The dispatch rule: tensors on a CUDA device go to the kernels."""
-    return device.type == "cuda"
 
 
 # ---------------------------------------------------------------------------
@@ -104,11 +100,7 @@ _SIGNATURES = {
 
 
 def _kernel(name: str):
-    lib = _build.load(name)
-    fn = getattr(lib, "gf_" + name)
-    fn.argtypes = _SIGNATURES[name]
-    fn.restype = ctypes.c_int
-    return fn
+    return _build.function(name, _SIGNATURES[name])
 
 
 def _check(name: str, tensors: list, masks: list) -> None:

@@ -1,13 +1,17 @@
-"""The CUDA attention kernels against their plain versions on the card.
+"""The CUDA kernels against their plain versions on the card: attention
+(both kernels), Sinkhorn, the fused decode and the fused VGG block.
 
 Marked `cuda`: they skip where no CUDA device is present. On a machine with
 one: `python -m pytest tests/test_torch_cuda_kernels.py -m cuda -q`.
 """
 
+import math
+
 import pytest
 import torch
 
-from gluefactory_tpu_torch.ops import cuda_attention
+from gluefactory_tpu_torch.ops import cuda_attention, cuda_conv, cuda_detect, cuda_sinkhorn
+from gluefactory_tpu_torch.ops.assignment import log_optimal_transport
 
 pytestmark = pytest.mark.cuda
 
@@ -17,9 +21,12 @@ TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
 
 @pytest.fixture
-def dev():
+def dev(monkeypatch):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
+    # the plain versions in full f32: cuDNN convs default to TF32
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
     return torch.device("cuda")
 
 
@@ -86,3 +93,90 @@ def test_launches_are_counted(dev):
     cuda_attention.fused_bidirectional_attention(q, q, q, q)
     cuda_attention.attention_plain(q, q, q)
     assert cuda_attention.launches == {"fused_attention": 1, "fused_bidirectional_attention": 1}
+
+
+@pytest.mark.parametrize("case", ["all_valid", "partial", "side0_masked"])
+@pytest.mark.parametrize("M,N", [(64, 64), (100, 77)])
+def test_log_sinkhorn_matches_plain(dev, case, M, N):
+    """Through `log_optimal_transport` (couplings with bins and -1e9 masked
+    entries): f32 log-sum-exps in another order over 50 iterations, finite
+    log-probabilities within 1e-4; masked entries (near -1e9, f32 step 64)
+    relatively."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    B = 2
+    scores = torch.randn(B, M, N, generator=gen, device=dev)
+    m0 = torch.rand(B, M, generator=gen, device=dev) > 0.3
+    m1 = torch.rand(B, N, generator=gen, device=dev) > 0.3
+    if case == "all_valid":
+        m0, m1 = None, None
+    elif case == "side0_masked":
+        m0[0] = False
+    bin_score = torch.tensor(1.3, device=dev)
+    cuda_sinkhorn.reset_launches()
+    got = log_optimal_transport(scores, bin_score, 50, m0, m1)
+    want = log_optimal_transport(scores, bin_score, 50, m0, m1, flash=False)
+    torch.cuda.synchronize()
+    assert cuda_sinkhorn.launches["log_sinkhorn"] == 1
+    assert torch.equal(torch.isfinite(got), torch.isfinite(want))
+    small = torch.isfinite(want) & (want.abs() < 1e6)
+    assert (got - want)[small].abs().max() <= 1e-4
+    big = torch.isfinite(want) & ~small
+    assert ((got - want)[big].abs() <= 1e-6 * want[big].abs()).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("radius", [3, 4])
+def test_fused_nms_tile_reduce_matches_plain(dev, dtype, radius):
+    """Comparisons and selections only: equal bit for bit, with a true size
+    smaller than the buffer and a planted tie."""
+    gen = torch.Generator(device=dev).manual_seed(4)
+    s = (torch.rand(2, 136, 200, generator=gen, device=dev) * 0.99 + 0.01).to(dtype)
+    s[0, 20, 42] = s[0, 23, 41] = 2.0
+    ts = torch.tensor([[180.0, 100.0], [200.0, 136.0]], device=dev)
+    for true_size in (None, ts):
+        got = cuda_detect.fused_nms_tile_reduce(s, true_size, radius=radius)
+        want = cuda_detect.nms_tile_reduce_plain(s, true_size, radius=radius)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert got[1][0, 5, 10] == 13
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("variant", ["one_conv_pool", "two_convs_pool", "two_convs_no_pool"])
+def test_fused_vgg_block_matches_plain(dev, dtype, variant):
+    """f32: the same products summed in another order. bf16: twice the gap
+    that bf16 rounding alone opens (plain bf16 against plain f32), plus one
+    bf16 step at the largest output for a sum that flips a rounding."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    two, pool = variant != "one_conv_pool", variant != "two_convs_no_pool"
+    x = torch.randn(2, 37, 50, 64, generator=gen, device=dev)
+    w = [torch.randn(3, 3, 64, 128, generator=gen, device=dev) * 0.05,
+         torch.randn(128, generator=gen, device=dev) * 0.1]
+    if two:
+        w += [torch.randn(3, 3, 128, 80, generator=gen, device=dev) * 0.05,
+              torch.randn(80, generator=gen, device=dev) * 0.1]
+    xd, wd = x.to(dtype), [a.to(dtype) for a in w]
+    got = cuda_conv.fused_vgg_block(xd, *wd, pool=pool)
+    want = cuda_conv.vgg_block_plain(xd, *wd, pool=pool)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == want.shape
+    err = (got.float() - want.float()).abs().max()
+    if dtype == torch.float32:
+        assert err <= 1e-4 * max(1.0, float(want.abs().max()))
+    else:
+        ref = cuda_conv.vgg_block_plain(xd.float(), *(a.float() for a in wd), pool=pool)
+        step = 2.0 ** (math.floor(math.log2(float(want.float().abs().max()))) - 7)
+        assert err <= 2 * (want.float() - ref).abs().max() + step
+
+
+def test_new_launches_are_counted(dev):
+    for mod in (cuda_sinkhorn, cuda_detect, cuda_conv):
+        mod.reset_launches()
+    z = torch.randn(1, 8, 8, device=dev)
+    cuda_sinkhorn.log_sinkhorn(z, z[:, :, 0], z[:, 0], 3)
+    cuda_detect.fused_nms_tile_reduce(torch.rand(1, 32, 32, device=dev))
+    cuda_conv.fused_vgg_block(torch.randn(1, 8, 8, 16, device=dev),
+                              torch.randn(3, 3, 16, 16, device=dev), torch.randn(16, device=dev))
+    assert cuda_sinkhorn.launches == {"log_sinkhorn": 1}
+    assert cuda_detect.launches == {"fused_nms_tile_reduce": 1}
+    assert cuda_conv.launches == {"fused_vgg_block": 1}

@@ -1,5 +1,5 @@
-"""The port stands alone (no JAX, nothing of `gluefactory_tpu`), and its
-attention dispatch sends CUDA tensors to the kernels with no fallback."""
+"""The port stands alone (no JAX, nothing of `gluefactory_tpu`), and every
+kernel wrapper sends CUDA tensors to its kernel with no fallback."""
 
 import subprocess
 import sys
@@ -8,7 +8,15 @@ from pathlib import Path
 import pytest
 import torch
 
-from gluefactory_tpu_torch.ops import _build, attention, cuda_attention
+from gluefactory_tpu_torch.ops import (
+    _build,
+    assignment,
+    attention,
+    cuda_attention,
+    cuda_conv,
+    cuda_detect,
+    cuda_sinkhorn,
+)
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -23,7 +31,9 @@ for name in names:
 leaked = sorted(m for m in sys.modules if m == "gluefactory_tpu" or m.startswith("gluefactory_tpu."))
 print(len(names), leaked)
 assert not leaked, leaked
-assert len(names) >= 15, names
+assert len(names) >= 19, names
+for name in ("ops.cuda_sinkhorn", "ops.cuda_detect", "ops.cuda_conv", "models.matchers.superglue"):
+    assert pkg.__name__ + "." + name in names, name
 """
 
 
@@ -96,3 +106,69 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(monkeypatch):
         cuda_attention.fused_attention(q.half(), k.half(), v.half())
     with pytest.raises(ValueError, match="mask"):
         cuda_attention.fused_attention(q, k, v, torch.ones(1, 3, dtype=torch.bool))
+
+
+def _no_build(monkeypatch):
+    def no_build(name):
+        raise RuntimeError(f"CUDA kernel build failed: {name}")
+
+    monkeypatch.setattr(_build, "load", no_build)
+
+
+def _never(*args, **kwargs):
+    raise AssertionError("plain version used on the kernel path")
+
+
+def test_new_kernels_never_fall_back(monkeypatch):
+    """Sinkhorn, detect and VGG: a tensor that dispatches to the kernel gets
+    the kernel or an error, through the wrapper and through the op that
+    calls it; the plain version is never run."""
+    _no_build(monkeypatch)
+    for mod, plain in ((cuda_sinkhorn, "plain_log_sinkhorn"), (cuda_detect, "nms_tile_reduce_plain"),
+                       (cuda_conv, "vgg_block_plain")):
+        monkeypatch.setattr(mod, "uses_kernel", lambda device: True)
+        monkeypatch.setattr(mod, plain, _never)
+    monkeypatch.setattr(assignment, "plain_log_sinkhorn", _never)
+    g = torch.Generator().manual_seed(0)
+    with pytest.raises(RuntimeError, match="build failed"):
+        assignment.log_optimal_transport(torch.randn(1, 6, 7, generator=g), torch.tensor(1.0), 3)
+    with pytest.raises(RuntimeError, match="build failed"):
+        cuda_detect.detect_keypoints(torch.rand(1, 32, 32, generator=g), 4, 0.0)
+    x = torch.randn(1, 8, 8, 8, generator=g)
+    with pytest.raises(RuntimeError, match="build failed"):
+        cuda_conv.fused_vgg_block(x, torch.randn(3, 3, 8, 16), torch.randn(16))
+
+
+def test_new_wrappers_on_cpu_take_the_plain_version(monkeypatch):
+    monkeypatch.setattr(_build, "load", lambda name: pytest.fail("kernel loaded for a CPU tensor"))
+    for mod in (cuda_sinkhorn, cuda_detect, cuda_conv):
+        mod.reset_launches()
+    g = torch.Generator().manual_seed(1)
+    Z, mu, nu = torch.randn(2, 5, 6, generator=g), torch.randn(2, 5), torch.randn(2, 6)
+    torch.testing.assert_close(cuda_sinkhorn.log_sinkhorn(Z, mu, nu, 4),
+                               cuda_sinkhorn.plain_log_sinkhorn(Z, mu, nu, 4))
+    s = torch.rand(1, 32, 32, generator=g)
+    for got, want in zip(cuda_detect.fused_nms_tile_reduce(s), cuda_detect.nms_tile_reduce_plain(s)):
+        torch.testing.assert_close(got, want)
+    x, w, b = torch.randn(1, 8, 8, 8, generator=g), torch.randn(3, 3, 8, 16), torch.randn(16)
+    torch.testing.assert_close(cuda_conv.fused_vgg_block(x, w, b), cuda_conv.vgg_block_plain(x, w, b))
+    assert cuda_sinkhorn.launches == {"log_sinkhorn": 0}
+    assert cuda_detect.launches == {"fused_nms_tile_reduce": 0}
+    assert cuda_conv.launches == {"fused_vgg_block": 0}
+
+
+def test_new_wrappers_refuse_what_the_kernels_do_not_take(monkeypatch):
+    for mod in (cuda_sinkhorn, cuda_detect, cuda_conv):
+        monkeypatch.setattr(mod, "uses_kernel", lambda device: True)
+    with pytest.raises(ValueError, match="marginals"):
+        cuda_sinkhorn.log_sinkhorn(torch.zeros(1, 4, 5), torch.zeros(1, 5), torch.zeros(1, 5), 2)
+    with pytest.raises(ValueError, match="tile"):
+        cuda_detect.fused_nms_tile_reduce(torch.zeros(1, 30, 32))
+    with pytest.raises(TypeError, match="dtype"):
+        cuda_detect.fused_nms_tile_reduce(torch.zeros(1, 32, 32, dtype=torch.float16))
+    with pytest.raises(ValueError, match="radius"):
+        cuda_detect.fused_nms_tile_reduce(torch.zeros(1, 32, 32), radius=9)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        cuda_conv.fused_vgg_block(torch.zeros(1, 8, 8, 4), torch.zeros(3, 3, 4, 16), torch.zeros(16))
+    with pytest.raises(ValueError, match="do not fit"):
+        cuda_conv.fused_vgg_block(torch.zeros(1, 8, 8, 8), torch.zeros(3, 3, 16, 16), torch.zeros(16))
