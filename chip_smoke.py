@@ -102,13 +102,6 @@ def reset_all_launches() -> None:
         mod.reset_launches()
 
 
-def restore_launches(saved: dict) -> None:
-    """Put back counts saved before launches that are not a path's own
-    (parity checks, timing, profiling)."""
-    for mod in KERNEL_MODULES:
-        mod.launches.update({k: saved[k] for k in mod.launches})
-
-
 def cuda_time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     for _ in range(warmup):
         fn()
@@ -266,7 +259,6 @@ def phase_kernels(dev: torch.device) -> list[dict]:
             elem = torch.finfo(dtype).bits // 8
             n_bytes = (n_in + n_out) * BH * M * HEAD_DIM * elem + (m0.numel() + m1.numel())
             bound_ms, bound_by = _bound(n_ops, n_bytes, dtype)
-            before = all_launches()
             timing = {
                 "ms": cuda_time_ms(lambda: kernel(*args)),
                 "plain_ms": cuda_time_ms(lambda: plain(*args), reps=5),
@@ -275,7 +267,6 @@ def phase_kernels(dev: torch.device) -> list[dict]:
                 "bound_by": bound_by,
                 "timed_shape": [BH // HEADS, HEADS, M, HEAD_DIM],
             }
-            restore_launches(before)  # timing launches are not the main path's
         bf16 = [p["max_abs_err"] for p in parity if p["dtype"] == "bfloat16"]
         results.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -315,7 +306,6 @@ def check_sinkhorn(dev, gen) -> dict:
     side0 = m0.clone()
     side0[0] = False
     parity = []
-    saved = all_launches()
     for case, (a, b) in {"all_valid": (None, None), "partial": (m0, m1),
                          "side0_masked": (side0, m1)}.items():
         got = log_optimal_transport(scores, bin_score, SINKHORN_ITERS, a, b)
@@ -345,7 +335,6 @@ def check_sinkhorn(dev, gen) -> dict:
         "bound_detail": {"exponentials": exps, "sfu_ms": exps / PEAK_SFU * 1e3, "bytes_ms": t_bytes},
         "timed_shape": [B, M, N, SINKHORN_ITERS], "parity": parity,
     }
-    restore_launches(saved)
     return res
 
 
@@ -359,7 +348,6 @@ def check_detect(dev, gen) -> dict:
     base[0, 20, 42] = base[0, 23, 41] = 2.0  # tile (5, 10): dy 0 dx 2 and dy 3 dx 1
     small = torch.tensor([[float(H - 100), float(H - 37)]] * B, device=dev)
     parity = []
-    saved = all_launches()
     for dtype in (torch.bfloat16, torch.float32):
         s = base.to(dtype)
         for radius in (4, 3):
@@ -387,7 +375,6 @@ def check_detect(dev, gen) -> dict:
         "bound_ms": n_bytes / PEAK_BYTES * 1e3, "bound_by": "bytes",
         "timed_shape": [B, H, H], "parity": parity,
     }
-    restore_launches(saved)
     return res
 
 
@@ -427,7 +414,6 @@ def check_vgg(dev, gen) -> dict:
     [conv2d, relu], [max_pool2d] in channels-last."""
     F = torch.nn.functional
     parity, blocks = [], []
-    saved = all_launches()
     for name, shape, cm, co, pool in VGG_BLOCKS:
         x, w = _vgg_inputs(gen, dev, shape, cm, co)
         for dtype in (torch.float32, torch.bfloat16):
@@ -475,7 +461,6 @@ def check_vgg(dev, gen) -> dict:
         print(f"  vgg {name}: {json.dumps(blocks[-1])}", flush=True)
         del x, w, xd, wd, xc, wc
     torch.cuda.empty_cache()
-    restore_launches(saved)
     total = {k: sum(b[k] for b in blocks) for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
     return {
         "name": "fused_vgg_block", "route": "cuda", "source": "gluefactory_tpu_torch/csrc/vgg_block.cu",
@@ -598,11 +583,9 @@ def compare_with_plain(model, batch, pred, label: str) -> dict:
         torch.cuda.synchronize()
         return out
 
-    saved = all_launches()
     k16, p16 = run(matcher, feats, True), run(matcher, feats, False)
     k32, p32 = run(matcher32, feats32, True), run(matcher32, feats32, False)
     set_flash(matcher, True)
-    restore_launches(saved)
     valid = p32["log_assignment"] > -1e8
 
     def gap(a, b):
@@ -689,11 +672,9 @@ def profile_forward(model, batch, gen) -> dict:
     """Device time by kernel over one forward (torch.profiler)."""
     from torch.profiler import ProfilerActivity, profile
 
-    before = all_launches()
     with torch.no_grad(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         model(batch, generator=gen.manual_seed(0))
         torch.cuda.synchronize()
-    restore_launches(before)
     # device-side events only (kernels, copies): operator rows repeat their time
     rows = [(ev.key, ev.self_device_time_total / 1e3, ev.count)
             for ev in prof.key_averages()
@@ -755,9 +736,12 @@ def compare_extractors(plain_sp, fused_sp, batch, gen) -> dict:
     """The fused extractor against the opt-ins-off one on the path's 8
     images. f32: the same keypoints (at least 99%; scores within 1e-5 and
     descriptors within 1e-3 on common keypoints: f32 sums in another
-    order). bf16: disagreement, score and descriptor gaps within twice what
+    order). bf16: at least 99% of the same keypoints as the bf16 extractor
+    with the opt-ins off, and score and descriptor gaps within twice what
     bf16 rounding alone opens (plain bf16 against plain f32), plus one bf16
-    step."""
+    step. Which keypoints bf16 rounding alone keeps is recorded but not
+    held: the random image's scores tie in bf16, so the top-k picks other
+    pixels among equals (about 10% in common with f32)."""
     stacked = {k: torch.cat([batch["view0"][k], batch["view1"][k]]) for k in ("image", "image_size")}
     stacked32 = {**stacked, "image": stacked["image"].float()}
 
@@ -767,18 +751,16 @@ def compare_extractors(plain_sp, fused_sp, batch, gen) -> dict:
         torch.cuda.synchronize()
         return out
 
-    saved = all_launches()
     p16, f16 = run(plain_sp, stacked), run(fused_sp, stacked)
     p32 = run(copy.deepcopy(plain_sp).float(), stacked32)
     f32 = run(copy.deepcopy(fused_sp).float(), stacked32)
-    restore_launches(saved)
     res = {"f32": _keypoint_agreement(f32, p32), "bf16": _keypoint_agreement(f16, p16),
            "bf16_rounding": _keypoint_agreement(p16, p32)}
     step = 2.0**-8  # one bf16 step at 1 (scores and descriptor entries are below 1)
     rnd = res["bf16_rounding"]
     res["tol"] = {
         "f32_agreement": 0.99, "f32_score_gap": 1e-5, "f32_descriptor_gap": 1e-3,
-        "bf16_disagreement": 2 * (1 - rnd["agreement"]) + 0.01,
+        "bf16_agreement": 0.99,
         "bf16_score_gap": 2 * rnd["score_gap"] + step,
         "bf16_descriptor_gap": 2 * rnd["descriptor_gap"] + step,
     }
@@ -787,7 +769,7 @@ def compare_extractors(plain_sp, fused_sp, batch, gen) -> dict:
     if not (f["agreement"] >= t["f32_agreement"] and f["score_gap"] <= t["f32_score_gap"]
             and f["descriptor_gap"] <= t["f32_descriptor_gap"]):
         fail(f"path C f32 extractor differs from the opt-ins-off one: {f}")
-    if not (1 - b["agreement"] <= t["bf16_disagreement"] and b["score_gap"] <= t["bf16_score_gap"]
+    if not (b["agreement"] >= t["bf16_agreement"] and b["score_gap"] <= t["bf16_score_gap"]
             and b["descriptor_gap"] <= t["bf16_descriptor_gap"]):
         fail(f"path C bf16 extractor differs beyond bf16 rounding: {b} vs {rnd}")
     return res

@@ -171,17 +171,24 @@ def superglue_state_dict(params: dict, num_heads: int, batch_stats: dict) -> dic
     return sd
 
 
-_PIPELINE_COMPONENTS = ("extractor", "matcher")
+def _matcher_name(params: dict) -> str:
+    """The matcher a pipeline's `matcher_model` params hold, by their keys."""
+    if "bin_score" in params and "kenc" in params:
+        return "superglue"
+    if any(k.startswith("transformers_") for k in params):
+        return "lightglue"
+    raise ValueError(f"no conversion for a matcher with parameters {sorted(params)}")
 
 
-def from_jax_params(params: dict, model: str, num_heads: int = 4, batch_stats: dict | None = None,
-                    extractor: str = "superpoint", matcher: str = "lightglue") -> dict:
+def from_jax_params(params: dict, model: str, num_heads: int = 4,
+                    batch_stats: dict | None = None) -> dict:
     """JAX `params` of `model` ("superpoint", "lightglue", "superglue" or
     "two_view_pipeline") -> the port's state dict. `num_heads` is the
     matcher's head count (its conf `num_heads`); `batch_stats` the JAX
     model's `batch_stats` collection (SuperGlue's BatchNorm statistics). A
-    pipeline's components are converted by the names given as `extractor`
-    and `matcher`."""
+    pipeline's extractor is SuperPoint; its matcher is told apart by its
+    parameters (SuperGlue's `kenc` and `bin_score`, LightGlue's
+    `transformers_i`)."""
     if model == "superpoint":
         return superpoint_state_dict(params)
     if model == "lightglue":
@@ -191,14 +198,16 @@ def from_jax_params(params: dict, model: str, num_heads: int = 4, batch_stats: d
             raise ValueError("superglue: its BatchNorm statistics (batch_stats) are needed")
         return superglue_state_dict(params, num_heads, batch_stats)
     if model == "two_view_pipeline":
-        names = {"extractor": extractor, "matcher": matcher}
         sd: dict = {}
         for comp, sub in params.items():
-            name = comp[: -len("_model")]
-            if not comp.endswith("_model") or name not in _PIPELINE_COMPONENTS:
+            if comp == "extractor_model":
+                name, conv = "extractor", "superpoint"
+            elif comp == "matcher_model":
+                name, conv = "matcher", _matcher_name(sub)
+            else:
                 raise KeyError(f"unexpected pipeline component {comp}")
             stats = (batch_stats or {}).get(comp)
-            for k, v in from_jax_params(sub, names[name], num_heads, stats).items():
+            for k, v in from_jax_params(sub, conv, num_heads, stats).items():
                 sd[f"{name}.{k}"] = v
         return sd
     raise ValueError(f"no conversion for model {model!r}")

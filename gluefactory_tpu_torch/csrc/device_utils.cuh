@@ -1,6 +1,6 @@
-// Device helpers shared by the port's kernels: f32 <-> storage conversion,
-// and the tensor-core building blocks (cp.async, ldmatrix, mma.sync
-// m16n8k16 with bf16 inputs and f32 accumulation).
+// Helpers shared by the port's kernels: f32 <-> storage conversion, the
+// tensor-core building blocks (cp.async, ldmatrix, mma.sync m16n8k16 with
+// bf16 inputs and f32 accumulation), and the host's shared-memory set-up.
 
 #pragma once
 
@@ -59,6 +59,23 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Host side: lets `Kernel` take `bytes` of dynamic shared memory on the
+// current device. cudaFuncSetAttribute runs only when the kernel needs more
+// than it was allowed so far on that device, not on every launch.
+template <auto Kernel>
+inline cudaError_t allow_shared_memory(int bytes) {
+  constexpr int kMaxDevices = 64;
+  static int allowed[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (bytes <= allowed[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) allowed[dev] = bytes;
+  return err;
 }
 
 }  // namespace gf

@@ -13,10 +13,12 @@
 // pool and never reach the centre. A max-pool is separable (rows, then
 // columns), and each thread slides its window over a run of 8 outputs held
 // in registers, so a pass reads 8 + 2r values per 8 outputs instead of
-// 8 (2r + 1); the radius is a template parameter (0-8). The region's row
-// stride is odd, so threads on neighbouring rows hit different banks. The
-// TPU kernel's cyclic shifts and 128-lane column halo are its layout and
-// have no counterpart here.
+// 8 (2r + 1). The radius is a template parameter, compiled for 0-6: the
+// haloed region takes 17 bytes of shared memory per pixel, and at the
+// default 2 iterations radius 7 would need 234 KB, over the 227 KiB a block
+// may have on the H100. The region's row stride is odd, so threads on
+// neighbouring rows hit different banks. The TPU kernel's cyclic shifts and
+// 128-lane column halo are its layout and have no counterpart here.
 //
 // Semantics (`ops/nms.py` simple_nms with -inf outside the image):
 // -inf entries are re-imposed after each suppression, as on the TPU
@@ -49,6 +51,7 @@ constexpr int kRegionCols = 64;
 constexpr int kThreads = 512;
 constexpr int kRun = 8;           // outputs per thread in a max-pool pass
 constexpr int kFloatBuffers = 4;  // S, T, P, MM
+constexpr size_t kMaxSharedBytes = 232448;  // opt-in shared memory per block on sm_90
 
 // Region geometry: RH x RW pixels stored with row stride LD (odd)
 struct Region {
@@ -193,13 +196,8 @@ cudaError_t launch_radius(const void* scores, const float* true_size, float* til
   g.RW = kRegionCols + 2 * halo;
   g.LD = g.RW | 1;
   const size_t smem = static_cast<size_t>(g.RH) * g.LD * (kFloatBuffers * sizeof(float) + 1);
-  int dev = 0, limit = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (smem > static_cast<size_t>(limit)) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(nms_tile_kernel<R, T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
+  if (smem > kMaxSharedBytes) return cudaErrorInvalidValue;
+  const cudaError_t err = gf::allow_shared_memory<nms_tile_kernel<R, T>>(static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid((W + kRegionCols - 1) / kRegionCols, (H + kRegionRows - 1) / kRegionRows, B);
   nms_tile_kernel<R, T><<<grid, kThreads, smem, stream>>>(
@@ -222,8 +220,6 @@ cudaError_t launch(const void* scores, const float* true_size, float* tile_max, 
     GF_RADIUS(4)
     GF_RADIUS(5)
     GF_RADIUS(6)
-    GF_RADIUS(7)
-    GF_RADIUS(8)
 #undef GF_RADIUS
     default:
       return cudaErrorInvalidValue;
@@ -234,9 +230,10 @@ cudaError_t launch(const void* scores, const float* true_size, float* tile_max, 
 
 // scores (B, H, W) contiguous, dtype 0 = f32, 1 = bf16; true_size (B, 2) f32
 // [w, h]; tile_max (B, H/tile, W/tile) f32 and tile_arg i32 (dy * tile + dx).
-// H and W are multiples of tile, tile divides 32, radius is 0-8. Returns a
-// cudaError_t (0 = launched; cudaErrorInvalidValue for a radius above 8 or a
-// haloed region that does not fit in shared memory).
+// H and W are multiples of tile, tile divides 32, radius is 0-6. Returns a
+// cudaError_t (0 = launched; cudaErrorInvalidValue for a radius above 6 or a
+// haloed region that does not fit in shared memory; the Python wrapper
+// checks both first).
 extern "C" int gf_fused_nms_tile_reduce(const void* scores, const void* true_size,
                                         void* tile_max, void* tile_arg, int B, int H, int W,
                                         int radius, int iters, int border, int tile, int dtype,

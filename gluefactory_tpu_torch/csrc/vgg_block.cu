@@ -302,9 +302,8 @@ __global__ void __launch_bounds__(kMmaThreads)
 template <bool kPool>
 cudaError_t launch_mma(const bf16* x, const bf16* w, const bf16* bias, bf16* out, int B, int H,
                        int W, int Ci, int Co, cudaStream_t stream) {
-  const cudaError_t err = cudaFuncSetAttribute(conv3x3_relu_mma_kernel<kPool>,
-                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                               static_cast<int>(kMmaSmem));
+  const cudaError_t err =
+      gf::allow_shared_memory<conv3x3_relu_mma_kernel<kPool>>(static_cast<int>(kMmaSmem));
   if (err != cudaSuccess) return err;
   const dim3 grid((W + kPixCols - 1) / kPixCols, (H + kPixRows - 1) / kPixRows,
                   B * (Co / kMmaChans));

@@ -25,7 +25,7 @@ from torch import nn
 from ...ops.cuda_conv import fused_vgg_block
 from ...ops.cuda_detect import detect_keypoints
 from ...ops.grid_sample import sample_descriptors
-from ...ops.nms import remove_borders, simple_nms, top_k_keypoints
+from ...ops.nms import mask_outside, remove_borders, simple_nms, top_k_keypoints
 from ..base_model import BaseModel
 
 
@@ -77,6 +77,7 @@ class SuperPoint(BaseModel):
         self.convPb = nn.Conv2d(conf.head_channels, 65, 1)
         self.convDa = nn.Conv2d(c, conf.head_channels, 3, padding=1)
         self.convDb = nn.Conv2d(conf.head_channels, conf.descriptor_dim, 1)
+        self._kernel_weights: dict = {}  # `_hwio`'s copies, by conv name
 
     def _forward(self, data: dict, generator: torch.Generator | None = None) -> dict:
         """`generator` draws the random keypoints that fill invalid slots
@@ -98,8 +99,20 @@ class SuperPoint(BaseModel):
         return self._decode(data, image, logits, dense_desc, generator)
 
     def _hwio(self, name: str):
+        """Conv `name`'s weight as HWIO, a view of a copy in the kernel's
+        (3, 3, C_out, C_in) layout so that `fused_vgg_block` copies nothing.
+        The copy is kept until the weight changes (in place, moved or cast);
+        with autograd on, the live weight is permuted instead."""
         conv = getattr(self, name)
-        return conv.weight.permute(2, 3, 1, 0), conv.bias
+        w = conv.weight
+        if torch.is_grad_enabled() and w.requires_grad:
+            return w.permute(2, 3, 1, 0), conv.bias
+        key = (w.data_ptr(), w._version, w.dtype, w.device)
+        hit = self._kernel_weights.get(name)
+        if hit is None or hit[0] != key:
+            hit = (key, w.detach().permute(2, 3, 0, 1).contiguous())
+            self._kernel_weights[name] = hit
+        return hit[1].transpose(-1, -2), conv.bias
 
     def _fused_backbone(self, x: torch.Tensor) -> torch.Tensor:
         """The VGG blocks through `fused_vgg_block`, NHWC inside: conv1a as
@@ -138,12 +151,7 @@ class SuperPoint(BaseModel):
             nmsed = remove_borders(simple_nms(scores, c.nms_radius), c.remove_borders)
             if true_size is not None:
                 # no detections beyond the true image area of a padded buffer
-                xs = torch.arange(Ws, dtype=torch.float32, device=scores.device)[None, None, :]
-                ys = torch.arange(Hs, dtype=torch.float32, device=scores.device)[None, :, None]
-                b_ = float(c.remove_borders)
-                in_area = ((xs < true_size[:, 0, None, None] - b_)
-                           & (ys < true_size[:, 1, None, None] - b_))
-                nmsed = torch.where(in_area, nmsed, torch.zeros_like(nmsed))
+                nmsed = mask_outside(nmsed, true_size, c.remove_borders)
             kpts, kpt_scores, valid = top_k_keypoints(
                 nmsed, k, c.detection_threshold, nms_radius=c.nms_radius
             )

@@ -80,7 +80,8 @@ def fused_vgg_block(x, wa, ba, wb=None, bb=None, pool: bool = True) -> torch.Ten
     if any(p.device != x.device for p in params):
         raise ValueError("fused_vgg_block: inputs on different devices")
     x = x.contiguous()
-    # the kernel reads weights as (3, 3, C_out, C_in): C_in contiguous
+    # the kernel reads weights as (3, 3, C_out, C_in), C_in contiguous; an
+    # HWIO view of weights already in that layout is passed without a copy
     wa, ba, *rest = (p.to(x.dtype).transpose(-1, -2).contiguous() if p.dim() == 4
                      else p.to(x.dtype).contiguous() for p in params)
     wb, bb = rest if two else (wa, ba)

@@ -23,7 +23,7 @@ import torch
 
 from . import _build
 from ._build import uses_kernel
-from .nms import _top_k, remove_borders, simple_nms
+from .nms import _top_k, mask_outside, remove_borders, simple_nms
 
 launches = {"fused_nms_tile_reduce": 0}
 
@@ -32,13 +32,23 @@ _I = ctypes.c_int
 _ARGTYPES = [_P] * 4 + [_I] * 8 + [_P]
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # a block of the kernel covers 32 x 64 pixels, so the tile must divide 32;
-# the kernel is compiled for radii 0-8
-_REGION_ROWS = 32
-_MAX_RADIUS = 8
+# the kernel is compiled for radii 0-6 (at 2 iterations radius 7 would not
+# fit in a block's shared memory)
+_REGION_ROWS, _REGION_COLS = 32, 64
+_MAX_RADIUS = 6
+_MAX_SHARED_BYTES = 232448  # opt-in shared memory per block on the H100 (227 KiB)
 
 
 def reset_launches() -> None:
     launches["fused_nms_tile_reduce"] = 0
+
+
+def shared_bytes(radius: int, iters: int) -> int:
+    """Shared memory of one block of the kernel: its region with a halo of
+    (2 iters + 1) r pixels, an odd row stride, four f32 buffers and one byte
+    mask per pixel."""
+    h = (2 * iters + 1) * radius
+    return (_REGION_ROWS + 2 * h) * ((_REGION_COLS + 2 * h) | 1) * 17
 
 
 def _true_size(true_size, B: int, H: int, W: int, device) -> torch.Tensor:
@@ -54,11 +64,8 @@ def nms_tile_reduce_plain(scores, true_size=None, radius: int = 4, iters: int = 
     (tile_max (B,H/t,W/t) f32, tile_arg (B,H/t,W/t) i32 = dy * t + dx)."""
     B, H, W = scores.shape
     s = remove_borders(simple_nms(scores.float(), radius, iters), border)
-    ts = _true_size(true_size, B, H, W, s.device)
-    xs = torch.arange(W, dtype=torch.float32, device=s.device)[None, None, :]
-    ys = torch.arange(H, dtype=torch.float32, device=s.device)[None, :, None]
-    in_area = (xs < ts[:, 0, None, None] - border) & (ys < ts[:, 1, None, None] - border)
-    s = torch.where(in_area, s, torch.zeros_like(s))
+    if true_size is not None:
+        s = mask_outside(s, true_size, border)
     Ht, Wt = H // tile, W // tile
     # (B, Ht, Wt, dx, dy): the first maximum in this order is the tie rule
     blocks = s.reshape(B, Ht, tile, Wt, tile).permute(0, 1, 3, 4, 2).reshape(B, Ht, Wt, tile * tile)
@@ -85,6 +92,10 @@ def fused_nms_tile_reduce(scores, true_size=None, radius: int = 4, iters: int = 
     if not 0 <= radius <= _MAX_RADIUS or iters < 0:
         raise ValueError(f"fused_nms_tile_reduce: radius {radius} must be in [0, {_MAX_RADIUS}] "
                          f"and iters {iters} >= 0")
+    if shared_bytes(radius, iters) > _MAX_SHARED_BYTES:
+        raise ValueError(f"fused_nms_tile_reduce: radius {radius} with {iters} iterations needs "
+                         f"{shared_bytes(radius, iters)} bytes of shared memory per block, "
+                         f"over the {_MAX_SHARED_BYTES} a block may have")
     ts = _true_size(true_size, B, H, W, scores.device)
     if tuple(ts.shape) != (B, 2):
         raise ValueError(f"fused_nms_tile_reduce: true_size of shape {tuple(ts.shape)}, expected {(B, 2)}")

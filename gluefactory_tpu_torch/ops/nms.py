@@ -40,6 +40,17 @@ def remove_borders(scores: torch.Tensor, border: int) -> torch.Tensor:
     return out
 
 
+def mask_outside(scores: torch.Tensor, true_size: torch.Tensor, border: int) -> torch.Tensor:
+    """Zero scores (B, H, W) at x >= w - border or y >= h - border, with
+    true_size (B, 2) [w, h] the true image area of a padded buffer."""
+    B, H, W = scores.shape
+    ts = true_size.to(device=scores.device, dtype=torch.float32)
+    xs = torch.arange(W, dtype=torch.float32, device=scores.device)[None, None, :]
+    ys = torch.arange(H, dtype=torch.float32, device=scores.device)[None, :, None]
+    in_area = (xs < ts[:, 0, None, None] - border) & (ys < ts[:, 1, None, None] - border)
+    return torch.where(in_area, scores, torch.zeros_like(scores))
+
+
 def _top_k(x: torch.Tensor, k: int):
     """Top-k along the last dim, equal values in index order (lax.top_k)."""
     vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)

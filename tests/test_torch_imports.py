@@ -167,7 +167,9 @@ def test_new_wrappers_refuse_what_the_kernels_do_not_take(monkeypatch):
     with pytest.raises(TypeError, match="dtype"):
         cuda_detect.fused_nms_tile_reduce(torch.zeros(1, 32, 32, dtype=torch.float16))
     with pytest.raises(ValueError, match="radius"):
-        cuda_detect.fused_nms_tile_reduce(torch.zeros(1, 32, 32), radius=9)
+        cuda_detect.fused_nms_tile_reduce(torch.zeros(1, 32, 32), radius=7)
+    with pytest.raises(ValueError, match="shared memory"):
+        cuda_detect.fused_nms_tile_reduce(torch.zeros(1, 32, 32), radius=6, iters=3)
     with pytest.raises(ValueError, match="multiple of 8"):
         cuda_conv.fused_vgg_block(torch.zeros(1, 8, 8, 4), torch.zeros(3, 3, 4, 16), torch.zeros(16))
     with pytest.raises(ValueError, match="do not fit"):

@@ -254,7 +254,7 @@ def test_superpoint_superglue_pipeline_matches_jax():
 
     pipe_t = get_model("two_view_pipeline").from_conf(PIPE_CONF, device="cpu").eval()
     pipe_t.load_state_dict(from_jax_params(variables["params"], "two_view_pipeline", num_heads=2,
-                                           batch_stats=stats, matcher="superglue"))
+                                           batch_stats=stats))
     with torch.no_grad():
         out = pipe_t(jax.tree_util.tree_map(torch.from_numpy, data))
     assert set(out) == set(ref)

@@ -66,3 +66,27 @@ def test_odd_sizes_pool_floors():
     x, w = _inputs(5, True, shape=(1, 17, 23))
     got = cuda_conv.fused_vgg_block(torch.from_numpy(x), *(torch.from_numpy(a) for a in w))
     assert tuple(got.shape) == (1, 8, 11, 16)
+
+
+def test_superpoint_kernel_layout_weights_follow_the_weights():
+    """SuperPoint's fused backbone hands the wrapper HWIO views of weights
+    already in the kernel's (3, 3, C_out, C_in) layout, kept until a weight
+    changes; with autograd on it permutes the live weight."""
+    from gluefactory_tpu_torch.models import get_model
+
+    torch.manual_seed(0)
+    sp = get_model("superpoint").from_conf(
+        {"channels": [8, 8, 16, 16], "head_channels": 32, "descriptor_dim": 32,
+         "fused_backbone": True}, device="cpu").eval()
+    with torch.no_grad():
+        w, b = sp._hwio("conv2a")
+        assert w.transpose(-1, -2).is_contiguous() and b is sp.conv2a.bias
+        torch.testing.assert_close(w, sp.conv2a.weight.permute(2, 3, 1, 0), rtol=0, atol=0)
+        assert sp._hwio("conv2a")[0].data_ptr() == w.data_ptr()  # kept
+        sp.conv2a.weight.mul_(2.0)
+        w2, _ = sp._hwio("conv2a")
+        torch.testing.assert_close(w2, sp.conv2a.weight.permute(2, 3, 1, 0), rtol=0, atol=0)
+        sp.double()
+        assert sp._hwio("conv2a")[0].dtype == torch.float64
+    w3, _ = sp._hwio("conv2a")
+    assert w3.requires_grad and w3._base is sp.conv2a.weight

@@ -106,7 +106,7 @@ def test_superglue_pipeline_params_load_strict():
     pipe = jax_get_model("two_view_pipeline").from_conf(conf)
     variables = pipe.init({"params": jax.random.key(4)}, _image_data(rng), method="initialize")
     sd = from_jax_params(variables["params"], "two_view_pipeline", num_heads=2,
-                         batch_stats=variables["batch_stats"], matcher="superglue")
+                         batch_stats=variables["batch_stats"])
     assert "matcher.kenc.encoder.1.running_var" in sd
     _load_strict("two_view_pipeline", conf, sd)
 
@@ -157,6 +157,10 @@ def test_superglue_official_layout_round_trip():
     sg.load_state_dict(back, strict=True)
 
 
-def test_unknown_model_raises():
+@pytest.mark.parametrize("params,model", [
+    ({}, "gluestick"),
+    ({"matcher_model": {"MLP_0": {}}}, "two_view_pipeline"),  # a matcher with no converter
+])
+def test_unknown_model_raises(params, model):
     with pytest.raises(ValueError):
-        from_jax_params({}, "gluestick")
+        from_jax_params(params, model)
