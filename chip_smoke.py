@@ -24,7 +24,14 @@ Phases, in order; any failure exits non-zero before the last line:
    the plain versions at 512 keypoints and profiled as in phases 4-5;
 7. path C: the main path with SuperPoint's `fused_detect` and
    `fused_backbone` on, driven and profiled as in phases 4-5; its keypoints,
-   scores and descriptors against the opt-ins-off extractor in f32 and bf16.
+   scores and descriptors against the opt-ins-off extractor in f32 and bf16;
+8. conv study: the streaming and N-packed 3x3 conv kernels, each against
+   its plain version at (2, 1024, 1024, 64) and (1, 37, 53, 64) bf16, one
+   launch per wrapper call; then both profiling tools
+   (`gluefactory_tpu_torch/scripts_dev/profile_{stream_conv,npack}.py`)
+   through their `main` at SuperPoint's conv1b shape (8 x 1024^2 x 64),
+   their kernel against the library conv (`maxdiff`) within the tools' bf16
+   tolerance.
 
 Each path resets every launch count just before its timed run and reads
 them just after. Prints the kernel JSON line, the card line, and as its last
@@ -46,8 +53,12 @@ import numpy as np
 import torch
 
 from gluefactory_tpu_torch.models import get_model
-from gluefactory_tpu_torch.ops import _build, cuda_attention, cuda_conv, cuda_detect, cuda_sinkhorn
+from gluefactory_tpu_torch.ops import (_build, cuda_attention, cuda_conv, cuda_conv3x3, cuda_detect,
+                                       cuda_sinkhorn)
 from gluefactory_tpu_torch.ops.assignment import log_optimal_transport
+from gluefactory_tpu_torch.scripts_dev import profile_npack, profile_stream_conv
+from gluefactory_tpu_torch.scripts_dev.conv_study import bf16_step
+from gluefactory_tpu_torch.scripts_dev.timing import cuda_time_ms
 
 ROOT = Path(__file__).resolve().parent
 OUT_DIR = ROOT / "chiprun_out"
@@ -61,7 +72,7 @@ PEAK_BYTES = 3.35e12
 # x 1.98 GHz boost clock
 PEAK_SFU = 16 * 132 * 1.98e9
 
-KERNEL_MODULES = (cuda_attention, cuda_sinkhorn, cuda_detect, cuda_conv)
+KERNEL_MODULES = (cuda_attention, cuda_sinkhorn, cuda_detect, cuda_conv, cuda_conv3x3)
 
 # main path (bench.py's configuration)
 PAIRS, IMAGE, KEYPOINTS, LAYERS, DIM, HEADS = 4, 1024, 2048, 9, 256, 4
@@ -100,19 +111,6 @@ def all_launches() -> dict:
 def reset_all_launches() -> None:
     for mod in KERNEL_MODULES:
         mod.reset_launches()
-
-
-def cuda_time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    for _ in range(warmup):
-        fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 # --------------------------------------------------------------------------
@@ -385,11 +383,6 @@ VGG_BLOCKS = [
     ("block3", (2 * PAIRS, IMAGE // 4, IMAGE // 4, 64), 128, 128, True),
     ("block4", (2 * PAIRS, IMAGE // 8, IMAGE // 8, 128), 128, 128, False),
 ]
-
-
-def bf16_step(v: float) -> float:
-    """The spacing of bf16 values at magnitude v (8 significant bits)."""
-    return 2.0 ** (math.floor(math.log2(max(v, 2.0**-126))) - 7)
 
 
 def _vgg_inputs(gen, dev, shape, cm, co):
@@ -789,6 +782,83 @@ def phase_fused_superpoint(device_info: dict, batch: dict, main_model) -> dict:
     return res
 
 
+# --------------------------------------------------------------------------
+# 8. conv study: the streaming and N-packed 3x3 conv kernels
+# --------------------------------------------------------------------------
+
+# (name, tool, the tool's time key, source, the TPU kernel it replaces)
+CONV_STUDY = [
+    ("stream_conv3x3", profile_stream_conv, "stream_ms", "gluefactory_tpu_torch/csrc/conv3x3_stream.cu",
+     "scripts_dev/profile_stream_conv.py:79"),
+    ("npack_conv3x3", profile_npack, "npack_ms", "gluefactory_tpu_torch/csrc/conv3x3_npack.cu",
+     "scripts_dev/profile_npack.py:91"),
+]
+# the plain N-packed version holds f32 cat and P of ~1.6 GB per image, so
+# parity runs on 2 images of the conv1b shape, and on an odd size that
+# exercises the zero ring and partial tiles
+CONV_PARITY_SHAPES = ((2, IMAGE, IMAGE, 64), (1, 37, 53, 64))
+
+
+def check_conv3x3(dev, gen, name: str) -> list[dict]:
+    """The kernel against its plain version: twice the gap that bf16
+    rounding alone opens (plain bf16 against plain f32 on the same bf16
+    inputs), plus one bf16 step at the largest output, as check_vgg holds
+    it. Each wrapper call must add exactly one launch."""
+    kernel = getattr(cuda_conv3x3, name)
+    plain = getattr(cuda_conv3x3, name + "_plain")
+    parity = []
+    for shape in CONV_PARITY_SHAPES:
+        x = (torch.randn(*shape, generator=gen, device=dev) * 0.5).to(torch.bfloat16)
+        w = (torch.randn(3, 3, 64, 64, generator=gen, device=dev) * 0.05).to(torch.bfloat16)
+        before = all_launches()
+        got = kernel(x, w)
+        torch.cuda.synchronize()
+        after = all_launches()
+        if after != {**before, name: before[name] + 1}:
+            fail(f"{name}: one wrapper call changed the launch counts {before} -> {after}")
+        want = plain(x, w)
+        ref = plain(x.float(), w.float())
+        err = _err(got, want)
+        tol = 2.0 * _err(want, ref) + bf16_step(float(ref.abs().max()))
+        parity.append({"shape": list(shape), "dtype": "bfloat16", "max_abs_err": err, "tol": tol})
+        if not err <= tol:
+            fail(f"{name} {shape}: max abs err {err} > {tol}")
+        del x, w, got, want, ref
+    torch.cuda.empty_cache()
+    return parity
+
+
+def phase_conv_study(device_info: dict) -> list[dict]:
+    """Each kernel against its plain version, then each tool's `main` at the
+    conv1b shape with every launch count reset just before and read just
+    after: the tool's kernel launched once per wrapper call the tool made,
+    every other kernel not at all; the tool's maxdiff within its tol."""
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    results = []
+    for name, tool, key, source, replaces in CONV_STUDY:
+        parity = check_conv3x3(dev, gen, name)
+        reset_all_launches()
+        res = tool.main()
+        launches = all_launches()
+        torch.cuda.empty_cache()
+        expected = {n: (res["kernel_calls"] if n == name else 0) for n in launches}
+        if launches != expected:
+            fail(f"{name}: the tool's run launched {launches}, expected {expected}")
+        if not res["maxdiff"] <= res["tol"]:
+            fail(f"{name}: the tool's maxdiff {res['maxdiff']} against the library conv > {res['tol']}")
+        results.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches[name], "max_abs_err": max(p["max_abs_err"] for p in parity),
+            "tol": max(p["tol"] for p in parity), "ms": res[key], "plain_ms": res["plain_ms"],
+            "library_ms": res["lib_ms"], "bound_ms": res["bound_ms"], "bound_by": res["bound_by"],
+            "library": "F.conv2d, channels-last bf16, TF32 off", "timed_shape": res["shape"],
+            "tool": res, "parity": parity, "card": device_info["nvidia_smi"],
+        })
+        print(f"kernel {name}: parity ok ({len(parity)} cases), tool {json.dumps(res)}", flush=True)
+    return results
+
+
 def main() -> None:
     t0 = time.perf_counter()
     device_info = phase_device()
@@ -805,6 +875,9 @@ def main() -> None:
                  "log_sinkhorn": path_b, "fused_nms_tile_reduce": path_c, "fused_vgg_block": path_c}
     for k in kernels:
         k["launches"] = from_path[k["name"]]["launches"][k["name"]]
+    del main_model
+    torch.cuda.empty_cache()
+    kernels += phase_conv_study(device_info)  # launches from the tools' runs
     OUT_DIR.mkdir(exist_ok=True)
     record = {"device": device_info, "build": build, "kernels": kernels, "main_path": main_path,
               "path_b_superglue": path_b, "path_c_fused_superpoint": path_c,

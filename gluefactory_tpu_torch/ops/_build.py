@@ -38,7 +38,10 @@ SOURCES = {
     "log_sinkhorn": "log_sinkhorn.cu",
     "fused_nms_tile_reduce": "nms_tile_reduce.cu",
     "fused_vgg_block": "vgg_block.cu",
+    "stream_conv3x3": "conv3x3_stream.cu",
+    "npack_conv3x3": "conv3x3_npack.cu",
 }
+MAX_SHARED_BYTES = 232448  # opt-in shared memory per block on the H100 (227 KiB)
 
 _libs: dict[str, ctypes.CDLL] = {}
 

@@ -36,7 +36,6 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # fit in a block's shared memory)
 _REGION_ROWS, _REGION_COLS = 32, 64
 _MAX_RADIUS = 6
-_MAX_SHARED_BYTES = 232448  # opt-in shared memory per block on the H100 (227 KiB)
 
 
 def reset_launches() -> None:
@@ -92,10 +91,10 @@ def fused_nms_tile_reduce(scores, true_size=None, radius: int = 4, iters: int = 
     if not 0 <= radius <= _MAX_RADIUS or iters < 0:
         raise ValueError(f"fused_nms_tile_reduce: radius {radius} must be in [0, {_MAX_RADIUS}] "
                          f"and iters {iters} >= 0")
-    if shared_bytes(radius, iters) > _MAX_SHARED_BYTES:
+    if shared_bytes(radius, iters) > _build.MAX_SHARED_BYTES:
         raise ValueError(f"fused_nms_tile_reduce: radius {radius} with {iters} iterations needs "
                          f"{shared_bytes(radius, iters)} bytes of shared memory per block, "
-                         f"over the {_MAX_SHARED_BYTES} a block may have")
+                         f"over the {_build.MAX_SHARED_BYTES} a block may have")
     ts = _true_size(true_size, B, H, W, scores.device)
     if tuple(ts.shape) != (B, 2):
         raise ValueError(f"fused_nms_tile_reduce: true_size of shape {tuple(ts.shape)}, expected {(B, 2)}")

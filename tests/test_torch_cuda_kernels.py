@@ -1,5 +1,6 @@
 """The CUDA kernels against their plain versions on the card: attention
-(both kernels), Sinkhorn, the fused decode and the fused VGG block.
+(both kernels), Sinkhorn, the fused decode, the fused VGG block and the two
+conv-study kernels.
 
 Marked `cuda`: they skip where no CUDA device is present. On a machine with
 one: `python -m pytest tests/test_torch_cuda_kernels.py -m cuda -q`.
@@ -10,7 +11,7 @@ import math
 import pytest
 import torch
 
-from gluefactory_tpu_torch.ops import cuda_attention, cuda_conv, cuda_detect, cuda_sinkhorn
+from gluefactory_tpu_torch.ops import cuda_attention, cuda_conv, cuda_conv3x3, cuda_detect, cuda_sinkhorn
 from gluefactory_tpu_torch.ops.assignment import log_optimal_transport
 
 pytestmark = pytest.mark.cuda
@@ -180,3 +181,26 @@ def test_new_launches_are_counted(dev):
     assert cuda_sinkhorn.launches == {"log_sinkhorn": 1}
     assert cuda_detect.launches == {"fused_nms_tile_reduce": 1}
     assert cuda_conv.launches == {"fused_vgg_block": 1}
+
+
+@pytest.mark.parametrize("name", ["stream_conv3x3", "npack_conv3x3"])
+@pytest.mark.parametrize("shape,co", [((2, 128, 96, 64), 64), ((1, 37, 53, 64), 128)])
+def test_conv3x3_matches_plain(dev, name, shape, co):
+    """The conv-study kernels, at an even size and at an odd one (zero ring,
+    partial tiles; two output-channel groups): within twice the gap bf16
+    rounding alone opens (plain bf16 against plain f32), plus one bf16 step
+    at the largest output for a sum in another order that flips a rounding.
+    One wrapper call is one launch."""
+    gen = torch.Generator(device=dev).manual_seed(6)
+    x = (torch.randn(*shape, generator=gen, device=dev) * 0.5).to(torch.bfloat16)
+    w = (torch.randn(3, 3, shape[-1], co, generator=gen, device=dev) * 0.05).to(torch.bfloat16)
+    kernel, plain = getattr(cuda_conv3x3, name), getattr(cuda_conv3x3, name + "_plain")
+    cuda_conv3x3.reset_launches()
+    got = kernel(x, w)
+    torch.cuda.synchronize()
+    assert cuda_conv3x3.launches[name] == 1
+    want = plain(x, w)
+    ref = plain(x.float(), w.float())
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    step = 2.0 ** (math.floor(math.log2(float(ref.abs().max()))) - 7)
+    assert (got.float() - want.float()).abs().max() <= 2 * (want.float() - ref).abs().max() + step

@@ -31,8 +31,10 @@ for name in names:
 leaked = sorted(m for m in sys.modules if m == "gluefactory_tpu" or m.startswith("gluefactory_tpu."))
 print(len(names), leaked)
 assert not leaked, leaked
-assert len(names) >= 19, names
-for name in ("ops.cuda_sinkhorn", "ops.cuda_detect", "ops.cuda_conv", "models.matchers.superglue"):
+assert len(names) >= 28, names
+for name in ("ops.cuda_sinkhorn", "ops.cuda_detect", "ops.cuda_conv", "models.matchers.superglue",
+             "ops.cuda_conv3x3", "scripts_dev", "scripts_dev.timing", "scripts_dev.conv_study",
+             "scripts_dev.profile_stream_conv", "scripts_dev.profile_npack"):
     assert pkg.__name__ + "." + name in names, name
 """
 
