@@ -9,9 +9,13 @@ Phases, in order; any failure exits non-zero before the last line:
    one process per source, all at once (`gluefactory_tpu_torch/ops/_build.py`);
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the main path's shapes, in f32 and bf16, with four mask cases (all valid,
-   random partial, side 0 fully masked, side 1 fully masked); then the
-   kernel, its plain version, and one PyTorch library call computing the
-   same function, timed with CUDA events;
+   random partial, side 0 fully masked, side 1 fully masked); the attention
+   kernels also at a tail shape (777 queries, 1029 keys) and with q/k as
+   LightGlue's (B, N, H, D)-ordered views; then the kernel, its plain
+   version, and one PyTorch library call computing the same function, timed
+   with CUDA events (the attention kernels by their device time under
+   torch.profiler; bounds count tensor-core operations, exponentials and
+   bytes);
 4. main path: `two_view_pipeline` (SuperPoint + LightGlue-9, d=256, 4 heads,
    2048 keypoints, 1024x1024 images, bf16, random weights from seed 0) run
    through its entry point on 4 pairs; launch counts reset just before and
@@ -58,7 +62,7 @@ from gluefactory_tpu_torch.ops import (_build, cuda_attention, cuda_conv, cuda_c
 from gluefactory_tpu_torch.ops.assignment import log_optimal_transport
 from gluefactory_tpu_torch.scripts_dev import profile_npack, profile_stream_conv
 from gluefactory_tpu_torch.scripts_dev.conv_study import bf16_step
-from gluefactory_tpu_torch.scripts_dev.timing import cuda_time_ms
+from gluefactory_tpu_torch.scripts_dev.timing import cuda_time_ms, device_time_ms
 
 ROOT = Path(__file__).resolve().parent
 OUT_DIR = ROOT / "chiprun_out"
@@ -194,10 +198,43 @@ def _cross_attention_case(dtype, gen, dev):
     return (qk0, qk1, v0, v1), _masks(gen, B, N, N, dev)
 
 
-def _bound(n_ops: float, n_bytes: float, dtype) -> tuple[float, str]:
-    t_ops = n_ops / PEAK_OPS[dtype] * 1e3
+def _bound(n_ops: float, n_bytes: float, dtype, n_exps: float = 0.0) -> tuple[float, str]:
+    """The least time in ms: the larger of the operations over the peak for
+    their type (tensor-core products, exponentials on the special-function
+    units) and the bytes over the memory rate."""
+    t_ops = max(n_ops / PEAK_OPS[dtype], n_exps / PEAK_SFU) * 1e3
     t_bytes = n_bytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+# parity cases beyond the main shapes: a tail (query and key counts that are
+# not multiples of the kernels' 128-row tiles) and LightGlue's layout (q and
+# k as (B, N, H, D)-ordered views, as rotary and the head split leave them)
+TAIL_M, TAIL_N = 777, 1029
+
+
+def _heads(gen, dev, dtype, B, n, strided=False):
+    if strided:
+        return torch.randn(B, n, HEADS, HEAD_DIM, generator=gen, device=dev).to(dtype).transpose(1, 2)
+    return torch.randn(B, HEADS, n, HEAD_DIM, generator=gen, device=dev).to(dtype)
+
+
+def _extra_attention_cases(name, dtype, gen, dev) -> dict:
+    """{case: kernel arguments}: the tail case and the strided case, each
+    with random partial masks."""
+    cases = {}
+    for case, B, M, N, strided in (("tail", 2, TAIL_M, TAIL_N, False),
+                                   ("lightglue_strided", PAIRS, KEYPOINTS, KEYPOINTS, True)):
+        m0 = torch.rand(B, M, generator=gen, device=dev) > 0.3
+        m1 = torch.rand(B, N, generator=gen, device=dev) > 0.3
+        if name == "fused_attention":
+            q, k = _heads(gen, dev, dtype, B, M, strided), _heads(gen, dev, dtype, B, N, strided)
+            cases[case] = (q, k, _heads(gen, dev, dtype, B, N), m1, m0)
+        else:
+            qk0, qk1 = _heads(gen, dev, dtype, B, M, strided), _heads(gen, dev, dtype, B, N, strided)
+            cases[case] = (qk0, qk1, _heads(gen, dev, dtype, B, M), _heads(gen, dev, dtype, B, N),
+                           m0, m1)
+    return cases
 
 
 def phase_kernels(dev: torch.device) -> list[dict]:
@@ -235,6 +272,16 @@ def phase_kernels(dev: torch.device) -> list[dict]:
                 if case == "side0_masked" and name == "fused_attention":
                     if got.abs().max() != 0:
                         fail(f"{name}: masked query rows are not zero")
+            for case, args in _extra_attention_cases(name, dtype, gen, dev).items():
+                got = kernel(*args)
+                torch.cuda.synchronize()
+                err = _err(got, plain(*args))
+                tol = KERNEL_TOL[dtype]
+                parity.append({"dtype": str(dtype).split(".")[-1], "masks": "partial", "case": case,
+                               "max_abs_err": err, "tol": tol})
+                if not err <= tol:
+                    fail(f"{name} {dtype} {case}: max abs err {err} > {tol}")
+                del got, args
             if dtype is not torch.bfloat16:
                 continue
             # the main path: bf16, every keypoint valid (force_num_keypoints)
@@ -245,6 +292,7 @@ def phase_kernels(dev: torch.device) -> list[dict]:
                 library = lambda: F.scaled_dot_product_attention(q, k, v)  # noqa: E731
                 BH, M, N, n_in, n_out = q.shape[0] * HEADS, KEYPOINTS, KEYPOINTS, 3, 1
                 n_ops = 4.0 * BH * M * N * HEAD_DIM  # QK^T and PV
+                n_exps = 1.0 * BH * M * N  # one exponential per logit
             else:
                 args = (*tensors, m0, m1)
                 qk0, qk1, v0, v1 = tensors
@@ -254,17 +302,27 @@ def phase_kernels(dev: torch.device) -> list[dict]:
                 library = lambda: F.scaled_dot_product_attention(sq, sk, sv)  # noqa: E731
                 BH, M, N, n_in, n_out = qk0.shape[0] * HEADS, KEYPOINTS, KEYPOINTS, 4, 2
                 n_ops = 6.0 * BH * M * N * HEAD_DIM  # sim once, two PV products
+                n_exps = 2.0 * BH * M * N  # a row and a column softmax of sim
             elem = torch.finfo(dtype).bits // 8
             n_bytes = (n_in + n_out) * BH * M * HEAD_DIM * elem + (m0.numel() + m1.numel())
-            bound_ms, bound_by = _bound(n_ops, n_bytes, dtype)
+            bound_ms, bound_by = _bound(n_ops, n_bytes, dtype, n_exps)
+            # device time (torch.profiler): the wrapper's host time between
+            # launches (~0.1 ms of Python) would otherwise hide a kernel this
+            # short; the events' times are kept beside it
             timing = {
-                "ms": cuda_time_ms(lambda: kernel(*args)),
-                "plain_ms": cuda_time_ms(lambda: plain(*args), reps=5),
-                "library_ms": cuda_time_ms(library),
+                "ms": device_time_ms(lambda: kernel(*args)),
+                "plain_ms": device_time_ms(lambda: plain(*args), reps=5),
+                "library_ms": device_time_ms(library),
+                "event_ms": {"kernel": cuda_time_ms(lambda: kernel(*args)),
+                             "library": cuda_time_ms(library)},
                 "bound_ms": bound_ms,
                 "bound_by": bound_by,
+                "bound_detail": {"tensor_core_ms": n_ops / PEAK_OPS[dtype] * 1e3,
+                                 "exponentials": n_exps, "sfu_ms": n_exps / PEAK_SFU * 1e3,
+                                 "bytes_ms": n_bytes / PEAK_BYTES * 1e3},
                 "timed_shape": [BH // HEADS, HEADS, M, HEAD_DIM],
             }
+            timing["ms_over_library"] = timing["ms"] / timing["library_ms"]
         bf16 = [p["max_abs_err"] for p in parity if p["dtype"] == "bfloat16"]
         results.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -273,7 +331,8 @@ def phase_kernels(dev: torch.device) -> list[dict]:
         })
         print(f"kernel {name}: parity ok ({len(parity)} cases), "
               f"{timing['ms']:.3f} ms (plain {timing['plain_ms']:.3f}, "
-              f"library {timing['library_ms']:.3f}, bound {timing['bound_ms']:.4f})", flush=True)
+              f"library {timing['library_ms']:.3f}, bound {timing['bound_ms']:.4f} "
+              f"{timing['bound_by']}, ms/library_ms {timing['ms_over_library']:.3f})", flush=True)
     return results
 
 

@@ -1,12 +1,13 @@
-// Masked softmax attention over one (batch*head, 64-row query tile) per
-// thread block: the kernel bodies shared by fused_attention.cu and
-// fused_bidirectional_attention.cu.
+// Masked softmax attention, the kernel bodies shared by fused_attention.cu
+// and fused_bidirectional_attention.cu. One launch runs one or two
+// "directions" (queries, keys, values, masks, output), so the
+// cross-attention's two directions share a launch.
 //
 // Replaces the TPU kernels `_attn_kernel` / `_bidir_kernel` of
 // gluefactory_tpu/ops/pallas_attention.py. The TPU kernel keeps all of K and
-// V resident in VMEM and forms a (512, N) logit block; here a block owns 64
-// query rows, streams K/V through shared memory in tiles, and keeps an
-// online softmax (running max m, running sum l) in registers, so no logit
+// V resident in VMEM and forms a (512, N) logit block; here a block owns a
+// tile of query rows, streams K/V through shared memory in tiles, and keeps
+// an online softmax (running max m, running sum l) in registers, so no logit
 // ever reaches device memory.
 //
 // Precision mirrors the TPU kernel: logits and all sums in f32; each
@@ -18,36 +19,78 @@
 // is 0 are written as zeros. A key tile with no valid key is skipped whole,
 // so a fully masked key set never feeds exp(0) = 1 into l.
 //
-// Bound on an H100 at the LightGlue shapes (B*H = 32, M = N = 2048, D = 64,
-// bf16): 4*B*H*M*N*D = 34 GFLOP against 34 MB of inputs and outputs, so the
-// work is bound by operations (tensor cores: 0.035 ms at 989 TFLOP/s).
+// Bound on an H100 SXM at the LightGlue shapes (B*H = 32, M = N = 2048,
+// D = 64, bf16): 4*B*H*M*N*D = 34.4 GFLOP, 0.035 ms on the tensor cores at
+// 989 TFLOP/s, against 34 MB of inputs and outputs (0.010 ms). The
+// B*H*M*N = 134M exponentials take 0.032 ms on the special-function units
+// (16 per SM per clock x 132 SMs x 1.98 GHz): as long as the products. So
+// the softmax has to run while the tensor cores work, or the two add up.
 //
 // Two bodies:
-//   - bf16 (the main path), `attention_mma_kernel`: 4 warps, 16 query rows
-//     each; QK^T and PV on the tensor cores with mma.sync m16n8k16 (bf16 in,
-//     f32 accumulate); K/V tiles of 64 keys double-buffered in shared memory
-//     with cp.async; the S accumulators turn into the PV A-operand in
-//     registers, rounded to bf16 there.
+//   - bf16 (every path), `attention_wgmma_kernel`, written for Hopper:
+//       * 384 threads: consumer warpgroups 0 and 1 own 64 query rows each
+//         (128 per work item); warpgroup 2 is the producer. Its first warp
+//         issues every copy; the warpgroup gives its registers up
+//         (setmaxnreg 40) to the consumers (232).
+//       * Persistent blocks, one per SM (193 KB of shared memory at D = 64):
+//         a block walks over work items (direction, batch x head, 128-row
+//         query tile), query tiles fastest so one wave's blocks share K and
+//         V in L2. The query tile is double-buffered: the producer loads the
+//         next item's while the consumers finish this one, so a block's
+//         start-up and epilogue overlap the next item's loads.
+//       * TMA: the producer loads an item's 128 x D query tile once, then K
+//         and V tiles of 128 keys into a ring of 5 stages, each with a full
+//         and an empty mbarrier. A consumer holds two stages at once (PV of
+//         tile j - 1 runs while S of tile j is formed), so 5 stages keep
+//         three tiles in flight ahead of it. Tensor maps are 4-D over (D,
+//         tokens, heads, batch) with the tensors' own strides, so
+//         LightGlue's (B, N, H, D)-ordered views are read as they are;
+//         tokens past the end arrive as zeros. 128-byte swizzle for D = 64,
+//         64-byte for D = 32: the layouts wgmma reads without bank
+//         conflicts.
+//       * Key masks: the producer reads a tile's 128 mask bytes once
+//         (coalesced, one tile ahead, one ballot per 32 keys), skips a tile
+//         with no valid key before loading it, and hands the consumers the
+//         tile's index and a 128-bit validity mask in shared memory beside
+//         K and V. A sentinel index ends each work item. The skip is uniform
+//         over the block by construction; a tile whose keys are all valid
+//         skips the masking pass.
+//       * S = Q K^T: wgmma m64n128k16, Q and K from shared memory, f32
+//         accumulators. Softmax in registers, in the log2 domain.
+//       * PV: P rounded to bf16 in registers is the A operand of wgmma
+//         m64n{D}k16; V is read from shared memory as an MN-major
+//         (transposed) B operand, straight from the TMA layout.
+//       * Overlap: intra-warpgroup pipelining plus ping-pong. Each
+//         iteration issues S(j) and PV(j-1) back to back, waits for S(j)
+//         only, and computes softmax(j) while PV(j-1) still runs. Named
+//         barriers (1 and 2) make the two consumer warpgroups take turns at
+//         issuing their products, so one warpgroup's softmax also runs
+//         under the other's products. Chosen because the exponentials cost
+//         as much as the products at D = 64: pipelining alone hides
+//         softmax(j) under PV(j-1), half of one warpgroup's products;
+//         the turns add the other warpgroup's S and PV.
 //   - f32, `attention_kernel`: one thread per query row, f32 FMAs on the
-//     CUDA cores, K/V tiles of 32 keys in shared memory. Exact f32
-//     arithmetic; not on the main path.
-// wgmma/TMA and warp specialisation are the known next steps.
+//     CUDA cores, K/V tiles of 32 keys in shared memory; blockIdx.z picks
+//     the direction. Exact f32 arithmetic; on no path.
 
 #pragma once
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include "device_utils.cuh"
+#include "hopper.cuh"
 
 namespace gf {
 
-constexpr int kRowsPerBlock = 64;  // query rows per block
+constexpr int kRowsPerBlock = 64;  // f32 body: query rows per block
 constexpr int kKeysPerTile = 32;   // f32 body: keys staged per step
 
-// Strides are in elements; the last (feature) dimension is contiguous.
+// One direction of attention. Strides are in elements; the last (feature)
+// dimension is contiguous.
 struct AttnArgs {
   const void* q;
   const void* k;
@@ -64,12 +107,18 @@ struct AttnArgs {
   float scale;
 };
 
+// Up to two directions of one launch, picked by blockIdx.z.
+struct AttnDirs {
+  AttnArgs d[2];
+};
+
 // ---------------------------------------------------------------------------
 // f32 body: one thread per query row
 // ---------------------------------------------------------------------------
 
 template <typename T, int D>
-__global__ void __launch_bounds__(kRowsPerBlock) attention_kernel(AttnArgs a) {
+__global__ void __launch_bounds__(kRowsPerBlock)
+    attention_kernel(const __grid_constant__ AttnDirs dirs) {
   constexpr int BQ = kRowsPerBlock;
   constexpr int BK = kKeysPerTile;
   __shared__ __align__(16) float tile_q[BQ][D + 1];  // +1: conflict-free row reads
@@ -77,9 +126,11 @@ __global__ void __launch_bounds__(kRowsPerBlock) attention_kernel(AttnArgs a) {
   __shared__ __align__(16) float tile_v[BK][D];
   __shared__ float key_ok[BK];
 
+  const AttnArgs& a = dirs.d[blockIdx.z];
+  const int row0 = blockIdx.x * BQ;
+  if (row0 >= a.M) return;  // the shorter direction's grid ends earlier
   const int b = blockIdx.y / a.H;
   const int h = blockIdx.y % a.H;
-  const int row0 = blockIdx.x * BQ;
   const int t = threadIdx.x;
   const T* q = static_cast<const T*>(a.q) + b * a.q_sb + h * a.q_sh;
   const T* k = static_cast<const T*>(a.k) + b * a.k_sb + h * a.k_sh;
@@ -159,210 +210,404 @@ __global__ void __launch_bounds__(kRowsPerBlock) attention_kernel(AttnArgs a) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16 body: tensor cores (mma.sync m16n8k16), cp.async double buffering
+// bf16 body for Hopper: TMA producer warp, two wgmma consumer warpgroups
 // ---------------------------------------------------------------------------
 
-constexpr int kMmaWarps = 4;                 // 16 query rows per warp
-constexpr int kMmaThreads = 32 * kMmaWarps;
-constexpr int kMmaKeys = 64;                 // keys per K/V tile
-constexpr int kPad = 8;                      // bf16 of row padding: conflict-free ldmatrix
+constexpr int kQRows = 128;   // query rows per block: 64 per consumer warpgroup
+constexpr int kKeys = 128;    // keys per K/V tile
+constexpr int kStages = 5;    // K/V ring depth (160 KB of shared memory at D = 64)
+constexpr int kWgmmaThreads = 384;
 
-// Rows of `rows` x D bf16 from global (row stride `sn` elements) into shared
-// memory with row stride D + kPad; rows at or past `limit` are zero.
+// Tensor maps and directions of one launch (kernel parameter space).
+struct WgmmaParams {
+  CUtensorMap q[2], k[2], v[2];
+  AttnDirs dirs;
+  int n_dirs, bh, q_tiles;  // work items: n_dirs x bh x q_tiles
+};
+
+// Shared memory, as offsets from a 1024-byte aligned base (the 128-byte
+// swizzle repeats every 1024 bytes).
 template <int D>
-__device__ __forceinline__ void load_rows_async(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                                long long sn, int row0, int rows, int limit) {
-  constexpr int kChunks = D / 8;  // 16-byte chunks per row
-  for (int c = threadIdx.x; c < rows * kChunks; c += kMmaThreads) {
-    const int r = c / kChunks, col = (c % kChunks) * 8;
-    const int row = row0 + r;
-    const bool in = row < limit;
-    cp_async_16(dst + r * (D + kPad) + col, src + (in ? row : 0) * sn + col, in);
+struct WgmmaSmem {
+  static constexpr int kRowBytes = D * 2;
+  static constexpr int kQ = 0;                                     // two query tiles
+  static constexpr int kTileBytes = kKeys * kRowBytes;
+  static constexpr int kKV = 2 * kQRows * kRowBytes;               // K(s), then V(s)
+  static constexpr int kBars = kKV + kStages * 2 * kTileBytes;     // q_full[2], q_empty[2],
+                                                                   // full[], empty[]
+  static constexpr int kTileIdx = kBars + 8 * (4 + 2 * kStages);   // int per stage
+  static constexpr int kMask = kTileIdx + 4 * kStages;             // 4 x u32 per stage
+  static constexpr int kBytes = kMask + 16 * kStages + 1024;       // + alignment slack
+};
+
+// S = Q K^T over one tile: 64 query rows x kKeys keys, D / 16 steps of 16
+// features (32 bytes of a swizzled row); one commit.
+template <int D>
+__device__ __forceinline__ void issue_s(float (&s)[64], uint64_t dq, uint32_t k_addr) {
+  const uint64_t dk = sm90::smem_desc(k_addr, 16, 8 * D * 2, D * 2);
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    sm90::wgmma_m64n128k16_ss(s, dq + 2 * kk, dk + 2 * kk, kk > 0);
+  sm90::wgmma_commit();
+}
+
+__device__ __forceinline__ void load_mask(uint32_t (&kbits)[4], const uint32_t* src) {
+#pragma unroll
+  for (int w = 0; w < 4; ++w) kbits[w] = src[w];
+}
+
+// Online softmax of one S tile in place, in the log2 domain. This thread
+// holds columns 8i + 2qd + {0, 1} of rows g (s[4i], s[4i + 1]) and g + 8
+// (s[4i + 2], s[4i + 3]); kbits marks the tile's valid keys. Masked keys
+// become exactly 0. Updates the running max m (raw logit units) and returns
+// the rescale factor alpha of the previous sums and this thread's share rs
+// of the new row sums (unrounded probabilities).
+__device__ __forceinline__ void softmax_tile(float (&s)[64], const uint32_t (&kbits)[4], int qd,
+                                             float sl2, float (&m)[2], float (&alpha)[2],
+                                             float (&rs)[2]) {
+  if ((kbits[0] & kbits[1] & kbits[2] & kbits[3]) != 0xffffffffu) {  // uniform per tile
+#pragma unroll
+    for (int i = 0; i < 16; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool valid = (kbits[i / 4] >> (8 * (i % 4) + 2 * qd + (e & 1))) & 1u;
+        s[4 * i + e] = valid ? s[4 * i + e] : -INFINITY;
+      }
+  }
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int i = 0; i < 64; ++i) mx[(i / 2) % 2] = fmaxf(mx[(i / 2) % 2], s[i]);
+  float ms[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {  // 4 threads share a row
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const float m_new = fmaxf(m[r], mx[r]);       // finite: the tile has a valid key
+    alpha[r] = sm90::ex2((m[r] - m_new) * sl2);  // 0 on the first tile
+    m[r] = m_new;
+    ms[r] = m_new * sl2;
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) rs[r] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 64; ++i) {
+    const float p = sm90::ex2(fmaf(s[i], sl2, -ms[(i / 2) % 2]));  // masked: exp2(-inf) = 0
+    s[i] = p;
+    rs[(i / 2) % 2] += p;
   }
 }
 
+// P rounded to bf16, laid out as the A fragments of PV: the S accumulator
+// layout is the register-A layout of wgmma, pair by pair.
+__device__ __forceinline__ void pack_probabilities(uint32_t (&pa)[32], const float (&s)[64]) {
+#pragma unroll
+  for (int j = 0; j < 32; ++j) pa[j] = pack_bf16(s[2 * j], s[2 * j + 1]);
+}
+
+// O += P V over one tile of kKeys keys: P (bf16, registers) as the A
+// operand, V (keys x D, TMA layout) as an MN-major B operand; one commit.
 template <int D>
-__global__ void __launch_bounds__(kMmaThreads) attention_mma_kernel(AttnArgs a) {
-  constexpr int BQ = kRowsPerBlock;
-  constexpr int BK = kMmaKeys;
-  constexpr int LD = D + kPad;
-  constexpr int KD = D / 16;   // k-steps of QK^T over the head dim
-  constexpr int NS = BK / 8;   // n-tiles of S (8 keys each)
-  constexpr int NO = D / 8;    // n-tiles of O (8 dims each)
-  __shared__ __align__(16) __nv_bfloat16 sq[BQ * LD];
-  __shared__ __align__(16) __nv_bfloat16 sk[2][BK * LD];
-  __shared__ __align__(16) __nv_bfloat16 sv[2][BK * LD];
-
-  const int b = blockIdx.y / a.H;
-  const int h = blockIdx.y % a.H;
-  const int row0 = blockIdx.x * BQ;
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int g = lane / 4, tq = lane % 4;  // mma fragment row group / column pair
-  const auto* q = static_cast<const __nv_bfloat16*>(a.q) + b * a.q_sb + h * a.q_sh;
-  const auto* k = static_cast<const __nv_bfloat16*>(a.k) + b * a.k_sb + h * a.k_sh;
-  const auto* v = static_cast<const __nv_bfloat16*>(a.v) + b * a.v_sb + h * a.v_sh;
-  auto* out = static_cast<__nv_bfloat16*>(a.out) + b * a.o_sb + h * a.o_sh;
-  const uint8_t* kmask = a.kmask == nullptr ? nullptr : a.kmask + b * a.kmask_sb;
-  const int n_tiles = (a.N + BK - 1) / BK;
-
-  load_rows_async<D>(sq, q, a.q_sn, row0, BQ, a.M);
-  load_rows_async<D>(sk[0], k, a.k_sn, 0, BK, a.N);
-  load_rows_async<D>(sv[0], v, a.v_sn, 0, BK, a.N);
-  cp_async_commit();
-
-  uint32_t qf[KD][4];  // this warp's 16 query rows as A fragments
-  float o[NO][4];
+__device__ __forceinline__ void issue_pv(float (&o)[D / 2], const uint32_t (&pa)[32],
+                                         uint32_t v_addr) {
+  constexpr int kRowBytes = D * 2;
 #pragma unroll
-  for (int j = 0; j < NO; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
-  float m[2] = {-INFINITY, -INFINITY};  // rows g and g + 8, log2 domain
-  float l[2] = {0.f, 0.f};              // this thread's columns; reduced at the end
-  const float scale_log2 = a.scale * 1.4426950408889634f;
+  for (int kk = 0; kk < kKeys / 16; ++kk) {
+    const uint32_t ak[4] = {pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2], pa[4 * kk + 3]};
+    const uint64_t dv = sm90::smem_desc(v_addr + kk * 16 * kRowBytes, kKeys * kRowBytes,
+                                        8 * kRowBytes, kRowBytes);
+    if constexpr (D == 64)
+      sm90::wgmma_m64n64k16_rs_tb(o, ak, dv);
+    else
+      sm90::wgmma_m64n32k16_rs_tb(o, ak, dv);
+  }
+  sm90::wgmma_commit();
+}
 
-  for (int t = 0; t < n_tiles; ++t) {
-    const int buf = t & 1;
-    if (t + 1 < n_tiles) {
-      load_rows_async<D>(sk[buf ^ 1], k, a.k_sn, (t + 1) * BK, BK, a.N);
-      load_rows_async<D>(sv[buf ^ 1], v, a.v_sn, (t + 1) * BK, BK, a.N);
+template <int D>
+__global__ void __launch_bounds__(kWgmmaThreads, 1)
+    attention_wgmma_kernel(const __grid_constant__ WgmmaParams p) {
+  using L = WgmmaSmem<D>;
+  constexpr int kNO = D / 2;  // O accumulators per thread
+  extern __shared__ uint8_t smem_raw[];
+
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* base_ptr = smem_raw + (base - raw);
+  auto q_tile = [&](int qb) { return base + L::kQ + qb * kQRows * L::kRowBytes; };
+  auto k_tile = [&](int s) { return base + L::kKV + s * 2 * L::kTileBytes; };
+  auto v_tile = [&](int s) { return k_tile(s) + L::kTileBytes; };
+  auto q_full = [&](int qb) { return base + L::kBars + 8 * qb; };
+  auto q_empty = [&](int qb) { return base + L::kBars + 8 * (2 + qb); };
+  auto full = [&](int s) { return base + L::kBars + 8 * (4 + s); };
+  auto empty = [&](int s) { return base + L::kBars + 8 * (4 + kStages + s); };
+  int* tile_of = reinterpret_cast<int*>(base_ptr + L::kTileIdx);
+  uint32_t* mask_of = reinterpret_cast<uint32_t*>(base_ptr + L::kMask);
+
+  if (threadIdx.x == 0) {
+    for (int qb = 0; qb < 2; ++qb) {
+      sm90::mbar_init(q_full(qb), 1);
+      sm90::mbar_init(q_empty(qb), 8);  // one arrival per consumer warp
     }
-    cp_async_commit();  // possibly empty: keeps one group per step
-    cp_async_wait_1();  // tile t (and on t == 0 the query tile) has landed
-    __syncthreads();
-    if (t == 0) {
-#pragma unroll
-      for (int kk = 0; kk < KD; ++kk)
-        ldmatrix_x4(qf[kk], sq + (warp * 16 + lane % 16) * LD + kk * 16 + (lane / 16) * 8);
+    for (int s = 0; s < kStages; ++s) {
+      sm90::mbar_init(full(s), 1);
+      sm90::mbar_init(empty(s), 8);
     }
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
 
-    // validity of this thread's 16 key columns: 8*j + 2*tq + {0, 1}
-    const int key0 = t * BK;
-    uint32_t ok = 0;
+  // Persistent blocks: item i -> direction z, batch*head bh, query tile qt
+  // (query tiles fastest, so the blocks of one wave share K and V in L2).
+  // Items past the shorter direction's queries are skipped by every role.
+  const int n_items = p.n_dirs * p.bh * p.q_tiles;
+  struct Item {
+    int z, b, h, row0;
+  };
+  auto decode = [&](int i) {
+    const int qt = i % p.q_tiles, rest = i / p.q_tiles;
+    const int bh = rest % p.bh, z = rest / p.bh;
+    const int H = p.dirs.d[z].H;
+    return Item{z, bh / H, bh % H, qt * kQRows};
+  };
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    // ------------------------------ producer ------------------------------
+    sm90::reg_dealloc<40>();
+    if (threadIdx.x / 32 == 8) {
+      const int lane = threadIdx.x % 32;
+      int stage = 0, it = 0;
+      uint32_t phase = 0;
+      for (int i = blockIdx.x; i < n_items; i += gridDim.x) {
+        const Item w = decode(i);
+        const AttnArgs& a = p.dirs.d[w.z];
+        if (w.row0 >= a.M) continue;
+        const int qb = it & 1;
+        if (lane == 0) {  // the query tile, once the buffer's last reader is done
+          sm90::mbar_wait(q_empty(qb), ((it >> 1) & 1) ^ 1);
+          sm90::mbar_expect_tx(q_full(qb), kQRows * L::kRowBytes);
+          sm90::tma_load_4d(q_tile(qb), &p.q[w.z], q_full(qb), 0, w.row0, w.h, w.b);
+        }
+        ++it;
+        const uint8_t* kmask = a.kmask == nullptr ? nullptr : a.kmask + w.b * a.kmask_sb;
+        const int n_tiles = (a.N + kKeys - 1) / kKeys;
+        // key validity, one tile ahead: tile t + 1's mask bytes load while
+        // tile t waits for its stage
+        auto load_valid = [&](int t, uint32_t(&v)[4]) {
 #pragma unroll
-    for (int j = 0; j < NS; ++j)
+          for (int j = 0; j < 4; ++j) {
+            const int key = t * kKeys + 32 * j + lane;
+            v[j] = key < a.N && (kmask == nullptr || kmask[key] != 0);
+          }
+        };
+        uint32_t next[4];
+        load_valid(0, next);
+        for (int t = 0; t < n_tiles; ++t) {
+          uint32_t bits[4];
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int key = key0 + 8 * j + 2 * tq + e;
-        const bool valid = key < a.N && (kmask == nullptr || kmask[key] != 0);
-        ok |= uint32_t(valid) << (2 * j + e);
-      }
-    // every warp covers all 64 keys: the skip is warp-uniform
-    if (__any_sync(0xffffffffu, ok != 0)) {
-      float s[NS][4];
+          for (int j = 0; j < 4; ++j) bits[j] = next[j];
+          if (t + 1 < n_tiles) load_valid(t + 1, next);
 #pragma unroll
-      for (int j = 0; j < NS; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-      const __nv_bfloat16* kt = sk[buf];
+          for (int j = 0; j < 4; ++j) bits[j] = __ballot_sync(0xffffffffu, bits[j] != 0);
+          if ((bits[0] | bits[1] | bits[2] | bits[3]) == 0) continue;  // no valid key: skip
+          if (lane == 0) {
+            sm90::mbar_wait(empty(stage), phase ^ 1);
+            tile_of[stage] = t;
 #pragma unroll
-      for (int jj = 0; jj < NS; jj += 2) {  // two n-tiles of keys per ldmatrix
-#pragma unroll
-        for (int kk = 0; kk < KD; ++kk) {
-          uint32_t kb[4];
-          const int key = jj * 8 + (lane / 16) * 8 + lane % 8;
-          const int col = kk * 16 + ((lane / 8) % 2) * 8;
-          ldmatrix_x4(kb, kt + key * LD + col);
-          mma_bf16(s[jj], qf[kk], kb[0], kb[1]);
-          mma_bf16(s[jj + 1], qf[kk], kb[2], kb[3]);
+            for (int j = 0; j < 4; ++j) mask_of[4 * stage + j] = bits[j];
+            sm90::mbar_expect_tx(full(stage), 2 * L::kTileBytes);
+            sm90::tma_load_4d(k_tile(stage), &p.k[w.z], full(stage), 0, t * kKeys, w.h, w.b);
+            sm90::tma_load_4d(v_tile(stage), &p.v[w.z], full(stage), 0, t * kKeys, w.h, w.b);
+          }
+          __syncwarp();
+          if (++stage == kStages) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+        if (lane == 0) {  // the item's sentinel: no more tiles
+          sm90::mbar_wait(empty(stage), phase ^ 1);
+          tile_of[stage] = -1;
+          sm90::mbar_arrive(full(stage));
+        }
+        __syncwarp();
+        if (++stage == kStages) {
+          stage = 0;
+          phase ^= 1;
         }
       }
-      // scale, mask, running max per row (4 threads share a row)
-      float mx[2] = {-INFINITY, -INFINITY};
+    }
+  } else {
+    // ------------------------------ consumers -----------------------------
+    sm90::reg_alloc<232>();
+    const int t = threadIdx.x % 128;
+    const int warp = t / 32, lane = t % 32;
+    const int g = lane / 4, qd = lane % 4;  // accumulator row group / column pair
+
+    float s[64];      // S: 64 rows x 128 keys over the warpgroup
+    float o[kNO];     // O: 64 rows x D
+    uint32_t pa[32];  // P in bf16, the A operand of PV
 #pragma unroll
-      for (int j = 0; j < NS; ++j)
+    for (int i = 0; i < 64; ++i) s[i] = 0.f;
+    int stage = 0, it = 0;
+    uint32_t phase = 0;
+    auto advance = [&] {
+      if (++stage == kStages) {
+        stage = 0;
+        phase ^= 1;
+      }
+    };
+    if (wg == 1) sm90::bar_arrive(1, 256);  // warpgroup 0 takes the first turn
+    for (int i = blockIdx.x; i < n_items; i += gridDim.x) {
+      const Item w = decode(i);
+      const AttnArgs& a = p.dirs.d[w.z];
+      if (w.row0 >= a.M) continue;
+      const float sl2 = a.scale * 1.4426950408889634f;
+      const int qb = it & 1;
+      const uint64_t dq =
+          sm90::smem_desc(q_tile(qb) + wg * 64 * L::kRowBytes, 16, 8 * L::kRowBytes, 2 * D);
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const bool valid = (ok >> (2 * j + (e & 1))) & 1u;
-          s[j][e] = valid ? s[j][e] * scale_log2 : -INFINITY;
-          mx[e / 2] = fmaxf(mx[e / 2], s[j][e]);
+      for (int j = 0; j < kNO; ++j) o[j] = 0.f;
+      float m[2] = {-INFINITY, -INFINITY};  // rows g and g + 8 (raw logit units)
+      float l[2] = {0.f, 0.f};              // this thread's columns; reduced at the end
+      sm90::mbar_wait(q_full(qb), (it >> 1) & 1);
+      ++it;
+
+      // Every wgmma is waited for inside the branch or iteration that
+      // issued it, so the compiler can see which accumulators are in flight.
+      sm90::mbar_wait(full(stage), phase);
+      if (tile_of[stage] >= 0) {
+        // the first tile: S alone, no PV to overlap
+        uint32_t kbits[4];
+        load_mask(kbits, mask_of + 4 * stage);
+        sm90::bar_sync(1 + wg, 256);  // this warpgroup's turn at the tensor cores
+        sm90::wgmma_fence();
+        issue_s<D>(s, dq, k_tile(stage));
+        sm90::bar_arrive(2 - wg, 256);  // the other warpgroup's turn
+        sm90::wgmma_wait<0>();
+        sm90::fence_regs(s);
+        float alpha[2], rs[2];
+        softmax_tile(s, kbits, qd, sl2, m, alpha, rs);  // alpha = 0: O and l are 0
+        l[0] = rs[0];
+        l[1] = rs[1];
+        pack_probabilities(pa, s);
+        int prev = stage;  // the stage whose PV is still to be issued
+        advance();
+        while (true) {
+          sm90::mbar_wait(full(stage), phase);
+          if (tile_of[stage] < 0) break;
+          load_mask(kbits, mask_of + 4 * stage);
+          sm90::bar_sync(1 + wg, 256);
+          sm90::wgmma_fence();
+          issue_s<D>(s, dq, k_tile(stage));
+          issue_pv<D>(o, pa, v_tile(prev));
+          sm90::bar_arrive(2 - wg, 256);
+          sm90::wgmma_wait<1>();  // S(j) is done; PV(j-1) may still run
+          sm90::fence_regs(s);
+          softmax_tile(s, kbits, qd, sl2, m, alpha, rs);  // under PV(j-1)
+          sm90::wgmma_wait<0>();  // PV(j-1) is done: V(j-1) and P(j-1) are free
+          sm90::fence_regs(o);
+          if (lane == 0) sm90::mbar_arrive(empty(prev));
+#pragma unroll
+          for (int j = 0; j < kNO; ++j) o[j] *= alpha[(j / 2) % 2];
+#pragma unroll
+          for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + rs[r];
+          pack_probabilities(pa, s);
+          prev = stage;
+          advance();
         }
-      float alpha[2];
+        if (lane == 0) sm90::mbar_arrive(q_empty(qb));  // every S is done
+        sm90::wgmma_fence();
+        issue_pv<D>(o, pa, v_tile(prev));
+        sm90::wgmma_wait<0>();
+        sm90::fence_regs(o);
+        if (lane == 0) sm90::mbar_arrive(empty(prev));
+      } else if (lane == 0) {
+        sm90::mbar_arrive(q_empty(qb));
+      }
+      if (lane == 0) sm90::mbar_arrive(empty(stage));  // the sentinel's stage
+      advance();
+
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-        const float m_new = fmaxf(m[r], mx[r]);  // finite: the tile has a valid key
-        alpha[r] = exp2f(m[r] - m_new);           // 0 on the first valid tile
-        m[r] = m_new;
-        l[r] *= alpha[r];
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
       }
+      auto* out = static_cast<__nv_bfloat16*>(a.out) + w.b * a.o_sb + w.h * a.o_sh;
 #pragma unroll
-      for (int j = 0; j < NO; ++j) {
-        o[j][0] *= alpha[0];
-        o[j][1] *= alpha[0];
-        o[j][2] *= alpha[1];
-        o[j][3] *= alpha[1];
-      }
-      // probabilities: l sums them unrounded, PV takes them rounded to bf16
-      uint32_t pf[BK / 16][4];
+      for (int r = 0; r < 2; ++r) {
+        const int row = w.row0 + wg * 64 + warp * 16 + g + 8 * r;
+        if (row >= a.M) continue;
+        const bool row_ok = a.qmask == nullptr || a.qmask[w.b * a.qmask_sb + row] != 0;
+        const bool keep = row_ok && l[r] > 0.f;
+        const float inv = keep ? 1.f / l[r] : 0.f;
 #pragma unroll
-      for (int j = 0; j < NS; ++j) {
-        const float p0 = exp2f(s[j][0] - m[0]), p1 = exp2f(s[j][1] - m[0]);
-        const float p2 = exp2f(s[j][2] - m[1]), p3 = exp2f(s[j][3] - m[1]);
-        l[0] += p0 + p1;
-        l[1] += p2 + p3;
-        // S n-tiles 2kk and 2kk+1 form the A fragment of PV k-step kk
-        pf[j / 2][(j % 2) * 2 + 0] = pack_bf16(p0, p1);
-        pf[j / 2][(j % 2) * 2 + 1] = pack_bf16(p2, p3);
-      }
-      const __nv_bfloat16* vt = sv[buf];
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
-#pragma unroll
-        for (int jj = 0; jj < NO; jj += 2) {  // two n-tiles of dims per ldmatrix
-          uint32_t vb[4];
-          const int key = kk * 16 + ((lane / 8) % 2) * 8 + lane % 8;
-          const int col = jj * 8 + (lane / 16) * 8;
-          ldmatrix_x4_trans(vb, vt + key * LD + col);
-          mma_bf16(o[jj], pf[kk], vb[0], vb[1]);
-          mma_bf16(o[jj + 1], pf[kk], vb[2], vb[3]);
+        for (int j = 0; j < D / 8; ++j) {
+          const __nv_bfloat162 val =
+              __floats2bfloat162_rn(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
+          *reinterpret_cast<__nv_bfloat162*>(out + row * a.o_sn + j * 8 + 2 * qd) = val;
         }
       }
     }
-    __syncthreads();  // buffer `buf` is free for the load of tile t + 2
+    if (wg == 0) sm90::bar_sync(1, 256);  // warpgroup 1's last hand-over
   }
+}
 
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-  }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row0 + warp * 16 + g + 8 * r;
-    if (row >= a.M) continue;
-    const bool row_ok = a.qmask == nullptr || a.qmask[b * a.qmask_sb + row] != 0;
-    const bool keep = row_ok && l[r] > 0.f;
-    const float inv = keep ? 1.f / l[r] : 0.f;
-#pragma unroll
-    for (int j = 0; j < NO; ++j) {
-      const __nv_bfloat162 val =
-          __floats2bfloat162_rn(o[j][2 * r] * inv, o[j][2 * r + 1] * inv);
-      *reinterpret_cast<__nv_bfloat162*>(out + row * a.o_sn + j * 8 + 2 * tq) = val;
-    }
-  }
+// ---------------------------------------------------------------------------
+// host
+// ---------------------------------------------------------------------------
+
+inline int max_rows(const AttnDirs& dirs, int n_dirs) {
+  return n_dirs == 2 && dirs.d[1].M > dirs.d[0].M ? dirs.d[1].M : dirs.d[0].M;
 }
 
 template <typename T, int D>
-cudaError_t launch_typed(const AttnArgs& a, int BH, cudaStream_t stream) {
-  const dim3 grid((a.M + kRowsPerBlock - 1) / kRowsPerBlock, BH);
-  attention_kernel<T, D><<<grid, kRowsPerBlock, 0, stream>>>(a);
+cudaError_t launch_f32(const AttnDirs& dirs, int n_dirs, int BH, cudaStream_t stream) {
+  const dim3 grid((max_rows(dirs, n_dirs) + kRowsPerBlock - 1) / kRowsPerBlock, BH, n_dirs);
+  attention_kernel<T, D><<<grid, kRowsPerBlock, 0, stream>>>(dirs);
   return cudaGetLastError();
 }
 
 template <int D>
-cudaError_t launch_mma(const AttnArgs& a, int BH, cudaStream_t stream) {
-  const dim3 grid((a.M + kRowsPerBlock - 1) / kRowsPerBlock, BH);
-  attention_mma_kernel<D><<<grid, kMmaThreads, 0, stream>>>(a);
+cudaError_t launch_wgmma(const AttnDirs& dirs, int n_dirs, int B, cudaStream_t stream) {
+  WgmmaParams p;
+  p.dirs = dirs;
+  p.n_dirs = n_dirs;
+  p.bh = B * dirs.d[0].H;
+  p.q_tiles = (max_rows(dirs, n_dirs) + kQRows - 1) / kQRows;
+  for (int z = 0; z < n_dirs; ++z) {
+    const AttnArgs& a = dirs.d[z];
+    cudaError_t err =
+        sm90::encode_rows(&p.q[z], a.q, D, a.M, a.H, B, a.q_sn, a.q_sh, a.q_sb, kQRows);
+    if (err == cudaSuccess)
+      err = sm90::encode_rows(&p.k[z], a.k, D, a.N, a.H, B, a.k_sn, a.k_sh, a.k_sb, kKeys);
+    if (err == cudaSuccess)
+      err = sm90::encode_rows(&p.v[z], a.v, D, a.N, a.H, B, a.v_sn, a.v_sh, a.v_sb, kKeys);
+    if (err != cudaSuccess) return err;
+  }
+  constexpr int kSmem = WgmmaSmem<D>::kBytes;
+  cudaError_t err = allow_shared_memory<attention_wgmma_kernel<D>>(kSmem);
+  int dev = 0, sms = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  const int n_items = n_dirs * p.bh * p.q_tiles;  // one persistent block per SM at most
+  attention_wgmma_kernel<D><<<n_items < sms ? n_items : sms, kWgmmaThreads, kSmem, stream>>>(p);
   return cudaGetLastError();
 }
 
-// dtype: 0 = float32, 1 = bfloat16. Head dims other than 32 and 64 are
-// refused (the wrappers check first). The bf16 body needs 16-byte aligned
-// rows: base pointers and token strides that are multiples of 8 elements
-// (the wrappers make such copies when needed).
-inline cudaError_t launch_attention(const AttnArgs& a, int BH, int D, int dtype,
+// One launch over `n_dirs` (1 or 2) directions of a batch of B. dtype: 0 =
+// float32, 1 = bfloat16. Head dims other than 32 and 64 are refused (the
+// wrappers check first). The bf16 body reads by TMA: 16-byte aligned base
+// pointers and strides that are positive multiples of 16 bytes (the
+// wrappers make such copies when needed).
+inline cudaError_t launch_attention(const AttnDirs& dirs, int n_dirs, int B, int D, int dtype,
                                     cudaStream_t stream) {
-  if (dtype == 0 && D == 32) return launch_typed<float, 32>(a, BH, stream);
-  if (dtype == 0 && D == 64) return launch_typed<float, 64>(a, BH, stream);
-  if (dtype == 1 && D == 32) return launch_mma<32>(a, BH, stream);
-  if (dtype == 1 && D == 64) return launch_mma<64>(a, BH, stream);
+  const int BH = B * dirs.d[0].H;
+  if (dtype == 0 && D == 32) return launch_f32<float, 32>(dirs, n_dirs, BH, stream);
+  if (dtype == 0 && D == 64) return launch_f32<float, 64>(dirs, n_dirs, BH, stream);
+  if (dtype == 1 && D == 32) return launch_wgmma<32>(dirs, n_dirs, B, stream);
+  if (dtype == 1 && D == 64) return launch_wgmma<64>(dirs, n_dirs, B, stream);
   return cudaErrorInvalidValue;
 }
 

@@ -63,9 +63,13 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 
 // Host side: lets `Kernel` take `bytes` of dynamic shared memory on the
 // current device. cudaFuncSetAttribute runs only when the kernel needs more
-// than it was allowed so far on that device, not on every launch.
+// than it was allowed so far on that device, not on every launch. `static`:
+// each library keeps its own record. Two libraries built from one header
+// hold two distinct kernels of the same name, and an inline template's
+// static would be one object shared by both (a unique symbol of the
+// process), so the second library would skip its own attribute call.
 template <auto Kernel>
-inline cudaError_t allow_shared_memory(int bytes) {
+static inline cudaError_t allow_shared_memory(int bytes) {
   constexpr int kMaxDevices = 64;
   static int allowed[kMaxDevices] = {};
   int dev = 0;

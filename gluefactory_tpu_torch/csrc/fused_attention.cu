@@ -1,7 +1,8 @@
 // fused_attention: masked softmax(q k^T / sqrt(D)) v for LightGlue's
-// self-attention (replaces `fused_attention` / `_attn_kernel` of
-// gluefactory_tpu/ops/pallas_attention.py). Kernel body, design and bound:
-// attention_tile.cuh. Plain C interface, loaded with ctypes by
+// self-attention and SuperGlue's attention (replaces `fused_attention` /
+// `_attn_kernel` of gluefactory_tpu/ops/pallas_attention.py). Kernel
+// bodies, design and bound: attention_tile.cuh (one direction per launch).
+// Plain C interface, loaded with ctypes by
 // gluefactory_tpu_torch/ops/cuda_attention.py.
 
 #include "attention_tile.cuh"
@@ -14,7 +15,8 @@ extern "C" int gf_fused_attention(const void* q, const void* k, const void* v,
                                   const long long* strides, int B, int H, int M,
                                   int N, int D, float scale, int dtype,
                                   void* stream) {
-  gf::AttnArgs a;
+  gf::AttnDirs dirs;
+  gf::AttnArgs& a = dirs.d[0];
   a.q = q;
   a.k = k;
   a.v = v;
@@ -31,6 +33,6 @@ extern "C" int gf_fused_attention(const void* q, const void* k, const void* v,
   a.M = M;
   a.N = N;
   a.scale = scale;
-  return static_cast<int>(gf::launch_attention(a, B * H, D, dtype,
+  return static_cast<int>(gf::launch_attention(dirs, 1, B, D, dtype,
                                                static_cast<cudaStream_t>(stream)));
 }

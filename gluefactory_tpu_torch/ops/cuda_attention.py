@@ -121,21 +121,28 @@ def _check(name: str, tensors: list, masks: list) -> None:
             raise ValueError(f"{name}: mask of shape {tuple(mask.shape)}, expected {(ref.shape[0], n)}")
 
 
-def _rows_16b(t: torch.Tensor) -> torch.Tensor:
-    """`t`, or an aligned copy: the bf16 kernel reads rows as 16-byte
-    vectors, so the base pointer and every stride but the last must be
-    16-byte multiples."""
+def _tma_ready(t: torch.Tensor) -> torch.Tensor:
+    """`t`, or a contiguous copy: the bf16 kernel reads by TMA, which needs a
+    16-byte aligned base pointer and, for every dimension but the last that
+    has more than one element, a positive stride of a multiple of 16 bytes.
+    LightGlue's (B, N, H, D)-ordered views pass as they are."""
     esize = t.element_size()
-    if t.data_ptr() % 16 == 0 and all(s * esize % 16 == 0 for s in t.stride()[:-1]):
-        return t
-    return t.clone(memory_format=torch.contiguous_format)
+    ok = t.data_ptr() % 16 == 0 and all(
+        n == 1 or (s > 0 and s * esize % 16 == 0) for n, s in zip(t.shape[:-1], t.stride()[:-1])
+    )
+    return t if ok else t.clone(memory_format=torch.contiguous_format)
 
 
 def _mask_arg(mask):
-    """(mask as contiguous uint8 or None, its batch stride)."""
+    """(mask as contiguous uint8, nonzero = valid, or None; its batch
+    stride). A bool mask is read in place as bytes of 0 or 1 (no kernel
+    runs unless it is not contiguous); other dtypes are converted."""
     if mask is None:
         return None, 0
-    m = (mask != 0).to(torch.uint8).contiguous()
+    if mask.dtype == torch.bool:
+        m = mask.contiguous().view(torch.uint8)
+    else:
+        m = (mask != 0).to(torch.uint8).contiguous()
     return m, m.stride(0)
 
 
@@ -145,7 +152,11 @@ def _empty_heads(B: int, H: int, n: int, D: int, like: torch.Tensor) -> torch.Te
 
 
 def _bhn(t: torch.Tensor) -> list:
-    return [t.stride(0), t.stride(1), t.stride(2)]
+    """(batch, head, token) strides in elements. A dimension of one element,
+    whose stride no index reaches, gets 16 bytes' worth: a TMA tensor map
+    takes no other."""
+    unit = 16 // t.element_size()
+    return [s if n > 1 else unit for n, s in zip(t.shape[:3], t.stride()[:3])]
 
 
 def fused_attention(q, k, v, mask_k=None, mask_q=None):
@@ -160,7 +171,7 @@ def fused_attention(q, k, v, mask_k=None, mask_q=None):
     out = _empty_heads(B, H, M, D, q)
     if out.numel() == 0 or N == 0:
         return out.zero_()
-    q, k, v = (_rows_16b(t) for t in (q, k, v))
+    q, k, v = (_tma_ready(t) for t in (q, k, v))
     mk, mk_sb = _mask_arg(mask_k)
     mq, mq_sb = _mask_arg(mask_q)
     strides = _bhn(q) + _bhn(k) + _bhn(v) + _bhn(out) + [mk_sb, mq_sb]
@@ -195,7 +206,7 @@ def fused_bidirectional_attention(qk0, qk1, v0, v1, mask0=None, mask1=None):
     out1 = _empty_heads(B, H, N, D, qk0)
     if out0.numel() == 0 or out1.numel() == 0:
         return out0.zero_(), out1.zero_()
-    qk0, qk1, v0, v1 = (_rows_16b(t) for t in (qk0, qk1, v0, v1))
+    qk0, qk1, v0, v1 = (_tma_ready(t) for t in (qk0, qk1, v0, v1))
     m0, m0_sb = _mask_arg(mask0)
     m1, m1_sb = _mask_arg(mask1)
     strides = (

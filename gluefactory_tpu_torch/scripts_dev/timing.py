@@ -28,6 +28,28 @@ def cuda_time_ms(fn, reps: int = 20, warmup: int = WARMUP) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_time_ms(fn, reps: int = 20, warmup: int = WARMUP) -> float:
+    """Mean device milliseconds of one call of `fn`: the time of every kernel
+    and copy it ran on the card (torch.profiler) over `reps` calls, after
+    `warmup` calls. Unlike `cuda_time_ms`, host time between launches does
+    not count, so a short kernel behind a Python wrapper is timed as the
+    device runs it. Raises without a CUDA device."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("device_time_ms: no CUDA device")
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(ev.self_device_time_total for ev in prof.key_averages()
+                   if ev.device_type == torch.autograd.DeviceType.CUDA)
+    return total_us / 1e3 / reps
+
+
 def card(device: torch.device) -> str:
     """The card's name and power limit as nvidia-smi reports them, or "cpu"."""
     if device.type != "cuda":

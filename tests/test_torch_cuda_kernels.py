@@ -87,6 +87,107 @@ def test_strided_and_misaligned_inputs(dev):
     assert (got.float() - want.float()).abs().max() <= TOL[torch.bfloat16]
 
 
+def _attention_inputs(gen, dev, dtype, B, H, M, N, D, lightglue_layout=False):
+    """q (B,H,M,D), k/v (B,H,N,D); with `lightglue_layout` q and k are the
+    (B, N, H, D)-ordered views that LightGlue's rotary and head split give."""
+    if lightglue_layout:
+        q = torch.randn(B, M, H, D, generator=gen, device=dev).to(dtype).transpose(1, 2)
+        k = torch.randn(B, N, H, D, generator=gen, device=dev).to(dtype).transpose(1, 2)
+    else:
+        q = torch.randn(B, H, M, D, generator=gen, device=dev).to(dtype)
+        k = torch.randn(B, H, N, D, generator=gen, device=dev).to(dtype)
+    v = torch.randn(B, H, N, D, generator=gen, device=dev).to(dtype)
+    return q, k, v
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [32, 64])
+@pytest.mark.parametrize("M,N", [(1, 129), (127, 2047), (777, 1029)])
+def test_fused_attention_tail_tiles(dev, dtype, D, M, N):
+    """Query and key counts that are not multiples of the 128-row and
+    128-key tiles, with the four mask cases."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    q, k, v = _attention_inputs(gen, dev, dtype, 2, 2, M, N, D)
+    for mq, mk in _masks(gen, 2, M, N, dev):
+        got = cuda_attention.fused_attention(q, k, v, mk, mq)
+        want = cuda_attention.attention_plain(q, k, v, mk, mq)
+        torch.cuda.synchronize()
+        assert (got.float() - want.float()).abs().max() <= TOL[dtype]
+
+
+@pytest.mark.parametrize("D", [32, 64])
+def test_fused_attention_one_valid_tile(dev, D):
+    """Only keys inside one 128-key tile in the middle are valid (and not
+    all of them): every other tile is skipped whole."""
+    gen = torch.Generator(device=dev).manual_seed(8)
+    B, H, M, N = 2, 2, 200, 1029
+    q, k, v = _attention_inputs(gen, dev, torch.bfloat16, B, H, M, N, D)
+    mk = torch.zeros(B, N, dtype=torch.bool, device=dev)
+    mk[:, 512:640] = torch.rand(B, 128, generator=gen, device=dev) > 0.5
+    mk[:, 512] = True
+    got = cuda_attention.fused_attention(q, k, v, mk)
+    want = cuda_attention.attention_plain(q, k, v, mk)
+    torch.cuda.synchronize()
+    assert (got.float() - want.float()).abs().max() <= TOL[torch.bfloat16]
+
+
+@pytest.mark.parametrize("D", [32, 64])
+def test_lightglue_layout_is_read_in_place(dev, D):
+    """q/k as (B, N, H, D)-ordered views (token stride H*D): no copy is made,
+    and the result is the plain version's, in both kernels."""
+    gen = torch.Generator(device=dev).manual_seed(9)
+    B, H, M, N = 2, 4, 300, 257
+    q, k, v = _attention_inputs(gen, dev, torch.bfloat16, B, H, M, N, D, lightglue_layout=True)
+    assert cuda_attention._tma_ready(q) is q and cuda_attention._tma_ready(k) is k
+    m0 = torch.rand(B, M, generator=gen, device=dev) > 0.3
+    m1 = torch.rand(B, N, generator=gen, device=dev) > 0.3
+    got = cuda_attention.fused_attention(q, k, v, m1, m0)
+    want = cuda_attention.attention_plain(q, k, v, m1, m0)
+    v0 = torch.randn(B, H, M, D, generator=gen, device=dev).to(torch.bfloat16)
+    got2 = cuda_attention.fused_bidirectional_attention(q, k, v0, v, m0, m1)
+    want2 = cuda_attention.bidirectional_plain(q, k, v0, v, m0, m1)
+    torch.cuda.synchronize()
+    assert (got.float() - want.float()).abs().max() <= TOL[torch.bfloat16]
+    for g, w in zip(got2, want2):
+        assert (g.float() - w.float()).abs().max() <= TOL[torch.bfloat16]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [32, 64])
+@pytest.mark.parametrize("M,N", [(100, 300), (300, 100)])
+def test_fused_bidirectional_unequal_sides(dev, dtype, D, M, N):
+    """M != N in both orders: the grid spans the longer side and the
+    shorter direction's surplus blocks exit; the four mask cases."""
+    gen = torch.Generator(device=dev).manual_seed(10)
+    B, H = 2, 2
+    qk0, v0 = (torch.randn(B, H, M, D, generator=gen, device=dev).to(dtype) for _ in range(2))
+    qk1, v1 = (torch.randn(B, H, N, D, generator=gen, device=dev).to(dtype) for _ in range(2))
+    for m0, m1 in _masks(gen, B, M, N, dev):
+        got = cuda_attention.fused_bidirectional_attention(qk0, qk1, v0, v1, m0, m1)
+        want = cuda_attention.bidirectional_plain(qk0, qk1, v0, v1, m0, m1)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert (g.float() - w.float()).abs().max() <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_bidirectional_is_one_launch(dev, dtype):
+    """Both directions run in one kernel launch (counted by the profiler on
+    the device, not by the wrapper)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    qk0, v0 = (torch.randn(2, 2, 100, 64, device=dev).to(dtype) for _ in range(2))
+    qk1, v1 = (torch.randn(2, 2, 300, 64, device=dev).to(dtype) for _ in range(2))
+    cuda_attention.fused_bidirectional_attention(qk0, qk1, v0, v1)  # built and warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        cuda_attention.fused_bidirectional_attention(qk0, qk1, v0, v1)
+        torch.cuda.synchronize()
+    kernels = [ev for ev in prof.events() if ev.device_type == torch.autograd.DeviceType.CUDA
+               and "attention" in ev.name]
+    assert len(kernels) == 1, [ev.name for ev in kernels]
+
+
 def test_launches_are_counted(dev):
     cuda_attention.reset_launches()
     q = torch.randn(1, 1, 64, 64, device=dev)
