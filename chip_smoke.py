@@ -30,12 +30,14 @@ Phases, in order; any failure exits non-zero before the last line:
    `fused_backbone` on, driven and profiled as in phases 4-5; its keypoints,
    scores and descriptors against the opt-ins-off extractor in f32 and bf16;
 8. conv study: the streaming and N-packed 3x3 conv kernels, each against
-   its plain version at (2, 1024, 1024, 64) and (1, 37, 53, 64) bf16, one
-   launch per wrapper call; then both profiling tools
+   its plain version at (2, 1024, 1024, 64), (1, 37, 53, 64) and, across
+   the kernels' 64-row strips, (1, 130, 200, 64) bf16, one launch per
+   wrapper call; then both profiling tools
    (`gluefactory_tpu_torch/scripts_dev/profile_{stream_conv,npack}.py`)
    through their `main` at SuperPoint's conv1b shape (8 x 1024^2 x 64),
    their kernel against the library conv (`maxdiff`) within the tools' bf16
-   tolerance.
+   tolerance; each kernel's time over the library's and its TFLOP/s, of the
+   function's work and of its own (halo rows included).
 
 Each path resets every launch count just before its timed run and reads
 them just after. Prints the kernel JSON line, the card line, and as its last
@@ -853,9 +855,20 @@ CONV_STUDY = [
      "scripts_dev/profile_npack.py:91"),
 ]
 # the plain N-packed version holds f32 cat and P of ~1.6 GB per image, so
-# parity runs on 2 images of the conv1b shape, and on an odd size that
-# exercises the zero ring and partial tiles
-CONV_PARITY_SHAPES = ((2, IMAGE, IMAGE, 64), (1, 37, 53, 64))
+# parity runs on 2 images of the conv1b shape, on an odd size that exercises
+# the zero ring and partial tiles, and on one whose rows cross two strip
+# boundaries (csrc/conv3x3_tile.cuh: 64-row strips of 64 pixels)
+CONV_PARITY_SHAPES = ((2, IMAGE, IMAGE, 64), (1, 37, 53, 64), (1, 130, 200, 64))
+
+
+def conv_work(shape) -> dict:
+    """GFLOP of the conv at `shape` (B, H, W, C -> C): the function's, and
+    the kernels' own (both compute every input row of every strip, halo
+    rows included, over whole 64-pixel columns)."""
+    B, H, W, C = shape
+    cols = -(-W // cuda_conv3x3.STRIP_COLS) * cuda_conv3x3.STRIP_COLS
+    return {"function_gflop": 2.0 * B * H * W * 9 * C * C / 1e9,
+            "own_gflop": 2.0 * B * cuda_conv3x3.input_rows(H) * cols * 9 * C * C / 1e9}
 
 
 def check_conv3x3(dev, gen, name: str) -> list[dict]:
@@ -906,15 +919,21 @@ def phase_conv_study(device_info: dict) -> list[dict]:
             fail(f"{name}: the tool's run launched {launches}, expected {expected}")
         if not res["maxdiff"] <= res["tol"]:
             fail(f"{name}: the tool's maxdiff {res['maxdiff']} against the library conv > {res['tol']}")
+        work = conv_work(res["shape"])
+        rates = {"ms_over_library": res[key] / res["lib_ms"],
+                 "tflops_function": work["function_gflop"] / res[key],
+                 "tflops_own": work["own_gflop"] / res[key],
+                 "library_tflops": work["function_gflop"] / res["lib_ms"], **work}
         results.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[name], "max_abs_err": max(p["max_abs_err"] for p in parity),
             "tol": max(p["tol"] for p in parity), "ms": res[key], "plain_ms": res["plain_ms"],
             "library_ms": res["lib_ms"], "bound_ms": res["bound_ms"], "bound_by": res["bound_by"],
-            "library": "F.conv2d, channels-last bf16, TF32 off", "timed_shape": res["shape"],
+            **rates, "library": "F.conv2d, channels-last bf16, TF32 off", "timed_shape": res["shape"],
             "tool": res, "parity": parity, "card": device_info["nvidia_smi"],
         })
-        print(f"kernel {name}: parity ok ({len(parity)} cases), tool {json.dumps(res)}", flush=True)
+        print(f"kernel {name}: parity ok ({len(parity)} cases), tool {json.dumps(res)}, "
+              f"{json.dumps(rates)}", flush=True)
     return results
 
 

@@ -37,9 +37,17 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ARGTYPES = [_P] * 3 + [_I] * 5 + [_P]
 _CHANNELS = 64  # C_in and C_out are multiples of this
-# the N-packed kernel's tile: NPACK_ROWS output rows (the TPU kernel's ROWS)
-# of a NPACK_STRIP-pixel column strip, P over NPACK_ROWS + 2 rows
-NPACK_ROWS, NPACK_STRIP = 4, 16
+# both kernels' unit of work (csrc/conv3x3_tile.cuh): a strip of STRIP_ROWS
+# output rows x STRIP_COLS pixels of one image and one group of 64 output
+# channels, walked top to bottom through its input rows
+STRIP_ROWS, STRIP_COLS = 64, 64
+# shared memory per block (csrc/conv3x3_tile.cuh::make_plan): one input row
+# of a stage (three 64-pixel boxes of 64 channels), the weights of one K atom
+# (three dy boxes of 3 x 64 x 64), the staging tile of each consumer, barriers
+_ROW_BYTES = 3 * STRIP_COLS * _CHANNELS * 2
+_ATOM_W_BYTES = 9 * _CHANNELS * _CHANNELS * 2
+_MAX_STAGES = 4
+_FIXED_BYTES = 2 * STRIP_COLS * _CHANNELS * 2 + 8 * (4 * _MAX_STAGES + 1) + 1024
 
 
 def reset_launches() -> None:
@@ -82,15 +90,27 @@ def npack_conv3x3_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return out.to(x.dtype)
 
 
-def npack_shared_bytes(ci: int) -> int:
-    """Shared memory of one block of the N-packed kernel: two patch buffers
-    ((ROWS + 2) x (STRIP + 2) pixels, C_in + 8 bf16 each), the packed
-    weights (3 C_in rows of 192 + 8 bf16) and the f32 scratch P ((ROWS + 2)
-    x STRIP pixels of 192 + 8 floats)."""
-    patch = (NPACK_ROWS + 2) * (NPACK_STRIP + 2) * (ci + 8) * 2
-    wpack = 3 * ci * (3 * _CHANNELS + 8) * 2
-    scratch = (NPACK_ROWS + 2) * NPACK_STRIP * (3 * _CHANNELS + 8) * 4
-    return 2 * patch + wpack + scratch
+def shared_plan(ci: int) -> dict:
+    """Shared memory of one block of either kernel for C_in = ci (bytes
+    <= _build.MAX_SHARED_BYTES for every C_in): the weights of the block's
+    output-channel group stay resident while they fit beside at least one
+    stage per pipeline, else each stage carries its K atom's weights;
+    `stages` per pipeline (two pipelines, at most 4 each)."""
+    atoms = ci // _CHANNELS
+    resident = atoms * _ATOM_W_BYTES + _FIXED_BYTES + 2 * _ROW_BYTES <= _build.MAX_SHARED_BYTES
+    w_bytes = atoms * _ATOM_W_BYTES if resident else 0
+    stage = _ROW_BYTES if resident else _ROW_BYTES + _ATOM_W_BYTES
+    stages = min(_MAX_STAGES, (_build.MAX_SHARED_BYTES - _FIXED_BYTES - w_bytes) // (2 * stage))
+    return {"resident": resident, "stages": stages, "stage_bytes": stage,
+            "bytes": w_bytes + 2 * stages * stage + _FIXED_BYTES}
+
+
+def input_rows(H: int) -> int:
+    """Input rows one column strip loads over the image's height, halo rows
+    of neighbouring strips included (rows outside the image are not
+    loaded): the N-packed kernel computes P for each."""
+    return sum(min(y0 + STRIP_ROWS, H - 1) - max(y0 - 1, 0) + 1
+               for y0 in range(0, H, STRIP_ROWS))
 
 
 def _check(name: str, x: torch.Tensor, w: torch.Tensor) -> None:
@@ -110,7 +130,7 @@ def _check(name: str, x: torch.Tensor, w: torch.Tensor) -> None:
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """Contiguous, with a 16-byte aligned start (the kernels' cp.async)."""
+    """Contiguous, with a 16-byte aligned start (the kernels' TMA maps)."""
     t = t.contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
@@ -144,15 +164,9 @@ def stream_conv3x3(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def npack_conv3x3(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x (B, H, W, C_in) bf16, w (3, 3, C_in, C_out) bf16 -> (B, H, W,
-    C_out) bf16. A block holds the whole packed K = 3 C_in in shared memory,
-    so C_in is bounded by `npack_shared_bytes` (64 fits, 128 does not).
-    CUDA tensors run csrc/conv3x3_npack.cu; CPU tensors
+    C_out) bf16. CUDA tensors run csrc/conv3x3_npack.cu; CPU tensors
     `npack_conv3x3_plain`."""
     _check("npack_conv3x3", x, w)
-    need = npack_shared_bytes(x.shape[-1])
-    if need > _build.MAX_SHARED_BYTES:
-        raise ValueError(f"npack_conv3x3: C_in {x.shape[-1]} needs {need} bytes of shared memory "
-                         f"per block, over the {_build.MAX_SHARED_BYTES} a block may have")
     if not uses_kernel(x.device):
         return npack_conv3x3_plain(x, w)
     return _launch("npack_conv3x3", x, w)

@@ -130,16 +130,32 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(form):
         fn(torch.zeros(4, 4, 64, dtype=bf), torch.zeros(3, 3, 64, 64, dtype=bf))
 
 
-def test_npack_shared_memory_need():
-    """C_in 64 fits a block's 227 KiB (two patches, packed weights, f32
-    scratch: 184,704 B); C_in 128 does not, and the wrapper says so."""
-    assert cuda_conv3x3.npack_shared_bytes(64) == 184704
-    assert cuda_conv3x3.npack_shared_bytes(128) > 232448
+@pytest.mark.parametrize("ci,resident,stages,nbytes", [
+    (64, True, 2, 189576),    # 72 KB of weights, 2 x 2 stages of 24 KB, staging, barriers
+    (128, True, 1, 214152),   # 144 KB of weights, 2 x 1 stage
+    (192, False, 1, 214152),  # each stage carries its K atom's 72 KB of weights
+    (512, False, 1, 214152),
+])
+def test_npack_shared_memory_need(ci, resident, stages, nbytes):
+    """Both kernels' shared memory (csrc/conv3x3_tile.cuh::make_plan): the
+    weights stay resident while they fit beside a stage per pipeline; every
+    C_in fits a block's 227 KiB, so both wrappers take every multiple of 64."""
+    plan = cuda_conv3x3.shared_plan(ci)
+    assert plan == {"resident": resident, "stages": stages,
+                    "stage_bytes": 24576 if resident else 24576 + 73728, "bytes": nbytes}
+    assert plan["bytes"] <= _build.MAX_SHARED_BYTES
     bf = torch.bfloat16
-    with pytest.raises(ValueError, match="shared memory"):
-        cuda_conv3x3.npack_conv3x3(torch.zeros(1, 4, 4, 128, dtype=bf), torch.zeros(3, 3, 128, 64, dtype=bf))
-    out = cuda_conv3x3.stream_conv3x3(torch.zeros(1, 4, 4, 128, dtype=bf), torch.zeros(3, 3, 128, 64, dtype=bf))
-    assert tuple(out.shape) == (1, 4, 4, 64)
+    for form in ("stream", "npack"):
+        out = WRAPPERS[form](torch.zeros(1, 4, 4, ci, dtype=bf), torch.zeros(3, 3, ci, 64, dtype=bf))
+        assert tuple(out.shape) == (1, 4, 4, 64)
+
+
+@pytest.mark.parametrize("H,rows", [(1, 1), (64, 64), (65, 67), (130, 134), (1024, 1054)])
+def test_input_rows_of_a_column_strip(H, rows):
+    """Each 64-row strip loads its rows and its halo rows that lie inside
+    the image (1 above unless first, 1 below unless last)."""
+    assert cuda_conv3x3.STRIP_ROWS == 64
+    assert cuda_conv3x3.input_rows(H) == rows
 
 
 def test_bound_at_the_conv1b_shape():

@@ -284,24 +284,56 @@ def test_new_launches_are_counted(dev):
     assert cuda_conv.launches == {"fused_vgg_block": 1}
 
 
+CONV_CASES = [
+    ((2, 128, 96, 64), 64),
+    ((1, 37, 53, 64), 128),   # W < 64, not a multiple of 64; two output-channel groups
+    ((1, 37, 53, 64), 64),
+    ((1, 65, 130, 64), 64),   # H one row past a 64-row strip, W past two 64-pixel columns
+    ((1, 130, 200, 64), 64),  # strip boundaries inside the image
+    ((1, 1, 1, 64), 64),      # one pixel
+    ((2, 40, 70, 128), 64),   # C_in 128: two K atoms, weights resident
+    ((1, 20, 70, 192), 64),   # C_in 192: each stage carries its atom's weights
+    ((1, 20, 33, 64), 192),   # three output-channel groups
+]
+
+
+def _conv_parity(kernel, plain, x, w):
+    got = kernel(x, w)
+    torch.cuda.synchronize()
+    want = plain(x, w)
+    ref = plain(x.float(), w.float())
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    step = 2.0 ** (math.floor(math.log2(max(float(ref.abs().max()), 2.0**-126))) - 7)
+    assert (got.float() - want.float()).abs().max() <= 2 * (want.float() - ref).abs().max() + step
+
+
 @pytest.mark.parametrize("name", ["stream_conv3x3", "npack_conv3x3"])
-@pytest.mark.parametrize("shape,co", [((2, 128, 96, 64), 64), ((1, 37, 53, 64), 128)])
+@pytest.mark.parametrize("shape,co", CONV_CASES)
 def test_conv3x3_matches_plain(dev, name, shape, co):
-    """The conv-study kernels, at an even size and at an odd one (zero ring,
-    partial tiles; two output-channel groups): within twice the gap bf16
-    rounding alone opens (plain bf16 against plain f32), plus one bf16 step
-    at the largest output for a sum in another order that flips a rounding.
-    One wrapper call is one launch."""
+    """The conv-study kernels at the strip and column edges, one pixel, two
+    and three K atoms and several output-channel groups: within twice the
+    gap bf16 rounding alone opens (plain bf16 against plain f32), plus one
+    bf16 step at the largest output for a sum in another order that flips a
+    rounding. One wrapper call is one launch."""
     gen = torch.Generator(device=dev).manual_seed(6)
     x = (torch.randn(*shape, generator=gen, device=dev) * 0.5).to(torch.bfloat16)
     w = (torch.randn(3, 3, shape[-1], co, generator=gen, device=dev) * 0.05).to(torch.bfloat16)
     kernel, plain = getattr(cuda_conv3x3, name), getattr(cuda_conv3x3, name + "_plain")
     cuda_conv3x3.reset_launches()
-    got = kernel(x, w)
-    torch.cuda.synchronize()
+    _conv_parity(kernel, plain, x, w)
     assert cuda_conv3x3.launches[name] == 1
-    want = plain(x, w)
-    ref = plain(x.float(), w.float())
-    assert got.dtype == torch.bfloat16 and got.shape == want.shape
-    step = 2.0 ** (math.floor(math.log2(float(ref.abs().max()))) - 7)
-    assert (got.float() - want.float()).abs().max() <= 2 * (want.float() - ref).abs().max() + step
+
+
+@pytest.mark.parametrize("name", ["stream_conv3x3", "npack_conv3x3"])
+def test_conv3x3_unaligned_and_strided_inputs(dev, name):
+    """x starting 2 bytes past a 16-byte boundary, and x and w as
+    non-contiguous views: the wrapper copies them for the TMA maps."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    flat = (torch.randn(1 + 2 * 21 * 67 * 64, generator=gen, device=dev) * 0.5).to(torch.bfloat16)
+    x = flat[1:].view(2, 21, 67, 64)
+    assert x.data_ptr() % 16 != 0
+    w = (torch.randn(3, 3, 64, 64, generator=gen, device=dev) * 0.05).to(torch.bfloat16)
+    kernel, plain = getattr(cuda_conv3x3, name), getattr(cuda_conv3x3, name + "_plain")
+    _conv_parity(kernel, plain, x, w)
+    xt = x.transpose(1, 2).contiguous().transpose(1, 2)  # NHWC shape, W-major memory
+    _conv_parity(kernel, plain, xt, w.transpose(2, 3).contiguous().transpose(2, 3))
