@@ -929,7 +929,8 @@ def phase_conv_study(device_info: dict) -> list[dict]:
             "launches": launches[name], "max_abs_err": max(p["max_abs_err"] for p in parity),
             "tol": max(p["tol"] for p in parity), "ms": res[key], "plain_ms": res["plain_ms"],
             "library_ms": res["lib_ms"], "bound_ms": res["bound_ms"], "bound_by": res["bound_by"],
-            **rates, "library": "F.conv2d, channels-last bf16, TF32 off", "timed_shape": res["shape"],
+            **rates, "shared_plan": cuda_conv3x3.shared_plan(res["shape"][-1]),
+            "library": "F.conv2d, channels-last bf16, TF32 off", "timed_shape": res["shape"],
             "tool": res, "parity": parity, "card": device_info["nvidia_smi"],
         })
         print(f"kernel {name}: parity ok ({len(parity)} cases), tool {json.dumps(res)}, "

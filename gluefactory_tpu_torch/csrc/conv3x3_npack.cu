@@ -14,37 +14,42 @@
 //
 // Design (the skeleton, producer, stages and epilogue: conv3x3_tile.cuh):
 // for each input row r of its strip, a consumer warpgroup computes P[r] (64
-// pixels x 192) with 3 x C_in / 16 wgmma m64n192k16: A is a dx-shifted slab
-// of the row as TMA wrote it, B the resident packed weights read MN-major
-// from the three dy boxes. The row-shifted sum needs no scratch: in the
-// wgmma accumulator layout, columns c, c + 64 and c + 128 of a pixel lie in
-// the same thread, so after P[r]
-//   out[r - 1] = part1 + P[r][128:192]   (stored),
+// pixels x 192) with 3 x C_in / 16 wgmma m64n192k16: A is a dx-shifted
+// window of the row's box as TMA wrote it, B the resident packed weights
+// read MN-major from the three dy boxes. The row-shifted sum needs no
+// scratch: in the wgmma accumulator layout, columns c, c + 64 and c + 128 of
+// a pixel lie in the same thread, so after P[r]
+//   out[r - 1] = part1 + P[r][128:192],
 //   part1      = part0 + P[r][64:128],
 //   part0      = P[r][0:64],
-// 96 + 64 f32 registers a thread, within the consumers' 232. The sums are
-// formed in place before the epilogue (part1 becomes the output row), so
-// only 96 of them live through it, and the first product of a row writes P
-// without reading it, so the old P is dead there.
+// and out[r - 1] is stored while P[r + 1]'s products run. That is 96 + 64
+// f32 registers a thread, and 32 for the output row: 192 of the consumers'
+// 232, no spills. The first product of a row writes P without reading it,
+// so the old P is dead there: with a run-time accumulate flag instead,
+// ptxas kept it alive and spilled. Storing under the products was 8%
+// faster than storing after them (0.810-0.811 ms against 0.882-0.884 in
+// one call; my chip run 6, H100 80GB HBM3, 700 W).
 //
 // Bound at the conv1b shape (8 x 1024^2 x 64 -> 64): bytes 0.641 ms,
-// operations 0.625 ms (0.644 ms of the kernel's own work at S = 64:
-// 1,054 input rows per 1,024 output rows). Per
-// wgmma m64n192k16 (96 clocks of the SM's tensor cores at their peak) it
-// reads 2 KB of A and 6 KB of B from shared memory: 85 B a clock of the
-// 128 that shared memory delivers.
+// operations 0.625 ms (0.644 ms of the kernel's own work at S = 64: 1,054
+// input rows per 1,024 output rows). Per wgmma m64n192k16 (96 clocks of the
+// SM's tensor cores at their peak) it reads 2 KB of A and 6 KB of B from
+// shared memory: 85 B a clock of the 128 that shared memory delivers, so
+// the tensor cores, not shared memory, are its limit.
 
 #include "conv3x3_tile.cuh"
 
 namespace {
 
 using gf::conv::kDyBytes;
-using gf::conv::kSlabBytes;
+using gf::conv::kDxBytes;
 
 struct NpackBody {
+  static constexpr bool kStoreUnderProducts = true;
   float p[96];      // P of the current input row: [dy0 | dy1 | dy2] x 64 channels
   float part0[32];  // P[r - 1][0:64]
   float part1[32];  // P[r - 2][0:64] + P[r - 1][64:128]
+  float out_[32];   // output row r - 2 until it is stored
 
   __device__ __forceinline__ void begin() {
 #pragma unroll
@@ -59,11 +64,11 @@ struct NpackBody {
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
         // A: 64 pixels x 16 channels of slab dx (K-major, 32 B steps in a row)
-        const uint64_t da = gf::sm90::smem_desc(x_addr + dx * kSlabBytes, 16, 1024, 128) + 2 * kk;
+        const uint64_t da = gf::conv::a_desc(x_addr, dx) + 2 * kk;
         // B: rows dx * 64 + 16 kk .. of the three dy boxes (MN-major, the
         // dy boxes kDyBytes apart)
         const uint64_t db =
-            gf::sm90::smem_desc(w_addr + dx * kSlabBytes + kk * 2048, kDyBytes, 1024, 128);
+            gf::sm90::smem_desc(w_addr + dx * kDxBytes + kk * 2048, kDyBytes, 1024, 128);
         if (kFirst && dx == 0 && kk == 0)
           gf::sm90::wgmma_m64n192k16_ss_tb<false>(p, da, db);
         else
@@ -78,22 +83,19 @@ struct NpackBody {
     for (int j = 0; j < 96; ++j) p[j] = 0.f;
   }
 
-  // in place: part1 becomes output row r - 1, P[r][64:128] the next part1
+  // output row r - 1 into out_; P is free for the next row after this
   __device__ __forceinline__ void finish_row() {
 #pragma unroll
     for (int j = 0; j < 32; ++j) {
-      part1[j] += p[64 + j];
-      p[32 + j] += part0[j];
+      out_[j] = part1[j] + p[64 + j];
+      part1[j] = part0[j] + p[32 + j];
       part0[j] = p[j];
     }
   }
 
-  __device__ __forceinline__ float out(int j) const { return part1[j]; }
+  __device__ __forceinline__ float out(int j) const { return out_[j]; }
 
-  __device__ __forceinline__ void advance() {
-#pragma unroll
-    for (int j = 0; j < 32; ++j) part1[j] = p[32 + j];
-  }
+  __device__ __forceinline__ void advance() {}
 };
 
 }  // namespace

@@ -22,17 +22,20 @@
 //     pipelines share the weights, and one's epilogue runs under the other's
 //     products.
 //   - Input by TMA, the padding free: a 4-D map over NHWC as (C, W, H, B),
-//     boxes of 64 channels x 64 pixels, 128-byte swizzle. A stage is one
-//     input row (one 64-channel K atom of it) as three boxes at x0 - 1, x0
-//     and x0 + 1: the three dx-shifted A operands, each 1024-byte aligned and
-//     read by a plain wgmma descriptor. TMA fills whatever lies outside the
-//     image with zeros, so the zero ring and the ragged right and bottom
-//     edges cost no predicate. Input rows above and below the image are not
-//     loaded at all: their products are zero.
-//   - The dx shift takes three boxes, not one 66-pixel box read at a row
-//     offset (the descriptor's base-offset field): the three-box layout is
-//     the one every wgmma descriptor reads as written, and each input byte
-//     comes from L2 three times (about 3.2 GB per call at conv1b).
+//     boxes of 64 channels x 66 pixels, 128-byte swizzle. A stage is one
+//     input row (one 64-channel K atom of it) as one box from x0 - 1: box
+//     rows dx .. dx + 63 are the A operand of tap dx (`a_desc`). TMA fills
+//     whatever lies outside the image with zeros, so the zero ring and the
+//     ragged right and bottom edges cost no predicate. Input rows above and
+//     below the image are not loaded at all: their products are zero.
+//   - The dx shift: one 66-pixel box, not three 64-pixel boxes at x0 - 1,
+//     x0 and x0 + 1. Both were built and timed in one call (my chip run 5,
+//     H100 80GB HBM3, 700 W): the same speed for the N-packed kernel
+//     (0.906-0.923 ms against 0.924-0.926) and 1-2% faster for streaming
+//     (1.111 against 1.119-1.136). It is kept because it reads each input
+//     byte from L2 once, not three times (1.1 GB per call at conv1b against
+//     3.2), and takes 9 KB of shared memory a stage, not 24: 6 stages a
+//     pipeline, not 2.
 //   - Weights by TMA: a map over HWIO as (Co, Ci, 3 dx, 3 dy), boxes of (64
 //     co, 64 ci, 3 dx, 1 dy): one dy's 192 x 64 slab, output channels
 //     contiguous, the MN-major B operand. Three boxes are pack_row_taps(w)'s
@@ -46,10 +49,14 @@
 //     input row is loaded once per strip; 2 halo rows are re-read per strip.
 //   - Epilogue: round to bf16, write into a 128-byte swizzled staging tile
 //     (conflict-free), and store with TMA, which clips at the image's edges.
-//     The store runs while the next row's products do; only the next use of
-//     the staging tile waits for it to have been read.
-//   - Shared memory at C_in = 64: 73,728 B of weights, 2 pipelines x 2
-//     stages x 24,576 B, 2 x 8,192 B of staging, barriers: 189,576 B with
+//     The N-packed body moves output row v - 1 into 32 registers of its own
+//     and stores it while input row v + 1's products run; the streaming
+//     body stores it right after row v's products (its register A operands
+//     in flight across the store made ptxas serialise every wgmma, warning
+//     C7518). The TMA store runs on; only the next use of the staging tile
+//     waits for it to have been read.
+//   - Shared memory at C_in = 64: 73,728 B of weights, 2 pipelines x 6
+//     stages x 9,216 B, 2 x 8,192 B of staging, barriers: 201,928 B with
 //     the alignment slack.
 
 #pragma once
@@ -71,10 +78,12 @@ constexpr int kStripRows = 64;     // output rows per unit (ops/cuda_conv3x3.py:
 constexpr int kCols = 64;          // pixels per unit and per wgmma M (STRIP_COLS)
 constexpr int kChans = 64;         // channels per K atom and per output group
 constexpr int kThreads = 384;
-constexpr int kMaxStages = 4;      // per pipeline
-constexpr int kSlabBytes = kCols * kChans * 2;   // one box: 64 pixels x 128 B
-constexpr int kRowBytes = 3 * kSlabBytes;        // a stage's three dx slabs
-constexpr int kDyBytes = 3 * kChans * kChans * 2;  // one weight box: 3 dx x 64 ci x 64 co
+constexpr int kMaxStages = 6;      // per pipeline
+constexpr int kBoxCols = kCols + 2;              // an input box: pixels x0 - 1 .. x0 + 64
+constexpr int kRowTx = kBoxCols * kChans * 2;    // its bytes: 66 rows of 128 B
+constexpr int kRowBytes = 9 * 1024;              // a stage's input row, 1024-byte aligned
+constexpr int kDxBytes = kChans * kChans * 2;   // one tap's weights: 64 ci x 64 co
+constexpr int kDyBytes = 3 * kDxBytes;          // one weight box: 3 dx x 64 ci x 64 co
 constexpr int kAtomWBytes = 3 * kDyBytes;        // the 3 dy boxes of one K atom
 constexpr int kStageOutBytes = kCols * kChans * 2;
 constexpr int kBarBytes = 8 * (4 * kMaxStages + 1);
@@ -107,6 +116,16 @@ struct ConvParams {
   ConvPlan plan;
 };
 
+// A operand of tap dx: 64 pixels x 64 channels (K-major), the rows dx ..
+// dx + 63 of the stage's 66-pixel box, 128 dx bytes into its first 1024-byte
+// swizzle atom. The 128-byte swizzle is a function of the shared-memory
+// address, the same for TMA's writes and wgmma's reads, so a descriptor that
+// starts there reads the box as written, with the base offset (bits 49-51)
+// left 0. (Setting it to dx gave wrong products on the H100.)
+__device__ __forceinline__ uint64_t a_desc(uint32_t x_addr, int dx) {
+  return sm90::smem_desc(x_addr + dx * 128, 16, 1024, 128);
+}
+
 // 128-byte swizzled (pixel, channel pair) offset of the staging tile
 __device__ __forceinline__ uint32_t staging_offset(int row, int i, int q) {
   return row * 128 + ((i ^ (row & 7)) << 4) + 4 * q;
@@ -116,14 +135,17 @@ __device__ __forceinline__ uint32_t staging_offset(int row, int i, int q) {
 // thread:
 //   begin()                         a new strip
 //   issue<kFirst>(x_addr, w_addr)  the wgmmas of one K atom of input row v
-//                                   (x_addr: the three dx slabs; w_addr: the
-//                                   atom's three dy boxes); kFirst: atom 0
+//                                   (x_addr: the row's 66-pixel box; w_addr:
+//                                   the atom's three dy boxes); kFirst: atom 0
 //   fence()                         after the wgmmas have completed
 //   empty_row()                     input row v lies outside the image
 //   finish_row()                    after row v: output row v - 1 complete
 //   out(j)                          its register j (the wgmma m64n64
 //                                   accumulator layout)
-//   advance()                       on to input row v + 1
+//   advance()                       after its store: on to row v + 1
+//   kStoreUnderProducts             store it while row v + 1's wgmmas run
+//                                   (out() must then outlive advance()), or
+//                                   right away
 template <class Body>
 __global__ void __launch_bounds__(kThreads, 1)
     conv3x3_kernel(const __grid_constant__ ConvParams p) {
@@ -185,10 +207,8 @@ __global__ void __launch_bounds__(kThreads, 1)
           for (int a = 0; a < atoms; ++a) {
             sm90::mbar_wait(empty(ring, s), phase ^ 1);
             const uint32_t dst = stage(ring, s);
-            sm90::mbar_expect_tx(full(ring, s), pl.stage_bytes);
-            for (int dx = 0; dx < 3; ++dx)
-              sm90::tma_load_4d(dst + dx * kSlabBytes, &p.x, full(ring, s), a * kChans,
-                                u.x0 - 1 + dx, v, u.b);
+            sm90::mbar_expect_tx(full(ring, s), pl.resident ? kRowTx : kRowTx + kAtomWBytes);
+            sm90::tma_load_4d(dst, &p.x, full(ring, s), a * kChans, u.x0 - 1, v, u.b);
             if (!pl.resident)
               for (int dy = 0; dy < 3; ++dy)
                 sm90::tma_load_4d(dst + kRowBytes + dy * kDyBytes, &p.w, full(ring, s),
@@ -212,13 +232,37 @@ __global__ void __launch_bounds__(kThreads, 1)
     Body body;
     int s = 0;
     uint32_t phase = 0;
+    // epilogue: output row y (the body's out registers) as bf16 through the
+    // staging tile to a TMA store
+    auto store_row = [&](const Unit& u, int y) {
+      if (t == 0) sm90::bulk_wait_read();  // the previous store has read the tile
+      sm90::bar_sync(1 + wg, 128);
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = 16 * warp + g + 8 * h;
+          *reinterpret_cast<uint32_t*>(staging_ptr + staging_offset(row, i, q)) =
+              pack_bf16(body.out(4 * i + 2 * h), body.out(4 * i + 2 * h + 1));
+        }
+      sm90::fence_proxy_async();
+      sm90::bar_sync(1 + wg, 128);
+      if (t == 0) {
+        sm90::tma_store_4d(&p.out, staging, group * kChans, u.x0, y, u.b);
+        sm90::bulk_commit();
+      }
+    };
     for (int j = first_unit + wg; j < p.units; j += 2 * nb) {
       const Unit u = decode(j);
       body.begin();
+      int pending = -1;  // the output row in body.out(), not yet stored
+      auto store_pending = [&] {
+        if (pending >= 0) store_row(u, pending);
+      };
       for (int v = u.y0 - 1; v <= u.yend; ++v) {
         if (v >= 0 && v < p.H) {
-          // one K atom: wait for its stage, issue, wait for the products,
-          // hand the stage back
+          // one K atom: wait for its stage, issue its products, wait, hand
+          // the stage back; atom 0 stores the pending row under its products
           auto take = [&](int a, auto first) {
             sm90::mbar_wait(full(wg, s), phase);
             const uint32_t x_addr = stage(wg, s);
@@ -226,6 +270,7 @@ __global__ void __launch_bounds__(kThreads, 1)
             sm90::wgmma_fence();
             body.template issue<decltype(first)::value>(x_addr, w_addr);
             sm90::wgmma_commit();
+            if constexpr (decltype(first)::value && Body::kStoreUnderProducts) store_pending();
             sm90::wgmma_wait<0>();
             body.fence();
             if (lane == 0) sm90::mbar_arrive(empty(wg, s));
@@ -238,32 +283,18 @@ __global__ void __launch_bounds__(kThreads, 1)
           for (int a = 1; a < atoms; ++a) take(a, std::false_type{});
         } else {
           body.empty_row();
+          if constexpr (Body::kStoreUnderProducts) store_pending();
         }
         body.finish_row();
-        const int y = v - 1;
-        if (y < u.y0) {
-          body.advance();
-          continue;
+        const int y = v - 1 >= u.y0 ? v - 1 : -1;
+        if constexpr (Body::kStoreUnderProducts) {
+          pending = y;  // stored with row v + 1
+        } else if (y >= 0) {
+          store_row(u, y);
         }
-        // epilogue: output row y, bf16, through the staging tile to a TMA store
-        if (t == 0) sm90::bulk_wait_read();  // the previous store has read the tile
-        sm90::bar_sync(1 + wg, 128);
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int row = 16 * warp + g + 8 * h;
-            *reinterpret_cast<uint32_t*>(staging_ptr + staging_offset(row, i, q)) =
-                pack_bf16(body.out(4 * i + 2 * h), body.out(4 * i + 2 * h + 1));
-          }
         body.advance();
-        sm90::fence_proxy_async();
-        sm90::bar_sync(1 + wg, 128);
-        if (t == 0) {
-          sm90::tma_store_4d(&p.out, staging, group * kChans, u.x0, y, u.b);
-          sm90::bulk_commit();
-        }
       }
+      if constexpr (Body::kStoreUnderProducts) store_pending();
     }
     if (t == 0) sm90::bulk_wait();
   }
@@ -283,7 +314,7 @@ cudaError_t launch(const void* x, const void* w, void* out, int B, int H, int W,
   p.groups = Co / kChans;
   p.plan = make_plan(Ci);
   if (p.plan.stages < 1) return cudaErrorInvalidValue;
-  cudaError_t err = sm90::encode_nhwc(&p.x, x, B, H, W, Ci, kCols);
+  cudaError_t err = sm90::encode_nhwc(&p.x, x, B, H, W, Ci, kBoxCols);
   if (err == cudaSuccess) err = sm90::encode_hwio3x3(&p.w, w, Ci, Co);
   if (err == cudaSuccess) err = sm90::encode_nhwc(&p.out, out, B, H, W, Co, kCols);
   if (err == cudaSuccess) err = allow_shared_memory<conv3x3_kernel<Body>>(p.plan.bytes);

@@ -1,7 +1,7 @@
-// Hopper (sm_90a) building blocks of the attention kernels: mbarriers, TMA
-// tensor loads, wgmma (warpgroup MMA) with shared-memory descriptors, named
-// barriers, register reallocation between warpgroups, and the host-side
-// encoding of TMA tensor maps. The encoder is reached through
+// Hopper (sm_90a) building blocks of the attention and 3x3 conv kernels:
+// mbarriers, TMA tensor loads and stores, wgmma (warpgroup MMA) with
+// shared-memory descriptors, named barriers, register reallocation between
+// warpgroups, and the host-side encoding of TMA tensor maps. The encoder is reached through
 // cudaGetDriverEntryPoint, so nothing links against libcuda.
 
 #pragma once
@@ -234,19 +234,28 @@ __device__ __forceinline__ void wgmma_m64n64k16_ss_tb(float (&d)[32], uint64_t d
 #undef GF_WGMMA_M64N64K16_SS_TB
 }
 
-// d (m64 x n64, f32) += A (registers, 64 x 16 bf16) * B (smem, MN-major)
+// d (m64 x n64, f32) = A (registers, 64 x 16 bf16) * B (smem, MN-major)
+// [+ d if kAcc]
+template <bool kAcc = true>
 __device__ __forceinline__ void wgmma_m64n64k16_rs_tb(float (&d)[32], const uint32_t (&a)[4],
                                                        uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+#define GF_WGMMA_M64N64K16_RS_TB(MODE) \
+  asm volatile( \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, " \
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n" \
+      : MODE(d[0]), MODE(d[1]), MODE(d[2]), MODE(d[3]), MODE(d[4]), MODE(d[5]), MODE(d[6]), MODE(d[7]), \
+        MODE(d[8]), MODE(d[9]), MODE(d[10]), MODE(d[11]), MODE(d[12]), MODE(d[13]), MODE(d[14]), MODE(d[15]), \
+        MODE(d[16]), MODE(d[17]), MODE(d[18]), MODE(d[19]), MODE(d[20]), MODE(d[21]), MODE(d[22]), MODE(d[23]), \
+        MODE(d[24]), MODE(d[25]), MODE(d[26]), MODE(d[27]), MODE(d[28]), MODE(d[29]), MODE(d[30]), MODE(d[31]) \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(int(kAcc)))
+  if constexpr (kAcc)
+    GF_WGMMA_M64N64K16_RS_TB("+f");
+  else
+    GF_WGMMA_M64N64K16_RS_TB("=f");
+#undef GF_WGMMA_M64N64K16_RS_TB
 }
 
 // d (m64 x n32, f32) += A (registers, 64 x 16 bf16) * B (smem, MN-major)

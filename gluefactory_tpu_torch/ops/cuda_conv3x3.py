@@ -42,11 +42,12 @@ _CHANNELS = 64  # C_in and C_out are multiples of this
 # channels, walked top to bottom through its input rows
 STRIP_ROWS, STRIP_COLS = 64, 64
 # shared memory per block (csrc/conv3x3_tile.cuh::make_plan): one input row
-# of a stage (three 64-pixel boxes of 64 channels), the weights of one K atom
-# (three dy boxes of 3 x 64 x 64), the staging tile of each consumer, barriers
-_ROW_BYTES = 3 * STRIP_COLS * _CHANNELS * 2
+# of a stage (one box of STRIP_COLS + 2 pixels x 64 channels, 1024-byte
+# aligned), the weights of one K atom (three dy boxes of 3 x 64 x 64), the
+# staging tile of each consumer, the barriers and the alignment slack
+_ROW_BYTES = 9 * 1024
 _ATOM_W_BYTES = 9 * _CHANNELS * _CHANNELS * 2
-_MAX_STAGES = 4
+_MAX_STAGES = 6
 _FIXED_BYTES = 2 * STRIP_COLS * _CHANNELS * 2 + 8 * (4 * _MAX_STAGES + 1) + 1024
 
 

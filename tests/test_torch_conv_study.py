@@ -131,10 +131,10 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(form):
 
 
 @pytest.mark.parametrize("ci,resident,stages,nbytes", [
-    (64, True, 2, 189576),    # 72 KB of weights, 2 x 2 stages of 24 KB, staging, barriers
-    (128, True, 1, 214152),   # 144 KB of weights, 2 x 1 stage
-    (192, False, 1, 214152),  # each stage carries its K atom's 72 KB of weights
-    (512, False, 1, 214152),
+    (64, True, 6, 201928),    # 72 KB of weights, 2 x 6 stages of 9 KB, staging, barriers
+    (128, True, 3, 220360),   # 144 KB of weights, 2 x 3 stages
+    (192, False, 1, 183496),  # each stage carries its K atom's 72 KB of weights
+    (512, False, 1, 183496),
 ])
 def test_npack_shared_memory_need(ci, resident, stages, nbytes):
     """Both kernels' shared memory (csrc/conv3x3_tile.cuh::make_plan): the
@@ -142,7 +142,7 @@ def test_npack_shared_memory_need(ci, resident, stages, nbytes):
     C_in fits a block's 227 KiB, so both wrappers take every multiple of 64."""
     plan = cuda_conv3x3.shared_plan(ci)
     assert plan == {"resident": resident, "stages": stages,
-                    "stage_bytes": 24576 if resident else 24576 + 73728, "bytes": nbytes}
+                    "stage_bytes": 9216 if resident else 9216 + 73728, "bytes": nbytes}
     assert plan["bytes"] <= _build.MAX_SHARED_BYTES
     bf = torch.bfloat16
     for form in ("stream", "npack"):
