@@ -27,8 +27,9 @@
 // 232, no spills. The first product of a row writes P without reading it,
 // so the old P is dead there: with a run-time accumulate flag instead,
 // ptxas kept it alive and spilled. Storing under the products was 8%
-// faster than storing after them (0.810-0.811 ms against 0.882-0.884 in
-// one call; my chip run 6, H100 80GB HBM3, 700 W).
+// faster than storing after them (0.810-0.811 ms against 0.882-0.884,
+// both timed in one call by scripts_dev/profile_npack.py on an H100 80GB
+// HBM3 at 700 W).
 //
 // Bound at the conv1b shape (8 x 1024^2 x 64 -> 64): bytes 0.641 ms,
 // operations 0.625 ms (0.644 ms of the kernel's own work at S = 64: 1,054

@@ -27,8 +27,9 @@
 // delivers, under the 1,152 clocks of the row's products at the tensor
 // cores' peak; A read by descriptor makes it 144 KB, 1,152 clocks, with
 // TMA's writes on top. Register A was 12-13% faster
-// than A from shared memory (0.981-0.983 ms against 1.119-1.136 in one call,
-// my chip run 5, H100 80GB HBM3, 700 W). The transposed product (C_out as M,
+// than A from shared memory (0.981-0.983 ms against 1.119-1.136, both timed
+// in one call by scripts_dev/profile_stream_conv.py on an H100 80GB HBM3 at
+// 700 W). The transposed product (C_out as M,
 // 128-256 pixels as N) would read less per product too, but needs a
 // transposing epilogue and another stage shape than the N-packed kernel's;
 // (a) shares everything with it, so the two formulations differ in their

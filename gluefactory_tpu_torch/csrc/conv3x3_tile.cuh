@@ -29,8 +29,9 @@
 //     ragged right and bottom edges cost no predicate. Input rows above and
 //     below the image are not loaded at all: their products are zero.
 //   - The dx shift: one 66-pixel box, not three 64-pixel boxes at x0 - 1,
-//     x0 and x0 + 1. Both were built and timed in one call (my chip run 5,
-//     H100 80GB HBM3, 700 W): the same speed for the N-packed kernel
+//     x0 and x0 + 1. Both were built and timed in one call by the
+//     conv-study tools (scripts_dev/profile_{npack,stream_conv}.py, H100
+//     80GB HBM3 at 700 W): the same speed for the N-packed kernel
 //     (0.906-0.923 ms against 0.924-0.926) and 1-2% faster for streaming
 //     (1.111 against 1.119-1.136). It is kept because it reads each input
 //     byte from L2 once, not three times (1.1 GB per call at conv1b against

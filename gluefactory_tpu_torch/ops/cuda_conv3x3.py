@@ -96,7 +96,7 @@ def shared_plan(ci: int) -> dict:
     <= _build.MAX_SHARED_BYTES for every C_in): the weights of the block's
     output-channel group stay resident while they fit beside at least one
     stage per pipeline, else each stage carries its K atom's weights;
-    `stages` per pipeline (two pipelines, at most 4 each)."""
+    `stages` per pipeline (two pipelines, at most 6 each)."""
     atoms = ci // _CHANNELS
     resident = atoms * _ATOM_W_BYTES + _FIXED_BYTES + 2 * _ROW_BYTES <= _build.MAX_SHARED_BYTES
     w_bytes = atoms * _ATOM_W_BYTES if resident else 0
