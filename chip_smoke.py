@@ -13,9 +13,9 @@ Phases, in order; any failure exits non-zero before the last line:
    kernels also at a tail shape (777 queries, 1029 keys) and with q/k as
    LightGlue's (B, N, H, D)-ordered views; then the kernel, its plain
    version, and one PyTorch library call computing the same function, timed
-   with CUDA events (the attention kernels by their device time under
-   torch.profiler; bounds count tensor-core operations, exponentials and
-   bytes);
+   with CUDA events (the attention kernels by their device time: the calls
+   queued behind a sleep kernel, so that they run back to back; bounds count
+   tensor-core operations, exponentials and bytes);
 4. main path: `two_view_pipeline` (SuperPoint + LightGlue-9, d=256, 4 heads,
    2048 keypoints, 1024x1024 images, bf16, random weights from seed 0) run
    through its entry point on 4 pairs; launch counts reset just before and
@@ -308,9 +308,10 @@ def phase_kernels(dev: torch.device) -> list[dict]:
             elem = torch.finfo(dtype).bits // 8
             n_bytes = (n_in + n_out) * BH * M * HEAD_DIM * elem + (m0.numel() + m1.numel())
             bound_ms, bound_by = _bound(n_ops, n_bytes, dtype, n_exps)
-            # device time (torch.profiler): the wrapper's host time between
-            # launches (~0.1 ms of Python) would otherwise hide a kernel this
-            # short; the events' times are kept beside it
+            # device time (calls queued ahead of the device): the wrapper's
+            # host time between launches (~0.1 ms of Python) would otherwise
+            # hide a kernel this short; the plain events' times are kept
+            # beside it
             timing = {
                 "ms": device_time_ms(lambda: kernel(*args)),
                 "plain_ms": device_time_ms(lambda: plain(*args), reps=5),
@@ -324,6 +325,8 @@ def phase_kernels(dev: torch.device) -> list[dict]:
                                  "bytes_ms": n_bytes / PEAK_BYTES * 1e3},
                 "timed_shape": [BH // HEADS, HEADS, M, HEAD_DIM],
             }
+            if not min(timing["ms"], timing["plain_ms"], timing["library_ms"]) > 0:
+                fail(f"{name}: a time is not positive: {timing}")
             timing["ms_over_library"] = timing["ms"] / timing["library_ms"]
         bf16 = [p["max_abs_err"] for p in parity if p["dtype"] == "bfloat16"]
         results.append({
@@ -733,6 +736,9 @@ def profile_forward(model, batch, gen) -> dict:
     rows = [(ev.key, ev.self_device_time_total / 1e3, ev.count)
             for ev in prof.key_averages()
             if ev.device_type == torch.autograd.DeviceType.CUDA and ev.self_device_time_total > 0]
+    if not rows:  # the profiler saw no device event: not measured
+        print("profile: no device events recorded; device time by kernel not measured", flush=True)
+        return {"device_ms": None, "attention_kernel_ms": None, "port_kernel_ms": None, "top": []}
     rows.sort(key=lambda r: -r[1])
     total = sum(r[1] for r in rows)
     port = {fam: sum(r[1] for r in rows if any(sym in r[0] for sym in syms))
