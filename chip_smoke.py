@@ -15,7 +15,16 @@ Phases, in order; any failure exits non-zero before the last line:
    version, and one PyTorch library call computing the same function, timed
    with CUDA events (the attention kernels by their device time: the calls
    queued behind a sleep kernel, so that they run back to back; bounds count
-   tensor-core operations, exponentials and bytes);
+   tensor-core operations, exponentials and bytes); Sinkhorn also at ragged
+   sizes, 0 and 1 iterations, an all -inf row, several items at once
+   (513^2), rows streamed from device memory (4097^2) and v read through L2
+   (N = 20000); the VGG blocks also at a strip boundary, an odd size
+   pooled and channels that take the CUDA-core body, each block's body and
+   strip height recorded, the kernel and the cuDNN sequence by device time;
+3b. gradients: with grad enabled, each of the four differentiable kernels'
+   outputs (both attention kernels, the VGG block, Sinkhorn) carries a
+   grad_fn, and its gradients equal the plain version's at small shapes;
+   the decode raises under grad;
 4. main path: `two_view_pipeline` (SuperPoint + LightGlue-9, d=256, 4 heads,
    2048 keypoints, 1024x1024 images, bf16, random weights from seed 0) run
    through its entry point on 4 pairs; launch counts reset just before and
@@ -79,6 +88,7 @@ PEAK_BYTES = 3.35e12
 PEAK_SFU = 16 * 132 * 1.98e9
 
 KERNEL_MODULES = (cuda_attention, cuda_sinkhorn, cuda_detect, cuda_conv, cuda_conv3x3)
+SMS = 132  # replaced by the card's SM count in phase_device
 
 # main path (bench.py's configuration)
 PAIRS, IMAGE, KEYPOINTS, LAYERS, DIM, HEADS = 4, 1024, 2048, 9, 256, 4
@@ -96,6 +106,10 @@ SUPERGLUE_CONF = {
                 "descriptor_dim": DIM, "num_heads": HEADS, "n_layers": LAYERS},
 }
 SINKHORN_ITERS = 50
+# Sinkhorn parity beyond path B: (B, M, N, iterations); M = 30 has an all
+# -inf row
+SINKHORN_SHAPES = [(3, 100, 77, 50), (2, 65, 130, 1), (2, 37, 41, 0), (1, 3, 1, 7),
+                   (4, 513, 513, 50), (1, 4097, 4097, 5), (1, 5, 20000, 3), (2, 30, 41, 3)]
 
 # kernel vs plain on the card. f32: both sum f32 products in another order.
 # bf16: outputs round to bf16 (step 2^-9 at |x| ~ 0.5) and the kernel rounds
@@ -133,6 +147,8 @@ def phase_device() -> dict:
     ).stdout.strip().splitlines()[0]
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    global SMS
+    SMS = torch.cuda.get_device_properties(0).multi_processor_count
     info = {
         "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),
@@ -377,6 +393,28 @@ def check_sinkhorn(dev, gen) -> dict:
         parity.append({"dtype": "float32", "masks": case, "max_abs_err": err, "tol": tol})
         if not err <= tol:
             fail(f"log_sinkhorn {case}: max abs err {err} > {tol}")
+    # beyond path B: ragged sizes, one row or column, 0 and 1 iterations,
+    # several items at once (513^2), rows streamed from device memory
+    # (4097^2), v read through L2 (N = 20000), an all -inf row
+    for b_, m_, n_, iters in SINKHORN_SHAPES:
+        Z = torch.randn(b_, m_, n_, generator=gen, device=dev) * 2.0
+        mu = torch.full((b_, m_), -math.log(m_ + n_), device=dev)
+        nu = torch.full((b_, n_), -math.log(m_ + n_), device=dev)
+        if m_ == 30:
+            Z[0, 3] = -float("inf")
+        got = cuda_sinkhorn.log_sinkhorn(Z, mu, nu, iters)
+        want = cuda_sinkhorn.plain_log_sinkhorn(Z, mu, nu, iters)
+        torch.cuda.synchronize()
+        if not torch.equal(torch.isnan(got), torch.isnan(want)):
+            fail(f"log_sinkhorn {(b_, m_, n_, iters)}: NaNs differ from the plain version")
+        err = _finite_log_err(got, want)
+        parity.append({"dtype": "float32", "shape": [b_, m_, n_], "iters": iters,
+                       "all_inf_row": m_ == 30, "max_abs_err": err, "tol": tol,
+                       "plan": cuda_sinkhorn.sinkhorn_plan(b_, m_, n_, SMS)})
+        if not err <= tol:
+            fail(f"log_sinkhorn {(b_, m_, n_, iters)}: max abs err {err} > {tol}")
+        del Z, got, want
+    torch.cuda.empty_cache()
     # the kernel's own inputs at the main shape: couplings with bins
     M = N = K + 1
     Z = torch.randn(B, M, N, generator=gen, device=dev)
@@ -395,6 +433,7 @@ def check_sinkhorn(dev, gen) -> dict:
         "library_ms": None,
         "bound_ms": max(t_bytes, t_ops), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "bound_detail": {"exponentials": exps, "sfu_ms": exps / PEAK_SFU * 1e3, "bytes_ms": t_bytes},
+        "plan": cuda_sinkhorn.sinkhorn_plan(B, M, N, SMS),
         "timed_shape": [B, M, N, SINKHORN_ITERS], "parity": parity,
     }
     return res
@@ -460,6 +499,17 @@ def _vgg_inputs(gen, dev, shape, cm, co):
     return x, w
 
 
+# VGG parity beyond path C: a pooled pair of blocks across the wgmma body's
+# strip boundaries, an odd size pooled, C_out 80 and C_in 48 (the CUDA-core
+# body for that conv); (name, input NHWC, C_mid, C_out or None, pool)
+VGG_EXTRA = [
+    ("strip_boundary", (1, 130, 200, 64), 64, 64, True),
+    ("odd_pooled", (2, 37, 51, 64), 64, None, True),
+    ("c_out_80", (2, 37, 50, 64), 128, 80, True),
+    ("c_in_48", (2, 24, 40, 48), 64, None, True),
+]
+
+
 def check_vgg(dev, gen) -> dict:
     """Path C's four blocks (8 images: conv1b + pool at 1024^2 x 64, the
     two-conv blocks with pool, block 4 without), f32 and bf16. f32: the same
@@ -468,10 +518,13 @@ def check_vgg(dev, gen) -> dict:
     plain f32 on the same bf16 inputs), plus one bf16 step at the largest
     output, for a sum in another order that flips a rounding. Timed in
     bf16 against the plain version and the cuDNN sequence conv2d, relu,
-    [conv2d, relu], [max_pool2d] in channels-last."""
+    [conv2d, relu], [max_pool2d] in channels-last; the kernel and the cuDNN
+    sequence by device time (block 4 takes ~0.1 ms, under the wrapper's host
+    time, so CUDA events around calls as the host issues them would time the
+    Python)."""
     F = torch.nn.functional
     parity, blocks = [], []
-    for name, shape, cm, co, pool in VGG_BLOCKS:
+    for name, shape, cm, co, pool in VGG_BLOCKS + VGG_EXTRA:
         x, w = _vgg_inputs(gen, dev, shape, cm, co)
         for dtype in (torch.float32, torch.bfloat16):
             xd, wd = x.to(dtype), [a.to(dtype) for a in w]
@@ -486,10 +539,13 @@ def check_vgg(dev, gen) -> dict:
                 tol = 2.0 * _err(want, ref) + bf16_step(float(want.float().abs().max()))
                 del ref
             parity.append({"block": name, "dtype": str(dtype).split(".")[-1],
-                           "max_abs_err": err, "tol": tol})
+                           "max_abs_err": err, "tol": tol,
+                           "convs": cuda_conv.conv_plan(*shape, cm, co, pool, dtype, SMS)})
             if not err <= tol:
                 fail(f"fused_vgg_block {name} {dtype}: max abs err {err} > {tol}")
             del got, want
+        if name not in {b[0] for b in VGG_BLOCKS}:
+            continue
         xd, wd = x.to(torch.bfloat16), [a.to(torch.bfloat16) for a in w]
         xc = xd.permute(0, 3, 1, 2)  # NCHW view of NHWC memory: channels-last
         wc = [a.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last) if a.dim() == 4
@@ -510,15 +566,19 @@ def check_vgg(dev, gen) -> dict:
         blocks.append({
             "block": name, "shape": list(shape), "c_mid": cm, "c_out": out_c, "pool": pool,
             "gflop": flops / 1e9,
-            "ms": cuda_time_ms(lambda: cuda_conv.fused_vgg_block(xd, *wd, pool=pool), reps=5),
+            "convs": cuda_conv.conv_plan(*shape, cm, co, pool, torch.bfloat16, SMS),
+            "ms": device_time_ms(lambda: cuda_conv.fused_vgg_block(xd, *wd, pool=pool), reps=10),
             "plain_ms": cuda_time_ms(lambda: cuda_conv.vgg_block_plain(xd, *wd, pool=pool), reps=5),
-            "library_ms": cuda_time_ms(library, reps=10),
+            "library_ms": device_time_ms(library, reps=10),
+            "event_ms": cuda_time_ms(lambda: cuda_conv.fused_vgg_block(xd, *wd, pool=pool), reps=5),
             "bound_ms": bound_ms, "bound_by": bound_by,
         })
         print(f"  vgg {name}: {json.dumps(blocks[-1])}", flush=True)
         del x, w, xd, wd, xc, wc
     torch.cuda.empty_cache()
     total = {k: sum(b[k] for b in blocks) for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    if not min(total["ms"], total["library_ms"]) > 0:
+        fail(f"fused_vgg_block: a time is not positive: {total}")
     return {
         "name": "fused_vgg_block", "route": "cuda", "source": "gluefactory_tpu_torch/csrc/vgg_block.cu",
         "replaces": "gluefactory_tpu/ops/pallas_conv.py:177",
@@ -527,6 +587,65 @@ def check_vgg(dev, gen) -> dict:
         "conv2d, relu, max_pool2d), channels-last bf16", "times": "sum over path C's four blocks",
         "blocks": blocks, "parity": parity,
     }
+
+
+# --------------------------------------------------------------------------
+# 3b. gradients
+# --------------------------------------------------------------------------
+
+
+def phase_gradients(dev: torch.device) -> dict:
+    """Kernel-path gradients against plain-version gradients at small
+    shapes, f32 (the backward is the plain version's own, so they agree to
+    1e-5, with cuDNN's conv backward made deterministic); a missing grad_fn
+    fails."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    torch.backends.cudnn.deterministic = True
+
+    def leaf(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device=dev) * scale).requires_grad_(True)
+
+    m = torch.rand(2, 100, generator=gen, device=dev) > 0.3
+    cases = {
+        "fused_attention": (cuda_attention.fused_attention, cuda_attention.attention_plain,
+                            [leaf(2, 4, 100, 64), leaf(2, 4, 100, 64), leaf(2, 4, 100, 64), m, None]),
+        "fused_bidirectional_attention": (
+            cuda_attention.fused_bidirectional_attention, cuda_attention.bidirectional_plain,
+            [leaf(2, 4, 100, 64), leaf(2, 4, 77, 64), leaf(2, 4, 100, 64), leaf(2, 4, 77, 64), m, None]),
+        "fused_vgg_block": (cuda_conv.fused_vgg_block, cuda_conv.vgg_block_plain,
+                            [leaf(2, 20, 34, 64), leaf(3, 3, 64, 64, scale=0.05), leaf(64, scale=0.1),
+                             leaf(3, 3, 64, 64, scale=0.05), leaf(64, scale=0.1), True]),
+        "log_sinkhorn": (cuda_sinkhorn.log_sinkhorn, cuda_sinkhorn.plain_log_sinkhorn,
+                         [leaf(2, 65, 70), torch.full((2, 65), -5.0, device=dev).requires_grad_(True),
+                          torch.full((2, 70), -5.0, device=dev), 10]),
+    }
+    res = {}
+    for name, (kernel, plain, inputs) in cases.items():
+        leaves = [t for t in inputs if torch.is_tensor(t) and t.requires_grad]
+        outs = kernel(*inputs)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        if any(o.grad_fn is None for o in outs):
+            fail(f"{name}: the kernel's output carries no grad_fn under autograd")
+        cot = [torch.randn(o.shape, generator=gen, device=dev) for o in outs]
+        got = torch.autograd.grad(outs, leaves, cot)
+        refs = plain(*inputs)
+        want = torch.autograd.grad(refs if isinstance(refs, tuple) else (refs,), leaves, cot)
+        torch.cuda.synchronize()
+        err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+        scale = max(float(b.abs().max()) for b in want)
+        res[name] = {"max_abs_err": err, "tol": 1e-5 * max(1.0, scale), "inputs": len(leaves)}
+        if not err <= res[name]["tol"]:
+            fail(f"{name}: kernel-path gradient differs from the plain version's by {err}")
+    s = torch.rand(1, 64, 64, device=dev, requires_grad=True)
+    try:
+        cuda_detect.fused_nms_tile_reduce(s)
+    except RuntimeError:
+        res["fused_nms_tile_reduce"] = "raises under grad"
+    else:
+        fail("fused_nms_tile_reduce returned outputs under grad instead of raising")
+    torch.backends.cudnn.deterministic = False
+    print(f"gradients: {json.dumps(res)}", flush=True)
+    return res
 
 
 def phase_new_kernels(dev: torch.device) -> list[dict]:
@@ -722,7 +841,7 @@ def phase_main_path(device_info: dict, batch: dict):
 
 # device-kernel names of the port's kernels, by family
 KERNEL_SYMBOLS = {"attention": ("gf::attention",), "sinkhorn": ("sinkhorn_",),
-                  "detect": ("nms_tile_kernel",), "vgg": ("conv3x3_relu",)}
+                  "detect": ("nms_tile_kernel",), "vgg": ("conv3x3_relu", "NpackBody")}
 
 
 def profile_forward(model, batch, gen) -> dict:
@@ -950,6 +1069,7 @@ def main() -> None:
     build = phase_build()
     dev = torch.device(DEVICE)
     kernels = phase_kernels(dev) + phase_new_kernels(dev)
+    gradients = phase_gradients(dev)
     torch.cuda.empty_cache()
     batch = make_batch(dev)
     main_path, main_model = phase_main_path(device_info, batch)
@@ -964,7 +1084,8 @@ def main() -> None:
     torch.cuda.empty_cache()
     kernels += phase_conv_study(device_info)  # launches from the tools' runs
     OUT_DIR.mkdir(exist_ok=True)
-    record = {"device": device_info, "build": build, "kernels": kernels, "main_path": main_path,
+    record = {"device": device_info, "build": build, "kernels": kernels, "gradients": gradients,
+              "main_path": main_path,
               "path_b_superglue": path_b, "path_c_fused_superpoint": path_c,
               "seconds": time.perf_counter() - t0}
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(record, indent=1))

@@ -38,74 +38,13 @@
 // shared memory: 85 B a clock of the 128 that shared memory delivers, so
 // the tensor cores, not shared memory, are its limit.
 
-#include "conv3x3_tile.cuh"
-
-namespace {
-
-using gf::conv::kDyBytes;
-using gf::conv::kDxBytes;
-
-struct NpackBody {
-  static constexpr bool kStoreUnderProducts = true;
-  float p[96];      // P of the current input row: [dy0 | dy1 | dy2] x 64 channels
-  float part0[32];  // P[r - 1][0:64]
-  float part1[32];  // P[r - 2][0:64] + P[r - 1][64:128]
-  float out_[32];   // output row r - 2 until it is stored
-
-  __device__ __forceinline__ void begin() {
-#pragma unroll
-    for (int j = 0; j < 32; ++j) part0[j] = part1[j] = 0.f;
-  }
-
-  // the products of one K atom of input row r; the first of atom 0 starts P
-  template <bool kFirst>
-  __device__ __forceinline__ void issue(uint32_t x_addr, uint32_t w_addr) {
-#pragma unroll
-    for (int dx = 0; dx < 3; ++dx)
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        // A: 64 pixels x 16 channels of slab dx (K-major, 32 B steps in a row)
-        const uint64_t da = gf::conv::a_desc(x_addr, dx) + 2 * kk;
-        // B: rows dx * 64 + 16 kk .. of the three dy boxes (MN-major, the
-        // dy boxes kDyBytes apart)
-        const uint64_t db =
-            gf::sm90::smem_desc(w_addr + dx * kDxBytes + kk * 2048, kDyBytes, 1024, 128);
-        if (kFirst && dx == 0 && kk == 0)
-          gf::sm90::wgmma_m64n192k16_ss_tb<false>(p, da, db);
-        else
-          gf::sm90::wgmma_m64n192k16_ss_tb<true>(p, da, db);
-      }
-  }
-
-  __device__ __forceinline__ void fence() { gf::sm90::fence_regs(p); }
-
-  __device__ __forceinline__ void empty_row() {
-#pragma unroll
-    for (int j = 0; j < 96; ++j) p[j] = 0.f;
-  }
-
-  // output row r - 1 into out_; P is free for the next row after this
-  __device__ __forceinline__ void finish_row() {
-#pragma unroll
-    for (int j = 0; j < 32; ++j) {
-      out_[j] = part1[j] + p[64 + j];
-      part1[j] = part0[j] + p[32 + j];
-      part0[j] = p[j];
-    }
-  }
-
-  __device__ __forceinline__ float out(int j) const { return out_[j]; }
-
-  __device__ __forceinline__ void advance() {}
-};
-
-}  // namespace
+#include "conv3x3_npack.cuh"
 
 // x (B, H, W, Ci) NHWC bf16, w (3, 3, Ci, Co) HWIO bf16, out (B, H, W, Co)
 // bf16, all contiguous and 16-byte aligned; Ci and Co positive multiples of
 // 64. Returns a cudaError_t (0 = launched).
 extern "C" int gf_npack_conv3x3(const void* x, const void* w, void* out, int B, int H, int W,
                                 int Ci, int Co, void* stream) {
-  return static_cast<int>(gf::conv::launch<NpackBody>(x, w, out, B, H, W, Ci, Co,
-                                                      static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(gf::conv::launch<gf::conv::NpackBody>(
+      x, w, out, B, H, W, Ci, Co, static_cast<cudaStream_t>(stream)));
 }

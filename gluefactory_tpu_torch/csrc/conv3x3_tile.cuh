@@ -1,20 +1,25 @@
-// The skeleton shared by the two conv-study kernels, conv3x3_stream.cu and
-// conv3x3_npack.cu: out = conv3x3(x, w), NHWC x, HWIO w, SAME zero padding,
-// no bias, no ReLU, bf16 in, products summed in f32, the output rounded once
-// to bf16. They replace the Pallas prototypes `stream_conv` / `npack_conv`
-// of scripts_dev/profile_stream_conv.py and scripts_dev/profile_npack.py.
-// This header holds the producer, the tensor maps, the stage ring and the
-// epilogue; each kernel source brings its consumer body (its products and
-// how a finished output row comes out of its registers).
+// The skeleton shared by the 3x3 conv kernels on wgmma: the two conv-study
+// kernels, conv3x3_stream.cu and conv3x3_npack.cu (out = conv3x3(x, w), no
+// bias, no ReLU; they replace the Pallas prototypes `stream_conv` /
+// `npack_conv` of scripts_dev/profile_stream_conv.py and
+// scripts_dev/profile_npack.py), and the bf16 body of SuperPoint's VGG block,
+// vgg_block.cu (bias and ReLU, and the 2x2/2 max-pool, in the epilogue).
+// NHWC x, HWIO w, SAME zero padding, bf16 in, products summed in f32, the
+// output rounded once to bf16. This header holds the producer, the tensor
+// maps, the stage ring and the epilogues; each kernel source brings its
+// consumer body (its products and how a finished output row comes out of
+// its registers) and picks an epilogue (`Epilogue`).
 //
 // Bound on an H100 SXM at the conv1b shape (8 x 1024^2 x 64 -> 64): 2.15 GB
 // of input and output at 3.35 TB/s, 0.641 ms, just above the 618 GFLOP at
 // 989 TFLOP/s, 0.625 ms. So loads, products and stores must all overlap.
 //
 // Design:
-//   - Work: a unit is a strip of kStripRows output rows x 64 pixels of one
-//     image and one group of 64 output channels. Blocks are persistent, one
-//     per SM; each block keeps one channel group, so its weights load once.
+//   - Work: a unit is a strip of `strip` output rows (kStripRows for the
+//     conv-study kernels; per shape for the VGG block,
+//     ops/cuda_conv.py::strip_rows) x 64 pixels of one image and one group
+//     of 64 output channels. Blocks are persistent, one per SM; each block
+//     keeps one channel group, so its weights load once.
 //   - 384 threads: consumer warpgroups 0 and 1 and a producer warpgroup 2
 //     (setmaxnreg: 232 registers for consumers, 40 for the producer). Each
 //     consumer warpgroup runs its own pipeline: its own ring of stages, fed
@@ -48,8 +53,19 @@
 //     (dy 1) and v - 1 (dy 2), so after row v the output row v - 1 is
 //     complete: the body hands it over as 64 x 64 f32 in registers. Each
 //     input row is loaded once per strip; 2 halo rows are re-read per strip.
-//   - Epilogue: round to bf16, write into a 128-byte swizzled staging tile
+//   - Epilogue: [add the bias in f32,] round to bf16 [with ReLU in the same
+//     conversion], write into a 128-byte swizzled staging tile
 //     (conflict-free), and store with TMA, which clips at the image's edges.
+//     With the pool, strips start on even rows; an even output row is
+//     pooled along x as bf16 pairs (the two pixels of a pair lie in lanes 4
+//     apart of the wgmma accumulator layout: one shuffle; rounding to bf16
+//     is monotonic, so it commutes with max) and left in the staging tile;
+//     the odd row below it, pooled along x, takes the max with it there and
+//     the 32 pooled pixels go out in one TMA store. An even last row of an
+//     odd height is never stored (the pool floors). The epilogue runs while
+//     the next row's products are in flight, but its ALU work is not hidden
+//     under them: it is kept to a bias add, a conversion, a shuffle and a
+//     max per channel pair.
 //     The N-packed body moves output row v - 1 into 32 registers of its own
 //     and stores it while input row v + 1's products run; the streaming
 //     body stores it right after row v's products (its register A operands
@@ -75,7 +91,7 @@
 namespace gf {
 namespace conv {
 
-constexpr int kStripRows = 64;     // output rows per unit (ops/cuda_conv3x3.py: STRIP_ROWS)
+constexpr int kStripRows = 64;     // the conv-study kernels' strip (ops/cuda_conv3x3.py: STRIP_ROWS)
 constexpr int kCols = 64;          // pixels per unit and per wgmma M (STRIP_COLS)
 constexpr int kChans = 64;         // channels per K atom and per output group
 constexpr int kThreads = 384;
@@ -109,9 +125,18 @@ __host__ __device__ inline ConvPlan make_plan(int ci) {
   return p;
 }
 
+// What a consumer does with a finished output row
+enum class Epilogue {
+  kStore,         // round to bf16 and store (the conv-study kernels)
+  kBiasRelu,      // relu(row + bias) in f32, round, store
+  kBiasReluPool,  // relu(row + bias), 2x2/2 max-pool with the row below, round, store
+};
+
 struct ConvParams {
-  CUtensorMap x, w, out;
+  CUtensorMap x, w, out;  // out: pooled (boxes of 32 pixels) under kBiasReluPool
+  const __nv_bfloat16* bias;  // (Co), for kBiasRelu and kBiasReluPool
   int B, H, W, Ci, Co;
+  int strip;                  // output rows per unit (even with the pool)
   int ncols, nstrips, units;  // units per output-channel group
   int groups;                 // Co / 64; block b keeps group b % groups
   ConvPlan plan;
@@ -147,7 +172,7 @@ __device__ __forceinline__ uint32_t staging_offset(int row, int i, int q) {
 //   kStoreUnderProducts             store it while row v + 1's wgmmas run
 //                                   (out() must then outlive advance()), or
 //                                   right away
-template <class Body>
+template <class Body, Epilogue kEpi>
 __global__ void __launch_bounds__(kThreads, 1)
     conv3x3_kernel(const __grid_constant__ ConvParams p) {
   extern __shared__ uint8_t smem_raw[];
@@ -182,8 +207,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   };
   auto decode = [&](int j) {
     const int col = j % p.ncols, rest = j / p.ncols;
-    const int y0 = (rest % p.nstrips) * kStripRows;
-    return Unit{rest / p.nstrips, y0, min(y0 + kStripRows, p.H), col * kCols};
+    const int y0 = (rest % p.nstrips) * p.strip;
+    return Unit{rest / p.nstrips, y0, min(y0 + p.strip, p.H), col * kCols};
   };
 
   const int wg = threadIdx.x / 128;
@@ -203,7 +228,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       uint32_t phase = 0;
       for (int j = first_unit + ring; j < p.units; j += 2 * nb) {
         const Unit u = decode(j);
-        const int v_end = min(u.y0 + kStripRows, p.H - 1);
+        const int v_end = min(u.y0 + p.strip, p.H - 1);
         for (int v = max(u.y0 - 1, 0); v <= v_end; ++v)
           for (int a = 0; a < atoms; ++a) {
             sm90::mbar_wait(empty(ring, s), phase ^ 1);
@@ -233,24 +258,80 @@ __global__ void __launch_bounds__(kThreads, 1)
     Body body;
     int s = 0;
     uint32_t phase = 0;
-    // epilogue: output row y (the body's out registers) as bf16 through the
-    // staging tile to a TMA store
-    auto store_row = [&](const Unit& u, int y) {
-      if (t == 0) sm90::bulk_wait_read();  // the previous store has read the tile
-      sm90::bar_sync(1 + wg, 128);
+    // register j of the body's out row: pixel 16 warp + g + 8 ((j / 2) % 2),
+    // channel 8 (j / 4) + 2 q + j % 2 of the group. A thread's 16 channels
+    // stay the same: their bias is loaded once, into registers (in the
+    // pooled epilogue ptxas then spills 32 bytes, and it is still faster
+    // than reading the bias from shared memory on each row:
+    // scripts_dev/kernel_variants.py no_bias against the kernel, both ways).
+    float bias[16];
+    if constexpr (kEpi != Epilogue::kStore) {
 #pragma unroll
       for (int i = 0; i < 8; ++i)
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int row = 16 * warp + g + 8 * h;
-          *reinterpret_cast<uint32_t*>(staging_ptr + staging_offset(row, i, q)) =
-              pack_bf16(body.out(4 * i + 2 * h), body.out(4 * i + 2 * h + 1));
+        for (int e = 0; e < 2; ++e)
+          bias[2 * i + e] = __bfloat162float(p.bias[group * kChans + 8 * i + 2 * q + e]);
+    }
+    // registers 4 i + 2 h and 4 i + 2 h + 1 as a bf16 pair; with the bias,
+    // relu inside the conversion (an epilogue's ALU work is not hidden under
+    // the products: each instruction saved counts)
+    auto packed = [&](int i, int h) {
+      const float lo = body.out(4 * i + 2 * h), hi = body.out(4 * i + 2 * h + 1);
+      if constexpr (kEpi == Epilogue::kStore) {
+        return pack_bf16(lo, hi);
+      } else {
+        return pack_bf16_relu(lo + bias[2 * i], hi + bias[2 * i + 1]);
+      }
+    };
+    // epilogue: output row y (the body's out registers) as bf16 through the
+    // staging tile to a TMA store
+    auto store_row = [&](const Unit& u, int y) {
+      if constexpr (kEpi == Epilogue::kBiasReluPool) {
+        const bool odd = y % 2 != 0;  // strips start on even rows
+        if (!odd) {
+          if (t == 0) sm90::bulk_wait_read();  // the previous store has read the tile
+          sm90::bar_sync(1 + wg, 128);
         }
-      sm90::fence_proxy_async();
-      sm90::bar_sync(1 + wg, 128);
-      if (t == 0) {
-        sm90::tma_store_4d(&p.out, staging, group * kChans, u.x0, y, u.b);
-        sm90::bulk_commit();
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            // pixels 2 c and 2 c + 1 of the row: lanes g and g + 1, 4 apart;
+            // max of bf16 values = bf16 of the max (rounding is monotonic)
+            uint32_t v = packed(i, h);
+            v = max_bf16x2(v, __shfl_xor_sync(0xffffffffu, v, 4));
+            if (g % 2 == 0) {
+              // pooled pixel (16 warp + g + 8 h) / 2; the odd row meets the
+              // even row's values, written by this same thread
+              uint32_t* dst = reinterpret_cast<uint32_t*>(
+                  staging_ptr + staging_offset(8 * warp + g / 2 + 4 * h, i, q));
+              *dst = odd ? max_bf16x2(v, *dst) : v;
+            }
+          }
+        if (odd) {
+          sm90::fence_proxy_async();
+          sm90::bar_sync(1 + wg, 128);
+          if (t == 0) {
+            sm90::tma_store_4d(&p.out, staging, group * kChans, u.x0 / 2, y / 2, u.b);
+            sm90::bulk_commit();
+          }
+        }
+      } else {
+        if (t == 0) sm90::bulk_wait_read();  // the previous store has read the tile
+        sm90::bar_sync(1 + wg, 128);
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int row = 16 * warp + g + 8 * h;
+            *reinterpret_cast<uint32_t*>(staging_ptr + staging_offset(row, i, q)) = packed(i, h);
+          }
+        sm90::fence_proxy_async();
+        sm90::bar_sync(1 + wg, 128);
+        if (t == 0) {
+          sm90::tma_store_4d(&p.out, staging, group * kChans, u.x0, y, u.b);
+          sm90::bulk_commit();
+        }
       }
     };
     for (int j = first_unit + wg; j < p.units; j += 2 * nb) {
@@ -301,24 +382,33 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-// x (B, H, W, Ci) NHWC, w (3, 3, Ci, Co) HWIO, out (B, H, W, Co), bf16,
-// contiguous, 16-byte aligned; Ci and Co positive multiples of 64.
-template <class Body>
+// x (B, H, W, Ci) NHWC, w (3, 3, Ci, Co) HWIO, out (B, H, W, Co) (B, H / 2,
+// W / 2, Co under kBiasReluPool), bf16, contiguous, 16-byte aligned; Ci and
+// Co positive multiples of 64; bias (Co) bf16 unless kStore; strip > 0, even
+// under kBiasReluPool.
+template <class Body, Epilogue kEpi = Epilogue::kStore>
 cudaError_t launch(const void* x, const void* w, void* out, int B, int H, int W, int Ci, int Co,
-                   cudaStream_t stream) {
+                   cudaStream_t stream, int strip = kStripRows, const void* bias = nullptr) {
+  constexpr bool kPool = kEpi == Epilogue::kBiasReluPool;
   if (Ci <= 0 || Co <= 0 || Ci % kChans != 0 || Co % kChans != 0) return cudaErrorInvalidValue;
+  if (strip <= 0 || (kPool && strip % 2 != 0)) return cudaErrorInvalidValue;
+  if (kEpi != Epilogue::kStore && bias == nullptr) return cudaErrorInvalidValue;
   ConvParams p;
+  p.bias = static_cast<const __nv_bfloat16*>(bias);
   p.B = B, p.H = H, p.W = W, p.Ci = Ci, p.Co = Co;
+  p.strip = strip;
   p.ncols = (W + kCols - 1) / kCols;
-  p.nstrips = (H + kStripRows - 1) / kStripRows;
+  p.nstrips = (H + strip - 1) / strip;
   p.units = B * p.nstrips * p.ncols;
   p.groups = Co / kChans;
   p.plan = make_plan(Ci);
   if (p.plan.stages < 1) return cudaErrorInvalidValue;
   cudaError_t err = sm90::encode_nhwc(&p.x, x, B, H, W, Ci, kBoxCols);
   if (err == cudaSuccess) err = sm90::encode_hwio3x3(&p.w, w, Ci, Co);
-  if (err == cudaSuccess) err = sm90::encode_nhwc(&p.out, out, B, H, W, Co, kCols);
-  if (err == cudaSuccess) err = allow_shared_memory<conv3x3_kernel<Body>>(p.plan.bytes);
+  if (err == cudaSuccess)
+    err = kPool ? sm90::encode_nhwc(&p.out, out, B, H / 2, W / 2, Co, kCols / 2)
+                : sm90::encode_nhwc(&p.out, out, B, H, W, Co, kCols);
+  if (err == cudaSuccess) err = allow_shared_memory<conv3x3_kernel<Body, kEpi>>(p.plan.bytes);
   int dev = 0, sms = 0;
   if (err == cudaSuccess) err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -328,7 +418,7 @@ cudaError_t launch(const void* x, const void* w, void* out, int B, int H, int W,
   const int pairs = (p.units + 1) / 2;
   if (nb > pairs) nb = pairs;
   if (nb < 1) nb = 1;
-  conv3x3_kernel<Body><<<nb * p.groups, kThreads, p.plan.bytes, stream>>>(p);
+  conv3x3_kernel<Body, kEpi><<<nb * p.groups, kThreads, p.plan.bytes, stream>>>(p);
   return cudaGetLastError();
 }
 

@@ -8,13 +8,17 @@ channels-first; the data contract stays that of the JAX package: images
 `max_num_keypoints` keypoints per image with a `keypoint_mask`.
 
 Two opt-ins, off by default as in the JAX package, route through the
-hand-written CUDA kernels on the card (their plain versions on the CPU):
+hand-written CUDA kernels on the card (their plain versions on the CPU).
+Each consults its kernel's predicate where the JAX package consults
+`fused_vgg_available` / `fused_detect_available`, and sends what the kernel
+cannot take to the plain path:
   - `fused_backbone`: conv1b + pool and blocks 2-4 as `fused_vgg_block`
-    (NHWC, four launches per forward); conv1a (C_in = 1) stays an
-    `nn.Conv2d`;
+    (NHWC, four launches per forward), each block whose shape
+    `vgg_kernel_available` takes; conv1a (C_in = 1) stays an `nn.Conv2d`;
   - `fused_detect`: NMS, border and area masks and the 4x4 tile reduction
-    as `fused_nms_tile_reduce`, when `nms_radius >= 3` and H, W are
-    multiples of 4.
+    as `fused_nms_tile_reduce`, when `nms_radius >= 3` (the tile top-k's
+    exactness), `detect_kernel_available` takes the score map and radius,
+    and no gradient is asked of the scores (the kernel has none).
 """
 
 from __future__ import annotations
@@ -22,8 +26,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ...ops.cuda_conv import fused_vgg_block
-from ...ops.cuda_detect import detect_keypoints
+from ...ops.cuda_conv import fused_vgg_block, vgg_kernel_available
+from ...ops.cuda_detect import detect_kernel_available, detect_keypoints
 from ...ops.grid_sample import sample_descriptors
 from ...ops.nms import mask_outside, remove_borders, simple_nms, top_k_keypoints
 from ..base_model import BaseModel
@@ -88,21 +92,27 @@ class SuperPoint(BaseModel):
         if self.conf.fused_backbone:
             x = self._fused_backbone(x)
         else:
-            n_blocks = len(self.conf.channels)
-            for i in range(n_blocks):
-                x = relu(getattr(self, f"conv{i+1}a")(x))
-                x = relu(getattr(self, f"conv{i+1}b")(x))
-                if i < n_blocks - 1:
-                    x = nn.functional.max_pool2d(x, 2, 2)
+            for i in range(len(self.conf.channels)):
+                x = self._plain_block(x, i)
         logits = self.convPb(relu(self.convPa(x)))  # (B, 65, Hc, Wc)
         dense_desc = self.convDb(relu(self.convDa(x)))  # (B, D, Hc, Wc)
         return self._decode(data, image, logits, dense_desc, generator)
 
+    def _plain_block(self, x: torch.Tensor, i: int, first_conv: bool = True) -> torch.Tensor:
+        """VGG block i through `nn.Conv2d`s (NCHW): conv_a (unless
+        `first_conv` is False), conv_b, the pool except after the last."""
+        if first_conv:
+            x = torch.relu(getattr(self, f"conv{i+1}a")(x))
+        x = torch.relu(getattr(self, f"conv{i+1}b")(x))
+        if i < len(self.conf.channels) - 1:
+            x = nn.functional.max_pool2d(x, 2, 2)
+        return x
+
     def _hwio(self, name: str):
-        """Conv `name`'s weight as HWIO, a view of a copy in the kernel's
-        (3, 3, C_out, C_in) layout so that `fused_vgg_block` copies nothing.
-        The copy is kept until the weight changes (in place, moved or cast);
-        with autograd on, the live weight is permuted instead."""
+        """Conv `name`'s weight as a contiguous HWIO copy, the layout the
+        kernel reads, so that `fused_vgg_block` copies nothing. The copy is
+        kept until the weight changes (in place, moved or cast); with
+        autograd on, the live weight is permuted instead."""
         conv = getattr(self, name)
         w = conv.weight
         if torch.is_grad_enabled() and w.requires_grad:
@@ -110,25 +120,36 @@ class SuperPoint(BaseModel):
         key = (w.data_ptr(), w._version, w.dtype, w.device)
         hit = self._kernel_weights.get(name)
         if hit is None or hit[0] != key:
-            hit = (key, w.detach().permute(2, 3, 0, 1).contiguous())
+            hit = (key, w.detach().permute(2, 3, 1, 0).contiguous())
             self._kernel_weights[name] = hit
-        return hit[1].transpose(-1, -2), conv.bias
+        return hit[1], conv.bias
 
     def _fused_backbone(self, x: torch.Tensor) -> torch.Tensor:
         """The VGG blocks through `fused_vgg_block`, NHWC inside: conv1a as
         an `nn.Conv2d` (channels-last, so its output is NHWC without a
         copy), conv1b + pool as the single-conv variant, blocks 2-4 as the
-        two-conv variant, block 4 without pool. NCHW view out."""
+        two-conv variant, block 4 without pool. A block whose shape the
+        kernel does not take (`vgg_kernel_available`) runs `_plain_block`,
+        as the JAX package sends it to XLA. NCHW view out."""
         x = torch.relu(self.conv1a(x.contiguous(memory_format=torch.channels_last)))
         x = x.permute(0, 2, 3, 1)
         n_blocks = len(self.conf.channels)
         for i in range(n_blocks):
+            pool = i < n_blocks - 1
+            H, W, c_in = x.shape[1:]
+            c_mid = getattr(self, f"conv{i+1}a").out_channels
+            c_out = getattr(self, f"conv{i+1}b").out_channels
+            if i == 0:
+                c_mid = c_out  # conv1b alone
+            if not vgg_kernel_available(H, W, c_in, c_mid, c_out, pool):
+                x = self._plain_block(x.permute(0, 3, 1, 2), i, first_conv=i > 0).permute(0, 2, 3, 1)
+                continue
             wb, bb = self._hwio(f"conv{i+1}b")
             if i == 0:
-                x = fused_vgg_block(x, wb, bb, pool=n_blocks > 1)
+                x = fused_vgg_block(x, wb, bb, pool=pool)
             else:
                 wa, ba = self._hwio(f"conv{i+1}a")
-                x = fused_vgg_block(x, wa, ba, wb, bb, pool=i < n_blocks - 1)
+                x = fused_vgg_block(x, wa, ba, wb, bb, pool=pool)
         return x.permute(0, 3, 1, 2)
 
     def _decode(self, data, image, logits, dense_desc, generator):
@@ -141,8 +162,11 @@ class SuperPoint(BaseModel):
         k = int(c.max_num_keypoints if c.max_num_keypoints_val is None else c.max_num_keypoints_val)
         true_size = data.get("image_size")
         Hs, Ws = scores.shape[1:]
-        # the 4x4-tile top-k is exact for r + 1 >= 4
-        if c.fused_detect and c.nms_radius >= 3 and Hs % 4 == 0 and Ws % 4 == 0:
+        # the 4x4-tile top-k is exact for r + 1 >= 4; the kernel has no gradient
+        use_fused = (c.fused_detect and c.nms_radius >= 3
+                     and detect_kernel_available(Hs, Ws, c.nms_radius)
+                     and not (torch.is_grad_enabled() and scores.requires_grad))
+        if use_fused:
             kpts, kpt_scores, valid = detect_keypoints(
                 scores, k, c.detection_threshold, radius=c.nms_radius,
                 border=c.remove_borders, true_size=true_size,

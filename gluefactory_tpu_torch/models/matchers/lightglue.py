@@ -4,8 +4,13 @@
 Parameters carry the names and layout of the official LightGlue release
 (`transformers.{i}.self_attn.Wqkv`, `...cross_attn.to_qk`, `log_assignment.{i}`,
 `token_confidence.{i}.token.0`, ...; Wqkv packs rows as (head, dim, q/k/v)),
-so official checkpoints load without a second converter.
-`compat/jax_params.py` converts the JAX package's parameters to this layout.
+so official checkpoints load without a second converter. `input_proj` is
+always a Linear, as in the JAX package; the official model has none when
+input_dim == descriptor_dim (an identity there), so a state dict without
+`input_proj.*` loads it as the identity and zero bias, as the JAX
+converter (`gluefactory_tpu/compat/torch_conversion.py::convert_lightglue`)
+fills it in. `compat/jax_params.py` converts the JAX package's parameters
+to this layout.
 
 As in the JAX package, both views go through self-attention as one stacked
 batch, the cross-attention projections run once over the stacked views, and
@@ -171,6 +176,18 @@ class TokenConfidence(nn.Module):
         self.token = nn.Sequential(nn.Linear(dim, 1), nn.Sigmoid())
 
 
+def _identity_input_proj(module, state_dict, prefix, *args) -> None:
+    """Load pre-hook: an official state dict without `input_proj.*` (its
+    nn.Identity when input_dim == descriptor_dim) gets the identity weight
+    and a zero bias."""
+    keys = (prefix + "input_proj.weight", prefix + "input_proj.bias")
+    if any(k in state_dict for k in keys) or module.conf.input_dim != module.conf.descriptor_dim:
+        return
+    w = module.input_proj.weight
+    state_dict[keys[0]] = torch.eye(w.shape[0], dtype=w.dtype, device=w.device)
+    state_dict[keys[1]] = torch.zeros(w.shape[0], dtype=w.dtype, device=w.device)
+
+
 class LightGlue(BaseModel):
     default_conf = {
         "input_dim": 256,
@@ -201,6 +218,7 @@ class LightGlue(BaseModel):
         )
         self.log_assignment = nn.ModuleList([MatchAssignment(d) for _ in range(conf.n_layers)])
         self.token_confidence = nn.ModuleList([TokenConfidence(d) for _ in range(conf.n_layers - 1)])
+        self.register_load_state_dict_pre_hook(_identity_input_proj)
 
     def _forward(self, data: dict) -> dict:
         c = self.conf

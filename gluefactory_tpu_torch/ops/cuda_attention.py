@@ -8,8 +8,11 @@ kernels in `csrc/`, and their plain PyTorch versions.
 
 Dispatch is by device alone: a CUDA tensor goes to the kernel, which is
 built at first use (`_build.py`) and raises if it does not build or launch;
-a CPU tensor goes to the plain version. `launches` counts kernel launches
-per wrapper so a run can show that its main path went through them.
+a CPU tensor goes to the plain version. With autograd recording and an
+input that requires a gradient, the kernel's output carries the plain
+version's gradient (`_autograd.py`, as the JAX package's custom VJPs
+recompute a jnp reference). `launches` counts kernel launches per wrapper
+so a run can show that its main path went through them.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ import math
 import torch
 
 from . import _build
+from ._autograd import kernel_with_plain_grad, needs_grad
 from ._build import uses_kernel
 
 NEG_INF = -1e9
@@ -165,6 +169,12 @@ def fused_attention(q, k, v, mask_k=None, mask_q=None):
     CPU tensors run `attention_plain`."""
     if not uses_kernel(q.device):
         return attention_plain(q, k, v, mask_k, mask_q)
+    if needs_grad(q, k, v):
+        return kernel_with_plain_grad(_attention_kernel, attention_plain, q, k, v, mask_k, mask_q)
+    return _attention_kernel(q, k, v, mask_k, mask_q)
+
+
+def _attention_kernel(q, k, v, mask_k, mask_q):
     B, H, M, D = q.shape
     N = k.shape[2]
     _check("fused_attention", [q, k, v], [(mask_k, N), (mask_q, M)])
@@ -197,6 +207,13 @@ def fused_bidirectional_attention(qk0, qk1, v0, v1, mask0=None, mask1=None):
     csrc/fused_bidirectional_attention.cu; CPU tensors `bidirectional_plain`."""
     if not uses_kernel(qk0.device):
         return bidirectional_plain(qk0, qk1, v0, v1, mask0, mask1)
+    if needs_grad(qk0, qk1, v0, v1):
+        return kernel_with_plain_grad(_bidirectional_kernel, bidirectional_plain,
+                                      qk0, qk1, v0, v1, mask0, mask1)
+    return _bidirectional_kernel(qk0, qk1, v0, v1, mask0, mask1)
+
+
+def _bidirectional_kernel(qk0, qk1, v0, v1, mask0, mask1):
     B, H, M, D = qk0.shape
     N = qk1.shape[2]
     _check("fused_bidirectional_attention", [qk0, qk1, v0, v1], [(mask0, M), (mask1, N)])

@@ -130,8 +130,9 @@ def _check(name: str, x: torch.Tensor, w: torch.Tensor) -> None:
         raise ValueError(f"{name}: x and w on different devices")
 
 
-def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """Contiguous, with a 16-byte aligned start (the kernels' TMA maps)."""
+def aligned16(t: torch.Tensor) -> torch.Tensor:
+    """Contiguous, with a 16-byte aligned start (the TMA maps of the wgmma
+    conv bodies, here and in the VGG block)."""
     t = t.contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
@@ -142,7 +143,7 @@ def _launch(name: str, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     out = torch.empty(B, H, W, co, dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
-    x, w = _aligned(x), _aligned(w)
+    x, w = aligned16(x), aligned16(w)
     fn = _build.function(name, _ARGTYPES)
     with torch.cuda.device(x.device):
         rc = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(), B, H, W, ci, co,

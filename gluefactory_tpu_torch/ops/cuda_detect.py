@@ -11,7 +11,11 @@ differ only on a tile with two equal survivors, which carry the same score.
 
 Dispatch is by device alone: a CUDA tensor goes to the kernel, which is
 built at first use (`_build.py`) and raises if it does not build or launch;
-a CPU tensor goes to `nms_tile_reduce_plain`. `launches` counts kernel
+a CPU tensor goes to `nms_tile_reduce_plain`. `detect_kernel_available`
+states what the kernel takes. The decode has no gradient, as the JAX kernel
+has none (`jax.grad` through it raises): with autograd recording scores
+that require a gradient, `fused_nms_tile_reduce` raises on every device
+rather than return outputs that silently drop it. `launches` counts kernel
 launches so a run can show that its path went through the kernel.
 """
 
@@ -50,6 +54,16 @@ def shared_bytes(radius: int, iters: int) -> int:
     return (_REGION_ROWS + 2 * h) * ((_REGION_COLS + 2 * h) | 1) * 17
 
 
+def detect_kernel_available(H: int, W: int, radius: int, iters: int = 2, tile: int = 4) -> bool:
+    """Whether the CUDA kernel takes this decode: a tile that divides the
+    block's 32 rows, H and W, a radius in [0, 6], and a halo that fits a
+    block's shared memory (`shared_bytes`). The TPU kernel's VMEM chunking
+    (`_pick_chunk`) does not apply."""
+    return (H > 0 and W > 0 and tile >= 1 and _REGION_ROWS % tile == 0 and H % tile == 0
+            and W % tile == 0 and 0 <= radius <= _MAX_RADIUS and iters >= 0
+            and shared_bytes(radius, iters) <= _build.MAX_SHARED_BYTES)
+
+
 def _true_size(true_size, B: int, H: int, W: int, device) -> torch.Tensor:
     if true_size is None:
         return torch.tensor([[float(W), float(H)]] * B, dtype=torch.float32, device=device)
@@ -78,7 +92,11 @@ def fused_nms_tile_reduce(scores, true_size=None, radius: int = 4, iters: int = 
     """scores (B,H,W) f32 or bf16, true_size (B,2) [w,h] or None (the whole
     buffer) -> (tile_max (B,H/t,W/t) f32, tile_arg (B,H/t,W/t) i32 in
     [0, t*t), dy * t + dx). CUDA tensors run csrc/nms_tile_reduce.cu; CPU
-    tensors `nms_tile_reduce_plain`."""
+    tensors `nms_tile_reduce_plain`. Not differentiable: raises under
+    autograd with scores that require a gradient."""
+    if torch.is_grad_enabled() and scores.requires_grad:
+        raise RuntimeError("fused_nms_tile_reduce has no gradient (nor has the JAX kernel it "
+                           "replaces): call it under torch.no_grad() or on detached scores")
     if not uses_kernel(scores.device):
         return nms_tile_reduce_plain(scores, true_size, radius, iters, border, tile)
     if scores.dim() != 3:

@@ -337,3 +337,156 @@ def test_conv3x3_unaligned_and_strided_inputs(dev, name):
     _conv_parity(kernel, plain, x, w)
     xt = x.transpose(1, 2).contiguous().transpose(1, 2)  # NHWC shape, W-major memory
     _conv_parity(kernel, plain, xt, w.transpose(2, 3).contiguous().transpose(2, 3))
+
+
+# ---------------------------------------------------------------------------
+# gradients: the kernel path carries the plain version's gradient
+# ---------------------------------------------------------------------------
+
+
+def _grads(fn, inputs, cot):
+    outs = fn(*inputs)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    assert all(o.grad_fn is not None for o in outs)
+    leaves = [t for t in inputs if torch.is_tensor(t) and t.requires_grad]
+    return torch.autograd.grad(outs, leaves, cot[:len(outs)])
+
+
+def _leaf(gen, dev, *shape, scale=1.0):
+    return (torch.randn(*shape, generator=gen, device=dev) * scale).requires_grad_(True)
+
+
+@pytest.mark.parametrize("name", ["fused_attention", "fused_bidirectional_attention",
+                                  "fused_vgg_block", "log_sinkhorn"])
+def test_kernel_gradients_equal_plain(dev, monkeypatch, name):
+    """With grad enabled the wrappers' outputs carry a grad_fn, and their
+    gradients equal the plain versions' (f32: the backward is the plain
+    version's own; only the forward's rounding differs, and it does not
+    enter the gradient). cuDNN's conv backward sums in a varying order
+    unless it is asked to be deterministic."""
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    if name == "fused_attention":
+        q, k, v = (_leaf(gen, dev, 2, 2, 100, 64) for _ in range(3))
+        mk = torch.rand(2, 100, generator=gen, device=dev) > 0.3
+        inputs, kernel, plain = [q, k, v, mk, None], cuda_attention.fused_attention, cuda_attention.attention_plain
+    elif name == "fused_bidirectional_attention":
+        qk0, v0 = (_leaf(gen, dev, 2, 2, 100, 64) for _ in range(2))
+        qk1, v1 = (_leaf(gen, dev, 2, 2, 77, 64) for _ in range(2))
+        m0 = torch.rand(2, 100, generator=gen, device=dev) > 0.3
+        inputs = [qk0, qk1, v0, v1, m0, None]
+        kernel, plain = cuda_attention.fused_bidirectional_attention, cuda_attention.bidirectional_plain
+    elif name == "fused_vgg_block":
+        inputs = [_leaf(gen, dev, 2, 20, 34, 64), _leaf(gen, dev, 3, 3, 64, 64, scale=0.05),
+                  _leaf(gen, dev, 64, scale=0.1), _leaf(gen, dev, 3, 3, 64, 64, scale=0.05),
+                  _leaf(gen, dev, 64, scale=0.1), True]
+        kernel, plain = cuda_conv.fused_vgg_block, cuda_conv.vgg_block_plain
+    else:
+        inputs = [_leaf(gen, dev, 2, 65, 70), torch.full((2, 65), -5.0, device=dev).requires_grad_(True),
+                  torch.full((2, 70), -5.0, device=dev), 10]
+        kernel, plain = cuda_sinkhorn.log_sinkhorn, cuda_sinkhorn.plain_log_sinkhorn
+    outs = plain(*inputs)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    cot = [torch.randn(o.shape, generator=gen, device=dev) for o in outs]
+    got = _grads(kernel, inputs, cot)
+    want = _grads(plain, inputs, cot)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+def test_detect_raises_under_grad(dev):
+    s = torch.rand(1, 64, 64, device=dev, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no gradient"):
+        cuda_detect.fused_nms_tile_reduce(s)
+    with torch.no_grad():
+        got = cuda_detect.fused_nms_tile_reduce(s)
+    want = cuda_detect.nms_tile_reduce_plain(s.detach())
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+# ---------------------------------------------------------------------------
+# the one-launch Sinkhorn kernel at ragged, tiny, -inf and streamed shapes
+# ---------------------------------------------------------------------------
+
+
+def _sinkhorn_close(got, want):
+    """Infinities and NaNs where the plain version has them; finite values
+    within 1e-4 (f32 log-sum-exps in another order)."""
+    assert torch.equal(torch.isfinite(got), torch.isfinite(want))
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    fin = torch.isfinite(want)
+    if fin.any():
+        assert (got - want)[fin].abs().max() <= 1e-4
+
+
+@pytest.mark.parametrize("B,M,N,iters", [(3, 100, 77, 50), (2, 65, 130, 1), (2, 37, 41, 0),
+                                         (1, 3, 1, 7), (2, 1, 5, 3), (4, 513, 513, 20),
+                                         (1, 4097, 4097, 3), (1, 5, 20000, 3)])
+def test_log_sinkhorn_shapes(dev, B, M, N, iters):
+    """Ragged sizes, one row or column, 0 and 1 iterations, several items
+    at once (513^2), rows streamed from device memory (4097^2) and v read
+    through L2 (N = 20000): one launch each, equal to the plain loop."""
+    gen = torch.Generator(device=dev).manual_seed(12)
+    Z = torch.randn(B, M, N, generator=gen, device=dev) * 2
+    mu = torch.full((B, M), -math.log(M + N), device=dev)
+    nu = torch.full((B, N), -math.log(M + N), device=dev)
+    cuda_sinkhorn.reset_launches()
+    got = cuda_sinkhorn.log_sinkhorn(Z, mu, nu, iters)
+    torch.cuda.synchronize()
+    assert cuda_sinkhorn.launches["log_sinkhorn"] == 1
+    _sinkhorn_close(got, cuda_sinkhorn.plain_log_sinkhorn(Z, mu, nu, iters))
+
+
+@pytest.mark.parametrize("iters", [0, 1, 3])
+def test_log_sinkhorn_all_inf_row(dev, iters):
+    """A row whose couplings are all -inf: its LSE is -inf (never NaN from
+    exp(-inf - -inf)), after which the plain loop's infinities and NaNs
+    follow; the other item stays finite and close."""
+    gen = torch.Generator(device=dev).manual_seed(13)
+    Z = torch.randn(2, 30, 41, generator=gen, device=dev)
+    Z[0, 3] = -float("inf")
+    mu = torch.full((2, 30), -4.0, device=dev)
+    nu = torch.full((2, 41), -4.0, device=dev)
+    got = cuda_sinkhorn.log_sinkhorn(Z, mu, nu, iters)
+    want = cuda_sinkhorn.plain_log_sinkhorn(Z, mu, nu, iters)
+    torch.cuda.synchronize()
+    _sinkhorn_close(got, want)
+    assert torch.isfinite(got[1]).all()
+
+
+# ---------------------------------------------------------------------------
+# the VGG block's two bodies at the edges of their plans
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("shape,cm,co,pool,bodies", [
+    ((1, 130, 200, 64), 64, 64, True, ["wgmma", "wgmma"]),       # rows across strip boundaries
+    ((2, 37, 51, 64), 64, None, True, ["wgmma"]),                # odd size, pooled (floors)
+    ((1, 65, 67, 64), 128, 64, False, ["wgmma", "wgmma"]),       # odd, not pooled, two groups
+    ((2, 37, 50, 64), 128, 80, True, ["wgmma", "cuda_cores"]),   # C_out 80: CUDA-core body
+    ((2, 24, 40, 48), 64, None, True, ["cuda_cores"]),           # C_in 48: CUDA-core body
+])
+def test_fused_vgg_block_bodies(dev, shape, cm, co, pool, bodies):
+    """bf16 against the plain version within twice the gap bf16 rounding
+    alone opens, plus one bf16 step at the largest output; each wrapper
+    call one launch."""
+    gen = torch.Generator(device=dev).manual_seed(14)
+    ci = shape[-1]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert [c["body"] for c in cuda_conv.conv_plan(*shape, cm, co, pool, torch.bfloat16, sms)] == bodies
+    x = torch.relu(torch.randn(*shape, generator=gen, device=dev)).to(torch.bfloat16)
+    w = [torch.randn(3, 3, ci, cm, generator=gen, device=dev) * 0.05, torch.randn(cm, generator=gen, device=dev) * 0.1]
+    if co is not None:
+        w += [torch.randn(3, 3, cm, co, generator=gen, device=dev) * 0.05,
+              torch.randn(co, generator=gen, device=dev) * 0.1]
+    w = [a.to(torch.bfloat16) for a in w]
+    cuda_conv.reset_launches()
+    got = cuda_conv.fused_vgg_block(x, *w, pool=pool)
+    torch.cuda.synchronize()
+    assert cuda_conv.launches["fused_vgg_block"] == 1
+    want = cuda_conv.vgg_block_plain(x, *w, pool=pool)
+    ref = cuda_conv.vgg_block_plain(x.float(), *(a.float() for a in w), pool=pool)
+    assert got.shape == want.shape
+    step = 2.0 ** (math.floor(math.log2(max(float(want.float().abs().max()), 2.0**-126))) - 7)
+    assert (got.float() - want.float()).abs().max() <= 2 * (want.float() - ref).abs().max() + step

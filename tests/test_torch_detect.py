@@ -128,3 +128,14 @@ def test_superpoint_opt_ins_equal_the_default_path():
     torch.testing.assert_close(b["keypoints"], a["keypoints"], rtol=0, atol=0)
     torch.testing.assert_close(b["keypoint_scores"], a["keypoint_scores"], rtol=0, atol=1e-6)
     torch.testing.assert_close(b["descriptors"], a["descriptors"], rtol=0, atol=2e-5)
+
+
+@pytest.mark.parametrize("args,taken", [
+    ((1024, 1024, 4), True),
+    ((1024, 1024, 6), True),
+    ((1024, 1024, 7), False),   # the kernel is compiled for radii 0-6
+    ((1026, 1024, 4), False),   # H not a multiple of the 4x4 tile
+    ((96, 128, 3), True),
+])
+def test_detect_kernel_available(args, taken):
+    assert cuda_detect.detect_kernel_available(*args) is taken

@@ -7,6 +7,7 @@ import numpy as np
 import pytest
 import torch
 
+from gluefactory_tpu.compat.torch_conversion import convert_lightglue
 from gluefactory_tpu.models import get_model as jax_get_model
 from gluefactory_tpu_torch.compat.jax_params import from_jax_params
 from gluefactory_tpu_torch.models import get_model
@@ -145,3 +146,46 @@ def test_bf16_trunk_stays_bf16():
     # inputs either bf16 run lies up to ~0.4 from the f32 run (log-assignment
     # entries reach -50), and the two bf16 runs differ by as much
     np.testing.assert_allclose(out["log_assignment"].numpy()[valid], la_ref[valid], atol=0.5)
+
+
+def test_official_layout_without_input_proj_loads_strict():
+    """The official model has no `input_proj` when input_dim ==
+    descriptor_dim (an nn.Identity): such a state dict loads strict=True as
+    the identity and a zero bias, and the forward matches the JAX package
+    run on the same state dict through its converter (which fills in the
+    same identity)."""
+    conf = {**SMALL, "input_dim": SMALL["descriptor_dim"]}
+    torch.manual_seed(0)
+    donor = get_model("lightglue").from_conf(conf, device="cpu")
+    sd = {k: v for k, v in donor.state_dict().items() if not k.startswith("input_proj.")}
+    lg_t = get_model("lightglue").from_conf(conf, device="cpu").eval()
+    result = lg_t.load_state_dict(sd, strict=True)
+    assert not result.missing_keys and not result.unexpected_keys
+    d = conf["descriptor_dim"]
+    torch.testing.assert_close(lg_t.input_proj.weight, torch.eye(d), rtol=0, atol=0)
+    assert not lg_t.input_proj.bias.any()
+    data = _inputs(np.random.default_rng(4), conf)
+    params = convert_lightglue({k: v.numpy() for k, v in sd.items()}, n_layers=conf["n_layers"],
+                               dim=d, num_heads=conf["num_heads"])
+    lg_j = jax_get_model("lightglue").from_conf({**conf, "checkpointed": False})
+    ref = jax.jit(lg_j.apply)({"params": params}, {k: jnp.asarray(v) for k, v in data.items()})
+    with torch.no_grad():
+        out = lg_t({k: torch.from_numpy(v) for k, v in data.items()})
+    np.testing.assert_allclose(out["log_assignment"].numpy(), np.asarray(ref["log_assignment"]),
+                               atol=1e-4, rtol=1e-5)
+    np.testing.assert_array_equal(out["matches0"].numpy(), np.asarray(ref["matches0"]))
+
+
+def test_input_proj_kept_when_present_or_dims_differ():
+    """A state dict that has `input_proj.*` keeps it; with input_dim !=
+    descriptor_dim a missing `input_proj` is still an error."""
+    conf = {**SMALL, "input_dim": SMALL["descriptor_dim"]}
+    torch.manual_seed(1)
+    donor = get_model("lightglue").from_conf(conf, device="cpu")
+    lg_t = get_model("lightglue").from_conf(conf, device="cpu")
+    lg_t.load_state_dict(donor.state_dict(), strict=True)
+    torch.testing.assert_close(lg_t.input_proj.weight, donor.input_proj.weight, rtol=0, atol=0)
+    other = get_model("lightglue").from_conf(SMALL, device="cpu")
+    sd = {k: v for k, v in other.state_dict().items() if not k.startswith("input_proj.")}
+    with pytest.raises(RuntimeError, match="input_proj"):
+        get_model("lightglue").from_conf(SMALL, device="cpu").load_state_dict(sd, strict=True)

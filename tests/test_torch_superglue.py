@@ -265,3 +265,58 @@ def test_superpoint_superglue_pipeline_matches_jax():
     for k in ("matches0", "matches1"):
         np.testing.assert_array_equal(out[k].numpy(), ref[k])
     assert (out["matches0"] >= 0).sum() >= 5
+
+
+# the Sinkhorn kernel's plan on an H100 (132 SMs, 232,448 bytes of shared
+# memory a block): (B, M, N) -> what must hold
+@pytest.mark.parametrize("shape,case", [
+    ((4, 2049, 2049), "resident"),   # SuperGlue at 2048 keypoints: Z on chip, items in turn
+    ((1, 4097, 4097), "streamed"),   # more than the grid's shared memory holds
+    ((4, 513, 513), "several_items"),
+])
+def test_sinkhorn_plan(shape, case):
+    from gluefactory_tpu_torch.ops.cuda_sinkhorn import MAX_BLOCKS, STATIC_SMEM, sinkhorn_plan
+    from gluefactory_tpu_torch.ops._build import MAX_SHARED_BYTES
+
+    B, M, N = shape
+    plan = sinkhorn_plan(B, M, N, 132)
+    assert plan["grid"] == plan["groups"] * plan["blocks"] <= 132
+    assert plan["blocks"] <= MAX_BLOCKS
+    # every row is owned by a block, and every block owns at least one
+    assert plan["blocks"] * plan["rows"] >= M > (plan["blocks"] - 1) * plan["rows"]
+    assert plan["resident"] + plan["streamed"] == plan["rows"]
+    assert plan["smem"] + STATIC_SMEM <= MAX_SHARED_BYTES
+    ldz = -(-N // 4) * 4
+    assert plan["smem"] >= 4 * plan["resident"] * ldz
+    if case == "resident":
+        assert (plan["groups"], plan["blocks"], plan["rows"], plan["streamed"]) == (1, 129, 16, 0)
+    elif case == "streamed":
+        assert plan["groups"] == 1 and plan["streamed"] > 0 and plan["resident"] >= 1
+        # the resident rows fill the block's shared memory
+        assert plan["smem"] + 4 * ldz + STATIC_SMEM > MAX_SHARED_BYTES
+    else:
+        assert plan["groups"] == 4 and plan["streamed"] == 0
+
+
+def test_log_optimal_transport_grad_matches_jax():
+    """Through the plain Sinkhorn loop (the kernel's backward on the card),
+    the gradient of optimal transport with masks and a learned bin score
+    equals `jax.grad` of the JAX package's, in f32 (relative 1e-4)."""
+    rng = np.random.default_rng(8)
+    B, M, N = 2, 12, 15
+    scores = rng.normal(size=(B, M, N)).astype(np.float32)
+    m0, m1 = _masks(rng, B, M, N, "partial")
+    g = rng.normal(size=(B, M + 1, N + 1)).astype(np.float32)
+
+    def loss(s, b):
+        out = jax_assignment.log_optimal_transport(s, b, 20, jnp.asarray(m0), jnp.asarray(m1))
+        return jnp.sum(jnp.where(out > -1e8, out, 0.0) * jnp.asarray(g))
+
+    want = jax.grad(loss, argnums=(0, 1))(jnp.asarray(scores), jnp.asarray(1.3, jnp.float32))
+    st = torch.from_numpy(scores).requires_grad_(True)
+    bt = torch.tensor(1.3, requires_grad=True)
+    out = assignment.log_optimal_transport(st, bt, 20, torch.from_numpy(m0), torch.from_numpy(m1))
+    got = torch.autograd.grad((torch.where(out > -1e8, out, 0.0) * torch.from_numpy(g)).sum(), [st, bt])
+    for a, b in zip(got, want):
+        b = np.asarray(b)
+        np.testing.assert_allclose(a.numpy(), b, rtol=1e-4, atol=1e-4 * max(1.0, float(np.abs(b).max())))

@@ -116,3 +116,58 @@ def test_bf16_stays_bf16():
     # bf16 convs round at other places in the two frameworks
     np.testing.assert_allclose(out["dense_score_map"].float().numpy(),
                                np.asarray(ref["dense_score_map"], np.float32), atol=2e-3)
+
+
+def test_fused_detect_routes_radius_7_to_the_plain_decode(monkeypatch):
+    """With `fused_detect` on, a radius the CUDA decode cannot take (7 > 6)
+    goes to the plain NMS and top-k, as the JAX package sends what its
+    kernel cannot take to XLA, and matches the JAX run; so does a decode
+    whose scores require a gradient (the kernel has none). Radius 4
+    without autograd takes the kernel's path."""
+    from gluefactory_tpu_torch.models.extractors import superpoint as sp_mod
+
+    conf = {**CONF, "nms_radius": 7, "fused_detect": True}
+    sp_j, params, sp_t, image = _models(conf, seed=3)
+    ref = jax.jit(sp_j.apply)(params, {"image": jnp.asarray(image)})
+    calls = []
+    real = sp_mod.detect_keypoints
+    monkeypatch.setattr(sp_mod, "detect_keypoints", lambda *a, **k: calls.append(1) or real(*a, **k))
+    data = {"image": torch.from_numpy(image)}
+    with torch.no_grad():
+        out = sp_t(data)
+    assert calls == []
+    np.testing.assert_array_equal(out["keypoints"].numpy(), np.asarray(ref["keypoints"]))
+    np.testing.assert_allclose(out["keypoint_scores"].numpy(), np.asarray(ref["keypoint_scores"]),
+                               atol=1e-6)
+    sp4 = get_model("superpoint").from_conf({**conf, "nms_radius": 4}, device="cpu").eval()
+    sp4.load_state_dict(sp_t.state_dict())
+    assert sp4(data)["keypoint_scores"].requires_grad and calls == []
+    with torch.no_grad():
+        sp4(data)
+    assert calls == [1]
+
+
+def test_fused_backbone_routes_untaken_blocks_to_the_plain_path(monkeypatch):
+    """Blocks of 24 channels (not a multiple of 16) run the plain
+    `nn.Conv2d` path with `fused_backbone` on, blocks the kernel takes run
+    `fused_vgg_block`, and the whole matches the JAX package's run."""
+    from gluefactory_tpu_torch.models.extractors import superpoint as sp_mod
+
+    conf = {**CONF, "channels": [24, 24, 16, 16], "fused_backbone": True}
+    sp_j, params, sp_t, image = _models(conf, seed=4)
+    ref = jax.jit(sp_j.apply)(params, {"image": jnp.asarray(image)})
+    shapes = []
+    real = sp_mod.fused_vgg_block
+
+    def spy(x, *args, **kwargs):
+        shapes.append(tuple(x.shape[1:]))
+        return real(x, *args, **kwargs)
+
+    monkeypatch.setattr(sp_mod, "fused_vgg_block", spy)
+    with torch.no_grad():
+        out = sp_t({"image": torch.from_numpy(image)})
+    # blocks 1 and 2 (C_mid 24) plain; blocks 3 and 4 (24 -> 16 -> 16) fused
+    assert shapes == [(H // 4, W // 4, 24), (H // 8, W // 8, 16)]
+    np.testing.assert_allclose(out["dense_score_map"].numpy(), ref["dense_score_map"], atol=1e-6)
+    np.testing.assert_allclose(out["dense_descriptors"].numpy(), ref["dense_descriptors"], atol=2e-5)
+    np.testing.assert_array_equal(out["keypoints"].numpy(), np.asarray(ref["keypoints"]))

@@ -2,6 +2,7 @@
 against the JAX package's Pallas kernel in interpret mode, in all three
 variants, in f32 and bf16."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -69,9 +70,9 @@ def test_odd_sizes_pool_floors():
 
 
 def test_superpoint_kernel_layout_weights_follow_the_weights():
-    """SuperPoint's fused backbone hands the wrapper HWIO views of weights
-    already in the kernel's (3, 3, C_out, C_in) layout, kept until a weight
-    changes; with autograd on it permutes the live weight."""
+    """SuperPoint's fused backbone hands the wrapper weights already in the
+    kernel's layout (contiguous HWIO), kept until a weight changes; with
+    autograd on it permutes the live weight."""
     from gluefactory_tpu_torch.models import get_model
 
     torch.manual_seed(0)
@@ -80,7 +81,7 @@ def test_superpoint_kernel_layout_weights_follow_the_weights():
          "fused_backbone": True}, device="cpu").eval()
     with torch.no_grad():
         w, b = sp._hwio("conv2a")
-        assert w.transpose(-1, -2).is_contiguous() and b is sp.conv2a.bias
+        assert w.is_contiguous() and b is sp.conv2a.bias
         torch.testing.assert_close(w, sp.conv2a.weight.permute(2, 3, 1, 0), rtol=0, atol=0)
         assert sp._hwio("conv2a")[0].data_ptr() == w.data_ptr()  # kept
         sp.conv2a.weight.mul_(2.0)
@@ -90,3 +91,73 @@ def test_superpoint_kernel_layout_weights_follow_the_weights():
         assert sp._hwio("conv2a")[0].dtype == torch.float64
     w3, _ = sp._hwio("conv2a")
     assert w3.requires_grad and w3._base is sp.conv2a.weight
+
+
+# path C's four blocks on an H100 (132 SMs), 8 images of 1024^2:
+# (input NHWC, C_mid, C_out or None, pool, the strips of conv_a [and conv_b])
+PATH_C_BLOCKS = {
+    "conv1b_pool": ((8, 1024, 1024, 64), 64, None, True, [128]),
+    "block2": ((8, 512, 512, 64), 64, 64, True, [128, 128]),
+    "block3": ((8, 256, 256, 64), 128, 128, True, [64, 64]),
+    "block4": ((8, 128, 128, 128), 128, 128, False, [16, 16]),
+}
+
+
+@pytest.mark.parametrize("block", list(PATH_C_BLOCKS))
+def test_strip_plan_of_path_c(block):
+    """Every conv of path C's blocks runs the wgmma body in bf16, in even
+    strips (a pooled pair never straddles two units); block 4's small image
+    gets short strips so that its units cover the SMs; in f32 the CUDA-core
+    body runs."""
+    shape, cm, co, pool, strips = PATH_C_BLOCKS[block]
+    plan = cuda_conv.conv_plan(*shape, cm, co, pool, torch.bfloat16, 132)
+    assert [c["body"] for c in plan] == ["wgmma"] * len(strips)
+    assert [c["strip"] for c in plan] == strips
+    assert [c["pool"] for c in plan] == [False] * (len(strips) - 1) + [pool]
+    B, H, W, _ = shape
+    for c in plan:
+        assert c["strip"] % 2 == 0
+        units = B * -(-H // c["strip"]) * -(-W // cuda_conv.STRIP_COLS) * (c["c_out"] // 64)
+        assert units >= 128  # at least one unit per SM's consumer pair, nearly
+    f32 = cuda_conv.conv_plan(*shape, cm, co, pool, torch.float32, 132)
+    assert all(c["body"] == "cuda_cores" and c["strip"] == 0 for c in f32)
+
+
+def test_conv_plan_channels():
+    """bf16 convs whose C_in or C_out is not a multiple of 64 take the
+    CUDA-core body, each conv of a block on its own."""
+    plan = cuda_conv.conv_plan(2, 37, 50, 64, 128, 80, True, torch.bfloat16, 132)
+    assert [c["body"] for c in plan] == ["wgmma", "cuda_cores"]
+    assert cuda_conv.conv_plan(1, 8, 8, 24, 64, None, True, torch.bfloat16, 132)[0]["body"] == "cuda_cores"
+
+
+@pytest.mark.parametrize("args,taken", [
+    ((1024, 1024, 64, 64, 64, True), True),
+    ((128, 128, 128, 128, 128, False), True),
+    ((96, 128, 24, 24, 24, True), False),   # C_mid 24: not a multiple of 16
+    ((96, 128, 12, 16, 16, True), False),   # C_in 12: not a multiple of 8
+    ((17, 23, 8, 16, 16, True), False),     # odd size, pooled
+    ((17, 23, 8, 16, 16, False), True),     # odd size, not pooled
+])
+def test_vgg_kernel_available(args, taken):
+    assert cuda_conv.vgg_kernel_available(*args) is taken
+
+
+def test_bf16_rounding_before_the_pool_is_the_jax_order():
+    """The wgmma body's epilogue rounds the even row to bf16 after its x
+    pool, then maxes the odd row into it and rounds again: rounding is
+    monotonic, so this equals pooling in f32 and rounding once, and equals
+    `vgg_block_xla`'s order in bf16 (conv, bias and ReLU rounded to bf16,
+    then the pool), here on the same rounded activations."""
+    rng = np.random.default_rng(7)
+    y = rng.normal(0, 2.0, (2, 18, 22, 64)).astype(np.float32)
+    yt = torch.from_numpy(y)
+    # the epilogue's order: x pairs, even row rounded, odd row maxed in, rounded
+    xp = torch.maximum(yt[:, :, 0::2], yt[:, :, 1::2])
+    even = xp[:, 0::2].to(torch.bfloat16)
+    kernel_order = torch.maximum(xp[:, 1::2], even.float()).to(torch.bfloat16)
+    f32_then_round = torch.nn.functional.max_pool2d(yt.permute(0, 3, 1, 2), 2, 2).permute(0, 2, 3, 1)
+    assert torch.equal(kernel_order, f32_then_round.to(torch.bfloat16))
+    yj = jnp.asarray(y).astype(jnp.bfloat16)
+    jax_order = jax.lax.reduce_window(yj, -jnp.inf, jax.lax.max, (1, 2, 2, 1), (1, 2, 2, 1), "VALID")
+    np.testing.assert_array_equal(kernel_order.float().numpy(), np.asarray(jax_order.astype(jnp.float32)))
