@@ -8,17 +8,18 @@ channels-first; the data contract stays that of the JAX package: images
 `max_num_keypoints` keypoints per image with a `keypoint_mask`.
 
 Two opt-ins, off by default as in the JAX package, route through the
-hand-written CUDA kernels on the card (their plain versions on the CPU).
-Each consults its kernel's predicate where the JAX package consults
-`fused_vgg_available` / `fused_detect_available`, and sends what the kernel
-cannot take to the plain path:
+hand-written CUDA kernels on the card:
   - `fused_backbone`: conv1b + pool and blocks 2-4 as `fused_vgg_block`
     (NHWC, four launches per forward), each block whose shape
-    `vgg_kernel_available` takes; conv1a (C_in = 1) stays an `nn.Conv2d`;
+    `vgg_kernel_available` takes (the rest runs the plain path, as the JAX
+    package consults `fused_vgg_available`); conv1a (C_in = 1) stays an
+    `nn.Conv2d`. On the CPU the blocks run the kernel's plain version;
   - `fused_detect`: NMS, border and area masks and the 4x4 tile reduction
-    as `fused_nms_tile_reduce`, when `nms_radius >= 3` (the tile top-k's
-    exactness), `detect_kernel_available` takes the score map and radius,
-    and no gradient is asked of the scores (the kernel has none).
+    as `fused_nms_tile_reduce`, exactly where the JAX package takes its
+    fused decode (`use_fused_detect`): on a CUDA tensor, or on the CPU
+    under the test hook `cuda_detect.FORCE_FUSED`. The fused decode keeps
+    one of two equal survivors in a 4x4 tile where the non-fused one may
+    keep both, so where it runs decides the keypoints.
 """
 
 from __future__ import annotations
@@ -27,7 +28,8 @@ import torch
 from torch import nn
 
 from ...ops.cuda_conv import fused_vgg_block, vgg_kernel_available
-from ...ops.cuda_detect import detect_kernel_available, detect_keypoints
+from ...ops import cuda_detect
+from ...ops.cuda_detect import detect_keypoints, fused_detect_available
 from ...ops.grid_sample import sample_descriptors
 from ...ops.nms import mask_outside, remove_borders, simple_nms, top_k_keypoints
 from ..base_model import BaseModel
@@ -49,6 +51,22 @@ def detector_scores(logits: torch.Tensor) -> torch.Tensor:
     B, _, Hc, Wc = scores.shape
     scores = scores.reshape(B, 8, 8, Hc, Wc).permute(0, 3, 1, 4, 2)
     return scores.reshape(B, Hc * 8, Wc * 8)
+
+
+def use_fused_detect(conf, scores: torch.Tensor) -> bool:
+    """Whether SuperPoint decodes `scores` (B, H, W) with the fused decode:
+    the JAX package's condition (`superpoint.py::_decode`) with the CUDA
+    device in the TPU's place and `cuda_detect.FORCE_FUSED` in that of
+    `pallas_detect.FORCE_INTERPRET`. `nms_radius >= 3` keeps the 4x4-tile
+    top-k exact; the shape test is the JAX package's routing predicate
+    (`fused_detect_available`), not the kernel's; the kernel has no
+    gradient. A radius the kernel cannot take then raises in the kernel's
+    wrapper rather than change the keypoints."""
+    H, W = scores.shape[1:]
+    return bool(conf.fused_detect and conf.nms_radius >= 3
+                and (scores.device.type == "cuda" or cuda_detect.FORCE_FUSED)
+                and fused_detect_available(H, W)
+                and not (torch.is_grad_enabled() and scores.requires_grad))
 
 
 class SuperPoint(BaseModel):
@@ -161,12 +179,7 @@ class SuperPoint(BaseModel):
         # inference: the eval-time override applies
         k = int(c.max_num_keypoints if c.max_num_keypoints_val is None else c.max_num_keypoints_val)
         true_size = data.get("image_size")
-        Hs, Ws = scores.shape[1:]
-        # the 4x4-tile top-k is exact for r + 1 >= 4; the kernel has no gradient
-        use_fused = (c.fused_detect and c.nms_radius >= 3
-                     and detect_kernel_available(Hs, Ws, c.nms_radius)
-                     and not (torch.is_grad_enabled() and scores.requires_grad))
-        if use_fused:
+        if use_fused_detect(c, scores):
             kpts, kpt_scores, valid = detect_keypoints(
                 scores, k, c.detection_threshold, radius=c.nms_radius,
                 border=c.remove_borders, true_size=true_size,

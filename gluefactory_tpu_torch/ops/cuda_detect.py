@@ -31,6 +31,11 @@ from .nms import _top_k, mask_outside, remove_borders, simple_nms
 
 launches = {"fused_nms_tile_reduce": 0}
 
+# Test hook, the counterpart of `pallas_detect.FORCE_INTERPRET`: lets
+# SuperPoint's `fused_detect` gate take the fused decode (its plain version)
+# on a CPU tensor.
+FORCE_FUSED = False
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ARGTYPES = [_P] * 4 + [_I] * 8 + [_P]
@@ -62,6 +67,26 @@ def detect_kernel_available(H: int, W: int, radius: int, iters: int = 2, tile: i
     return (H > 0 and W > 0 and tile >= 1 and _REGION_ROWS % tile == 0 and H % tile == 0
             and W % tile == 0 and 0 <= radius <= _MAX_RADIUS and iters >= 0
             and shared_bytes(radius, iters) <= _build.MAX_SHARED_BYTES)
+
+
+def _pick_chunk(H: int, tile: int, target: int = 256) -> int:
+    """Largest divisor of H that is <= target and a multiple of tile (the
+    TPU kernel's row chunk, `pallas_detect.py::_pick_chunk`)."""
+    best = 0
+    for c in range(tile, min(target, H) + 1, tile):
+        if H % c == 0:
+            best = c
+    return best
+
+
+def fused_detect_available(H: int, W: int, tile: int = 4) -> bool:
+    """The JAX package's routing predicate for the fused decode
+    (`pallas_detect.py::fused_detect_available`): a row chunk of the TPU
+    kernel that divides H, is a multiple of the tile and lies in [32, 256].
+    It decides where SuperPoint takes the fused decode, so that both
+    packages pick the same keypoints; it is not the CUDA kernel's limit
+    (`detect_kernel_available`)."""
+    return W % tile == 0 and _pick_chunk(H, tile) >= 8 * tile
 
 
 def _true_size(true_size, B: int, H: int, W: int, device) -> torch.Tensor:

@@ -4,6 +4,8 @@ multi chunk, bf16 input, a true size, a planted tie), `detect_keypoints`,
 and the port's SuperPoint with both opt-ins against JAX's with the Pallas
 kernels forced into interpret mode."""
 
+from types import SimpleNamespace
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -16,6 +18,7 @@ from gluefactory_tpu.ops.pallas_detect import detect_keypoints as jax_detect_key
 from gluefactory_tpu.ops.pallas_detect import fused_nms_tile_reduce, nms_tile_reduce_xla
 from gluefactory_tpu_torch.compat.jax_params import from_jax_params
 from gluefactory_tpu_torch.models import get_model
+from gluefactory_tpu_torch.models.extractors.superpoint import use_fused_detect
 from gluefactory_tpu_torch.ops import cuda_detect
 
 # NMS, masks and the tile reduction are comparisons and selections: the
@@ -97,6 +100,7 @@ def test_superpoint_opt_ins_match_jax(monkeypatch):
     data_j = {"image": jnp.asarray(img), "image_size": jnp.asarray(size)}
     monkeypatch.setattr(pallas_conv, "FORCE_INTERPRET", True)
     monkeypatch.setattr(pallas_detect, "FORCE_INTERPRET", True)
+    monkeypatch.setattr(cuda_detect, "FORCE_FUSED", True)
     sp_j = jax_get_model("superpoint").from_conf(conf)
     variables = jax.jit(sp_j.init)({"params": jax.random.key(5)}, data_j)
     ref = sp_j.apply(variables, data_j)
@@ -112,9 +116,11 @@ def test_superpoint_opt_ins_match_jax(monkeypatch):
     np.testing.assert_allclose(out["descriptors"].numpy(), np.asarray(ref["descriptors"]), atol=2e-5)
 
 
-def test_superpoint_opt_ins_equal_the_default_path():
-    """On the CPU the opt-ins run the plain versions of the two kernels: the
-    same keypoints and descriptors as the default path, within f32 sums."""
+def test_superpoint_opt_ins_equal_the_default_path(monkeypatch):
+    """On the CPU the opt-ins run the plain versions of the two kernels (the
+    decode's under `FORCE_FUSED`): the same keypoints and descriptors as the
+    default path, within f32 sums."""
+    monkeypatch.setattr(cuda_detect, "FORCE_FUSED", True)
     conf = {"channels": [8, 8, 16, 16], "head_channels": 32, "descriptor_dim": 32,
             "max_num_keypoints": 48, "detection_threshold": 0.0, "nms_radius": 3}
     torch.manual_seed(0)
@@ -128,6 +134,69 @@ def test_superpoint_opt_ins_equal_the_default_path():
     torch.testing.assert_close(b["keypoints"], a["keypoints"], rtol=0, atol=0)
     torch.testing.assert_close(b["keypoint_scores"], a["keypoint_scores"], rtol=0, atol=1e-6)
     torch.testing.assert_close(b["descriptors"], a["descriptors"], rtol=0, atol=2e-5)
+
+
+def _jax_takes_fused(conf, H, W) -> bool:
+    """The JAX SuperPoint's condition for its fused decode at inference
+    (`gluefactory_tpu/models/extractors/superpoint.py::_decode`)."""
+    return bool(conf.fused_detect and conf.nms_radius >= 3
+                and (jax.default_backend() == "tpu" or pallas_detect.FORCE_INTERPRET)
+                and pallas_detect.fused_detect_available(H, W))
+
+
+@pytest.mark.parametrize("hook", [False, True])
+@pytest.mark.parametrize("H", [64, 96, 268, 296, 1024])
+def test_use_fused_detect_matches_jax_condition(monkeypatch, H, hook):
+    """The port takes the fused decode exactly where the JAX package does,
+    on the CPU with each package's test hook off and on (the card's arm, a
+    CUDA tensor, is chip_smoke.py's path C). H = 268 has no TPU row chunk of
+    32-256 rows; radius 7 is above the PR 2 kernel's limit."""
+    monkeypatch.setattr(pallas_detect, "FORCE_INTERPRET", hook)
+    monkeypatch.setattr(cuda_detect, "FORCE_FUSED", hook)
+    for W in (64, 128):
+        scores = torch.zeros(1, H, W)
+        for radius in (2, 3, 4, 7):
+            for fused in (False, True):
+                conf = SimpleNamespace(fused_detect=fused, nms_radius=radius)
+                assert use_fused_detect(conf, scores) is _jax_takes_fused(conf, H, W), (W, radius)
+    conf = SimpleNamespace(fused_detect=True, nms_radius=4)
+    with torch.enable_grad():  # no gradient through the fused decode
+        assert not use_fused_detect(conf, torch.zeros(1, H, 64, requires_grad=True))
+
+
+def test_fused_detect_available_is_the_jax_predicate():
+    for H in [*range(1, 1100, 3), 1024, 2048, 268, 296]:
+        for W in (63, 64, 130):
+            assert cuda_detect.fused_detect_available(H, W) == pallas_detect.fused_detect_available(H, W)
+
+
+def test_superpoint_planted_ties_give_the_jax_keypoints():
+    """A zero detector-head kernel and a bias with two equal largest entries,
+    channels 1 and 8 (pixels (0, 1) and (1, 0) of every 8x8 cell): every
+    cell holds two equal NMS survivors in one 4x4 tile, where the fused
+    decode keeps (dy, dx) = (1, 0) (smallest dx) and the non-fused one
+    (0, 1) (row-major first). With `fused_detect` on and no test hook, both
+    packages take the non-fused decode on the CPU: identical keypoints."""
+    conf = {"channels": [8, 8, 16, 16], "head_channels": 32, "descriptor_dim": 32,
+            "max_num_keypoints": 64, "detection_threshold": 0.0, "fused_detect": True}
+    img = np.random.default_rng(8).uniform(0, 1, (1, 64, 128, 1)).astype(np.float32)
+    data_j = {"image": jnp.asarray(img)}
+    sp_j = jax_get_model("superpoint").from_conf(conf)
+    variables = jax.jit(sp_j.init)({"params": jax.random.key(8)}, data_j)
+    params = jax.tree.map(np.asarray, variables["params"])
+    head = params["convPb"]["Conv_0"]
+    head["kernel"] = np.zeros_like(head["kernel"])
+    head["bias"] = np.zeros_like(head["bias"])
+    head["bias"][[1, 8]] = 5.0
+    ref = sp_j.apply({**variables, "params": params}, data_j)
+    sp_t = get_model("superpoint").from_conf(conf, device="cpu").eval()
+    sp_t.load_state_dict(from_jax_params(params, "superpoint"))
+    with torch.no_grad():
+        out = sp_t({"image": torch.from_numpy(img)})
+    kp = np.asarray(ref["keypoints"])[0] - 0.5
+    assert {tuple(p) for p in kp % 8} == {(1.0, 0.0)}  # x 1, y 0: the non-fused pick
+    np.testing.assert_array_equal(out["keypoints"].numpy(), np.asarray(ref["keypoints"]))
+    np.testing.assert_array_equal(out["keypoint_mask"].numpy(), np.asarray(ref["keypoint_mask"]))
 
 
 @pytest.mark.parametrize("args,taken", [

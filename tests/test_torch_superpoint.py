@@ -119,12 +119,13 @@ def test_bf16_stays_bf16():
 
 
 def test_fused_detect_routes_radius_7_to_the_plain_decode(monkeypatch):
-    """With `fused_detect` on, a radius the CUDA decode cannot take (7 > 6)
-    goes to the plain NMS and top-k, as the JAX package sends what its
-    kernel cannot take to XLA, and matches the JAX run; so does a decode
-    whose scores require a gradient (the kernel has none). Radius 4
-    without autograd takes the kernel's path."""
+    """With `fused_detect` on, a CPU decode without the test hook goes to the
+    plain NMS and top-k at radius 7, as the JAX package's does off the TPU
+    without its hook, and matches the JAX run; so does a decode whose scores
+    require a gradient (the kernel has none), hook or not. Radius 4 without
+    autograd and with `cuda_detect.FORCE_FUSED` takes the fused decode."""
     from gluefactory_tpu_torch.models.extractors import superpoint as sp_mod
+    from gluefactory_tpu_torch.ops import cuda_detect
 
     conf = {**CONF, "nms_radius": 7, "fused_detect": True}
     sp_j, params, sp_t, image = _models(conf, seed=3)
@@ -141,6 +142,7 @@ def test_fused_detect_routes_radius_7_to_the_plain_decode(monkeypatch):
                                atol=1e-6)
     sp4 = get_model("superpoint").from_conf({**conf, "nms_radius": 4}, device="cpu").eval()
     sp4.load_state_dict(sp_t.state_dict())
+    monkeypatch.setattr(cuda_detect, "FORCE_FUSED", True)
     assert sp4(data)["keypoint_scores"].requires_grad and calls == []
     with torch.no_grad():
         sp4(data)
