@@ -439,43 +439,90 @@ def check_sinkhorn(dev, gen) -> dict:
     return res
 
 
+# f32 max and compare operations a pixel of the decode as this kernel's
+# algorithm needs them on the output pixels (halo not counted): three float
+# pools of two van Herk passes at three max an output (18), the three max
+# masks' compares, the suppressed map's two selects, the tile reduction's
+# compare. The CUDA programming guide's throughput table for compute
+# capability 9.0: 64 compare, minimum or maximum results a clock an SM.
+DETECT_OPS_PER_PIXEL = 24
+PEAK_CMP = 64 * 132 * 1.98e9
+
+
+def _detect_maps(gen, dev, B, H, W) -> dict:
+    """Score maps beyond uniform noise: plateaus of equal bf16 values (8 x 8
+    blocks of 16 levels, exact in bf16) and a constant map."""
+    levels = torch.randint(1, 17, (B, H // 8, W // 8), generator=gen, device=dev).float() / 32
+    return {"plateaus": levels.repeat_interleave(8, 1).repeat_interleave(8, 2),
+            "constant": torch.full((B, H, W), 0.25, device=dev)}
+
+
 def check_detect(dev, gen) -> dict:
     """At the main path's score maps (8 x 1024 x 1024): bf16 and f32, the
-    whole buffer and a smaller true size, radius 4 (the main path's) and 3,
-    one map with equal maxima planted in a tile. Comparisons only: the
-    kernel must equal its plain version (tolerance 0)."""
+    whole buffer and a smaller true size at radius 4 (the main path's) and
+    3, every larger radius the kernel takes, H and W that are not multiples
+    of a block's 64 x 64 outputs (1000 x 1004), one image, plateaus of equal
+    values, a constant map, and one map with equal maxima planted in a tile.
+    Comparisons only: the kernel must equal its plain version (tolerance 0,
+    indices equal). Timed by device time in bf16 at radius 4, with the true
+    size given as path C gives it."""
     B, H = 2 * PAIRS, IMAGE
     base = torch.rand(B, H, H, generator=gen, device=dev) * 0.99 + 0.01
     base[0, 20, 42] = base[0, 23, 41] = 2.0  # tile (5, 10): dy 0 dx 2 and dy 3 dx 1
     small = torch.tensor([[float(H - 100), float(H - 37)]] * B, device=dev)
+    odd = torch.rand(2, 1000, 1004, generator=gen, device=dev)
+    odd_size = torch.tensor([[950.0, 1000.0], [1004.0, 990.0]], device=dev)
+    maps = _detect_maps(gen, dev, B, H, H)
     parity = []
+
+    def hold(case, s, true_size=None, radius=4):
+        got = cuda_detect.fused_nms_tile_reduce(s, true_size, radius=radius)
+        want = cuda_detect.nms_tile_reduce_plain(s, true_size, radius=radius)
+        torch.cuda.synchronize()
+        err = _err(got, want)
+        parity.append({"dtype": str(s.dtype).split(".")[-1], "case": case, "shape": list(s.shape),
+                       "radius": radius, "max_abs_err": err, "tol": 0.0})
+        if err != 0 or not torch.equal(got[1], want[1]):
+            fail(f"fused_nms_tile_reduce {s.dtype} {case} r{radius}: differs from plain")
+        return got
+
     for dtype in (torch.bfloat16, torch.float32):
         s = base.to(dtype)
-        for radius in (4, 3):
+        for radius in range(3, cuda_detect._MAX_RADIUS + 1):
             for size_case, true_size in (("full", None), ("smaller", small)):
-                got = cuda_detect.fused_nms_tile_reduce(s, true_size, radius=radius)
-                want = cuda_detect.nms_tile_reduce_plain(s, true_size, radius=radius)
-                torch.cuda.synchronize()
-                err = _err(got, want)
-                parity.append({"dtype": str(dtype).split(".")[-1], "radius": radius,
-                               "true_size": size_case, "max_abs_err": err, "tol": 0.0})
-                if err != 0 or not torch.equal(got[1], want[1]):
-                    fail(f"fused_nms_tile_reduce {dtype} r{radius} {size_case}: differs from plain")
+                if radius > 4 and size_case == "smaller":
+                    continue
+                got = hold(size_case, s, true_size, radius)
                 if got[1][0, 5, 10] != 13:
                     fail("fused_nms_tile_reduce: planted tie not resolved to the smallest dx")
+        hold("1000x1004", odd.to(dtype))
+        hold("1000x1004 smaller", odd.to(dtype), odd_size, 3)
+        hold("B=1", s[:1])
+        for case, m in maps.items():
+            hold(case, m.to(dtype))
+            hold(case, m.to(dtype), small, 3)
+        del s
+    del odd, maps
     s = base.to(torch.bfloat16)
+    full = torch.tensor([[float(H), float(H)]] * B, device=dev)
     n_bytes = s.numel() * 2 + 2 * (B * (H // 4) ** 2 * 4)
+    bytes_ms = n_bytes / PEAK_BYTES * 1e3
+    ops_ms = DETECT_OPS_PER_PIXEL * s.numel() / PEAK_CMP * 1e3
     res = {
         "name": "fused_nms_tile_reduce", "route": "cuda",
         "source": "gluefactory_tpu_torch/csrc/nms_tile_reduce.cu",
         "replaces": "gluefactory_tpu/ops/pallas_detect.py:202",
         "launches": 0, "max_abs_err": max(p["max_abs_err"] for p in parity), "tol": 0.0,
-        "ms": cuda_time_ms(lambda: cuda_detect.fused_nms_tile_reduce(s)),
-        "plain_ms": cuda_time_ms(lambda: cuda_detect.nms_tile_reduce_plain(s), reps=5),
+        "ms": device_time_ms(lambda: cuda_detect.fused_nms_tile_reduce(s, full)),
+        "plain_ms": cuda_time_ms(lambda: cuda_detect.nms_tile_reduce_plain(s, full), reps=5),
+        "event_ms": cuda_time_ms(lambda: cuda_detect.fused_nms_tile_reduce(s, full)),
         "library_ms": None,
-        "bound_ms": n_bytes / PEAK_BYTES * 1e3, "bound_by": "bytes",
-        "timed_shape": [B, H, H], "parity": parity,
+        "bound_ms": max(bytes_ms, ops_ms), "bound_by": "operations" if ops_ms > bytes_ms else "bytes",
+        "bound_bytes_ms": bytes_ms, "bound_ops_ms": ops_ms,
+        "plan": cuda_detect.detect_plan(4), "timed_shape": [B, H, H], "parity": parity,
     }
+    if not res["ms"] > 0:
+        fail(f"fused_nms_tile_reduce: a time is not positive: {res['ms']}")
     return res
 
 

@@ -12,7 +12,8 @@ differ only on a tile with two equal survivors, which carry the same score.
 Dispatch is by device alone: a CUDA tensor goes to the kernel, which is
 built at first use (`_build.py`) and raises if it does not build or launch;
 a CPU tensor goes to `nms_tile_reduce_plain`. `detect_kernel_available`
-states what the kernel takes. The decode has no gradient, as the JAX kernel
+states what the kernel takes; `fused_detect_available`, the JAX package's
+routing predicate, where SuperPoint takes the fused decode. The decode has no gradient, as the JAX kernel
 has none (`jax.grad` through it raises): with autograd recording scores
 that require a gradient, `fused_nms_tile_reduce` raises on every device
 rather than return outputs that silently drop it. `launches` counts kernel
@@ -40,33 +41,46 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ARGTYPES = [_P] * 4 + [_I] * 8 + [_P]
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# a block of the kernel covers 32 x 64 pixels, so the tile must divide 32;
-# the kernel is compiled for radii 0-6 (at 2 iterations radius 7 would not
-# fit in a block's shared memory)
-_REGION_ROWS, _REGION_COLS = 32, 64
-_MAX_RADIUS = 6
-
+# a block of the kernel owns 64 x 64 output pixels with a halo of 5r (up to
+# 2 iterations); the kernel is compiled for radii 0-8
+_OUT_ROWS = _OUT_COLS = 64
+_MAX_RADIUS = 8
+_MAX_ITERS = 2
+_SHARED_PER_SM = 233472  # bytes of shared memory on an H100 SM
+_RESERVED_PER_BLOCK = 1024
 
 def reset_launches() -> None:
     launches["fused_nms_tile_reduce"] = 0
 
 
-def shared_bytes(radius: int, iters: int) -> int:
-    """Shared memory of one block of the kernel: its region with a halo of
-    (2 iters + 1) r pixels, an odd row stride, four f32 buffers and one byte
-    mask per pixel."""
-    h = (2 * iters + 1) * radius
-    return (_REGION_ROWS + 2 * h) * ((_REGION_COLS + 2 * h) | 1) * 17
+def detect_plan(radius: int) -> dict:
+    """The kernel's block at `radius` (mirrors `Geometry` in
+    csrc/nms_tile_reduce.cu): the haloed region, its f32 row stride and mask
+    words a row, the shared memory of a block (scores and row-pass scratch
+    in f32, two bit planes), the blocks an SM takes, and the halo's cost
+    (region pixels over output pixels)."""
+    h = (2 * _MAX_ITERS + 1) * radius
+    rows, cols = _OUT_ROWS + 2 * h, _OUT_COLS + 2 * h
+    ld, words = cols | 1, ((cols + 31) // 32) | 1
+    smem = (2 * rows * ld + 2 * rows * words) * 4
+    return {"region": (rows, cols), "shared_bytes": smem,
+            "blocks_per_sm": 2 if 2 * (smem + _RESERVED_PER_BLOCK) <= _SHARED_PER_SM else 1,
+            "halo_overhead": rows * cols / (_OUT_ROWS * _OUT_COLS)}
+
+
+def _tile_taken(tile: int) -> bool:
+    """A power of two up to 32: it divides the block's 64 columns, and a
+    tile's columns share a warp."""
+    return 1 <= tile <= 32 and tile & (tile - 1) == 0
 
 
 def detect_kernel_available(H: int, W: int, radius: int, iters: int = 2, tile: int = 4) -> bool:
-    """Whether the CUDA kernel takes this decode: a tile that divides the
-    block's 32 rows, H and W, a radius in [0, 6], and a halo that fits a
-    block's shared memory (`shared_bytes`). The TPU kernel's VMEM chunking
-    (`_pick_chunk`) does not apply."""
-    return (H > 0 and W > 0 and tile >= 1 and _REGION_ROWS % tile == 0 and H % tile == 0
-            and W % tile == 0 and 0 <= radius <= _MAX_RADIUS and iters >= 0
-            and shared_bytes(radius, iters) <= _build.MAX_SHARED_BYTES)
+    """Whether the CUDA kernel takes this decode: a tile that `_tile_taken`
+    and that divides H and W, a radius in [0, 8] and at most 2 iterations
+    (the halo the kernel is compiled for). This is the kernel's limit, not
+    where SuperPoint takes the fused decode (`fused_detect_available`)."""
+    return (H > 0 and W > 0 and _tile_taken(tile) and H % tile == 0 and W % tile == 0
+            and 0 <= radius <= _MAX_RADIUS and 0 <= iters <= _MAX_ITERS)
 
 
 def _pick_chunk(H: int, tile: int, target: int = 256) -> int:
@@ -91,7 +105,11 @@ def fused_detect_available(H: int, W: int, tile: int = 4) -> bool:
 
 def _true_size(true_size, B: int, H: int, W: int, device) -> torch.Tensor:
     if true_size is None:
-        return torch.tensor([[float(W), float(H)]] * B, dtype=torch.float32, device=device)
+        # filled on the device: a copy from host memory would wait for the
+        # device, and the host could not queue calls ahead of it
+        ts = torch.full((B, 2), float(W), dtype=torch.float32, device=device)
+        ts[:, 1] = float(H)
+        return ts
     return true_size.to(device=device, dtype=torch.float32).contiguous()
 
 
@@ -129,15 +147,12 @@ def fused_nms_tile_reduce(scores, true_size=None, radius: int = 4, iters: int = 
     if scores.dtype not in _DTYPE_CODES:
         raise TypeError(f"fused_nms_tile_reduce: dtype {scores.dtype} not supported (float32, bfloat16)")
     B, H, W = scores.shape
-    if tile < 1 or _REGION_ROWS % tile or H % tile or W % tile:
-        raise ValueError(f"fused_nms_tile_reduce: tile {tile} must divide {_REGION_ROWS}, H {H} and W {W}")
-    if not 0 <= radius <= _MAX_RADIUS or iters < 0:
-        raise ValueError(f"fused_nms_tile_reduce: radius {radius} must be in [0, {_MAX_RADIUS}] "
-                         f"and iters {iters} >= 0")
-    if shared_bytes(radius, iters) > _build.MAX_SHARED_BYTES:
-        raise ValueError(f"fused_nms_tile_reduce: radius {radius} with {iters} iterations needs "
-                         f"{shared_bytes(radius, iters)} bytes of shared memory per block, "
-                         f"over the {_build.MAX_SHARED_BYTES} a block may have")
+    if not _tile_taken(tile) or H % tile or W % tile:
+        raise ValueError(f"fused_nms_tile_reduce: tile {tile} must be a power of two up to 32 "
+                         f"that divides H {H} and W {W}")
+    if not 0 <= radius <= _MAX_RADIUS or not 0 <= iters <= _MAX_ITERS:
+        raise ValueError(f"fused_nms_tile_reduce: the kernel takes radii 0 to {_MAX_RADIUS} and "
+                         f"0 to {_MAX_ITERS} iterations, got radius {radius}, iters {iters}")
     ts = _true_size(true_size, B, H, W, scores.device)
     if tuple(ts.shape) != (B, 2):
         raise ValueError(f"fused_nms_tile_reduce: true_size of shape {tuple(ts.shape)}, expected {(B, 2)}")

@@ -1,5 +1,6 @@
-"""Time SuperGlue's Sinkhorn kernel and SuperPoint's four VGG blocks as two
-or more checkouts of the port compute them, in turns on one card.
+"""Time SuperGlue's Sinkhorn kernel, SuperPoint's four VGG blocks and its
+fused decode as two or more checkouts of the port compute them, in turns on
+one card.
 
     python gluefactory_tpu_torch/scripts_dev/compare_trees.py TREE [TREE ...]
 
@@ -13,7 +14,9 @@ run's times, the card's name and power limit.
 
 Shapes are the paths' own: Sinkhorn at (4, 2049, 2049), 50 iterations, f32
 (path B); the VGG blocks of path C, 8 images bf16 (conv1b + pool at 1024^2
-x 64, blocks 2-4). The VGG blocks by device time (`device_time_ms`: the
+x 64, blocks 2-4); the decode at path C's score maps, 8 x 1024^2 bf16,
+radius 4, with the true size given as path C gives it. The VGG blocks and
+the decode by device time (`device_time_ms`: the
 calls queued behind a sleep kernel, so the wrapper's Python between
 launches does not count); Sinkhorn by CUDA events around the calls as the
 host issues them (`cuda_time_ms`: ten calls of a design that launches a
@@ -42,7 +45,7 @@ def worker(tree: str) -> dict:
     sys.path.insert(0, tree)
     import torch
 
-    from gluefactory_tpu_torch.ops import cuda_conv, cuda_sinkhorn
+    from gluefactory_tpu_torch.ops import cuda_conv, cuda_detect, cuda_sinkhorn
     from gluefactory_tpu_torch.scripts_dev.timing import card, cuda_time_ms, device_time_ms
 
     dev = torch.device("cuda")
@@ -66,6 +69,10 @@ def worker(tree: str) -> dict:
         res[name] = {"device_ms": device_time_ms(block, reps=10)}
         del x, w
     res["vgg_total_device_ms"] = sum(res[b[0]]["device_ms"] for b in VGG_BLOCKS)
+    s = (torch.rand(8, 1024, 1024, generator=gen, device=dev) * 0.99 + 0.01).to(torch.bfloat16)
+    full = torch.full((8, 2), 1024.0, device=dev)
+    decode = lambda: cuda_detect.fused_nms_tile_reduce(s, full, radius=4)  # noqa: E731
+    res["fused_nms_tile_reduce"] = {"device_ms": device_time_ms(decode, reps=20)}
     return res
 
 

@@ -2,7 +2,7 @@
 that each leave one phase out (or change one thing), and time every variant
 against the kernel as it is, in one process on one card.
 
-    python -m gluefactory_tpu_torch.scripts_dev.kernel_variants [sinkhorn|vgg ...]
+    python -m gluefactory_tpu_torch.scripts_dev.kernel_variants [sinkhorn|vgg|detect ...]
 
 A variant is a copy of `csrc/` with text substitutions in it, built by nvcc
 with the port's flags into `build/torch_ext/variants/` and called through
@@ -18,7 +18,10 @@ with the card's name and power limit.
 - vgg: `fused_vgg_block` at conv1b + pool (8, 1024^2, 64) bf16, and the
   same conv without the pool, against the bare N-packed conv
   (`npack_conv3x3`), with the epilogue's ReLU, bias or x-pool shuffle left
-  out.
+  out;
+- detect: `fused_nms_tile_reduce` at path C's score maps (8, 1024^2) bf16,
+  radius 4, without the load into shared memory, the float pools (both
+  passes of all three), or the tile reduction.
 """
 
 from __future__ import annotations
@@ -32,8 +35,8 @@ import sys
 
 import torch
 
-from ..ops import _build, cuda_conv, cuda_conv3x3, cuda_sinkhorn
-from .timing import card, cuda_time_ms
+from ..ops import _build, cuda_conv, cuda_conv3x3, cuda_detect, cuda_sinkhorn
+from .timing import card, cuda_time_ms, device_time_ms
 
 VARIANT_DIR = _build.BUILD_DIR / "variants"
 
@@ -65,8 +68,16 @@ VARIANTS = {
                                       "return pack_bf16_relu(lo, hi);")]),
         "no_shuffle": ("vgg_block.cu", [("v = max_bf16x2(v, __shfl_xor_sync(0xffffffffu, v, 4));", "")]),
     },
+    "detect": {
+        "no_load": ("nms_tile_reduce.cu", [("  load_region<R, T>(scores", "  if (false) load_region<R, T>(scores")]),
+        "no_float_pools": ("nms_tile_reduce.cu", [("  pool_rows<R, false>(p);", ""),
+                                                  ("  pool_columns_compare<R, false>(p);", ""),
+                                                  ("    pool_rows<R, true>(p);", ""),
+                                                  ("    pool_columns_compare<R, true>(p);", "")]),
+        "no_tile_reduce": ("nms_tile_reduce.cu", [("t < (kOutRows / tile) * halves;", "t < 0;")]),
+    },
 }
-KERNEL_OF = {"sinkhorn": "log_sinkhorn", "vgg": "fused_vgg_block"}
+KERNEL_OF = {"sinkhorn": "log_sinkhorn", "vgg": "fused_vgg_block", "detect": "fused_nms_tile_reduce"}
 
 
 def build_variants(kernel: str) -> dict[str, ctypes.CDLL]:
@@ -113,19 +124,19 @@ def with_library(kernel: str, lib: ctypes.CDLL, fn):
         _build.function = real
 
 
-def _timed(kernel: str, libs: dict, runs: dict) -> dict:
+def _timed(kernel: str, libs: dict, runs: dict, timer=cuda_time_ms) -> dict:
     """{run: ms} for each run of `runs` (name -> call) with the kernel as it
     is, then with every variant, then the kernel again."""
     out = {}
     for run, call in runs.items():
-        out[f"{run}/kernel"] = [cuda_time_ms(call, reps=10)]
+        out[f"{run}/kernel"] = [timer(call, reps=10)]
         for name, lib in libs.items():
-            out[f"{run}/{name}"] = with_library(kernel, lib, lambda: cuda_time_ms(call, reps=10))
-        out[f"{run}/kernel"].append(cuda_time_ms(call, reps=10))
+            out[f"{run}/{name}"] = with_library(kernel, lib, lambda: timer(call, reps=10))
+        out[f"{run}/kernel"].append(timer(call, reps=10))
     return out
 
 
-def main(kernels=("sinkhorn", "vgg")) -> list[dict]:
+def main(kernels=("sinkhorn", "vgg", "detect")) -> list[dict]:
     if not torch.cuda.is_available():
         raise SystemExit("kernel_variants: needs a CUDA device")
     torch.backends.cudnn.allow_tf32 = False
@@ -141,6 +152,12 @@ def main(kernels=("sinkhorn", "vgg")) -> list[dict]:
             mu = torch.full((B, M), -math.log(2 * M), device=dev)
             runs = {"path_b": lambda: cuda_sinkhorn.log_sinkhorn(Z, mu, mu, iters)}
             shape = [B, M, M, iters]
+        elif kernel == "detect":
+            # device time: the decode is short beside its wrapper's host time
+            s = (torch.rand(8, 1024, 1024, generator=gen, device=dev) * 0.99 + 0.01).to(torch.bfloat16)
+            full = torch.full((8, 2), 1024.0, device=dev)
+            runs = {"path_c": lambda: cuda_detect.fused_nms_tile_reduce(s, full)}
+            shape = [8, 1024, 1024]
         else:
             x = torch.relu(torch.randn(8, 1024, 1024, 64, generator=gen, device=dev)).to(torch.bfloat16)
             w = (torch.randn(3, 3, 64, 64, generator=gen, device=dev) * 0.06).to(torch.bfloat16)
@@ -148,7 +165,7 @@ def main(kernels=("sinkhorn", "vgg")) -> list[dict]:
             runs = {"conv1b_pool": lambda: cuda_conv.fused_vgg_block(x, w, b, pool=True),
                     "conv1b_no_pool": lambda: cuda_conv.fused_vgg_block(x, w, b, pool=False)}
             shape = [8, 1024, 1024, 64]
-        ms = _timed(kernel, libs, runs)
+        ms = _timed(kernel, libs, runs, device_time_ms if kernel == "detect" else cuda_time_ms)
         if kernel == "vgg":
             ms["bare_npack_conv3x3"] = cuda_time_ms(lambda: cuda_conv3x3.npack_conv3x3(x, w), reps=10)
         res = {"kernel": KERNEL_OF[kernel], "shape": shape, "ms": ms, "card": card(dev)}
@@ -158,4 +175,4 @@ def main(kernels=("sinkhorn", "vgg")) -> list[dict]:
 
 
 if __name__ == "__main__":
-    main(tuple(sys.argv[1:]) or ("sinkhorn", "vgg"))
+    main(tuple(sys.argv[1:]) or ("sinkhorn", "vgg", "detect"))

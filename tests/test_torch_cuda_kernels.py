@@ -227,7 +227,7 @@ def test_log_sinkhorn_matches_plain(dev, case, M, N):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("radius", [3, 4])
+@pytest.mark.parametrize("radius", range(3, cuda_detect._MAX_RADIUS + 1))
 def test_fused_nms_tile_reduce_matches_plain(dev, dtype, radius):
     """Comparisons and selections only: equal bit for bit, with a true size
     smaller than the buffer and a planted tie."""
@@ -241,6 +241,39 @@ def test_fused_nms_tile_reduce_matches_plain(dev, dtype, radius):
         torch.cuda.synchronize()
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     assert got[1][0, 5, 10] == 13
+
+
+def _detect_map(case, gen, dev):
+    if case == "1000x1004":  # H and W not multiples of a block's 64 x 64 outputs
+        return torch.rand(2, 1000, 1004, generator=gen, device=dev)
+    if case == "b1":
+        return torch.rand(1, 256, 192, generator=gen, device=dev)
+    if case == "plateaus":  # 8 x 8 blocks of 16 levels, exact in bf16
+        levels = torch.randint(1, 17, (2, 32, 24), generator=gen, device=dev).float() / 32
+        return levels.repeat_interleave(8, 1).repeat_interleave(8, 2)
+    if case == "misaligned":  # rows not 16-byte aligned: the scalar load
+        return torch.rand(2 * 100 * 124 + 1, generator=gen, device=dev)[1:].view(2, 100, 124)
+    return torch.full((2, 128, 128), 0.25, device=dev)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["1000x1004", "b1", "plateaus", "constant", "misaligned"])
+def test_fused_nms_tile_reduce_maps(dev, dtype, case):
+    """Bit for bit beyond uniform noise: ragged blocks, one image, plateaus
+    of equal values, a constant map, the scalar load; radii 0, 3, 4 and 8."""
+    gen = torch.Generator(device=dev).manual_seed(6)
+    s = _detect_map(case, gen, dev).to(dtype)
+    for radius in (0, 3, 4, cuda_detect._MAX_RADIUS):
+        got = cuda_detect.fused_nms_tile_reduce(s, radius=radius)
+        want = cuda_detect.nms_tile_reduce_plain(s, radius=radius)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), radius
+
+
+def test_fused_nms_tile_reduce_radius_above_the_kernels_raises(dev):
+    with pytest.raises(ValueError, match="radii 0 to"):
+        cuda_detect.fused_nms_tile_reduce(torch.rand(1, 64, 64, device=dev),
+                                          radius=cuda_detect._MAX_RADIUS + 1)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -202,9 +202,34 @@ def test_superpoint_planted_ties_give_the_jax_keypoints():
 @pytest.mark.parametrize("args,taken", [
     ((1024, 1024, 4), True),
     ((1024, 1024, 6), True),
-    ((1024, 1024, 7), False),   # the kernel is compiled for radii 0-6
+    ((1024, 1024, 7), True),
+    ((1024, 1024, 8), True),    # the kernel's largest radius
+    ((1024, 1024, 9), False),   # the kernel is compiled for radii 0-8
     ((1026, 1024, 4), False),   # H not a multiple of the 4x4 tile
     ((96, 128, 3), True),
+    ((96, 128, 4, 3), False),   # the halo covers 2 iterations
+    ((96, 120, 4, 2, 8), True),
+    ((96, 120, 4, 2, 6), False),  # a tile that is not a power of two
 ])
 def test_detect_kernel_available(args, taken):
     assert cuda_detect.detect_kernel_available(*args) is taken
+
+
+@pytest.mark.parametrize("radius", range(cuda_detect._MAX_RADIUS + 1))
+def test_detect_plan_fits(radius):
+    """Every radius fits a block's 227 KiB; at r <= 4 two blocks share an
+    SM, with less halo than the 32 x 64 design's 3.66x at r = 4."""
+    plan = cuda_detect.detect_plan(radius)
+    assert plan["shared_bytes"] <= 232448
+    if radius <= 4:
+        assert plan["blocks_per_sm"] == 2 and plan["halo_overhead"] < 3.66
+    if radius == 4:
+        assert plan["region"] == (104, 104) and plan["shared_bytes"] == 91520
+
+
+def test_kernel_radius_above_its_largest_raises(monkeypatch):
+    """A CUDA tensor with a radius above the kernel's largest raises a
+    ValueError that names the largest, before any build or launch."""
+    monkeypatch.setattr(cuda_detect, "uses_kernel", lambda device: True)
+    with pytest.raises(ValueError, match="radii 0 to 8"):
+        cuda_detect.fused_nms_tile_reduce(torch.rand(1, 64, 64), radius=9)
