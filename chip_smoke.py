@@ -21,6 +21,9 @@ Phases, in order; any failure exits non-zero before the last line:
    (N = 20000); the VGG blocks also at a strip boundary, an odd size
    pooled and channels that take the CUDA-core body, each block's body and
    strip height recorded, the kernel and the cuDNN sequence by device time;
+   the decode bit for bit at every radius 3-8, at 1000 x 1004, one image,
+   plateaus of equal values and a constant map, by device time, bound by
+   bytes and by its compare operations;
 3b. gradients: with grad enabled, each of the four differentiable kernels'
    outputs (both attention kernels, the VGG block, Sinkhorn) carries a
    grad_fn, and its gradients equal the plain version's at small shapes;
