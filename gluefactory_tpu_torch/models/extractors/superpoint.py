@@ -27,8 +27,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ...ops.cuda_conv import fused_vgg_block, vgg_kernel_available
 from ...ops import cuda_detect
+from ...ops.cuda_conv import fused_vgg_block, vgg_kernel_available
 from ...ops.cuda_detect import detect_keypoints, fused_detect_available
 from ...ops.grid_sample import sample_descriptors
 from ...ops.nms import mask_outside, remove_borders, simple_nms, top_k_keypoints

@@ -13,10 +13,11 @@ Dispatch is by device alone: a CUDA tensor goes to the kernel, which is
 built at first use (`_build.py`) and raises if it does not build or launch;
 a CPU tensor goes to `nms_tile_reduce_plain`. `detect_kernel_available`
 states what the kernel takes; `fused_detect_available`, the JAX package's
-routing predicate, where SuperPoint takes the fused decode. The decode has no gradient, as the JAX kernel
-has none (`jax.grad` through it raises): with autograd recording scores
-that require a gradient, `fused_nms_tile_reduce` raises on every device
-rather than return outputs that silently drop it. `launches` counts kernel
+routing predicate, where SuperPoint takes the fused decode. The decode has
+no gradient, as the JAX kernel has none (`jax.grad` through it raises):
+with autograd recording scores that require a gradient,
+`fused_nms_tile_reduce` raises on every device rather than return outputs
+that silently drop it. `launches` counts kernel
 launches so a run can show that its path went through the kernel.
 """
 
@@ -48,6 +49,7 @@ _MAX_RADIUS = 8
 _MAX_ITERS = 2
 _SHARED_PER_SM = 233472  # bytes of shared memory on an H100 SM
 _RESERVED_PER_BLOCK = 1024
+
 
 def reset_launches() -> None:
     launches["fused_nms_tile_reduce"] = 0

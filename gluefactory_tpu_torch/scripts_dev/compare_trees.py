@@ -16,9 +16,9 @@ Shapes are the paths' own: Sinkhorn at (4, 2049, 2049), 50 iterations, f32
 (path B); the VGG blocks of path C, 8 images bf16 (conv1b + pool at 1024^2
 x 64, blocks 2-4); the decode at path C's score maps, 8 x 1024^2 bf16,
 radius 4, with the true size given as path C gives it. The VGG blocks and
-the decode by device time (`device_time_ms`: the
-calls queued behind a sleep kernel, so the wrapper's Python between
-launches does not count); Sinkhorn by CUDA events around the calls as the
+the decode by device time (`device_time_ms`: the calls queued behind a
+sleep kernel, so the wrapper's Python between launches does not count);
+Sinkhorn by CUDA events around the calls as the
 host issues them (`cuda_time_ms`: ten calls of a design that launches a
 row and a column pass a kernel each per iteration overflow the launch
 queue, so they cannot all be queued behind the sleep).
