@@ -150,7 +150,7 @@ def test_use_fused_detect_matches_jax_condition(monkeypatch, H, hook):
     """The port takes the fused decode exactly where the JAX package does,
     on the CPU with each package's test hook off and on (the card's arm, a
     CUDA tensor, is chip_smoke.py's path C). H = 268 has no TPU row chunk of
-    32-256 rows; radius 7 is above the PR 2 kernel's limit."""
+    32-256 rows; radius 7 is above the former kernel's largest, 6."""
     monkeypatch.setattr(pallas_detect, "FORCE_INTERPRET", hook)
     monkeypatch.setattr(cuda_detect, "FORCE_FUSED", hook)
     for W in (64, 128):
