@@ -13,7 +13,8 @@ Phases, in order; any failure exits non-zero before the last line:
    kernels also at a tail shape (777 queries, 1029 keys) and with q/k as
    LightGlue's (B, N, H, D)-ordered views; then the kernel, its plain
    version, and one PyTorch library call computing the same function, timed
-   with CUDA events (the attention kernels by their device time: the calls
+   with CUDA events (the attention kernels by their device time, also with
+   half of the tokens masked at random as width pruning leaves them: the calls
    queued behind a sleep kernel, so that they run back to back; bounds count
    tensor-core operations, exponentials and bytes); Sinkhorn also at ragged
    sizes, 0 and 1 iterations, an all -inf row, several items at once
@@ -41,6 +42,16 @@ Phases, in order; any failure exits non-zero before the last line:
 7. path C: the main path with SuperPoint's `fused_detect` and
    `fused_backbone` on, driven and profiled as in phases 4-5; its keypoints,
    scores and descriptors against the opt-ins-off extractor in f32 and bf16;
+7b. path D: LightGlue's adaptive pruning at bench.py's pruned settings
+   (depth_confidence 0.95, width_confidence 0.99) on the main path's
+   weights and batch, the confidence heads biased as bench.py biases them
+   so that every item exits after 5 layers: the pipeline's masked pruned
+   forward (each attention kernel 9 times a forward) and the early-exit
+   serving function (`lightglue_serving.make_serving_fn`, 5 times) driven,
+   timed and profiled (wall and device ms, busy share, the idle after each
+   host read); exit layers, prune counts and log assignments compared
+   across the two; then kernels against plain versions under scattered
+   active masks (25-75% of the tokens width-pruned) at 512 keypoints, f32;
 8. conv study: the streaming and N-packed 3x3 conv kernels, each against
    its plain version at (2, 1024, 1024, 64), (1, 37, 53, 64) and, across
    the kernels' 64-row strips, (1, 130, 200, 64) bf16, one launch per
@@ -70,6 +81,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from gluefactory_tpu_torch.core.config import merge
 from gluefactory_tpu_torch.models import get_model
 from gluefactory_tpu_torch.ops import (_build, cuda_attention, cuda_conv, cuda_conv3x3, cuda_detect,
                                        cuda_sinkhorn)
@@ -327,12 +339,18 @@ def phase_kernels(dev: torch.device) -> list[dict]:
             elem = torch.finfo(dtype).bits // 8
             n_bytes = (n_in + n_out) * BH * M * HEAD_DIM * elem + (m0.numel() + m1.numel())
             bound_ms, bound_by = _bound(n_ops, n_bytes, dtype, n_exps)
+            # width pruning's scattered masks: half of the tokens of each
+            # side active at random (the kernel skips only wholly masked
+            # tiles, so this is predicted to take the time of all valid)
+            half = [torch.rand(m.shape, generator=gen, device=dev) > 0.5 for m in (m1, m0)]
+            scattered = (*args[:-2], *(half if name == "fused_attention" else half[::-1]))
             # device time (calls queued ahead of the device): the wrapper's
             # host time between launches (~0.1 ms of Python) would otherwise
             # hide a kernel this short; the plain events' times are kept
             # beside it
             timing = {
                 "ms": device_time_ms(lambda: kernel(*args)),
+                "scattered_ms": device_time_ms(lambda: kernel(*scattered)),
                 "plain_ms": device_time_ms(lambda: plain(*args), reps=5),
                 "library_ms": device_time_ms(library),
                 "event_ms": {"kernel": cuda_time_ms(lambda: kernel(*args)),
@@ -355,7 +373,8 @@ def phase_kernels(dev: torch.device) -> list[dict]:
         })
         print(f"kernel {name}: parity ok ({len(parity)} cases), "
               f"{timing['ms']:.3f} ms (plain {timing['plain_ms']:.3f}, "
-              f"library {timing['library_ms']:.3f}, bound {timing['bound_ms']:.4f} "
+              f"library {timing['library_ms']:.3f}, half the tokens masked at random "
+              f"{timing['scattered_ms']:.4f}, bound {timing['bound_ms']:.4f} "
               f"{timing['bound_by']}, ms/library_ms {timing['ms_over_library']:.3f})", flush=True)
     return results
 
@@ -834,22 +853,28 @@ def compare_with_plain(model, batch, pred, label: str) -> dict:
     return res
 
 
-def drive_path(label: str, model, batch, gen, per_forward: dict, device_info: dict):
-    """One warm-up forward and FORWARDS timed ones through the entry point,
-    every launch count reset just before and read just after; each kernel
-    must have launched exactly `per_forward` times per forward (0 if not
-    named). Returns (result, last prediction)."""
+def pipeline_forward(model, batch, gen):
+    """One forward of a pipeline through its entry point, the keypoint fill
+    drawn from `gen` seeded with 0."""
+    return lambda: model(batch, generator=gen.manual_seed(0))
+
+
+def drive_path(label: str, forward, per_forward: dict, device_info: dict):
+    """One warm-up `forward()` and FORWARDS timed ones through the entry
+    point, every launch count reset just before and read just after; each
+    kernel must have launched exactly `per_forward` times per forward (0 if
+    not named). Returns (result, last prediction)."""
     torch.cuda.reset_peak_memory_stats()
     reset_all_launches()
     with torch.no_grad():
-        pred = model(batch, generator=gen.manual_seed(0))  # warm-up and first check
+        pred = forward()  # warm-up and first check
         torch.cuda.synchronize()
         check_outputs(pred)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         t0 = time.perf_counter()
         start.record()
         for _ in range(FORWARDS):
-            pred = model(batch, generator=gen.manual_seed(0))
+            pred = forward()
         end.record()
         torch.cuda.synchronize()
         host_s = time.perf_counter() - t0
@@ -879,9 +904,10 @@ def phase_main_path(device_info: dict, batch: dict):
     dev = torch.device(DEVICE)
     model = build_pipeline(dev, MAIN_CONF)
     gen = torch.Generator(device=dev)
-    res, pred = drive_path("main path", model, batch, gen, MAIN_LAUNCHES, device_info)
+    forward = pipeline_forward(model, batch, gen)
+    res, pred = drive_path("main path", forward, MAIN_LAUNCHES, device_info)
     res["vs_plain"] = compare_with_plain(model, batch, pred, "main path")
-    res["profile"] = profile_forward(model, batch, gen)
+    res["profile"] = profile_forward(forward)
     return res, model
 
 
@@ -894,12 +920,12 @@ KERNEL_SYMBOLS = {"attention": ("gf::attention",), "sinkhorn": ("sinkhorn_",),
                   "detect": ("nms_tile_kernel",), "vgg": ("conv3x3_relu", "NpackBody")}
 
 
-def profile_forward(model, batch, gen) -> dict:
-    """Device time by kernel over one forward (torch.profiler)."""
+def profile_forward(forward) -> dict:
+    """Device time by kernel over one `forward()` (torch.profiler)."""
     from torch.profiler import ProfilerActivity, profile
 
     with torch.no_grad(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        model(batch, generator=gen.manual_seed(0))
+        forward()
         torch.cuda.synchronize()
     # device-side events only (kernels, copies): operator rows repeat their time
     rows = [(ev.key, ev.self_device_time_total / 1e3, ev.count)
@@ -914,9 +940,34 @@ def profile_forward(model, batch, gen) -> dict:
             for fam, syms in KERNEL_SYMBOLS.items()}
     top = [{"kernel": k[:120], "ms": ms, "calls": n} for k, ms, n in rows[:25]]
     res = {"device_ms": total, "attention_kernel_ms": port["attention"], "port_kernel_ms": port,
-           "top": top}
+           "top": top, "host_reads": host_read_gaps(prof)}
     print(f"profile: device {total:.2f} ms per forward, port kernels "
-          + ", ".join(f"{k} {v:.2f} ms" for k, v in port.items()), flush=True)
+          + ", ".join(f"{k} {v:.2f} ms" for k, v in port.items())
+          + f"; {res['host_reads']['reads']} device-to-host reads", flush=True)
+    return res
+
+
+def host_read_gaps(prof) -> dict:
+    """On the profiled forward's device timeline: each device-to-host copy
+    (a value the host reads, waiting for the device), the idle time from
+    its end to the next device event, which the host launches only after
+    the read, and the device's idle time from the end of the first read to
+    the end of the forward (the host issues each later kernel while the
+    device waits). Times under the profiler, whose host overhead lengthens
+    them."""
+    evs = sorted((ev.time_range.start, ev.time_range.end, ev.name) for ev in prof.events()
+                 if ev.device_type == torch.autograd.DeviceType.CUDA)
+    reads = [j for j, (_, _, name) in enumerate(evs[:-1]) if "DtoH" in name]
+    gaps = [(evs[j + 1][0] - evs[j][1]) / 1e3 for j in reads]
+    res = {"reads": len(gaps), "idle_after_ms": gaps, "idle_after_total_ms": sum(gaps),
+           "span_ms": (evs[-1][1] - evs[0][0]) / 1e3 if evs else None}
+    if reads:
+        t, busy = evs[reads[0]][1], 0.0
+        for start, end, _ in evs[reads[0] + 1:]:
+            busy += max(0.0, end - max(start, t))
+            t = max(t, end)
+        res["after_first_read_ms"] = (evs[-1][1] - evs[reads[0]][1]) / 1e3
+        res["idle_after_first_read_ms"] = res["after_first_read_ms"] - busy / 1e3
     return res
 
 
@@ -929,11 +980,11 @@ def phase_superglue(device_info: dict, batch: dict) -> dict:
     dev = torch.device(DEVICE)
     model = build_pipeline(dev, SUPERGLUE_CONF)
     gen = torch.Generator(device=dev)
-    res, pred = drive_path("path B (SuperPoint + SuperGlue)", model, batch, gen, SUPERGLUE_LAUNCHES,
-                           device_info)
+    forward = pipeline_forward(model, batch, gen)
+    res, pred = drive_path("path B (SuperPoint + SuperGlue)", forward, SUPERGLUE_LAUNCHES, device_info)
     res["conf"] = SUPERGLUE_CONF
     res["vs_plain"] = compare_with_plain(model, batch, pred, "path B")
-    res["profile"] = profile_forward(model, batch, gen)
+    res["profile"] = profile_forward(forward)
     return res
 
 
@@ -1011,10 +1062,10 @@ def phase_fused_superpoint(device_info: dict, batch: dict, main_model) -> dict:
     model = build_pipeline(dev, conf)
     model.load_state_dict(main_model.state_dict())
     gen = torch.Generator(device=dev)
-    res, _ = drive_path("path C (fused detect + backbone)", model, batch, gen, FUSED_LAUNCHES,
-                        device_info)
+    forward = pipeline_forward(model, batch, gen)
+    res, _ = drive_path("path C (fused detect + backbone)", forward, FUSED_LAUNCHES, device_info)
     res["vs_opt_ins_off"] = compare_extractors(main_model.extractor, model.extractor, batch, gen)
-    res["profile"] = profile_forward(model, batch, gen)
+    res["profile"] = profile_forward(forward)
     return res
 
 
@@ -1113,6 +1164,160 @@ def phase_conv_study(device_info: dict) -> list[dict]:
     return results
 
 
+# --------------------------------------------------------------------------
+# 7b. path D: LightGlue's adaptive pruning, masked and early-exit serving
+# --------------------------------------------------------------------------
+
+# bench.py's pruned line: the official serving defaults
+SERVING_CONF = {**MAIN_CONF, "matcher": {**MAIN_CONF["matcher"], "depth_confidence": 0.95,
+                                         "width_confidence": 0.99}}
+EXIT_LAYERS = 5  # forced as bench.py forces it
+SERVING_LAUNCHES = {"fused_attention": EXIT_LAYERS, "fused_bidirectional_attention": EXIT_LAYERS}
+# scattered masks: the share of tokens width pruning must remove, the
+# layers every item runs, and the token-confidence scale at layer 0
+PRUNED_SHARE = (0.25, 0.75)
+SCATTER_EXIT = 7
+CONFIDENCE_SCALE = 100.0
+
+
+def check_scattered(matcher, pred) -> dict:
+    """Kernels against plain versions under scattered active masks at data-
+    dependent depth: the serving function on REDUCED_KEYPOINTS of the
+    path's features, f32. Layer 0's token-confidence head reads the first
+    principal direction of its tokens, scaled by CONFIDENCE_SCALE, with the
+    threshold in the widest gap between neighbouring projections of the
+    middle fifth (40-60% of the tokens confident: no exit, and no token
+    near the threshold); its matchability bias is pushed 30 down (every
+    token unmatchable), so the confident tokens are width-pruned; later
+    heads are inert until every item exits after SCATTER_EXIT layers.
+    Gates: the pruned share within PRUNED_SHARE, exit layers equal, prune
+    counts equal on >= 99.9% of tokens, the log assignment within 1e-3
+    where both are finite."""
+    from gluefactory_tpu_torch.models.matchers.lightglue_serving import make_serving_fn
+
+    R = REDUCED_KEYPOINTS
+    feats = {"view0": {"image_size": pred["view0"]["image_size"]},
+             "view1": {"image_size": pred["view1"]["image_size"]}}
+    for i in "01":
+        for key in ("keypoints", "descriptors", "keypoint_mask"):
+            t = pred[f"{key}{i}"][:, :R]
+            feats[f"{key}{i}"] = t.float() if t.is_floating_point() else t
+    matcher = copy.deepcopy(matcher).float()
+    # R keypoints are below the card's pruning guard (1024): prune anyway
+    matcher.conf = merge(matcher.conf, {"pruning_min_kpts": -1})
+    set_flash(matcher, False)
+    with torch.no_grad():
+        desc0, desc1, enc0, enc1, mask0, mask1 = matcher._encode(feats)
+        d0, d1 = matcher.transformers[0](desc0, desc1, enc0, enc1, mask0, mask1)
+        # layer 0's head reads the tokens' first principal direction, with
+        # the threshold in the widest gap between neighbouring projections
+        # of the middle fifth, so no token lies near it
+        x = torch.cat([d0[mask0], d1[mask1]])
+        mean = x.mean(0)
+        u = torch.linalg.svd(x - mean, full_matrices=False).Vh[0]
+        proj = ((x - mean) @ u).sort().values
+        lo, hi = int(0.4 * len(proj)), int(0.6 * len(proj))
+        j = lo + int((proj[lo + 1:hi + 1] - proj[lo:hi]).argmax())
+        center, gap = (proj[j] + proj[j + 1]) / 2, float(proj[j + 1] - proj[j])
+        th = matcher._confidence_threshold(0)
+        lin = matcher.token_confidence[0].token[0]
+        lin.weight.copy_(CONFIDENCE_SCALE * u[None])
+        lin.bias.fill_(math.log(th / (1 - th)) - CONFIDENCE_SCALE * float(mean @ u + center))
+        matcher.log_assignment[0].matchability.bias.sub_(30.0)
+        for i in range(1, len(matcher.token_confidence)):
+            head = matcher.token_confidence[i].token[0]
+            head.weight.zero_()
+            head.bias.fill_(20.0 if i >= SCATTER_EXIT - 1 else -20.0)
+    serve = make_serving_fn(matcher)
+    with torch.no_grad():
+        plain = serve(feats)
+        set_flash(matcher, True)
+        reset_all_launches()
+        got = serve(feats)
+        launches = all_launches()
+    torch.cuda.synchronize()
+    exits = got["exit_layer"].long()
+    valid = torch.cat([feats["keypoint_mask0"], feats["keypoint_mask1"]], 1)
+    prune = torch.cat([got["prune0"], got["prune1"]], 1)
+    prune_plain = torch.cat([plain["prune0"], plain["prune1"]], 1)
+    pruned = (prune < 1 + exits[:, None])[valid]
+    la, la_plain = got["log_assignment"], plain["log_assignment"]
+    both = torch.isfinite(la) & torch.isfinite(la_plain) & (la_plain > -1e8)
+    res = {
+        "keypoints": R, "exit_layer": got["exit_layer"].tolist(), "projection_gap": gap,
+        "exit_layer_plain": plain["exit_layer"].tolist(), "launches": launches,
+        "pruned_share": float(pruned.float().mean()),
+        "prune_agreement": float((prune == prune_plain)[valid].float().mean()),
+        "log_assignment_max_abs_err": float((la - la_plain)[both].abs().max()), "tol": 1e-3,
+    }
+    print(f"path D scattered masks vs plain at {R} keypoints: {json.dumps(res)}", flush=True)
+    if not PRUNED_SHARE[0] <= res["pruned_share"] <= PRUNED_SHARE[1]:
+        fail(f"path D scattered: width pruning removed {res['pruned_share']} of the tokens")
+    if res["exit_layer"] != res["exit_layer_plain"] or set(res["exit_layer"]) != {SCATTER_EXIT - 1}:
+        fail(f"path D scattered: exit layers {res['exit_layer']} vs plain {res['exit_layer_plain']}")
+    if launches != {**{k: 0 for k in launches}, "fused_attention": SCATTER_EXIT,
+                    "fused_bidirectional_attention": SCATTER_EXIT}:
+        fail(f"path D scattered: {launches} launches, expected {SCATTER_EXIT} of each attention kernel")
+    if not res["prune_agreement"] >= 0.999:
+        fail(f"path D scattered: prune counts agree on {res['prune_agreement']} of the tokens")
+    if not res["log_assignment_max_abs_err"] <= res["tol"]:
+        fail(f"path D scattered: log assignment differs by {res['log_assignment_max_abs_err']}")
+    return res
+
+
+def phase_serving(device_info: dict, batch: dict) -> dict:
+    """bench.py's pruned configuration (depth_confidence 0.95,
+    width_confidence 0.99) on the main path's weights and batch, the token-
+    confidence heads biased so every item exits after EXIT_LAYERS layers:
+    the pipeline's masked pruned forward (each attention kernel 9 times a
+    forward) and the early-exit serving function after the extractor
+    (EXIT_LAYERS times), each driven, timed and profiled; exit layers,
+    prune counts and the log assignment compared across the two; then the
+    scattered-mask check."""
+    from bench_torch import extractor_pipeline, forced_exit
+    from gluefactory_tpu_torch.models.matchers.lightglue_serving import make_serving_fn
+
+    dev = torch.device(DEVICE)
+    model = build_pipeline(dev, SERVING_CONF)
+    random_heads = copy.deepcopy(model.matcher)
+    forced_exit(model.matcher, EXIT_LAYERS)
+    gen = torch.Generator(device=dev)
+    masked_forward = pipeline_forward(model, batch, gen)
+    masked, mpred = drive_path("path D masked pruned forward", masked_forward, MAIN_LAUNCHES,
+                               device_info)
+    extract = extractor_pipeline(model, dev)
+    serving = make_serving_fn(model.matcher)
+
+    def serving_forward():
+        feats = extract(batch, generator=gen.manual_seed(0))
+        return {**feats, **serving({**batch, **feats})}
+
+    served, spred = drive_path("path D serving", serving_forward, SERVING_LAUNCHES, device_info)
+    if not (spred["exit_layer"] == EXIT_LAYERS - 1).all():
+        fail(f"path D serving: exit layers {spred['exit_layer'].tolist()}, expected {EXIT_LAYERS - 1}")
+    for k in ("prune0", "prune1"):
+        if not torch.equal(spred[k], mpred[k]):
+            fail(f"path D: {k} differs between the serving function and the masked forward")
+    valid = mpred["log_assignment"] > -1e8
+    gap = float((spred["log_assignment"] - mpred["log_assignment"])[valid].abs().max())
+    tol = KERNEL_TOL[torch.bfloat16]
+    if not gap <= tol:
+        fail(f"path D: serving and masked log assignments differ by {gap} > {tol}")
+    res = {"masked": masked, "serving": served, "serving_vs_masked_max_abs_err": gap, "tol": tol,
+           "bit_equal": torch.equal(spred["log_assignment"], mpred["log_assignment"]),
+           "exit_layer": spred["exit_layer"].tolist(),
+           "prune_counts": torch.bincount(spred["prune0"].flatten().long()).tolist()}
+    for name, r, forward in (("masked", masked, masked_forward), ("serving", served, serving_forward)):
+        r["profile"] = profile_forward(forward)
+        dev_ms = r["profile"]["device_ms"]
+        r["busy_share"] = None if dev_ms is None else dev_ms / r["ms_per_forward"]
+        print(f"path D {name}: wall {r['ms_per_forward']:.2f} ms, device {dev_ms} ms, busy share "
+              f"{r['busy_share']}, {r['pairs_per_s']:.2f} pairs/s ({device_info['nvidia_smi']})",
+              flush=True)
+    res["scattered"] = check_scattered(random_heads, {**mpred, **batch})
+    return res
+
+
 def main() -> None:
     t0 = time.perf_counter()
     device_info = phase_device()
@@ -1125,6 +1330,7 @@ def main() -> None:
     main_path, main_model = phase_main_path(device_info, batch)
     path_b = phase_superglue(device_info, batch)
     path_c = phase_fused_superpoint(device_info, batch, main_model)
+    path_d = phase_serving(device_info, batch)
     # each kernel's launches from the path that runs it
     from_path = {"fused_attention": main_path, "fused_bidirectional_attention": main_path,
                  "log_sinkhorn": path_b, "fused_nms_tile_reduce": path_c, "fused_vgg_block": path_c}
@@ -1137,6 +1343,7 @@ def main() -> None:
     record = {"device": device_info, "build": build, "kernels": kernels, "gradients": gradients,
               "main_path": main_path,
               "path_b_superglue": path_b, "path_c_fused_superpoint": path_c,
+              "path_d_serving": path_d,
               "seconds": time.perf_counter() - t0}
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(record, indent=1))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",

@@ -5,7 +5,10 @@ Parameters carry the official MagicLeap names (`conv1a` ... `convDb`, each
 an `nn.Conv2d`), so `superpoint_v1.pth` loads as it is. The network runs
 channels-first; the data contract stays that of the JAX package: images
 (B, H, W, C) in [0, 1], keypoints in the COLMAP convention (+0.5), exactly
-`max_num_keypoints` keypoints per image with a `keypoint_mask`.
+`max_num_keypoints` keypoints per image with a `keypoint_mask`. With
+`refinement_radius` > 0 the selected keypoints move to the score-weighted
+mean position of their window of the dense score map (`ops/nms.py`), after
+either decode.
 
 Two opt-ins, off by default as in the JAX package, route through the
 hand-written CUDA kernels on the card:
@@ -31,7 +34,8 @@ from ...ops import cuda_detect
 from ...ops.cuda_conv import fused_vgg_block, vgg_kernel_available
 from ...ops.cuda_detect import detect_keypoints, fused_detect_available
 from ...ops.grid_sample import sample_descriptors
-from ...ops.nms import mask_outside, remove_borders, simple_nms, top_k_keypoints
+from ...ops.nms import (mask_outside, remove_borders, simple_nms, soft_argmax_refinement,
+                        top_k_keypoints)
 from ..base_model import BaseModel
 
 
@@ -79,6 +83,7 @@ class SuperPoint(BaseModel):
         "force_num_keypoints": False,
         "detection_threshold": 0.005,
         "remove_borders": 4,
+        "refinement_radius": 0,  # soft-argmax sub-pixel refinement (ops/nms.py)
         "dense_outputs": False,
         "channels": [64, 64, 128, 128],
         "head_channels": 256,
@@ -192,6 +197,8 @@ class SuperPoint(BaseModel):
             kpts, kpt_scores, valid = top_k_keypoints(
                 nmsed, k, c.detection_threshold, nms_radius=c.nms_radius
             )
+        if c.refinement_radius > 0:  # on the score map before NMS, after either decode
+            kpts = soft_argmax_refinement(kpts, scores, int(c.refinement_radius))
 
         if c.force_num_keypoints:
             size = true_size

@@ -1,4 +1,4 @@
-"""LightGlue: attentional sparse-feature matcher, dense inference forward
+"""LightGlue: attentional sparse-feature matcher, inference forward
 (counterpart of `gluefactory_tpu/models/matchers/lightglue.py`).
 
 Parameters carry the names and layout of the official LightGlue release
@@ -15,9 +15,20 @@ to this layout.
 As in the JAX package, both views go through self-attention as one stacked
 batch, the cross-attention projections run once over the stacked views, and
 attention is the hand-written CUDA kernels on the card (`ops/attention.py`).
+
+Adaptive depth and width pruning (`depth_confidence`, `width_confidence`)
+is the JAX package's masked static-shape realization, `_pruned_forward`:
+width pruning clears the active mask of confidently unmatchable tokens,
+depth pruning freezes an item's descriptors once enough of its tokens are
+confident and takes its assignment from that layer. It runs every layer
+and an assignment head at each, so it prunes the assignment, not the time;
+`lightglue_serving.make_serving_fn` runs the same rules and stops at the
+exit. Below `pruning_min_kpts` keypoints the dense forward runs instead.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -166,14 +177,33 @@ class MatchAssignment(nn.Module):
         scores = sigmoid_log_double_softmax(sim, z0, z1, mask0, mask1)
         return scores, sim, z0, z1
 
+    def get_matchability(self, desc: torch.Tensor) -> torch.Tensor:
+        """The matchability logit alone, in f32 (the width-pruning rule
+        needs it at every layer without the M x N similarity)."""
+        return self.matchability(desc).squeeze(-1).float()
+
 
 class TokenConfidence(nn.Module):
-    """Token-confidence head. Only its parameters are ported: it serves the
-    pruned forward and the loss, which later slices bring."""
+    """Per-token confidence that a token's match will not change in later
+    layers: a Linear to one logit, in f32, then the sigmoid."""
 
     def __init__(self, dim: int):
         super().__init__()
         self.token = nn.Sequential(nn.Linear(dim, 1), nn.Sigmoid())
+
+    def forward(self, desc0, desc1, return_logits: bool = False):
+        linear = self.token[0]
+        l0 = linear(desc0).squeeze(-1).float()
+        l1 = linear(desc1).squeeze(-1).float()
+        if return_logits:
+            return l0, l1
+        return torch.sigmoid(l0), torch.sigmoid(l1)
+
+
+# Below this many keypoints (the larger view) adaptive pruning costs more
+# time than it saves, so the dense forward runs: the JAX package's table
+# (`lightglue.py:247`, keyed there by backend) keyed by torch device type.
+PRUNING_KEYPOINT_THRESHOLDS = {"cpu": -1, "cuda": 1024}
 
 
 def _identity_input_proj(module, state_dict, prefix, *args) -> None:
@@ -220,22 +250,37 @@ class LightGlue(BaseModel):
         self.token_confidence = nn.ModuleList([TokenConfidence(d) for _ in range(conf.n_layers - 1)])
         self.register_load_state_dict_pre_hook(_identity_input_proj)
 
-    def _forward(self, data: dict) -> dict:
-        c = self.conf
-        if c.depth_confidence > 0 or c.width_confidence > 0:
-            raise NotImplementedError("adaptive depth/width pruning is not ported yet")
-        mask0 = data.get("keypoint_mask0")
-        mask1 = data.get("keypoint_mask1")
+    def _encode(self, data: dict):
+        """(desc0, desc1, enc0, enc1, mask0, mask1): projected descriptors,
+        rotary encodings of the normalized keypoints, keypoint masks."""
         size0 = data["view0"]["image_size"] if "view0" in data else data["image_size0"]
         size1 = data["view1"]["image_size"] if "view1" in data else data["image_size1"]
         enc0 = self.posenc(normalize_keypoints(data["keypoints0"], size0))
         enc1 = self.posenc(normalize_keypoints(data["keypoints1"], size1))
         desc0 = self.input_proj(data["descriptors0"])
         desc1 = self.input_proj(data["descriptors1"])
-        for layer in self.transformers:
-            desc0, desc1 = layer(desc0, desc1, enc0, enc1, mask0, mask1)
-        scores, _, _, _ = self.log_assignment[-1](desc0, desc1, mask0, mask1)
-        m0, m1, mscores0, mscores1 = filter_matches(scores, c.filter_threshold, mask0, mask1)
+        return desc0, desc1, enc0, enc1, data.get("keypoint_mask0"), data.get("keypoint_mask1")
+
+    def _forward(self, data: dict) -> dict:
+        c = self.conf
+        desc0, desc1, enc0, enc1, mask0, mask1 = self._encode(data)
+        kpts0, kpts1 = data["keypoints0"], data["keypoints1"]
+        do_prune = (c.depth_confidence > 0 or c.width_confidence > 0) and (
+            max(kpts0.shape[1], kpts1.shape[1]) >= self.pruning_min_kpts(kpts0.device))
+        if do_prune:
+            scores, prune0, prune1 = self._pruned_forward(desc0, desc1, enc0, enc1, mask0, mask1)
+        else:
+            for layer in self.transformers:
+                desc0, desc1 = layer(desc0, desc1, enc0, enc1, mask0, mask1)
+            scores, _, _, _ = self.log_assignment[-1](desc0, desc1, mask0, mask1)
+        pred = self.match_outputs(scores, mask0, mask1)
+        if do_prune:
+            pred["prune0"] = prune0
+            pred["prune1"] = prune1
+        return pred
+
+    def match_outputs(self, scores, mask0, mask1) -> dict:
+        m0, m1, mscores0, mscores1 = filter_matches(scores, self.conf.filter_threshold, mask0, mask1)
         return {
             "log_assignment": scores,
             "matches0": m0,
@@ -243,3 +288,89 @@ class LightGlue(BaseModel):
             "matching_scores0": mscores0,
             "matching_scores1": mscores1,
         }
+
+    def pruning_min_kpts(self, device: torch.device) -> int:
+        """The pruning guard's keypoint count on `device`: conf "auto" looks
+        up the device type in PRUNING_KEYPOINT_THRESHOLDS, an int overrides
+        it, -1 never guards."""
+        v = self.conf.pruning_min_kpts
+        if v == "auto":
+            return PRUNING_KEYPOINT_THRESHOLDS.get(torch.device(device).type, -1)
+        return int(v)
+
+    def _confidence_threshold(self, layer_index: int) -> float:
+        """Token-confidence threshold of a layer (reference `lightglue.py:540-544`)."""
+        return min(0.8 + 0.1 * math.exp(-4.0 * layer_index / self.conf.n_layers), 1.0)
+
+    def _pruned_forward(self, desc0, desc1, enc0, enc1, mask0, mask1):
+        """Adaptive depth and width pruning, masked: every layer runs on
+        every item, with the active masks as attention masks.
+
+        - width: a token whose matchability is below 1 - width_confidence,
+          and that is confident (when depth pruning is on), leaves the
+          active mask; its descriptor still takes the FFN of a zero message;
+        - depth: once more than depth_confidence of an item's active tokens
+          are confident, its descriptors freeze and its assignment is that
+          layer's;
+        - prune0/1 count 1 + the width rounds a token stayed active through
+          while its item ran (n_layers everywhere when width pruning is off).
+        """
+        c = self.conf
+        B, M, _ = desc0.shape
+        N = desc1.shape[1]
+        dev = desc0.device
+        active0 = mask0 if mask0 is not None else torch.ones(B, M, dtype=torch.bool, device=dev)
+        active1 = mask1 if mask1 is not None else torch.ones(B, N, dtype=torch.bool, device=dev)
+        prune0 = torch.ones(B, M, dtype=torch.int32, device=dev)
+        prune1 = torch.ones(B, N, dtype=torch.int32, device=dev)
+        stopped = torch.zeros(B, dtype=torch.bool, device=dev)
+        final_scores = None
+        for i in range(c.n_layers):
+            nd0, nd1 = self.transformers[i](desc0, desc1, enc0, enc1, active0, active1)
+            desc0 = torch.where(stopped[:, None, None], desc0, nd0)
+            desc1 = torch.where(stopped[:, None, None], desc1, nd1)
+            scores_i, _, z0, z1 = self.log_assignment[i](desc0, desc1, active0, active1)
+            if final_scores is None:
+                final_scores = torch.full_like(scores_i, -math.inf)
+            if i == c.n_layers - 1:
+                final_scores = torch.where(stopped[:, None, None], final_scores, scores_i)
+                break
+            conf_th = self._confidence_threshold(i)
+            # token confidences only for the depth rule: with depth pruning
+            # off, the width keep-rule drops its low-confidence clause
+            c0 = c1 = None
+            if c.depth_confidence > 0:
+                c0, c1 = self.token_confidence[i](desc0, desc1)
+                stop_now = _exits(c0, c1, active0, active1, conf_th, c.depth_confidence) & ~stopped
+            else:
+                stop_now = torch.zeros_like(stopped)
+            final_scores = torch.where(stop_now[:, None, None], scores_i, final_scores)
+            stopped = stopped | stop_now
+            if c.width_confidence > 0:
+                active0, p0 = _width_round(active0, z0, c0, conf_th, c.width_confidence, stopped)
+                active1, p1 = _width_round(active1, z1, c1, conf_th, c.width_confidence, stopped)
+                prune0, prune1 = prune0 + p0, prune1 + p1
+        if not c.width_confidence > 0:
+            prune0 = torch.full((B, M), c.n_layers, dtype=torch.int32, device=dev)
+            prune1 = torch.full((B, N), c.n_layers, dtype=torch.int32, device=dev)
+        return final_scores, prune0, prune1
+
+
+def _exits(c0, c1, active0, active1, conf_th: float, depth_confidence: float) -> torch.Tensor:
+    """(B,) depth rule: more than `depth_confidence` of an item's active
+    tokens (both views) have confidence >= `conf_th`."""
+    confident = ((c0 >= conf_th) & active0).sum(-1) + ((c1 >= conf_th) & active1).sum(-1)
+    num = (active0.sum(-1) + active1.sum(-1)).clamp(min=1).float()
+    return confident.float() / num > depth_confidence
+
+
+def _width_round(active, z, conf, conf_th: float, width_confidence: float, stopped):
+    """One width-pruning round of one view: (new active mask, the prune
+    counter's increment). A token stays if its matchability passes
+    1 - width_confidence or (with token confidences) it is not confident;
+    stopped items keep their mask and count nothing."""
+    keep = torch.sigmoid(z) > (1.0 - width_confidence)
+    if conf is not None:  # low-confidence points are never pruned
+        keep = keep | (conf <= conf_th)
+    new_active = active & torch.where(stopped[:, None], active, keep)
+    return new_active, (new_active & ~stopped[:, None]).to(torch.int32)

@@ -104,3 +104,24 @@ def top_k_keypoints(scores: torch.Tensor, k: int, threshold: float = 0.0,
     ys = (tidx // Wt * tile + inner // tile).float()
     kpts = torch.stack([xs, ys], dim=-1) + 0.5
     return kpts, vals, valid
+
+
+def soft_argmax_refinement(kpts: torch.Tensor, scores: torch.Tensor, radius: int) -> torch.Tensor:
+    """Sub-pixel refinement: the score-weighted mean position in a
+    (2r+1)^2 window around each keypoint (reference `superpoint.py:97-113`).
+
+    kpts (B, K, 2) xy with the +0.5 offset; scores (B, H, W), the dense
+    score map. Window pixels outside the image weigh nothing (the gather
+    index is clipped, the weight masked); the weights' sum gets +1e-8.
+    """
+    B, H, W = scores.shape
+    offs = torch.arange(-radius, radius + 1, dtype=torch.float32, device=kpts.device)
+    dy, dx = torch.meshgrid(offs, offs, indexing="ij")
+    offsets = torch.stack([dx.reshape(-1), dy.reshape(-1)], dim=-1)  # (d*d, 2)
+    pos = (kpts - 0.5)[:, :, None, :] + offsets  # (B, K, d*d, 2), array indices
+    xi = torch.round(pos[..., 0]).long().clamp(0, W - 1)
+    yi = torch.round(pos[..., 1]).long().clamp(0, H - 1)
+    inb = (pos[..., 0] >= 0) & (pos[..., 0] <= W - 1) & (pos[..., 1] >= 0) & (pos[..., 1] <= H - 1)
+    s = scores.reshape(B, H * W).gather(1, (yi * W + xi).reshape(B, -1)).reshape(inb.shape) * inb
+    wsum = s.sum(dim=-1, keepdim=True) + 1e-8
+    return (pos * s[..., None]).sum(dim=-2) / wsum + 0.5

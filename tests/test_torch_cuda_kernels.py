@@ -523,3 +523,84 @@ def test_fused_vgg_block_bodies(dev, shape, cm, co, pool, bodies):
     assert got.shape == want.shape
     step = 2.0 ** (math.floor(math.log2(max(float(want.float().abs().max()), 2.0**-126))) - 7)
     assert (got.float() - want.float()).abs().max() <= 2 * (want.float() - ref).abs().max() + step
+
+
+def _scattered_masks(gen, B, n, dev, pruned_side_item=0):
+    """~half of the tokens active, scattered; every token of item
+    `pruned_side_item` inactive (a side wholly pruned)."""
+    m = torch.rand(B, n, generator=gen, device=dev) > 0.5
+    m[pruned_side_item] = False
+    return m
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_on_scattered_active_masks(dev, dtype):
+    """Width pruning's masks: scattered active tokens in every item, and one
+    item whose keys (self-attention) or one side (cross-attention) are all
+    pruned, at LightGlue's layout."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    B, H, M, N, D = 3, 4, 300, 260, 64
+    q, k, v = (_heads(gen, dev, dtype, B, H, n, D) for n in (M, N, N))
+    mq = torch.rand(B, M, generator=gen, device=dev) > 0.5
+    mk = _scattered_masks(gen, B, N, dev, pruned_side_item=1)
+    got = cuda_attention.fused_attention(q, k, v, mk, mq)
+    want = cuda_attention.attention_plain(q, k, v, mk, mq)
+    torch.cuda.synchronize()
+    assert (got.float() - want.float()).abs().max() <= TOL[dtype]
+    assert got[1].abs().max() == 0  # no valid key: zeros
+    qk0, v0 = (_heads(gen, dev, dtype, B, H, M, D) for _ in range(2))
+    qk1, v1 = (_heads(gen, dev, dtype, B, H, N, D) for _ in range(2))
+    m0 = torch.rand(B, M, generator=gen, device=dev) > 0.5
+    m0[2] = False  # side 0 of item 2 wholly pruned
+    m1 = _scattered_masks(gen, B, N, dev, pruned_side_item=0)
+    got = cuda_attention.fused_bidirectional_attention(qk0, qk1, v0, v1, m0, m1)
+    want = cuda_attention.bidirectional_plain(qk0, qk1, v0, v1, m0, m1)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert (g.float() - w.float()).abs().max() <= TOL[dtype]
+
+
+def _heads(gen, dev, dtype, B, H, n, D):
+    return torch.randn(B, n, H, D, generator=gen, device=dev).to(dtype).transpose(1, 2)
+
+
+@pytest.mark.parametrize("exit_layers", [1, 3, 4])
+def test_serving_launches_each_attention_kernel_once_a_layer(dev, exit_layers):
+    """The early-exit serving function launches each attention kernel once
+    per layer it runs, exit_layers times when every item exits after
+    exit_layers layers; the masked pruned forward n_layers times; both give
+    the same outputs."""
+    from gluefactory_tpu_torch.models import get_model
+    from gluefactory_tpu_torch.models.matchers.lightglue_serving import make_serving_fn
+
+    torch.manual_seed(0)
+    n_layers, B, K = 4, 2, 200
+    lg = get_model("lightglue").from_conf(
+        {"n_layers": n_layers, "descriptor_dim": 128, "input_dim": 128, "num_heads": 2,
+         "depth_confidence": 0.95, "width_confidence": 0.99, "pruning_min_kpts": -1},
+        device=dev).eval()
+    with torch.no_grad():
+        for i, head in enumerate(lg.token_confidence):
+            head.token[0].weight.zero_()
+            head.token[0].bias.fill_(20.0 if i >= exit_layers - 1 else -20.0)
+    gen = torch.Generator(device=dev).manual_seed(8)
+    data = {"keypoints0": torch.rand(B, K, 2, generator=gen, device=dev) * 100,
+            "keypoints1": torch.rand(B, K, 2, generator=gen, device=dev) * 100,
+            "descriptors0": torch.randn(B, K, 128, generator=gen, device=dev),
+            "descriptors1": torch.randn(B, K, 128, generator=gen, device=dev),
+            "image_size0": torch.full((B, 2), 100.0, device=dev),
+            "image_size1": torch.full((B, 2), 100.0, device=dev)}
+    with torch.no_grad():
+        cuda_attention.reset_launches()
+        served = make_serving_fn(lg)(data)
+        assert cuda_attention.launches == {"fused_attention": exit_layers,
+                                           "fused_bidirectional_attention": exit_layers}
+        cuda_attention.reset_launches()
+        masked = lg(data)
+        assert cuda_attention.launches == {"fused_attention": n_layers,
+                                           "fused_bidirectional_attention": n_layers}
+    assert served["exit_layer"].tolist() == [exit_layers - 1] * B
+    for k in ("prune0", "prune1", "matches0", "matches1"):
+        assert torch.equal(served[k], masked[k]), k
+    valid = masked["log_assignment"] > -1e8
+    assert (served["log_assignment"] - masked["log_assignment"])[valid].abs().max() <= 1e-5

@@ -31,8 +31,9 @@ for name in names:
 leaked = sorted(m for m in sys.modules if m == "gluefactory_tpu" or m.startswith("gluefactory_tpu."))
 print(len(names), leaked)
 assert not leaked, leaked
-assert len(names) >= 28, names
+assert len(names) >= 29, names
 for name in ("ops.cuda_sinkhorn", "ops.cuda_detect", "ops.cuda_conv", "models.matchers.superglue",
+             "models.matchers.lightglue_serving",
              "ops.cuda_conv3x3", "scripts_dev", "scripts_dev.timing", "scripts_dev.conv_study",
              "scripts_dev.profile_stream_conv", "scripts_dev.profile_npack"):
     assert pkg.__name__ + "." + name in names, name
@@ -176,3 +177,19 @@ def test_new_wrappers_refuse_what_the_kernels_do_not_take(monkeypatch):
         cuda_conv.fused_vgg_block(torch.zeros(1, 8, 8, 4), torch.zeros(3, 3, 4, 16), torch.zeros(16))
     with pytest.raises(ValueError, match="do not fit"):
         cuda_conv.fused_vgg_block(torch.zeros(1, 8, 8, 8), torch.zeros(3, 3, 16, 16), torch.zeros(16))
+
+
+_BENCH_GUARD = """
+import sys
+sys.modules["jax"] = None
+sys.modules["flax"] = None
+import bench_torch, chip_smoke
+leaked = sorted(m for m in sys.modules if m == "gluefactory_tpu" or m.startswith("gluefactory_tpu."))
+assert not leaked, leaked
+"""
+
+
+def test_bench_and_smoke_scripts_import_without_jax():
+    res = subprocess.run([sys.executable, "-c", _BENCH_GUARD], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
