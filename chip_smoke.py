@@ -60,7 +60,21 @@ Phases, in order; any failure exits non-zero before the last line:
    through their `main` at SuperPoint's conv1b shape (8 x 1024^2 x 64),
    their kernel against the library conv (`maxdiff`) within the tools' bf16
    tolerance; each kernel's time over the library's and its TFLOP/s, of the
-   function's work and of its own (halo rows included).
+   function's work and of its own (halo rows included);
+9. path E, stage-1 training (run before phase 8): `gluefactory_tpu_torch.
+   train.main` on `superpoint+lightglue_homography.yaml` at full width
+   (SuperPoint 512 keypoints frozen, LightGlue-9 d=256 with checkpointed
+   layers, 640 x 480, f32), cut to procedural images, identity photometry,
+   batch 32, 6 workers, 12 steps and 2 validation batches (the cuts are
+   printed); every loss term finite and every update applied, each attention
+   kernel exactly 18 launches a step (9 forward, 9 in the recompute) and 9 a
+   validation batch, the last checkpoint reloaded bit-equal by `--restore`,
+   one train step through the kernels against the plain versions (loss and
+   the matcher's gradient norm within 1e-3 relative); then ms a step and
+   samples/s (CUDA events over 10 steps after 2 warm-ups), the device busy
+   share and peak memory, each attention kernel at the training shapes in
+   f32 (forward, and forward + backward, against SDPA), and whether one step
+   at the published batch of 128 fits.
 
 Each path resets every launch count just before its timed run and reads
 them just after. Prints the kernel JSON line, the card line, and as its last
@@ -70,9 +84,11 @@ chiprun_out/chip_smoke.json.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import math
+import shutil
 import subprocess
 import sys
 import time
@@ -920,17 +936,22 @@ KERNEL_SYMBOLS = {"attention": ("gf::attention",), "sinkhorn": ("sinkhorn_",),
                   "detect": ("nms_tile_kernel",), "vgg": ("conv3x3_relu", "NpackBody")}
 
 
-def profile_forward(forward) -> dict:
-    """Device time by kernel over one `forward()` (torch.profiler)."""
+def profile_forward(forward, grad: bool = False) -> dict:
+    """Device time by kernel over one `forward()` (torch.profiler), under
+    no_grad unless `grad`."""
     from torch.profiler import ProfilerActivity, profile
 
-    with torch.no_grad(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with (contextlib.nullcontext() if grad else torch.no_grad()), \
+            profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         forward()
         torch.cuda.synchronize()
-    # device-side events only (kernels, copies): operator rows repeat their time
+    # device-side events only (kernels, copies): operator rows repeat their
+    # time, and so do user annotations on the device timeline (the
+    # optimizer's step range)
     rows = [(ev.key, ev.self_device_time_total / 1e3, ev.count)
             for ev in prof.key_averages()
-            if ev.device_type == torch.autograd.DeviceType.CUDA and ev.self_device_time_total > 0]
+            if ev.device_type == torch.autograd.DeviceType.CUDA and ev.self_device_time_total > 0
+            and not getattr(ev, "is_user_annotation", False)]
     if not rows:  # the profiler saw no device event: not measured
         print("profile: no device events recorded; device time by kernel not measured", flush=True)
         return {"device_ms": None, "attention_kernel_ms": None, "port_kernel_ms": None, "top": []}
@@ -956,7 +977,8 @@ def host_read_gaps(prof) -> dict:
     device waits). Times under the profiler, whose host overhead lengthens
     them."""
     evs = sorted((ev.time_range.start, ev.time_range.end, ev.name) for ev in prof.events()
-                 if ev.device_type == torch.autograd.DeviceType.CUDA)
+                 if ev.device_type == torch.autograd.DeviceType.CUDA
+                 and not getattr(ev, "is_user_annotation", False))
     reads = [j for j, (_, _, name) in enumerate(evs[:-1]) if "DtoH" in name]
     gaps = [(evs[j + 1][0] - evs[j][1]) / 1e3 for j in reads]
     res = {"reads": len(gaps), "idle_after_ms": gaps, "idle_after_total_ms": sum(gaps),
@@ -1318,6 +1340,306 @@ def phase_serving(device_info: dict, batch: dict) -> dict:
     return res
 
 
+# --------------------------------------------------------------------------
+# 9. path E: stage-1 training (superpoint+lightglue_homography.yaml)
+# --------------------------------------------------------------------------
+
+TRAIN_YAML = "gluefactory_tpu/configs/superpoint+lightglue_homography.yaml"
+TRAIN_BATCH, TRAIN_STEPS, VAL_BATCHES, TIMED_STEPS, WARMUP_STEPS = 32, 12, 2, 10, 2
+PUBLISHED_BATCH = 128
+TRAIN_EXPERIMENT = "chip_smoke_path_e"
+# the run's cuts of the published recipe, printed and recorded
+TRAIN_REDUCED = {
+    "data.synthetic_images": "procedural images instead of revisitop1m, which is not on disk",
+    "data.photometric.name": "identity instead of lg, which needs cv2",
+    "data.batch_size": f"{TRAIN_BATCH} instead of {PUBLISHED_BATCH}, for the smoke's time",
+    "data.num_workers": "6 instead of 14 (the card's machine has 8 cores)",
+    "length": f"{TRAIN_STEPS} training steps (one epoch) and {VAL_BATCHES} validation batches",
+    "--no_tensorboard --no_capture": "no writer, no log capture",
+}
+TRAIN_ARGV = [
+    TRAIN_EXPERIMENT, "--conf", str(ROOT / TRAIN_YAML), "--no_tensorboard", "--no_capture",
+    "--max_val_iters", str(VAL_BATCHES),
+    f"data.synthetic_images={TRAIN_BATCH * (TRAIN_STEPS + VAL_BATCHES)}",
+    f"data.train_size={TRAIN_BATCH * TRAIN_STEPS}", f"data.val_size={TRAIN_BATCH * VAL_BATCHES}",
+    f"data.batch_size={TRAIN_BATCH}", "data.num_workers=6", "data.photometric.name=identity",
+    "train.epochs=1", "train.log_every_iter=1", "train.eval_every_iter=1000000",
+]
+# launches of each attention kernel: a train step runs every layer forward
+# and again in its checkpoint's recompute; a validation batch once
+STEP_LAUNCHES = {"fused_attention": 2 * LAYERS, "fused_bidirectional_attention": 2 * LAYERS}
+VAL_LAUNCHES = {"fused_attention": LAYERS, "fused_bidirectional_attention": LAYERS}
+TRAIN_TOL = 1e-3  # kernels vs plain versions in a train step, relative, f32
+
+
+def _check_launches(label: str, got: dict, want: dict) -> None:
+    for name, n in got.items():
+        if n != want.get(name, 0):
+            fail(f"{label}: {name} launched {n} times, expected {want.get(name, 0)}")
+
+
+def drive_training() -> tuple[dict, torch.nn.Module]:
+    """The trainer's CLI entry point (`gluefactory_tpu_torch.train.main`) on
+    the shipped config with TRAIN_ARGV's overrides, every launch count reset
+    just before and read just after. Every step's losses must be finite and
+    every update applied; each attention kernel must launch exactly
+    STEP_LAUNCHES a step and VAL_LAUNCHES a validation batch."""
+    from gluefactory_tpu_torch import train
+    from gluefactory_tpu_torch.settings import TRAINING_PATH
+
+    shutil.rmtree(Path(TRAINING_PATH, TRAIN_EXPERIMENT), ignore_errors=True)
+    records = []
+    call = train.TrainStep.__call__
+
+    def recorded(self, batch, generator=None):
+        out = call(self, batch, generator)
+        records.append(out)
+        return out
+
+    train.TrainStep.__call__ = recorded
+    reset_all_launches()
+    t0 = time.perf_counter()
+    try:
+        model = train.main(TRAIN_ARGV)
+        torch.cuda.synchronize()
+    finally:
+        train.TrainStep.__call__ = call
+    seconds = time.perf_counter() - t0
+    launches = all_launches()
+    _check_launches("path E", launches, {k: TRAIN_STEPS * n + VAL_BATCHES * VAL_LAUNCHES[k]
+                                         for k, n in STEP_LAUNCHES.items()})
+    if len(records) != TRAIN_STEPS:
+        fail(f"path E: {len(records)} train steps, expected {TRAIN_STEPS}")
+    losses = [{k: float(v) for k, v in r[0].items()} for r in records]
+    for i, (step_losses, (_, _, info)) in enumerate(zip(losses, records)):
+        if not all(math.isfinite(v) for v in step_losses.values()):
+            fail(f"path E: step {i} has a non-finite loss term: {step_losses}")
+        if not bool(info["ok"]):
+            fail(f"path E: the update of step {i} was not applied")
+    return {"seconds": seconds, "launches": launches, "losses": losses,
+            "grad_norms": [float(r[2]["grad_norm"]) for r in records]}, model
+
+
+def check_restore(model) -> dict:
+    """The last checkpoint holds the trained weights, and `--restore`
+    reloads them bit-equal (the run has no epoch left, so it trains none)."""
+    from gluefactory_tpu_torch import train
+    from gluefactory_tpu_torch.utils.experiments import get_last_checkpoint, load_checkpoint
+
+    path = get_last_checkpoint(TRAIN_EXPERIMENT)
+    payload = load_checkpoint(path, map_location=DEVICE)
+    restored = train.main(TRAIN_ARGV + ["--restore"])
+    trained, saved, back = model.state_dict(), payload["model"], restored.state_dict()
+    for k, v in trained.items():
+        if not (torch.equal(v, saved[k]) and torch.equal(v, back[k])):
+            fail(f"path E: checkpoint round trip changed {k}")
+    steps = {int(s["step"]) for s in payload["optimizer"]["state"].values()}
+    if payload["step"]["updates"] != TRAIN_STEPS or steps != {TRAIN_STEPS}:
+        fail(f"path E: checkpoint counts {payload['step']}, optimizer steps {steps}")
+    return {"checkpoint": path.name, "tensors": len(trained), "bit_equal": True}
+
+
+def _grad_norm(module) -> torch.Tensor:
+    return torch.linalg.vector_norm(torch.stack(
+        [p.grad.norm() for p in module.parameters() if p.grad is not None]))
+
+
+def train_step_vs_plain(model, batch) -> dict:
+    """One forward with loss and backward on `batch` through the kernels and
+    through the plain versions (`flash` off): the loss and the matcher's
+    gradient global norm within TRAIN_TOL relative, and the kernels'
+    launches in the step exactly STEP_LAUNCHES."""
+    gen = torch.Generator(device=DEVICE)
+    out = {}
+    for flash in (True, False):
+        set_flash(model, flash)
+        model.zero_grad(set_to_none=True)
+        reset_all_launches()
+        _, losses, _ = model.forward_with_loss(batch, train=True, generator=gen.manual_seed(0))
+        losses["total"].mean().backward()
+        torch.cuda.synchronize()
+        out[flash] = (float(losses["total"].mean().detach()), float(_grad_norm(model.matcher)),
+                      all_launches())
+    set_flash(model, True)
+    model.zero_grad(set_to_none=True)
+    _check_launches("path E step, kernels", out[True][2], STEP_LAUNCHES)
+    _check_launches("path E step, plain versions", out[False][2], {})
+    res = {"loss": out[True][0], "plain_loss": out[False][0], "grad_norm": out[True][1],
+           "plain_grad_norm": out[False][1], "tol": TRAIN_TOL}
+    res["loss_rel_err"] = abs(res["loss"] - res["plain_loss"]) / abs(res["plain_loss"])
+    res["grad_norm_rel_err"] = abs(res["grad_norm"] - res["plain_grad_norm"]) / res["plain_grad_norm"]
+    if not (res["loss_rel_err"] <= TRAIN_TOL and res["grad_norm_rel_err"] <= TRAIN_TOL):
+        fail(f"path E: a train step through the kernels differs from the plain versions: {res}")
+    return res
+
+
+def time_training(model, batches, device_info) -> dict:
+    """ms per train step (TrainStep with a fresh optimizer on batches
+    already on the card; CUDA events over TIMED_STEPS after WARMUP_STEPS),
+    samples/s, peak memory, and the device busy share of one step."""
+    from gluefactory_tpu_torch import train
+
+    optimizer, schedule = train.build_optimizer(train_conf().train, model, TRAIN_STEPS)
+    step = train.TrainStep(model, optimizer, schedule)
+    gen = torch.Generator(device=DEVICE)
+    for i in range(WARMUP_STEPS):
+        step(batches[i % len(batches)], gen.manual_seed(i))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(TIMED_STEPS):
+        losses, _, info = step(batches[i % len(batches)], gen.manual_seed(i))
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / TIMED_STEPS
+    if not (bool(info["ok"]) and math.isfinite(float(losses["total"]))):
+        fail("path E: a timed step was not applied")
+    res = {"ms_per_step": ms, "samples_per_s": TRAIN_BATCH * 1e3 / ms,
+           "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "batch": TRAIN_BATCH, "steps": TIMED_STEPS, "card": device_info["nvidia_smi"]}
+    res["profile"] = profile_forward(lambda: step(batches[0], gen.manual_seed(0)), grad=True)
+    dev_ms = res["profile"]["device_ms"]
+    res["busy_share"] = None if dev_ms is None else dev_ms / ms
+    return res
+
+
+def attention_at_training_shapes(dev) -> list[dict]:
+    """Each attention kernel at path E's shapes (f32, every token valid):
+    forward device time against its bound, its plain version and SDPA, and
+    forward + backward (the plain version's gradient) against SDPA's."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    F = torch.nn.functional
+    N, D, dtype = 512, HEAD_DIM, torch.float32
+    out = []
+    for name, B in (("fused_attention", 2 * TRAIN_BATCH), ("fused_bidirectional_attention", TRAIN_BATCH)):
+        n_in = 3 if name == "fused_attention" else 4
+        xs = [torch.randn(B, HEADS, N, D, generator=gen, device=dev, requires_grad=True)
+              for _ in range(n_in)]
+        ones = torch.ones(B, N, dtype=torch.bool, device=dev)
+        kernel = getattr(cuda_attention, name)
+        plain = cuda_attention.attention_plain if n_in == 3 else cuda_attention.bidirectional_plain
+        if n_in == 3:
+            q, k, v = xs
+            args = (q, k, v, ones, ones)
+            lib_in = (q, k, v)
+            n_ops, n_exps, n_out = 4.0 * B * HEADS * N * N * D, 1.0 * B * HEADS * N * N, 1
+        else:
+            qk0, qk1, v0, v1 = xs
+            args = (qk0, qk1, v0, v1, ones, ones)
+            lib_in = (torch.cat([qk0, qk1]), torch.cat([qk1, qk0]), torch.cat([v1, v0]))
+            n_ops, n_exps, n_out = 6.0 * B * HEADS * N * N * D, 2.0 * B * HEADS * N * N, 2
+        n_bytes = (n_in + n_out) * B * HEADS * N * D * 4 + 2 * ones.numel()
+        bound_ms, bound_by = _bound(n_ops, n_bytes, dtype, n_exps)
+
+        def fwd_bwd(fn):
+            outs = fn()
+            outs = outs if isinstance(outs, tuple) else (outs,)
+            torch.autograd.grad(outs, xs, [torch.ones_like(o) for o in outs])
+
+        with torch.no_grad():
+            got, want = kernel(*args), plain(*args)
+            err = _err(got, want)
+            res = {"name": name, "shape": [B, HEADS, N, D], "dtype": "float32",
+                   "max_abs_err": err, "tol": KERNEL_TOL[dtype],
+                   "ms": device_time_ms(lambda: kernel(*args)),
+                   "plain_ms": device_time_ms(lambda: plain(*args), reps=5),
+                   "library_ms": device_time_ms(lambda: F.scaled_dot_product_attention(*lib_in)),
+                   "bound_ms": bound_ms, "bound_by": bound_by}
+        if not err <= KERNEL_TOL[dtype]:
+            fail(f"{name} at path E's shapes: max abs err {err}")
+        res["fwd_bwd_ms"] = device_time_ms(lambda: fwd_bwd(lambda: kernel(*args)), reps=5)
+        res["backward_ms"] = res["fwd_bwd_ms"] - res["ms"]
+        res["library_fwd_bwd_ms"] = device_time_ms(
+            lambda: fwd_bwd(lambda: F.scaled_dot_product_attention(*lib_in)), reps=5)
+        out.append(res)
+        print(f"path E {name} at {res['shape']} f32: {res['ms']:.4f} ms (plain {res['plain_ms']:.3f}, "
+              f"SDPA {res['library_ms']:.4f}, bound {bound_ms:.4f} {bound_by}); forward + backward "
+              f"{res['fwd_bwd_ms']:.3f} ms (backward {res['backward_ms']:.3f}), SDPA "
+              f"{res['library_fwd_bwd_ms']:.3f}", flush=True)
+        del xs, args, lib_in, got, want
+    return out
+
+
+def published_batch_fits(model, batches) -> dict:
+    """One train step at the published batch (PUBLISHED_BATCH pairs, the
+    timed batches repeated): whether it fits in the card's memory."""
+    from gluefactory_tpu_torch import train
+
+    n = PUBLISHED_BATCH // TRAIN_BATCH
+    batch = {k: (torch.cat([b[k] for b in (batches * n)[:n]]) if torch.is_tensor(v) else
+                 {kk: torch.cat([b[k][kk] for b in (batches * n)[:n]]) for kk in v})
+             for k, v in batches[0].items() if k in ("view0", "view1", "H_0to1")}
+    optimizer, schedule = train.build_optimizer(train_conf().train, model, TRAIN_STEPS)
+    step = train.TrainStep(model, optimizer, schedule)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        t0 = time.perf_counter()
+        losses, _, info = step(batch, torch.Generator(device=DEVICE).manual_seed(0))
+        torch.cuda.synchronize()
+        res = {"fits": True, "first_step_s": time.perf_counter() - t0,
+               "ok": bool(info["ok"]), "loss": float(losses["total"])}
+    except torch.cuda.OutOfMemoryError as e:
+        res = {"fits": False, "error": str(e).splitlines()[0]}
+    res["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    model.zero_grad(set_to_none=True)
+    del batch, step, optimizer
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_training(device_info: dict) -> dict:
+    """Path E: the trainer on the shipped stage-1 config at full width
+    (SuperPoint 512 keypoints frozen, LightGlue-9 d=256 with checkpointed
+    layers, 640 x 480, f32), cut as TRAIN_REDUCED says."""
+    from gluefactory_tpu_torch.data import get_dataset
+    from gluefactory_tpu_torch.data.base_dataset import prepare_batch
+
+    print(f"path E reduced: {json.dumps(TRAIN_REDUCED)}", flush=True)
+    run, model = drive_training()
+    print(f"path E: {TRAIN_STEPS} steps and {VAL_BATCHES} validation batches in "
+          f"{run['seconds']:.1f} s, launches {json.dumps(run['launches'])}, losses finite, every "
+          f"update applied; total {run['losses'][0]['total']:.4f} -> {run['losses'][-1]['total']:.4f}",
+          flush=True)
+    res = {"reduced": TRAIN_REDUCED, "argv": TRAIN_ARGV, "run": run, "restore": check_restore(model)}
+    # the loader alone on the host's cores (6 workers): batches 3-6 after
+    # the workers' start; the first 4 are kept for the timed steps
+    loader = get_dataset("homographies")(train_conf().data).get_data_loader("train", pin_memory=True)
+    batches, stamps = [], []
+    for b in loader:
+        stamps.append(time.perf_counter())
+        if len(batches) < 4:
+            batches.append({k: v for k, v in prepare_batch(b, DEVICE).items()
+                            if k not in ("name", "idx")})
+        if len(stamps) == 6:
+            break
+    del loader
+    res["loader_samples_per_s"] = 4 * TRAIN_BATCH / (stamps[5] - stamps[1])
+    print(f"path E loader: {res['loader_samples_per_s']:.1f} samples/s (6 workers)", flush=True)
+    res["vs_plain"] = train_step_vs_plain(model, batches[0])
+    print(f"path E step vs plain: {json.dumps(res['vs_plain'])}", flush=True)
+    res["timing"] = time_training(model, batches, device_info)
+    t = res["timing"]
+    print(f"path E timing: {t['ms_per_step']:.2f} ms/step, {t['samples_per_s']:.1f} samples/s, "
+          f"busy share {t['busy_share']}, peak {t['peak_memory_gib']:.2f} GiB "
+          f"({device_info['nvidia_smi']})", flush=True)
+    res["attention"] = attention_at_training_shapes(torch.device(DEVICE))
+    res["published_batch"] = published_batch_fits(model, batches)
+    print(f"path E batch {PUBLISHED_BATCH}: {json.dumps(res['published_batch'])}", flush=True)
+    return res
+
+
+def train_conf():
+    """The trainer's conf of path E: its defaults, the shipped config and
+    TRAIN_ARGV's overrides, as `train.main` merges them."""
+    from gluefactory_tpu_torch import train
+    from gluefactory_tpu_torch.core.config import Config, from_dotlist, from_yaml, merge
+
+    dotlist = [a for a in TRAIN_ARGV if "=" in a and not a.startswith("-")]
+    return merge(Config(train.default_conf), from_yaml(str(ROOT / TRAIN_YAML)), from_dotlist(dotlist))
+
+
 def main() -> None:
     t0 = time.perf_counter()
     device_info = phase_device()
@@ -1338,12 +1660,14 @@ def main() -> None:
         k["launches"] = from_path[k["name"]]["launches"][k["name"]]
     del main_model
     torch.cuda.empty_cache()
+    path_e = phase_training(device_info)
+    torch.cuda.empty_cache()
     kernels += phase_conv_study(device_info)  # launches from the tools' runs
     OUT_DIR.mkdir(exist_ok=True)
     record = {"device": device_info, "build": build, "kernels": kernels, "gradients": gradients,
               "main_path": main_path,
               "path_b_superglue": path_b, "path_c_fused_superpoint": path_c,
-              "path_d_serving": path_d,
+              "path_d_serving": path_d, "path_e_training": path_e,
               "seconds": time.perf_counter() - t0}
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(record, indent=1))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",

@@ -1,0 +1,183 @@
+"""Synthetic homography-pair dataset for stage-1 training (counterpart of
+`gluefactory_tpu/data/homographies.py`): per item, an image, two random
+homographies, two warped patches with photometric augmentation, and the
+exact patch-to-patch homography `H_0to1`. Per-index generators
+`default_rng((seed, epoch, idx))` make epochs reproducible.
+
+The images are procedural (`synthetic_images` > 0), drawn from the JAX
+package's numpy random stream by a numpy rasteriser that draws as OpenCV
+does (`raster.py`). The warp is a torch bilinear sample with zero fill in
+the `cv2.warpPerspective` convention (pixel centres at integer
+coordinates, the patch pixel mapped to the source by H^-1); it differs from
+cv2's by up to |image gradient| / 32, since cv2 rounds the sample position
+to 1/32 pixel. No OpenCV is used. Image folders on disk, `load_features`,
+`detect_lines` and `emit_source` raise `NotImplementedError` for now.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..core.config import merge
+from ..geometry.homography import sample_homography_corners
+from .augmentations import IdentityAugmentation, augmentations
+from .base_dataset import BaseDataset
+from .raster import fill_circle, fill_poly, fill_rect
+
+# ITU-R BT.601 luma, the weights of cv2's RGB2GRAY
+GRAY = np.array([0.299, 0.587, 0.114], np.float32)
+
+
+def generate_synthetic_image(seed: int, size=(640, 480)) -> np.ndarray:
+    """Procedural image (h, w, 3) in [0, 1]: a random gradient, 40 random
+    rectangles, circles and triangles, light Gaussian noise."""
+    rng = np.random.default_rng(seed)
+    w, h = size
+    img = np.zeros((h, w, 3), np.float32)
+    gx = np.linspace(0, 1, w, dtype=np.float32)[None, :, None]
+    gy = np.linspace(0, 1, h, dtype=np.float32)[:, None, None]
+    base = rng.uniform(0.1, 0.6, 3).astype(np.float32)
+    img += base + 0.3 * gx * rng.uniform(-1, 1, 3) + 0.3 * gy * rng.uniform(-1, 1, 3)
+    for _ in range(40):
+        color = rng.uniform(0, 1, 3).astype(np.float32)
+        kind = rng.integers(0, 3)
+        if kind == 0:
+            pt1 = (int(rng.integers(0, w)), int(rng.integers(0, h)))
+            pt2 = (int(rng.integers(0, w)), int(rng.integers(0, h)))
+            fill_rect(img, pt1, pt2, color)
+        elif kind == 1:
+            center = (int(rng.integers(0, w)), int(rng.integers(0, h)))
+            fill_circle(img, center, int(rng.integers(5, 60)), color)
+        else:
+            pts = rng.integers(0, [w, h], size=(3, 2))
+            fill_poly(img, [(int(x), int(y)) for x, y in pts], color)
+    img += rng.normal(0, 0.02, img.shape).astype(np.float32)
+    return np.clip(img, 0, 1)
+
+
+def warp_patch(img: np.ndarray, H: np.ndarray, patch_shape) -> np.ndarray:
+    """img (h, w, C) warped by H (source -> patch) into a (ph, pw, C) patch:
+    patch pixel (x, y) samples the source bilinearly at H^-1 (x, y, 1),
+    pixel centres at integer coordinates, zero outside the source."""
+    pw, ph = int(patch_shape[0]), int(patch_shape[1])
+    h, w = img.shape[:2]
+    ys, xs = np.mgrid[0:ph, 0:pw].astype(np.float64)
+    src = np.stack([xs, ys, np.ones_like(xs)], -1) @ np.linalg.inv(np.asarray(H, np.float64)).T
+    src = src[..., :2] / src[..., 2:]
+    grid = src / np.array([max(w - 1, 1), max(h - 1, 1)]) * 2 - 1
+    out = F.grid_sample(torch.from_numpy(img).permute(2, 0, 1)[None],
+                        torch.from_numpy(grid.astype(np.float32))[None],
+                        mode="bilinear", padding_mode="zeros", align_corners=True)
+    return out[0].permute(1, 2, 0).numpy()
+
+
+class _HomographySplit(torch.utils.data.Dataset):
+    def __init__(self, parent: "HomographyDataset", split: str):
+        self.parent = parent
+        self.conf = parent.conf
+        self.split = split
+        self.image_names = parent.images[split]
+
+    def __len__(self):
+        return len(self.image_names)
+
+    def _sample_view(self, img: np.ndarray, rng: np.random.Generator, aug, hconf) -> dict:
+        h, w = img.shape[:2]
+        patch_shape = tuple(hconf.patch_shape)
+        H, _, _, _ = sample_homography_corners(
+            (w, h), patch_shape, difficulty=hconf.difficulty, translation=hconf.translation,
+            n_angles=hconf.n_angles, max_angle=hconf.max_angle,
+            min_convexity=hconf.min_convexity, rng=rng,
+        )
+        patch = aug(warp_patch(img, H, patch_shape), rng)
+        if self.conf.grayscale:
+            patch = (patch @ GRAY)[..., None]
+        return {
+            "image": patch.astype(np.float32),
+            "image_size": np.array(patch_shape, dtype=np.float32),
+            "H_": H.astype(np.float32),
+        }
+
+    def __getitem__(self, idx: int) -> dict:
+        conf = self.conf
+        if conf.reseed:
+            rng = np.random.default_rng((conf.seed, self.parent.epoch, idx))
+        else:
+            rng = np.random.default_rng()
+        name = self.image_names[idx]
+        img = generate_synthetic_image(name, tuple(conf.source_size))
+        # right_only: view0 is the source rescaled to the patch (difficulty
+        # 0), unaugmented; only the other views are warped and augmented
+        left_hconf = self.parent.left_homography if conf.right_only else conf.homography
+        views = [
+            self._sample_view(img, rng,
+                              self.parent.left_augment if i == 0 else self.parent.photo_augment,
+                              left_hconf if i == 0 else conf.homography)
+            for i in range(3 if conf.triplet else 2)
+        ]
+        data = {"original_image_size": np.array(img.shape[:2][::-1], np.float32)}
+        for i, v in enumerate(views):
+            data[f"view{i}"] = {k: v[k] for k in ("image", "image_size")}
+        H0, H1 = views[0]["H_"], views[1]["H_"]
+        data["H_0to1"] = (H1 @ np.linalg.inv(H0)).astype(np.float32)
+        if conf.triplet:
+            H2 = views[2]["H_"]
+            data["H_0to2"] = (H2 @ np.linalg.inv(H0)).astype(np.float32)
+            data["H_1to2"] = (H2 @ np.linalg.inv(H1)).astype(np.float32)
+        data["idx"] = idx
+        data["name"] = str(name)
+        return data
+
+
+class HomographyDataset(BaseDataset):
+    default_conf = {
+        "synthetic_images": 0,  # > 0: the procedural image pool (the only source ported)
+        "source_size": [640, 480],
+        "train_size": 100,
+        "val_size": 10,
+        "shuffle_seed": 0,
+        "grayscale": False,
+        "triplet": False,
+        "right_only": False,
+        "reseed": True,
+        "seed": 0,
+        "emit_source": False,
+        "homography": {
+            "difficulty": 0.8,
+            "translation": 1.0,
+            "max_angle": 60,
+            "n_angles": 10,
+            "patch_shape": [640, 480],
+            "min_convexity": 0.05,
+        },
+        "photometric": {"name": "dark", "p": 0.75},
+        "load_features": {"do": False},
+        "detect_lines": {"do": False},
+    }
+
+    def _init(self, conf):
+        if conf.synthetic_images <= 0:
+            raise NotImplementedError("homographies: image folders on disk (data_dir, image_dir, "
+                                      "image_list) are not ported yet; set data.synthetic_images "
+                                      "for the procedural pool")
+        for key in ("load_features", "detect_lines"):
+            if conf[key].do:
+                raise NotImplementedError(f"homographies: {key} is not ported yet")
+        if conf.emit_source:
+            raise NotImplementedError("homographies: emit_source (on-device augmentation) is not ported yet")
+        names = list(range(conf.synthetic_images))
+        perm = np.random.default_rng(conf.shuffle_seed).permutation(len(names))
+        names = [names[i] for i in perm]
+        train_size = min(conf.train_size, max(len(names) - conf.val_size, 1))
+        val_size = min(conf.val_size, len(names))
+        val_names = names[-val_size:] if val_size > 0 else []
+        self.images = {"train": names[:train_size], "val": val_names, "test": val_names}
+        self.photo_augment = augmentations[conf.photometric.name](conf.photometric)
+        self.left_augment = IdentityAugmentation() if conf.right_only else self.photo_augment
+        self.left_homography = merge(conf.homography, {"difficulty": 0.0})
+        self.epoch = 0
+
+    def get_dataset(self, split: str):
+        return _HomographySplit(self, split)

@@ -2,8 +2,18 @@
 
 Counterpart of `gluefactory_tpu/models/base_model.py` (role of glue-factory's
 `models/base_model.py`): `default_conf` merged down the inheritance chain,
-`required_data_keys` validation, `_forward(data) -> pred`. A model built with
-`trainable: False` has every parameter frozen (`requires_grad=False`).
+`required_data_keys` validation, `_forward(data) -> pred`,
+`loss(pred, data) -> (losses, metrics)` with (B,) vectors and the total under
+"total". A model built with `trainable: False` has every parameter frozen
+(`requires_grad=False`).
+
+The `train` argument of `forward`, `forward_with_loss` and `loss` is the JAX
+package's flag: it selects the loss terms (LightGlue's deep supervision and
+token-confidence BCE at train, `matcher_metrics` at eval) and SuperPoint's
+keypoint count (`max_num_keypoints_val` only at eval). It is kept apart from
+`torch.nn.Module.train()`, whose mode decides nothing in these models (they
+have no dropout and no BatchNorm in training mode), so a model behaves the
+same in either mode for the same flag.
 
 Entry points run on the card: `Model.from_conf(conf)` places the model on
 `cuda` unless the caller passes another `device` (the tests pass "cpu").
@@ -82,6 +92,18 @@ class BaseModel(nn.Module):
         return self._forward(data, **kwargs)
 
     def _forward(self, data: dict, **kwargs) -> dict:
+        raise NotImplementedError
+
+    def forward_with_loss(self, data: dict, train: bool = True, **kwargs):
+        """(pred, losses, metrics): the forward and the loss with one `train`
+        flag, the train step's entry point. `kwargs` go to the forward (the
+        pipeline's `generator`)."""
+        pred = self(data, train=train, **kwargs)
+        losses, metrics = self.loss(pred, data, train=train)
+        return pred, losses, metrics
+
+    def loss(self, pred: dict, data: dict, train: bool = False):
+        """(losses, metrics): dicts of (B,) tensors, the total under "total"."""
         raise NotImplementedError
 
     @property

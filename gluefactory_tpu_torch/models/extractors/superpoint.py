@@ -5,10 +5,14 @@ Parameters carry the official MagicLeap names (`conv1a` ... `convDb`, each
 an `nn.Conv2d`), so `superpoint_v1.pth` loads as it is. The network runs
 channels-first; the data contract stays that of the JAX package: images
 (B, H, W, C) in [0, 1], keypoints in the COLMAP convention (+0.5), exactly
-`max_num_keypoints` keypoints per image with a `keypoint_mask`. With
+`max_num_keypoints` keypoints per image with a `keypoint_mask`
+(`max_num_keypoints_val` instead at eval, `train=False`). With
 `refinement_radius` > 0 the selected keypoints move to the score-weighted
 mean position of their window of the dense score map (`ops/nms.py`), after
-either decode.
+either decode. With `randomize_keypoints_training`, training samples its
+keypoints by score (the Gumbel top-k) from the caller's generator.
+`freeze_batch_normalization` changes nothing: the vanilla network has no
+BatchNorm (the `open` variant, which has, is not ported).
 
 Two opt-ins, off by default as in the JAX package, route through the
 hand-written CUDA kernels on the card:
@@ -73,14 +77,35 @@ def use_fused_detect(conf, scores: torch.Tensor) -> bool:
                 and not (torch.is_grad_enabled() and scores.requires_grad))
 
 
+def sample_k_keypoints(nmsed: torch.Tensor, k: int, threshold: float, generator: torch.Generator):
+    """k keypoints of a suppressed score map (B, H, W) sampled without
+    replacement with probability by score, among those above `threshold`:
+    the Gumbel top-k of the log scores (the JAX package's
+    `randomize_keypoints_training`). Gumbel noise is -log(-log(u)), u
+    uniform in [tiny, 1), from `generator`. Returns keypoints (+0.5, as
+    `top_k_keypoints`), their scores and validity (False for slots beyond the
+    candidates)."""
+    B, H, W = nmsed.shape
+    tiny = torch.finfo(torch.float32).tiny
+    u = torch.rand(nmsed.shape, generator=generator, device=nmsed.device).clamp(min=tiny)
+    g = -torch.log(-torch.log(u))
+    pert = torch.where(nmsed > threshold, torch.log(nmsed.float().clamp(min=1e-20)) + g,
+                       torch.tensor(-float("inf"), device=nmsed.device))
+    top, idx = torch.topk(pert.reshape(B, -1), k, dim=-1)
+    kpt_scores = torch.gather(nmsed.reshape(B, -1), 1, idx)
+    kpts = torch.stack([idx % W, idx // W], dim=-1).float() + 0.5
+    return kpts, kpt_scores, torch.isfinite(top)
+
+
 class SuperPoint(BaseModel):
     default_conf = {
         "variant": "vanilla",
         "descriptor_dim": 256,
         "nms_radius": 4,
         "max_num_keypoints": 1024,
-        "max_num_keypoints_val": None,
+        "max_num_keypoints_val": None,  # the keypoint count at eval
         "force_num_keypoints": False,
+        "randomize_keypoints_training": False,  # sample keypoints by score
         "detection_threshold": 0.005,
         "remove_borders": 4,
         "refinement_radius": 0,  # soft-argmax sub-pixel refinement (ops/nms.py)
@@ -106,9 +131,11 @@ class SuperPoint(BaseModel):
         self.convDb = nn.Conv2d(conf.head_channels, conf.descriptor_dim, 1)
         self._kernel_weights: dict = {}  # `_hwio`'s copies, by conv name
 
-    def _forward(self, data: dict, generator: torch.Generator | None = None) -> dict:
+    def _forward(self, data: dict, generator: torch.Generator | None = None,
+                 train: bool = False) -> dict:
         """`generator` draws the random keypoints that fill invalid slots
-        under `force_num_keypoints` (a fresh one seeded with 0 if None)."""
+        under `force_num_keypoints` and the Gumbel noise of
+        `randomize_keypoints_training` (a fresh one seeded with 0 if None)."""
         image = rgb_to_grayscale(data["image"])
         x = image.permute(0, 3, 1, 2)
         relu = torch.relu
@@ -119,7 +146,7 @@ class SuperPoint(BaseModel):
                 x = self._plain_block(x, i)
         logits = self.convPb(relu(self.convPa(x)))  # (B, 65, Hc, Wc)
         dense_desc = self.convDb(relu(self.convDa(x)))  # (B, D, Hc, Wc)
-        return self._decode(data, image, logits, dense_desc, generator)
+        return self._decode(data, image, logits, dense_desc, generator, train)
 
     def _plain_block(self, x: torch.Tensor, i: int, first_conv: bool = True) -> torch.Tensor:
         """VGG block i through `nn.Conv2d`s (NCHW): conv_a (unless
@@ -175,16 +202,20 @@ class SuperPoint(BaseModel):
                 x = fused_vgg_block(x, wa, ba, wb, bb, pool=pool)
         return x.permute(0, 3, 1, 2)
 
-    def _decode(self, data, image, logits, dense_desc, generator):
+    def _decode(self, data, image, logits, dense_desc, generator, train: bool):
         c = self.conf
         scores = detector_scores(logits)
         B = scores.shape[0]
         dense_desc = dense_desc / (torch.linalg.vector_norm(dense_desc, dim=1, keepdim=True) + 1e-8)
+        if generator is None:
+            generator = torch.Generator(device=scores.device).manual_seed(0)
 
-        # inference: the eval-time override applies
-        k = int(c.max_num_keypoints if c.max_num_keypoints_val is None else c.max_num_keypoints_val)
+        k = int(c.max_num_keypoints)
+        if not train and c.max_num_keypoints_val is not None:
+            k = int(c.max_num_keypoints_val)
+        randomize = train and c.randomize_keypoints_training
         true_size = data.get("image_size")
-        if use_fused_detect(c, scores):
+        if not randomize and use_fused_detect(c, scores):
             kpts, kpt_scores, valid = detect_keypoints(
                 scores, k, c.detection_threshold, radius=c.nms_radius,
                 border=c.remove_borders, true_size=true_size,
@@ -194,9 +225,12 @@ class SuperPoint(BaseModel):
             if true_size is not None:
                 # no detections beyond the true image area of a padded buffer
                 nmsed = mask_outside(nmsed, true_size, c.remove_borders)
-            kpts, kpt_scores, valid = top_k_keypoints(
-                nmsed, k, c.detection_threshold, nms_radius=c.nms_radius
-            )
+            if randomize:
+                kpts, kpt_scores, valid = sample_k_keypoints(nmsed, k, c.detection_threshold, generator)
+            else:
+                kpts, kpt_scores, valid = top_k_keypoints(
+                    nmsed, k, c.detection_threshold, nms_radius=c.nms_radius
+                )
         if c.refinement_radius > 0:  # on the score map before NMS, after either decode
             kpts = soft_argmax_refinement(kpts, scores, int(c.refinement_radius))
 
@@ -205,8 +239,6 @@ class SuperPoint(BaseModel):
             if size is None:
                 h, w = image.shape[1:3]
                 size = torch.tensor([[w, h]], dtype=torch.float32, device=kpts.device).expand(B, 2)
-            if generator is None:
-                generator = torch.Generator(device=kpts.device).manual_seed(0)
             u = torch.rand((B, k, 2), generator=generator, device=kpts.device, dtype=kpts.dtype)
             rand_kpts = u * size[:, None, :]
             kpts = torch.where(valid[..., None], kpts, rand_kpts)

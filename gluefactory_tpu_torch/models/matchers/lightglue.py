@@ -24,6 +24,12 @@ confident and takes its assignment from that layer. It runs every layer
 and an assignment head at each, so it prunes the assignment, not the time;
 `lightglue_serving.make_serving_fn` runs the same rules and stops at the
 exit. Below `pruning_min_kpts` keypoints the dense forward runs instead.
+
+Training (`train=True`): no pruning, every layer's descriptors stacked as
+`ref_descriptors0/1` (B, L, M, D) for the deep supervision of `loss`, and with
+`checkpointed` each TransformerLayer under `torch.utils.checkpoint`
+(non-reentrant) while autograd records: its activations are recomputed in
+the backward, the attention kernels included.
 """
 
 from __future__ import annotations
@@ -33,10 +39,13 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ...ops.assignment import filter_matches, sigmoid_log_double_softmax
 from ...ops.attention import apply_rotary, bidirectional_attention, mha
 from ..base_model import BaseModel
+from ..losses import masked_row_norm, nll_components
+from ..metrics import matcher_metrics
 
 
 def normalize_keypoints(kpts: torch.Tensor, size: torch.Tensor) -> torch.Tensor:
@@ -261,19 +270,31 @@ class LightGlue(BaseModel):
         desc1 = self.input_proj(data["descriptors1"])
         return desc0, desc1, enc0, enc1, data.get("keypoint_mask0"), data.get("keypoint_mask1")
 
-    def _forward(self, data: dict) -> dict:
+    def _forward(self, data: dict, train: bool = False) -> dict:
         c = self.conf
         desc0, desc1, enc0, enc1, mask0, mask1 = self._encode(data)
         kpts0, kpts1 = data["keypoints0"], data["keypoints1"]
-        do_prune = (c.depth_confidence > 0 or c.width_confidence > 0) and (
+        do_prune = not train and (c.depth_confidence > 0 or c.width_confidence > 0) and (
             max(kpts0.shape[1], kpts1.shape[1]) >= self.pruning_min_kpts(kpts0.device))
+        all_desc0, all_desc1 = [], []
         if do_prune:
             scores, prune0, prune1 = self._pruned_forward(desc0, desc1, enc0, enc1, mask0, mask1)
         else:
+            recompute = c.checkpointed and torch.is_grad_enabled()
             for layer in self.transformers:
-                desc0, desc1 = layer(desc0, desc1, enc0, enc1, mask0, mask1)
+                if recompute:
+                    desc0, desc1 = checkpoint(layer, desc0, desc1, enc0, enc1, mask0, mask1,
+                                              use_reentrant=False)
+                else:
+                    desc0, desc1 = layer(desc0, desc1, enc0, enc1, mask0, mask1)
+                if train:
+                    all_desc0.append(desc0)
+                    all_desc1.append(desc1)
             scores, _, _, _ = self.log_assignment[-1](desc0, desc1, mask0, mask1)
         pred = self.match_outputs(scores, mask0, mask1)
+        if train:
+            pred["ref_descriptors0"] = torch.stack(all_desc0, dim=1)  # (B, L, M, D)
+            pred["ref_descriptors1"] = torch.stack(all_desc1, dim=1)
         if do_prune:
             pred["prune0"] = prune0
             pred["prune1"] = prune1
@@ -354,6 +375,86 @@ class LightGlue(BaseModel):
             prune0 = torch.full((B, M), c.n_layers, dtype=torch.int32, device=dev)
             prune1 = torch.full((B, N), c.n_layers, dtype=torch.int32, device=dev)
         return final_scores, prune0, prune1
+
+
+    # ------------------------------------------------------------------
+    # loss: deep supervision
+    # ------------------------------------------------------------------
+
+    def _nll(self, log_assignment, data):
+        """Balanced NLL of a (B, M+1, N+1) log assignment against GT, and its
+        components (LightGlue's per-side clamp)."""
+        nll_pos, nll_neg, num_pos, num_neg = nll_components(
+            log_assignment, data["gt_assignment"], data["gt_matches0"], data["gt_matches1"],
+            per_side_clamp=True)
+        b = self.conf.loss.nll_balancing
+        return b * nll_pos + (1.0 - b) * nll_neg, nll_pos, nll_neg, num_pos, num_neg
+
+    def loss(self, pred: dict, data: dict, train: bool = False):
+        """The JAX package's loss.
+
+        train=True: deep supervision over every layer, the NLL of layer i
+        weighted `gamma ** (L-i-1)` when gamma > 0 (the default 1.0 weighs
+        every layer 1), `i + 1` otherwise, normalised by the weights' sum,
+        plus `confidence_weight` times the token-confidence BCE (in f32, on
+        detached descriptors: does layer i's match equal the final one);
+        no metrics.
+
+        train=False: the final layer's NLL alone and `matcher_metrics`.
+        """
+        c = self.conf
+        mask0 = data.get("keypoint_mask0")
+        mask1 = data.get("keypoint_mask1")
+        nll_final, nll_pos, nll_neg, num_pos, num_neg = self._nll(pred["log_assignment"], data)
+        losses = {
+            "total": nll_final,
+            "last": nll_final.detach(),
+            "assignment_nll": nll_final,
+            "nll_pos": nll_pos,
+            "nll_neg": nll_neg,
+            "num_matchable": num_pos,
+            "num_unmatchable": num_neg,
+            "row_norm": masked_row_norm(pred["log_assignment"], mask0),
+        }
+        if not train:
+            return losses, matcher_metrics(pred, data)
+
+        L = pred["ref_descriptors0"].shape[1]
+        final_scores = pred["log_assignment"]
+        # full-row / -column argmax, the dustbin included
+        final_m0 = final_scores[:, :-1, :].argmax(-1)
+        final_m1 = final_scores[:, :, :-1].argmax(1)
+        total = nll_final
+        sum_weights = 1.0
+        confidence_loss = 0.0
+        for i in range(L - 1):
+            d0, d1 = pred["ref_descriptors0"][:, i], pred["ref_descriptors1"][:, i]
+            scores_i, _, _, _ = self.log_assignment[i](d0, d1, mask0, mask1)
+            nll_i = self._nll(scores_i, data)[0]
+            weight = c.loss.gamma ** (L - i - 1) if c.loss.gamma > 0.0 else float(i + 1)
+            total = total + nll_i * weight
+            sum_weights += weight
+            correct0 = (scores_i[:, :-1, :].argmax(-1) == final_m0).float()
+            correct1 = (scores_i[:, :, :-1].argmax(1) == final_m1).float()
+            l0, l1 = self.token_confidence[i](d0.detach(), d1.detach(), return_logits=True)
+            bce0 = _masked_mean(_bce_with_logits(l0, correct0), mask0)
+            bce1 = _masked_mean(_bce_with_logits(l1, correct1), mask1)
+            confidence_loss = confidence_loss + (bce0 + bce1) / 2.0
+        losses["confidence"] = confidence_loss / max(L - 1, 1)
+        losses["total"] = total / sum_weights + c.loss.confidence_weight * losses["confidence"]
+        return losses, {}
+
+
+def _bce_with_logits(logits, target):
+    """Elementwise BCE in logit space, the JAX package's stable form."""
+    return logits.clamp(min=0) - logits * target + torch.log1p(torch.exp(-logits.abs()))
+
+
+def _masked_mean(x, mask):
+    """Mean over the last dimension, over `mask`'s True entries if given."""
+    if mask is None:
+        return x.mean(-1)
+    return (x * mask).sum(-1) / mask.sum(-1).clamp(min=1)
 
 
 def _exits(c0, c1, active0, active1, conf_th: float, depth_confidence: float) -> torch.Tensor:

@@ -184,7 +184,9 @@ class SuperGlue(BaseModel):
         self.final_proj = nn.Conv1d(d, d, kernel_size=1, bias=True)
         self.bin_score = nn.Parameter(torch.tensor(1.0))
 
-    def _forward(self, data: dict) -> dict:
+    def _forward(self, data: dict, train: bool = False) -> dict:
+        """Inference; `train` is accepted for the pipeline's sake and changes
+        nothing (SuperGlue's training is not ported)."""
         c = self.conf
         desc0, desc1 = data["descriptors0"], data["descriptors1"]
         mask0 = data.get("keypoint_mask0")

@@ -1,5 +1,5 @@
-"""The port stands alone (no JAX, nothing of `gluefactory_tpu`), and every
-kernel wrapper sends CUDA tensors to its kernel with no fallback."""
+"""The port stands alone (no JAX, nothing of `gluefactory_tpu`, no OpenCV),
+and every kernel wrapper sends CUDA tensors to its kernel with no fallback."""
 
 import subprocess
 import sys
@@ -24,6 +24,8 @@ _GUARD = """
 import importlib, pkgutil, sys
 sys.modules["jax"] = None
 sys.modules["flax"] = None
+sys.modules["cv2"] = None
+import gluefactory_tpu_torch.train, gluefactory_tpu_torch.data.homographies
 import gluefactory_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
@@ -31,8 +33,12 @@ for name in names:
 leaked = sorted(m for m in sys.modules if m == "gluefactory_tpu" or m.startswith("gluefactory_tpu."))
 print(len(names), leaked)
 assert not leaked, leaked
-assert len(names) >= 29, names
-for name in ("ops.cuda_sinkhorn", "ops.cuda_detect", "ops.cuda_conv", "models.matchers.superglue",
+assert len(names) >= 45, names
+for name in ("train", "settings", "data.homographies", "data.base_dataset", "data.augmentations",
+             "data.raster", "geometry.homography", "geometry.gt_generation", "models.losses",
+             "models.metrics", "models.matchers.homography_matcher", "utils.experiments",
+             "utils.stdout_capturing", "utils.tensor", "utils.tools",
+             "ops.cuda_sinkhorn", "ops.cuda_detect", "ops.cuda_conv", "models.matchers.superglue",
              "models.matchers.lightglue_serving",
              "ops.cuda_conv3x3", "scripts_dev", "scripts_dev.timing", "scripts_dev.conv_study",
              "scripts_dev.profile_stream_conv", "scripts_dev.profile_npack"):
@@ -183,6 +189,7 @@ _BENCH_GUARD = """
 import sys
 sys.modules["jax"] = None
 sys.modules["flax"] = None
+sys.modules["cv2"] = None
 import bench_torch, chip_smoke
 leaked = sorted(m for m in sys.modules if m == "gluefactory_tpu" or m.startswith("gluefactory_tpu."))
 assert not leaked, leaked
