@@ -11,7 +11,9 @@ Phases, in order; any failure exits non-zero before the last line:
    the main path's shapes, in f32 and bf16, with four mask cases (all valid,
    random partial, side 0 fully masked, side 1 fully masked); the attention
    kernels also at a tail shape (777 queries, 1029 keys) and with q/k as
-   LightGlue's (B, N, H, D)-ordered views; then the kernel, its plain
+   LightGlue's (B, N, H, D)-ordered views, and in f32 at path E's shape
+   (512 keypoints) and a head dim of 32, each with partial masks, with the
+   f32 body's blocks an SM recorded; then the kernel, its plain
    version, and one PyTorch library call computing the same function, timed
    with CUDA events (the attention kernels by their device time, also with
    half of the tokens masked at random as width pruning leaves them: the calls
@@ -262,27 +264,32 @@ def _bound(n_ops: float, n_bytes: float, dtype, n_exps: float = 0.0) -> tuple[fl
 TAIL_M, TAIL_N = 777, 1029
 
 
-def _heads(gen, dev, dtype, B, n, strided=False):
+def _heads(gen, dev, dtype, B, n, strided=False, d=HEAD_DIM):
     if strided:
-        return torch.randn(B, n, HEADS, HEAD_DIM, generator=gen, device=dev).to(dtype).transpose(1, 2)
-    return torch.randn(B, HEADS, n, HEAD_DIM, generator=gen, device=dev).to(dtype)
+        return torch.randn(B, n, HEADS, d, generator=gen, device=dev).to(dtype).transpose(1, 2)
+    return torch.randn(B, HEADS, n, d, generator=gen, device=dev).to(dtype)
 
 
 def _extra_attention_cases(name, dtype, gen, dev) -> dict:
     """{case: kernel arguments}: the tail case and the strided case, each
-    with random partial masks."""
+    with random partial masks; in f32 also path E's shape (512 keypoints,
+    batch TRAIN_BATCH, the self-attention over both views stacked) and a
+    head dim of 32."""
+    shapes = [("tail", 2, TAIL_M, TAIL_N, False, HEAD_DIM),
+              ("lightglue_strided", PAIRS, KEYPOINTS, KEYPOINTS, True, HEAD_DIM)]
+    if dtype is torch.float32:
+        n_e = REDUCED_KEYPOINTS
+        b_e = 2 * TRAIN_BATCH if name == "fused_attention" else TRAIN_BATCH
+        shapes += [("path_e_512", b_e, n_e, n_e, False, HEAD_DIM), ("head_dim_32", 3, 600, 515, False, 32)]
     cases = {}
-    for case, B, M, N, strided in (("tail", 2, TAIL_M, TAIL_N, False),
-                                   ("lightglue_strided", PAIRS, KEYPOINTS, KEYPOINTS, True)):
+    for case, B, M, N, strided, d in shapes:
         m0 = torch.rand(B, M, generator=gen, device=dev) > 0.3
         m1 = torch.rand(B, N, generator=gen, device=dev) > 0.3
+        heads = lambda n, strided=False: _heads(gen, dev, dtype, B, n, strided, d)  # noqa: E731
         if name == "fused_attention":
-            q, k = _heads(gen, dev, dtype, B, M, strided), _heads(gen, dev, dtype, B, N, strided)
-            cases[case] = (q, k, _heads(gen, dev, dtype, B, N), m1, m0)
+            cases[case] = (heads(M, strided), heads(N, strided), heads(N), m1, m0)
         else:
-            qk0, qk1 = _heads(gen, dev, dtype, B, M, strided), _heads(gen, dev, dtype, B, N, strided)
-            cases[case] = (qk0, qk1, _heads(gen, dev, dtype, B, M), _heads(gen, dev, dtype, B, N),
-                           m0, m1)
+            cases[case] = (heads(M, strided), heads(N, strided), heads(M), heads(N), m0, m1)
     return cases
 
 
@@ -386,12 +393,16 @@ def phase_kernels(dev: torch.device) -> list[dict]:
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": 0, "max_abs_err": max(bf16), "tol": KERNEL_TOL[torch.bfloat16],
             **timing, "parity": parity,
+            "f32_max_abs_err": max(p["max_abs_err"] for p in parity if p["dtype"] == "float32"),
+            "f32_blocks_per_sm": {d: cuda_attention.f32_blocks_per_sm(d) for d in (32, 64)},
         })
         print(f"kernel {name}: parity ok ({len(parity)} cases), "
               f"{timing['ms']:.3f} ms (plain {timing['plain_ms']:.3f}, "
               f"library {timing['library_ms']:.3f}, half the tokens masked at random "
               f"{timing['scattered_ms']:.4f}, bound {timing['bound_ms']:.4f} "
-              f"{timing['bound_by']}, ms/library_ms {timing['ms_over_library']:.3f})", flush=True)
+              f"{timing['bound_by']}, ms/library_ms {timing['ms_over_library']:.3f}); f32 max abs err "
+              f"{results[-1]['f32_max_abs_err']:.2e}, f32 body "
+              f"{results[-1]['f32_blocks_per_sm']} blocks an SM by head dim", flush=True)
     return results
 
 
@@ -1344,7 +1355,7 @@ def phase_serving(device_info: dict, batch: dict) -> dict:
 # 9. path E: stage-1 training (superpoint+lightglue_homography.yaml)
 # --------------------------------------------------------------------------
 
-TRAIN_YAML = "gluefactory_tpu/configs/superpoint+lightglue_homography.yaml"
+TRAIN_YAML = "gluefactory_tpu_torch/configs/superpoint+lightglue_homography.yaml"
 TRAIN_BATCH, TRAIN_STEPS, VAL_BATCHES, TIMED_STEPS, WARMUP_STEPS = 32, 12, 2, 10, 2
 PUBLISHED_BATCH = 128
 TRAIN_EXPERIMENT = "chip_smoke_path_e"
@@ -1473,15 +1484,17 @@ def train_step_vs_plain(model, batch) -> dict:
     return res
 
 
-def time_training(model, batches, device_info) -> dict:
-    """ms per train step (TrainStep with a fresh optimizer on batches
-    already on the card; CUDA events over TIMED_STEPS after WARMUP_STEPS),
-    samples/s, peak memory, and the device busy share of one step."""
+def _timed_micro_batches(model, batches, gen, accum: int):
+    """(TrainStep under `grad_accumulation` accum with a fresh optimizer,
+    ms per micro-batch over TIMED_STEPS after WARMUP_STEPS by CUDA events,
+    the last micro-batch's outputs)."""
     from gluefactory_tpu_torch import train
+    from gluefactory_tpu_torch.core.config import merge
 
-    optimizer, schedule = train.build_optimizer(train_conf().train, model, TRAIN_STEPS)
-    step = train.TrainStep(model, optimizer, schedule)
-    gen = torch.Generator(device=DEVICE)
+    conf = merge(train_conf().train, {"grad_accumulation": accum})
+    optimizer, schedule = train.build_optimizer(conf, model, TRAIN_STEPS)
+    step = train.TrainStep(model, optimizer, schedule, accum,
+                           max_updates=WARMUP_STEPS + TIMED_STEPS + 1)
     for i in range(WARMUP_STEPS):
         step(batches[i % len(batches)], gen.manual_seed(i))
     torch.cuda.synchronize()
@@ -1489,10 +1502,20 @@ def time_training(model, batches, device_info) -> dict:
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     for i in range(TIMED_STEPS):
-        losses, _, info = step(batches[i % len(batches)], gen.manual_seed(i))
+        out = step(batches[i % len(batches)], gen.manual_seed(i))
     end.record()
     torch.cuda.synchronize()
-    ms = start.elapsed_time(end) / TIMED_STEPS
+    return step, start.elapsed_time(end) / TIMED_STEPS, out
+
+
+def time_training(model, batches, device_info) -> dict:
+    """ms per train step (TrainStep with a fresh optimizer on batches
+    already on the card; CUDA events over TIMED_STEPS after WARMUP_STEPS),
+    samples/s, peak memory, and the device busy share of one step; then ms
+    per micro-batch under grad_accumulation 2, whose NaN-skip runs the
+    optimizer on every micro-batch."""
+    gen = torch.Generator(device=DEVICE)
+    step, ms, (losses, _, info) = _timed_micro_batches(model, batches, gen, 1)
     if not (bool(info["ok"]) and math.isfinite(float(losses["total"]))):
         fail("path E: a timed step was not applied")
     res = {"ms_per_step": ms, "samples_per_s": TRAIN_BATCH * 1e3 / ms,
@@ -1501,6 +1524,12 @@ def time_training(model, batches, device_info) -> dict:
     res["profile"] = profile_forward(lambda: step(batches[0], gen.manual_seed(0)), grad=True)
     dev_ms = res["profile"]["device_ms"]
     res["busy_share"] = None if dev_ms is None else dev_ms / ms
+    del step
+    step, ms2, (losses, _, info) = _timed_micro_batches(model, batches, gen, 2)
+    if not (bool(info["ok"]) and math.isfinite(float(losses["total"]))):
+        fail("path E: a timed micro-batch under grad_accumulation 2 was not kept")
+    res["grad_accumulation_2"] = {"ms_per_micro_batch": ms2, "updates": step.updates,
+                                  "extra_ms_over_one": ms2 - ms}
     return res
 
 
@@ -1571,7 +1600,7 @@ def published_batch_fits(model, batches) -> dict:
                  {kk: torch.cat([b[k][kk] for b in (batches * n)[:n]]) for kk in v})
              for k, v in batches[0].items() if k in ("view0", "view1", "H_0to1")}
     optimizer, schedule = train.build_optimizer(train_conf().train, model, TRAIN_STEPS)
-    step = train.TrainStep(model, optimizer, schedule)
+    step = train.TrainStep(model, optimizer, schedule, max_updates=1)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     try:
@@ -1624,6 +1653,7 @@ def phase_training(device_info: dict) -> dict:
     print(f"path E timing: {t['ms_per_step']:.2f} ms/step, {t['samples_per_s']:.1f} samples/s, "
           f"busy share {t['busy_share']}, peak {t['peak_memory_gib']:.2f} GiB "
           f"({device_info['nvidia_smi']})", flush=True)
+    print(f"path E grad_accumulation 2: {json.dumps(t['grad_accumulation_2'])}", flush=True)
     res["attention"] = attention_at_training_shapes(torch.device(DEVICE))
     res["published_batch"] = published_batch_fits(model, batches)
     print(f"path E batch {PUBLISHED_BATCH}: {json.dumps(res['published_batch'])}", flush=True)

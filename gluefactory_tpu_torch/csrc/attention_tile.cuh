@@ -27,7 +27,7 @@
 // the softmax has to run while the tensor cores work, or the two add up.
 //
 // Two bodies:
-//   - bf16 (every path), `attention_wgmma_kernel`, written for Hopper:
+//   - bf16 (the inference paths), `attention_wgmma_kernel`, written for Hopper:
 //       * 384 threads: consumer warpgroups 0 and 1 own 64 query rows each
 //         (128 per work item); warpgroup 2 is the producer. Its first warp
 //         issues every copy; the warpgroup gives its registers up
@@ -69,9 +69,37 @@
 //         as much as the products at D = 64: pipelining alone hides
 //         softmax(j) under PV(j-1), half of one warpgroup's products;
 //         the turns add the other warpgroup's S and PV.
-//   - f32, `attention_kernel`: one thread per query row, f32 FMAs on the
-//     CUDA cores, K/V tiles of 32 keys in shared memory; blockIdx.z picks
-//     the direction. Exact f32 arithmetic; on no path.
+//   - f32 (path E: training with TF32 off), `attention_f32_kernel`, exact
+//     f32 FMAs on the CUDA cores, laid out as an f32 SIMT GEMM does:
+//       * 256 threads own 128 query rows; K and V stream through shared
+//         memory in tiles of 64 keys; blockIdx.z picks the direction. The
+//         work is 2*D FMAs a logit, so the f32 pipes bound it: at path E's
+//         self-attention (B*H = 256, M = N = 512, D = 64) 17.2 GFLOP, 0.256
+//         ms at 67 TFLOP/s, against 0.016 ms of exponentials and 0.027 ms
+//         of bytes. The body must issue FMAs, not shared-memory loads.
+//       * S = Q K^T: each thread holds an 8 x 4 microtile (rows r0 + 8i,
+//         keys kg + 16j; kg = lane % 16, and the two half-warps take
+//         neighbouring r0). Q (loaded once) and K are row-major tiles read
+//         as float4 along the features: 12 loads for 128 FMAs, none of them
+//         conflicting (the 16-byte chunks of a row are XOR-swizzled by the
+//         row's low 3 bits, which are the same for a thread's 8 rows, so
+//         one swizzle a chunk serves them all).
+//       * Online softmax in the log2 domain with exp2: a row's 16 threads
+//         are 16 lanes of one warp, so the row max is 4 shuffles; the
+//         running max is kept in shared memory (one float a row), each
+//         thread keeps its own share of the row sum and rescales it, and the
+//         shares are summed once at the end.
+//       * P goes through shared memory (128 x 64, swizzled as Q); O += P V
+//         with each thread owning 8 rows x D/16 feature columns: again 12
+//         loads a 128 FMAs at D = 64.
+//       * Staging: cp.async (16-byte, .cg, zero fill past the tokens). K is
+//         double-buffered and tile j + 1 loads during all of tile j; V has
+//         one buffer and loads during S and the softmax. Two barriers a
+//         tile. A tile with no valid key is skipped whole (one barrier
+//         vote, uniform over the block).
+//       * 112 KB of shared memory at D = 64 and at most 128 registers a
+//         thread: two blocks (16 warps) an SM, so one block's barriers hide
+//         under the other's FMAs.
 
 #pragma once
 
@@ -85,9 +113,6 @@
 #include "hopper.cuh"
 
 namespace gf {
-
-constexpr int kRowsPerBlock = 64;  // f32 body: query rows per block
-constexpr int kKeysPerTile = 32;   // f32 body: keys staged per step
 
 // One direction of attention. Strides are in elements; the last (feature)
 // dimension is contiguous.
@@ -113,99 +138,244 @@ struct AttnDirs {
 };
 
 // ---------------------------------------------------------------------------
-// f32 body: one thread per query row
+// f32 body: register microtiles on the CUDA cores, cp.async staging
 // ---------------------------------------------------------------------------
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kRowsPerBlock)
-    attention_kernel(const __grid_constant__ AttnDirs dirs) {
-  constexpr int BQ = kRowsPerBlock;
-  constexpr int BK = kKeysPerTile;
-  __shared__ __align__(16) float tile_q[BQ][D + 1];  // +1: conflict-free row reads
-  __shared__ __align__(16) float tile_k[BK][D];
-  __shared__ __align__(16) float tile_v[BK][D];
-  __shared__ float key_ok[BK];
+constexpr int kF32Rows = 128;     // query rows per block
+constexpr int kF32Keys = 64;      // keys per K/V tile
+constexpr int kF32Threads = 256;  // 8 warps: 16 query rows each
+
+// Shared memory in floats: Q (128 x D) and two K stages (64 x D), swizzled;
+// V (64 x D) plain; P (128 x 64) swizzled.
+template <int D>
+struct F32Smem {
+  static constexpr int kQ = 0;
+  static constexpr int kK = kQ + kF32Rows * D;
+  static constexpr int kV = kK + 2 * kF32Keys * D;
+  static constexpr int kP = kV + kF32Keys * D;
+  static constexpr int kBytes = (kP + kF32Rows * kF32Keys) * 4;
+};
+
+// Offset in floats of 16-byte chunk c of row r in a row-major tile of W
+// floats a row, the chunks XOR-swizzled by the row's low three bits: eight
+// consecutive rows read at one chunk hit eight distinct bank quads.
+template <int W>
+__device__ __forceinline__ int swz(int r, int c) {
+  return r * W + ((c ^ (r & 7)) << 2);
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Rows [row0, row0 + R) of a (tokens x D) f32 matrix with token stride sn
+// into shared memory at dst: swizzled, or plain row-major. Tokens at or past
+// n arrive as zeros.
+template <int D, int R, bool kSwizzled>
+__device__ __forceinline__ void stage_rows(float* dst, const float* src, long long sn, int row0,
+                                           int n) {
+  constexpr int kChunks = D / 4;
+  static_assert(R * kChunks % kF32Threads == 0, "whole chunks a thread");
+#pragma unroll
+  for (int it = 0; it < R * kChunks / kF32Threads; ++it) {
+    const int e = threadIdx.x + it * kF32Threads;
+    const int r = e / kChunks, c = e % kChunks, row = row0 + r;
+    const bool in = row < n;
+    const float* g = src + (in ? row * sn + 4 * c : 0);
+    float* s = dst + (kSwizzled ? swz<D>(r, c) : r * D + 4 * c);
+    cp_async16(smem_u32(s), g, in);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kF32Threads, 2)
+    attention_f32_kernel(const __grid_constant__ AttnDirs dirs) {
+  constexpr int kC = D / 16;  // feature columns a thread owns in O
+  constexpr float kLog2e = 1.4426950408889634f;
+  using L = F32Smem<D>;
+  extern __shared__ __align__(16) float smem[];
+  __shared__ uint32_t key_bits[2];  // the tile's valid keys, 2 x 32
+  __shared__ float row_max[kF32Rows];  // each row's running max, in log2 units
 
   const AttnArgs& a = dirs.d[blockIdx.z];
-  const int row0 = blockIdx.x * BQ;
+  const int row0 = blockIdx.x * kF32Rows;
   if (row0 >= a.M) return;  // the shorter direction's grid ends earlier
   const int b = blockIdx.y / a.H;
   const int h = blockIdx.y % a.H;
-  const int t = threadIdx.x;
-  const T* q = static_cast<const T*>(a.q) + b * a.q_sb + h * a.q_sh;
-  const T* k = static_cast<const T*>(a.k) + b * a.k_sb + h * a.k_sh;
-  const T* v = static_cast<const T*>(a.v) + b * a.v_sb + h * a.v_sh;
-  T* out = static_cast<T*>(a.out) + b * a.o_sb + h * a.o_sh;
+  const int t = threadIdx.x, w = t / 32, lane = t % 32;
+  const int kg = lane % 16;
+  // this thread's rows: r0 + 8i, i < 8; r0 & 7 is the same for all of them,
+  // so one swizzle a chunk serves the eight rows (and kg & 7 the four keys)
+  const int r0 = (w / 4) * 64 + (w % 4) * 2 + lane / 16;
+  const int xq = r0 & 7, xk = kg & 7;
+  const float* q = static_cast<const float*>(a.q) + b * a.q_sb + h * a.q_sh;
+  const float* k = static_cast<const float*>(a.k) + b * a.k_sb + h * a.k_sh;
+  const float* v = static_cast<const float*>(a.v) + b * a.v_sb + h * a.v_sh;
+  float* out = static_cast<float*>(a.out) + b * a.o_sb + h * a.o_sh;
+  const uint8_t* kmask = a.kmask == nullptr ? nullptr : a.kmask + b * a.kmask_sb;
+  float* sq = smem + L::kQ;
+  float* sv = smem + L::kV;
+  float* sp = smem + L::kP;
+  const float* qrow = sq + r0 * D;
+  float* prow = sp + r0 * kF32Keys;
+  const float sl2 = a.scale * kLog2e;
 
-  // coalesced load of the query tile, then one row into each thread
-  for (int e = t; e < BQ * D; e += BQ) {
-    const int r = e / D, d = e % D, row = row0 + r;
-    tile_q[r][d] = row < a.M ? to_f32(q[row * a.q_sn + d]) : 0.f;
-  }
-  __syncthreads();
-  float qr[D], acc[D];
+  stage_rows<D, kF32Rows, true>(sq, q, a.q_sn, row0, a.M);
+  stage_rows<D, kF32Keys, true>(smem + L::kK, k, a.k_sn, 0, a.N);
+  cp_async_commit();
+
+  // the running max lives in shared memory: 8 registers fewer in S = QK^T
+  float o[8][kC], l[8];
+  if (t < kF32Rows) row_max[t] = -INFINITY;
 #pragma unroll
-  for (int d = 0; d < D; ++d) {
-    qr[d] = tile_q[t][d];
-    acc[d] = 0.f;
+  for (int i = 0; i < 8; ++i) {
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < kC; ++c) o[i][c] = 0.f;
   }
-  float m = -INFINITY, l = 0.f;
 
-  for (int j0 = 0; j0 < a.N; j0 += BK) {
-    __syncthreads();  // the previous tile is consumed
-    for (int e = t; e < BK * D; e += BQ) {
-      const int r = e / D, d = e % D, key = j0 + r;
-      const bool in = key < a.N;
-      tile_k[r][d] = in ? to_f32(k[key * a.k_sn + d]) : 0.f;
-      tile_v[r][d] = in ? to_f32(v[key * a.v_sn + d]) : 0.f;
-    }
-    bool ok = false;
-    if (t < BK) {
+  const int n_tiles = (a.N + kF32Keys - 1) / kF32Keys;
+  for (int jt = 0; jt < n_tiles; ++jt) {
+    const int j0 = jt * kF32Keys;
+    const float* sk = smem + L::kK + (jt & 1) * kF32Keys * D;
+    float* sk_next = smem + L::kK + ((jt + 1) & 1) * kF32Keys * D;
+    bool valid = false;
+    if (t < kF32Keys) {
       const int key = j0 + t;
-      ok = key < a.N && (a.kmask == nullptr || a.kmask[b * a.kmask_sb + key] != 0);
-      key_ok[t] = ok ? 1.f : 0.f;
+      valid = key < a.N && (kmask == nullptr || kmask[key] != 0);
+      const uint32_t bits = __ballot_sync(0xffffffffu, valid);
+      if (lane == 0) key_bits[w] = bits;
     }
-    // barrier, and skip a tile whose keys are all masked (uniform per block)
-    if (!__syncthreads_or(ok)) continue;
+    cp_async_wait<0>();  // K(j) (and Q) landed
+    // K(j) visible, every thread done with V, P and the other K stage
+    if (!__syncthreads_or(valid)) {  // no valid key: skip the tile
+      if (jt + 1 < n_tiles) stage_rows<D, kF32Keys, true>(sk_next, k, a.k_sn, j0 + kF32Keys, a.N);
+      cp_async_commit();
+      continue;
+    }
+    stage_rows<D, kF32Keys, false>(sv, v, a.v_sn, j0, a.N);
+    cp_async_commit();
+    if (jt + 1 < n_tiles) stage_rows<D, kF32Keys, true>(sk_next, k, a.k_sn, j0 + kF32Keys, a.N);
+    cp_async_commit();
 
-    float s[BK];
-    float tile_max = -INFINITY;
+    // S = Q K^T: rows r0 + 8i, keys kg + 16j
+    float s[8][4];
 #pragma unroll
-    for (int j = 0; j < BK; ++j) {
-      float dot = 0.f;
+    for (int i = 0; i < 8; ++i)
 #pragma unroll
-      for (int d = 0; d < D; ++d) dot = fmaf(qr[d], tile_k[j][d], dot);
-      s[j] = key_ok[j] != 0.f ? dot * a.scale : -INFINITY;
-      tile_max = fmaxf(tile_max, s[j]);
+      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+    const float* krow = sk + kg * D;
+#pragma unroll
+    for (int c = 0; c < D / 4; ++c) {
+      const int cq = (c ^ xq) * 4, ck = (c ^ xk) * 4;
+      float4 kf[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        kf[j] = *reinterpret_cast<const float4*>(krow + 16 * j * D + ck);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float4 qf = *reinterpret_cast<const float4*>(qrow + 8 * i * D + cq);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          s[i][j] = fmaf(qf.x, kf[j].x, s[i][j]);
+          s[i][j] = fmaf(qf.y, kf[j].y, s[i][j]);
+          s[i][j] = fmaf(qf.z, kf[j].z, s[i][j]);
+          s[i][j] = fmaf(qf.w, kf[j].w, s[i][j]);
+        }
+      }
     }
-    const float m_new = fmaxf(m, tile_max);
-    const float alpha = expf(m - m_new);  // 0 on the first tile with a valid key
-    l *= alpha;
+
+    // online softmax in the log2 domain; P to shared memory
+    const uint64_t kbits = (static_cast<uint64_t>(key_bits[1]) << 32) | key_bits[0];
+    if (kbits != ~0ull) {  // uniform per tile
 #pragma unroll
-    for (int d = 0; d < D; ++d) acc[d] *= alpha;
+      for (int j = 0; j < 4; ++j) {
+        const bool ok = (kbits >> (kg + 16 * j)) & 1ull;
 #pragma unroll
-    for (int j = 0; j < BK; ++j) {
-      const float p = expf(s[j] - m_new);  // masked key: exp(-inf) = 0
-      l += p;
-      const float pv = to_f32(from_f32<T>(p));  // probability in V's dtype
-#pragma unroll
-      for (int d = 0; d < D; ++d) acc[d] = fmaf(pv, tile_v[j][d], acc[d]);
+        for (int i = 0; i < 8; ++i) s[i][j] = ok ? s[i][j] : -INFINITY;
+      }
     }
-    m = m_new;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float m_old = row_max[r0 + 8 * i];  // read before the shuffles
+      float mx = fmaxf(fmaxf(s[i][0], s[i][1]), fmaxf(s[i][2], s[i][3]));
+#pragma unroll
+      for (int off = 1; off < 16; off *= 2) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float ms = fmaxf(m_old, mx * sl2);  // finite: the tile has a valid key
+      const float alpha = sm90::ex2(m_old - ms);  // 0 on the first tile
+      l[i] *= alpha;
+#pragma unroll
+      for (int c = 0; c < kC; ++c) o[i][c] *= alpha;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float p = sm90::ex2(fmaf(s[i][j], sl2, -ms));  // masked: exp2(-inf) = 0
+        l[i] += p;
+        // key kg + 16j: chunk kg / 4 + 4j, swizzled by r0's low bits
+        prow[8 * i * kF32Keys + (((kg / 4 + 4 * j) ^ xq) * 4) + kg % 4] = p;
+      }
+      __syncwarp();  // the row's 16 lanes have read row_max
+      if (kg == 0) row_max[r0 + 8 * i] = ms;
+    }
+    cp_async_wait<1>();  // V(j) landed; K(j + 1) may still be in flight
+    __syncthreads();     // P and V(j) visible
+
+    // O += P V: rows as S, feature columns kC*kg ..
+#pragma unroll 4
+    for (int c = 0; c < kF32Keys / 4; ++c) {
+      const int cp = (c ^ xq) * 4;
+      float vf[4][kC];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float* src = sv + (4 * c + e) * D + kC * kg;
+        if constexpr (kC == 4) {
+          const float4 x = *reinterpret_cast<const float4*>(src);
+          vf[e][0] = x.x, vf[e][1] = x.y, vf[e][2] = x.z, vf[e][3] = x.w;
+        } else {
+          const float2 x = *reinterpret_cast<const float2*>(src);
+          vf[e][0] = x.x, vf[e][1] = x.y;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float4 pf = *reinterpret_cast<const float4*>(prow + 8 * i * kF32Keys + cp);
+#pragma unroll
+        for (int cc = 0; cc < kC; ++cc) {
+          o[i][cc] = fmaf(pf.x, vf[0][cc], o[i][cc]);
+          o[i][cc] = fmaf(pf.y, vf[1][cc], o[i][cc]);
+          o[i][cc] = fmaf(pf.z, vf[2][cc], o[i][cc]);
+          o[i][cc] = fmaf(pf.w, vf[3][cc], o[i][cc]);
+        }
+      }
+    }
   }
+  cp_async_wait<0>();  // nothing in flight at exit
 
-  const int row = row0 + t;
-  const bool row_ok =
-      row < a.M && (a.qmask == nullptr || a.qmask[b * a.qmask_sb + row] != 0);
-  const bool keep = row_ok && l > 0.f;
-  const float den = fmaxf(l, 1e-30f);
-  __syncthreads();  // every thread has read its query row out of tile_q
+  // the row sums' 16 shares, then the normalised rows
 #pragma unroll
-  for (int d = 0; d < D; ++d) tile_q[t][d] = keep ? acc[d] / den : 0.f;
-  __syncthreads();
-  for (int e = t; e < BQ * D; e += BQ) {
-    const int r = e / D, d = e % D, orow = row0 + r;
-    if (orow < a.M) out[orow * a.o_sn + d] = from_f32<T>(tile_q[r][d]);
+  for (int i = 0; i < 8; ++i) {
+#pragma unroll
+    for (int off = 1; off < 16; off *= 2) l[i] += __shfl_xor_sync(0xffffffffu, l[i], off);
+    const int row = row0 + r0 + 8 * i;
+    if (row >= a.M) continue;
+    const bool row_ok = a.qmask == nullptr || a.qmask[b * a.qmask_sb + row] != 0;
+    const float inv = row_ok && l[i] > 0.f ? 1.f / l[i] : 0.f;
+    float* dst = out + row * a.o_sn + kC * kg;
+    if constexpr (kC == 4)
+      *reinterpret_cast<float4*>(dst) =
+          make_float4(o[i][0] * inv, o[i][1] * inv, o[i][2] * inv, o[i][3] * inv);
+    else
+      *reinterpret_cast<float2*>(dst) = make_float2(o[i][0] * inv, o[i][1] * inv);
   }
 }
 
@@ -561,11 +731,28 @@ inline int max_rows(const AttnDirs& dirs, int n_dirs) {
   return n_dirs == 2 && dirs.d[1].M > dirs.d[0].M ? dirs.d[1].M : dirs.d[0].M;
 }
 
-template <typename T, int D>
+template <int D>
 cudaError_t launch_f32(const AttnDirs& dirs, int n_dirs, int BH, cudaStream_t stream) {
-  const dim3 grid((max_rows(dirs, n_dirs) + kRowsPerBlock - 1) / kRowsPerBlock, BH, n_dirs);
-  attention_kernel<T, D><<<grid, kRowsPerBlock, 0, stream>>>(dirs);
+  constexpr int kSmem = F32Smem<D>::kBytes;
+  cudaError_t err = allow_shared_memory<attention_f32_kernel<D>>(kSmem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((max_rows(dirs, n_dirs) + kF32Rows - 1) / kF32Rows, BH, n_dirs);
+  attention_f32_kernel<D><<<grid, kF32Threads, kSmem, stream>>>(dirs);
   return cudaGetLastError();
+}
+
+// Blocks of the f32 body resident on one SM at head dim D (0 if D is not
+// taken): the occupancy its shared memory and registers allow.
+inline int f32_blocks_per_sm(int D) {
+  int n = 0;
+  cudaError_t err = cudaErrorInvalidValue;
+  if (D == 32 && (err = allow_shared_memory<attention_f32_kernel<32>>(F32Smem<32>::kBytes)) == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, attention_f32_kernel<32>, kF32Threads,
+                                                        F32Smem<32>::kBytes);
+  if (D == 64 && (err = allow_shared_memory<attention_f32_kernel<64>>(F32Smem<64>::kBytes)) == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, attention_f32_kernel<64>, kF32Threads,
+                                                        F32Smem<64>::kBytes);
+  return err == cudaSuccess ? n : 0;
 }
 
 template <int D>
@@ -598,14 +785,15 @@ cudaError_t launch_wgmma(const AttnDirs& dirs, int n_dirs, int B, cudaStream_t s
 
 // One launch over `n_dirs` (1 or 2) directions of a batch of B. dtype: 0 =
 // float32, 1 = bfloat16. Head dims other than 32 and 64 are refused (the
-// wrappers check first). The bf16 body reads by TMA: 16-byte aligned base
-// pointers and strides that are positive multiples of 16 bytes (the
-// wrappers make such copies when needed).
+// wrappers check first). The bf16 body reads by TMA and the f32 body by
+// 16-byte cp.async: both need 16-byte aligned base pointers and strides that
+// are positive multiples of 16 bytes (the wrappers make such copies when
+// needed).
 inline cudaError_t launch_attention(const AttnDirs& dirs, int n_dirs, int B, int D, int dtype,
                                     cudaStream_t stream) {
   const int BH = B * dirs.d[0].H;
-  if (dtype == 0 && D == 32) return launch_f32<float, 32>(dirs, n_dirs, BH, stream);
-  if (dtype == 0 && D == 64) return launch_f32<float, 64>(dirs, n_dirs, BH, stream);
+  if (dtype == 0 && D == 32) return launch_f32<32>(dirs, n_dirs, BH, stream);
+  if (dtype == 0 && D == 64) return launch_f32<64>(dirs, n_dirs, BH, stream);
   if (dtype == 1 && D == 32) return launch_wgmma<32>(dirs, n_dirs, B, stream);
   if (dtype == 1 && D == 64) return launch_wgmma<64>(dirs, n_dirs, B, stream);
   return cudaErrorInvalidValue;

@@ -36,3 +36,7 @@ extern "C" int gf_fused_attention(const void* q, const void* k, const void* v,
   return static_cast<int>(gf::launch_attention(dirs, 1, B, D, dtype,
                                                static_cast<cudaStream_t>(stream)));
 }
+
+// Blocks of the f32 body resident on one SM at head dim D (0 if D is not
+// taken), by the occupancy calculator.
+extern "C" int gf_fused_attention_f32_blocks_per_sm(int D) { return gf::f32_blocks_per_sm(D); }

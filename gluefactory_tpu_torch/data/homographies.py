@@ -6,11 +6,11 @@ exact patch-to-patch homography `H_0to1`. Per-index generators
 
 The images are procedural (`synthetic_images` > 0), drawn from the JAX
 package's numpy random stream by a numpy rasteriser that draws as OpenCV
-does (`raster.py`). The warp is a torch bilinear sample with zero fill in
-the `cv2.warpPerspective` convention (pixel centres at integer
-coordinates, the patch pixel mapped to the source by H^-1); it differs from
-cv2's by up to |image gradient| / 32, since cv2 rounds the sample position
-to 1/32 pixel. No OpenCV is used. Image folders on disk, `load_features`,
+does (`raster.py`). The warp is OpenCV's `cv2.warpPerspective` with
+INTER_LINEAR on a float32 image (OpenCV 5's arithmetic, which the JAX
+dataset runs), written in numpy: no OpenCV is used. It matches cv2's
+pixels within an ulp but in the scalar tail of a row (`warp_patch` says
+how far). Image folders on disk, `load_features`,
 `detect_lines` and `emit_source` raise `NotImplementedError` for now.
 """
 
@@ -18,7 +18,6 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from ..core.config import merge
 from ..geometry.homography import sample_homography_corners
@@ -57,20 +56,62 @@ def generate_synthetic_image(seed: int, size=(640, 480)) -> np.ndarray:
     return np.clip(img, 0, 1)
 
 
+def _fma32(a, b, c) -> np.ndarray:
+    """a * b + c rounded once to float32 (the product of two float32 is
+    exact in float64)."""
+    return (np.multiply(a, b, dtype=np.float64) + c).astype(np.float32)
+
+
 def warp_patch(img: np.ndarray, H: np.ndarray, patch_shape) -> np.ndarray:
-    """img (h, w, C) warped by H (source -> patch) into a (ph, pw, C) patch:
-    patch pixel (x, y) samples the source bilinearly at H^-1 (x, y, 1),
-    pixel centres at integer coordinates, zero outside the source."""
+    """img (h, w, C) float32 warped by H (source -> patch) into a (ph, pw, C)
+    patch, as `cv2.warpPerspective(img, H, patch_shape, INTER_LINEAR)`
+    computes it for float32 images: M = H^-1 inverted in float64 and rounded
+    to float32; for patch pixel (x, y), X = fma(M0, x, M1 y + M2) and so Y
+    and W, in float32, as OpenCV's vector loop rounds them on a CPU with
+    fused multiply-add; the source point (X / W, Y / W) splits into its floor and fractions a,
+    b; the four taps, 0 outside the image, are blended as two lerps along x
+    and one along y. The source points are cv2's exactly; the lerps are
+    float32 multiply-adds where cv2 fuses them, which moves a pixel by at
+    most an ulp of its value. Pixel centres at integer coordinates.
+
+    OpenCV sends the last pixels of a row (a row's length modulo its SIMD
+    width, which its CPU dispatch picks at run time) through a scalar loop,
+    fma(M0, x, M1 y) + M2, which rounds once more: there the port's pixel
+    moves by up to an ulp of the source coordinate times the image's
+    gradient. The port computes every pixel as the vector loop does, so its
+    patches do not depend on the CPU."""
     pw, ph = int(patch_shape[0]), int(patch_shape[1])
-    h, w = img.shape[:2]
-    ys, xs = np.mgrid[0:ph, 0:pw].astype(np.float64)
-    src = np.stack([xs, ys, np.ones_like(xs)], -1) @ np.linalg.inv(np.asarray(H, np.float64)).T
-    src = src[..., :2] / src[..., 2:]
-    grid = src / np.array([max(w - 1, 1), max(h - 1, 1)]) * 2 - 1
-    out = F.grid_sample(torch.from_numpy(img).permute(2, 0, 1)[None],
-                        torch.from_numpy(grid.astype(np.float32))[None],
-                        mode="bilinear", padding_mode="zeros", align_corners=True)
-    return out[0].permute(1, 2, 0).numpy()
+    h, w, channels = img.shape
+    m = np.linalg.inv(np.asarray(H, np.float64)).astype(np.float32).ravel()
+    xs = np.arange(pw, dtype=np.float32)[None, :]
+    ys = np.arange(ph, dtype=np.float32)[:, None]
+
+    def row_term(i):  # M[i] x + M[i+1] y + M[i+2], as OpenCV's vector loop rounds it
+        return _fma32(m[i], xs, m[i + 1] * ys + m[i + 2])
+
+    with np.errstate(divide="ignore", invalid="ignore"):
+        W = row_term(6)
+        sx = row_term(0) / W
+        sy = row_term(3) / W
+    far = 2 * (w + h)  # a source point this far out has no tap inside
+    outside = ~(np.abs(sx) <= far) | ~(np.abs(sy) <= far)  # NaN included
+    sx[outside] = sy[outside] = -2.0
+    x0, y0 = np.floor(sx), np.floor(sy)
+    a, b = sx - x0, sy - y0
+    # taps from each channel's plane in a zero border of 2: a clipped
+    # corner whose taps all lie outside reads zeros, as its true taps do
+    planes = np.zeros((channels, h + 4, w + 4), np.float32)
+    planes[:, 2:h + 2, 2:w + 2] = img.transpose(2, 0, 1)
+    planes = planes.reshape(channels, -1)
+    idx = ((np.clip(y0, -2, h) + 2) * (w + 4) + np.clip(x0, -2, w) + 2).astype(np.intp)
+    out = np.empty((ph, pw, channels), np.float32)
+    for c, plane in enumerate(planes):
+        p00, p01 = plane.take(idx), plane.take(idx + 1)
+        p10, p11 = plane.take(idx + w + 4), plane.take(idx + w + 5)
+        top = p00 + a * (p01 - p00)
+        bottom = p10 + a * (p11 - p10)
+        out[..., c] = top + b * (bottom - top)
+    return out
 
 
 class _HomographySplit(torch.utils.data.Dataset):

@@ -107,6 +107,14 @@ def _kernel(name: str):
     return _build.function(name, _SIGNATURES[name])
 
 
+def f32_blocks_per_sm(head_dim: int) -> int:
+    """Blocks of the f32 body that one SM holds at once (the CUDA occupancy
+    calculator on the built kernel; needs a CUDA device)."""
+    fn = getattr(_build.load("fused_attention"), "gf_fused_attention_f32_blocks_per_sm")
+    fn.argtypes, fn.restype = [_I], _I
+    return int(fn(head_dim))
+
+
 def _check(name: str, tensors: list, masks: list) -> None:
     ref = tensors[0]
     if ref.dtype not in _DTYPE_CODES:

@@ -1,6 +1,6 @@
-"""Time SuperGlue's Sinkhorn kernel, SuperPoint's four VGG blocks and its
-fused decode as two or more checkouts of the port compute them, in turns on
-one card.
+"""Time SuperGlue's Sinkhorn kernel, SuperPoint's four VGG blocks, its
+fused decode and both attention kernels in f32 as two or more checkouts of
+the port compute them, in turns on one card.
 
     python gluefactory_tpu_torch/scripts_dev/compare_trees.py TREE [TREE ...]
 
@@ -15,8 +15,12 @@ run's times, the card's name and power limit.
 Shapes are the paths' own: Sinkhorn at (4, 2049, 2049), 50 iterations, f32
 (path B); the VGG blocks of path C, 8 images bf16 (conv1b + pool at 1024^2
 x 64, blocks 2-4); the decode at path C's score maps, 8 x 1024^2 bf16,
-radius 4, with the true size given as path C gives it. The VGG blocks and
-the decode by device time (`device_time_ms`: the calls queued behind a
+radius 4, with the true size given as path C gives it; the attention
+kernels at path E's shapes, f32, every token valid: `fused_attention` at
+(64, 4, 512, 64) (both views' self-attention) and
+`fused_bidirectional_attention` at (32, 4, 512, 64), each beside SDPA on the
+same inputs (both directions stacked for the cross-attention). The VGG
+blocks, the decode and the attention by device time (`device_time_ms`: the calls queued behind a
 sleep kernel, so the wrapper's Python between launches does not count);
 Sinkhorn by CUDA events around the calls as the
 host issues them (`cuda_time_ms`: ten calls of a design that launches a
@@ -32,6 +36,11 @@ import subprocess
 import sys
 from pathlib import Path
 
+# path E: batch 32, 4 heads of 64, 512 keypoints; self-attention runs both
+# views stacked
+ATTENTION_F32 = [("fused_attention", 64), ("fused_bidirectional_attention", 32)]
+ATTENTION_HEADS, ATTENTION_TOKENS, ATTENTION_DIM = 4, 512, 64
+
 VGG_BLOCKS = [
     ("conv1b_pool", (8, 1024, 1024, 64), 64, None, True),
     ("block2", (8, 512, 512, 64), 64, 64, True),
@@ -45,10 +54,12 @@ def worker(tree: str) -> dict:
     sys.path.insert(0, tree)
     import torch
 
-    from gluefactory_tpu_torch.ops import cuda_conv, cuda_detect, cuda_sinkhorn
+    from gluefactory_tpu_torch.ops import cuda_attention, cuda_conv, cuda_detect, cuda_sinkhorn
     from gluefactory_tpu_torch.scripts_dev.timing import card, cuda_time_ms, device_time_ms
 
     dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False  # f32 as path E runs it
+    torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device=dev).manual_seed(0)
     B, M, iters = 4, 2049, 50
     Z = torch.randn(B, M, M, generator=gen, device=dev)
@@ -73,6 +84,23 @@ def worker(tree: str) -> dict:
     full = torch.full((8, 2), 1024.0, device=dev)
     decode = lambda: cuda_detect.fused_nms_tile_reduce(s, full, radius=4)  # noqa: E731
     res["fused_nms_tile_reduce"] = {"device_ms": device_time_ms(decode, reps=20)}
+    del s
+    H, N, D = ATTENTION_HEADS, ATTENTION_TOKENS, ATTENTION_DIM
+    F = torch.nn.functional
+    for name, B in ATTENTION_F32:
+        xs = [torch.randn(B, H, N, D, generator=gen, device=dev) for _ in range(3 if name == "fused_attention" else 4)]
+        ones = torch.ones(B, N, dtype=torch.bool, device=dev)
+        kernel = getattr(cuda_attention, name)
+        if len(xs) == 3:
+            lib_in = xs
+        else:
+            qk0, qk1, v0, v1 = xs
+            lib_in = [torch.cat([qk0, qk1]), torch.cat([qk1, qk0]), torch.cat([v1, v0])]
+        fn = lambda: kernel(*xs, ones, ones)  # noqa: E731
+        sdpa = lambda: F.scaled_dot_product_attention(*lib_in)  # noqa: E731
+        res[f"{name}_f32"] = {"shape": [B, H, N, D], "device_ms": device_time_ms(fn, reps=20),
+                              "sdpa_ms": device_time_ms(sdpa, reps=20)}
+        del xs, lib_in
     return res
 
 

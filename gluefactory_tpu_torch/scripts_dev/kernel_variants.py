@@ -2,7 +2,7 @@
 that each leave one phase out (or change one thing), and time every variant
 against the kernel as it is, in one process on one card.
 
-    python -m gluefactory_tpu_torch.scripts_dev.kernel_variants [sinkhorn|vgg|detect ...]
+    python -m gluefactory_tpu_torch.scripts_dev.kernel_variants [sinkhorn|vgg|detect|attention ...]
 
 A variant is a copy of `csrc/` with text substitutions in it, built by nvcc
 with the port's flags into `build/torch_ext/variants/` and called through
@@ -21,7 +21,11 @@ with the card's name and power limit.
   out;
 - detect: `fused_nms_tile_reduce` at path C's score maps (8, 1024^2) bf16,
   radius 4, without the load into shared memory, the float pools (both
-  passes of all three), or the tile reduction.
+  passes of all three), or the tile reduction;
+- attention: `fused_attention`'s f32 body at path E's shape (64, 4, 512,
+  64), every token valid, without the S = QK^T products, the PV products,
+  or the exponentials, and at one block an SM (registers unbounded) in
+  place of two.
 """
 
 from __future__ import annotations
@@ -35,7 +39,7 @@ import sys
 
 import torch
 
-from ..ops import _build, cuda_conv, cuda_conv3x3, cuda_detect, cuda_sinkhorn
+from ..ops import _build, cuda_attention, cuda_conv, cuda_conv3x3, cuda_detect, cuda_sinkhorn
 from .timing import card, cuda_time_ms, device_time_ms
 
 VARIANT_DIR = _build.BUILD_DIR / "variants"
@@ -76,8 +80,19 @@ VARIANTS = {
                                                   ("    pool_columns_compare<R, true>(p);", "")]),
         "no_tile_reduce": ("nms_tile_reduce.cu", [("t < (kOutRows / tile) * halves;", "t < 0;")]),
     },
+    "attention": {
+        "no_s": ("fused_attention.cu", [("for (int c = 0; c < D / 4; ++c) {\n      const int cq",
+                                         "for (int c = 0; c < 0; ++c) {\n      const int cq")]),
+        "no_pv": ("fused_attention.cu", [("for (int c = 0; c < kF32Keys / 4; ++c) {\n      const int cp",
+                                          "for (int c = 0; c < 0; ++c) {\n      const int cp")]),
+        "no_exp": ("fused_attention.cu", [("sm90::ex2(fmaf(s[i][j], sl2, -ms))",
+                                           "fmaf(s[i][j], sl2, -ms)")]),
+        "one_block_an_sm": ("fused_attention.cu", [("__launch_bounds__(kF32Threads, 2)",
+                                                    "__launch_bounds__(kF32Threads, 1)")]),
+    },
 }
-KERNEL_OF = {"sinkhorn": "log_sinkhorn", "vgg": "fused_vgg_block", "detect": "fused_nms_tile_reduce"}
+KERNEL_OF = {"sinkhorn": "log_sinkhorn", "vgg": "fused_vgg_block", "detect": "fused_nms_tile_reduce",
+             "attention": "fused_attention"}
 
 
 def build_variants(kernel: str) -> dict[str, ctypes.CDLL]:
@@ -136,10 +151,11 @@ def _timed(kernel: str, libs: dict, runs: dict, timer=cuda_time_ms) -> dict:
     return out
 
 
-def main(kernels=("sinkhorn", "vgg", "detect")) -> list[dict]:
+def main(kernels=("sinkhorn", "vgg", "detect", "attention")) -> list[dict]:
     if not torch.cuda.is_available():
         raise SystemExit("kernel_variants: needs a CUDA device")
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     _build.build_all([KERNEL_OF[k] for k in kernels] + ["npack_conv3x3"])
@@ -158,6 +174,11 @@ def main(kernels=("sinkhorn", "vgg", "detect")) -> list[dict]:
             full = torch.full((8, 2), 1024.0, device=dev)
             runs = {"path_c": lambda: cuda_detect.fused_nms_tile_reduce(s, full)}
             shape = [8, 1024, 1024]
+        elif kernel == "attention":
+            shape = [64, 4, 512, 64]
+            q, k, v = (torch.randn(*shape, generator=gen, device=dev) for _ in range(3))
+            ones = torch.ones(shape[0], shape[2], dtype=torch.bool, device=dev)
+            runs = {"path_e_f32": lambda: cuda_attention.fused_attention(q, k, v, ones, ones)}
         else:
             x = torch.relu(torch.randn(8, 1024, 1024, 64, generator=gen, device=dev)).to(torch.bfloat16)
             w = (torch.randn(3, 3, 64, 64, generator=gen, device=dev) * 0.06).to(torch.bfloat16)
@@ -165,7 +186,7 @@ def main(kernels=("sinkhorn", "vgg", "detect")) -> list[dict]:
             runs = {"conv1b_pool": lambda: cuda_conv.fused_vgg_block(x, w, b, pool=True),
                     "conv1b_no_pool": lambda: cuda_conv.fused_vgg_block(x, w, b, pool=False)}
             shape = [8, 1024, 1024, 64]
-        ms = _timed(kernel, libs, runs, device_time_ms if kernel == "detect" else cuda_time_ms)
+        ms = _timed(kernel, libs, runs, device_time_ms if kernel in ("detect", "attention") else cuda_time_ms)
         if kernel == "vgg":
             ms["bare_npack_conv3x3"] = cuda_time_ms(lambda: cuda_conv3x3.npack_conv3x3(x, w), reps=10)
         res = {"kernel": KERNEL_OF[kernel], "shape": shape, "ms": ms, "card": card(dev)}
@@ -175,4 +196,4 @@ def main(kernels=("sinkhorn", "vgg", "detect")) -> list[dict]:
 
 
 if __name__ == "__main__":
-    main(tuple(sys.argv[1:]) or ("sinkhorn", "vgg", "detect"))
+    main(tuple(sys.argv[1:]) or ("sinkhorn", "vgg", "detect", "attention"))

@@ -8,24 +8,20 @@ A train step is the forward with the loss (ground truth on the device in the
 pipeline's loss), the backward, and the optimizer update with the JAX
 package's NaN-skip, all without a host read: a gradient tensor with any
 non-finite entry is zeroed, the update applied, and the parameters and the
-whole optimizer state (Adam's step count included) put back with
-`torch.where` if the loss or any updated parameter is not finite. The host
-reads the losses only where it logs (`log_every_iter`) and at evaluation.
+whole optimizer state put back with `torch.where` if the loss or any
+updated parameter is not finite. The optimizers are optax's (`optim.py`);
+the count of applied updates lives on the device and looks the lr up in a
+table of the schedule, so a skipped update does not advance it. The host
+reads the losses and the lr only where it logs (`log_every_iter`) and at
+evaluation.
 
 Frozen components (`trainable: False`) have no gradient and are not in the
 optimizer; `opt_regexp` keeps in the optimizer only the parameters whose
-torch name matches it. `grad_accumulation` K averages K micro-batches
-before one update; the lr schedule counts real updates, in the epoch
-fraction `updates / (steps_per_epoch / K)`.
+torch name matches it. `grad_accumulation` K runs optax.MultiSteps inside
+the NaN-skip: the running mean of K kept micro-batches makes one update,
+and the lr schedule counts real updates, in the epoch fraction
+`updates / (steps_per_epoch / K)`.
 
-Where the port differs from the JAX trainer:
-  - the lr schedule's count is the host's count of dispatched updates, so
-    after a skipped (non-finite) update it runs one update ahead of optax's,
-    whose count is restored with the rest of the state;
-  - under `grad_accumulation`, a micro-batch with a non-finite loss adds
-    nothing to the mean, and a skipped update drops its accumulated
-    gradients (optax.MultiSteps retries the update on the next micro-batch);
-  - `rmsprop` adds `eps` outside the square root (torch), optax inside.
 Not ported yet, each raising `NotImplementedError`: `mixed_precision: bf16`,
 `steps_per_dispatch > 1`, `device_augment`, `run_benchmarks`, `plot` with a
 writer, and more than one device (DDP).
@@ -51,6 +47,7 @@ from .core.config import Config, from_dotlist, from_yaml, merge
 from .data import get_dataset
 from .data.base_dataset import prepare_batch
 from .models import get_model
+from .optim import OPTIMIZERS
 from .settings import TRAINING_PATH
 from .utils.experiments import (
     delete_old_checkpoints,
@@ -156,30 +153,17 @@ def trained_parameters(conf, model) -> list:
 def build_optimizer(conf, model, steps_per_epoch: int):
     """(optimizer, schedule): the optimizer over `trained_parameters`, and
     the lr schedule in real updates (steps_per_epoch / grad_accumulation a
-    data epoch). Adam, AdamW and RMSprop keep their step count on a CUDA
-    device (`capturable`), where the NaN-skip can restore it."""
+    data epoch). The optimizers are optax's (`optim.py`), with optax's option
+    names and defaults; their state lives on the parameters' device."""
     accum = int(conf.get("grad_accumulation") or 1)
     schedule = build_lr_schedule(conf, steps_per_epoch / accum)
     named = trained_parameters(conf, model)
     params = [p for _, p in named]
     if not params:
         raise ValueError("no parameter to train")
-    opts = dict(conf.optimizer_options or {})
-    if "b1" in opts or "b2" in opts:  # optax's names
-        opts["betas"] = (opts.pop("b1", 0.9), opts.pop("b2", 0.999))
-    capturable = params[0].device.type == "cuda"
-    if conf.optimizer == "adam":
-        opt = torch.optim.Adam(params, lr=float(conf.lr), capturable=capturable, **opts)
-    elif conf.optimizer == "adamw":
-        opts.setdefault("weight_decay", 1e-4)  # optax's default
-        opt = torch.optim.AdamW(params, lr=float(conf.lr), capturable=capturable, **opts)
-    elif conf.optimizer == "sgd":
-        opt = torch.optim.SGD(params, lr=float(conf.lr), **opts)
-    elif conf.optimizer == "rmsprop":
-        opts.setdefault("alpha", opts.pop("decay", 0.9))  # optax's name and default
-        opt = torch.optim.RMSprop(params, lr=float(conf.lr), capturable=capturable, **opts)
-    else:
+    if conf.optimizer not in OPTIMIZERS:
         raise ValueError(f"unknown optimizer {conf.optimizer}")
+    opt = OPTIMIZERS[conf.optimizer](params, lr=float(conf.lr), **dict(conf.optimizer_options or {}))
     n_total = sum(1 for _ in model.parameters())
     logger.info("Optimizer: %d/%d parameter tensors trainable", len(params), n_total)
     return opt, schedule
@@ -198,12 +182,23 @@ def _all_finite(tensors) -> torch.Tensor:
 
 class TrainStep:
     """One call is one micro-batch: forward with loss (`train=True`),
-    backward, and every `grad_accumulation`-th call one optimizer update
-    with the NaN-skip. Returns (losses, metrics, info) as device tensors:
-    the batch means, `grad_norm` (the global norm of the raw gradients) and
-    `ok` (the update was applied)."""
+    backward, and an optimizer update with the NaN-skip. Returns (losses,
+    metrics, info) as device tensors: the batch means, `grad_norm` (the
+    global norm of the raw gradients) and `ok` (the micro-batch was kept).
 
-    def __init__(self, model, optimizer, schedule, accum: int = 1, clip_grad=None):
+    As optax computes it, with every count on the device: `count`, the
+    updates applied, indexes `lr_table` (the schedule at counts 0 to
+    `max_updates`, the updates the run can make; a later count keeps the
+    last lr) for the lr, and advances only with an applied update. Under
+    `grad_accumulation` K, as optax.MultiSteps inside the NaN-skip: each
+    micro-batch folds its gradients into the running mean `acc` and the
+    optimizer steps on that mean; the step is kept only at the K-th
+    (`micro` == K - 1), and a micro-batch whose loss is not finite, or whose
+    K-th step makes a parameter non-finite, leaves parameters, optimizer
+    state, `micro` and `acc` as they were."""
+
+    def __init__(self, model, optimizer, schedule, accum: int = 1, clip_grad=None, *,
+                 max_updates: int):
         self.model = model
         self.optimizer = optimizer
         self.schedule = schedule
@@ -211,16 +206,32 @@ class TrainStep:
         self.clip_grad = clip_grad
         self.params = [p for p in model.parameters() if p.requires_grad]
         self.trained = [p for g in optimizer.param_groups for p in g["params"]]
-        self.updates = 0  # real updates dispatched: the schedule's step
-        self.micro = 0  # micro-batches since the last update
-        self.acc_sum = None
-        self.acc_count = None
+        dev = self.trained[0].device
+        self.count = torch.zeros((), dtype=torch.int64, device=dev)
+        self.micro = torch.zeros((), dtype=torch.int64, device=dev)
+        self.acc = [torch.zeros_like(p) for p in self.trained] if self.accum > 1 else []
+        self.lr_table = torch.tensor([schedule(i) for i in range(int(max_updates) + 1)],
+                                     dtype=torch.float32, device=dev)
+
+    def lr(self) -> torch.Tensor:
+        """The lr of the next update (0-dim, on the device). `index_select`:
+        indexing with a 0-dim tensor would read it on the host."""
+        last = len(self.lr_table) - 1
+        return self.lr_table.index_select(0, self.count.clamp(max=last).view(1)).view(())
+
+    @property
+    def updates(self) -> int:
+        """The updates applied so far (a host read)."""
+        return int(self.count)
 
     def state_dict(self) -> dict:
-        return {"updates": self.updates}
+        return {"updates": self.count, "micro": self.micro, "acc": self.acc}
 
     def load_state_dict(self, state: dict) -> None:
-        self.updates = int(state["updates"])
+        self.count.copy_(torch.as_tensor(state["updates"]))
+        self.micro.copy_(torch.as_tensor(state.get("micro", 0)))
+        for a, b in zip(self.acc, state.get("acc", [])):
+            a.copy_(b)
 
     def __call__(self, batch: dict, generator: torch.Generator | None = None):
         for p in self.params:
@@ -233,62 +244,56 @@ class TrainStep:
         # a gradient tensor with any non-finite entry is zeroed
         safe = {p: torch.where(torch.isfinite(n), g, torch.zeros_like(g))
                 for p, g, n in zip(self.params, grads, torch._foreach_norm(grads, float("inf")))}
-        loss_ok = torch.isfinite(loss)
-        if self.accum > 1:
-            ok = self._accumulate([safe[p] for p in self.trained], loss_ok)
-        else:
-            ok = self._update([safe[p] for p in self.trained], loss_ok)
+        grads = [safe[p] for p in self.trained]
+        emit = None
+        if self.accum > 1:  # optax.MultiSteps' running mean, then its K-th step
+            step = torch._foreach_div(torch._foreach_sub(grads, self.acc),
+                                      (self.micro + 1).to(grads[0].dtype))
+            grads = torch._foreach_add(self.acc, step)
+            emit = self.micro == self.accum - 1
+        ok = self._update(grads, torch.isfinite(loss), emit)
         losses = {k: v.detach().mean() for k, v in losses.items()}
         metrics = {k: v.detach().float().mean() for k, v in metrics.items()}
         return losses, metrics, {"grad_norm": grad_norm.detach(), "ok": ok}
-
-    def _accumulate(self, grads, loss_ok):
-        """Sum the micro-batch's gradients if its loss is finite; update with
-        their mean at the K-th micro-batch."""
-        if self.acc_sum is None:
-            self.acc_sum = [torch.zeros_like(g) for g in grads]
-            self.acc_count = torch.zeros((), device=grads[0].device)
-        w = loss_ok.to(grads[0].dtype)
-        torch._foreach_add_(self.acc_sum, torch._foreach_mul(grads, w))
-        self.acc_count += w
-        self.micro += 1
-        if self.micro < self.accum:
-            return loss_ok
-        mean = torch._foreach_div(self.acc_sum, self.acc_count.clamp(min=1.0))
-        ok = self._update(mean, self.acc_count > 0)
-        self.micro = 0
-        self.acc_sum = None
-        return ok
 
     def _optimizer_tensors(self) -> list:
         """(param, key, tensor) of the optimizer's state tensors."""
         return [(p, k, v) for p in self.trained for k, v in self.optimizer.state.get(p, {}).items()
                 if torch.is_tensor(v)]
 
-    def _update(self, grads, loss_ok) -> torch.Tensor:
-        """One optimizer update with `grads`, undone on the device unless the
-        loss and every updated parameter are finite."""
+    def _update(self, grads, loss_ok, emit) -> torch.Tensor:
+        """One optimizer step on `grads` at the lr of `count`; kept (and
+        `count` advanced) where the loss and every updated parameter are
+        finite and, under accumulation, `emit`; else undone on the device.
+        Returns `ok`: the loss is finite and, where the step is kept, so is
+        every updated parameter (MultiSteps' other micro-batches update
+        nothing, so their parameters stay finite)."""
         old_params = [p.detach().clone() for p in self.trained]
-        old_state = {(id(p), k): v.clone() for p, k, v in self._optimizer_tensors()}
+        old_state = [(v, v.clone()) for _, _, v in self._optimizer_tensors()]
+        clipped = grads
         if self.clip_grad is not None:
             norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
             scale = torch.where(norm < self.clip_grad, 1.0, self.clip_grad / norm)
-            grads = torch._foreach_mul(grads, scale)
-        for p, g in zip(self.trained, grads):
+            clipped = torch._foreach_mul(grads, scale)
+        for p, g in zip(self.trained, clipped):
             p.grad = g
+        lr = self.lr()
         for group in self.optimizer.param_groups:
-            group["lr"] = self.schedule(self.updates)
+            group["lr"] = lr
         self.optimizer.step()
-        self.updates += 1
         with torch.no_grad():
-            ok = loss_ok & _all_finite(self.trained)
+            params_ok = _all_finite(self.trained)
+            ok = loss_ok & (params_ok if emit is None else params_ok | ~emit)
+            keep = ok if emit is None else ok & emit
             for p, old in zip(self.trained, old_params):
-                p.copy_(torch.where(ok, p, old))
-            for p, k, v in self._optimizer_tensors():
-                # state created by this (first) update goes back to zeros,
-                # the value every optimizer here starts from
-                old = old_state.get((id(p), k))
-                v.copy_(torch.where(ok, v, torch.zeros_like(v) if old is None else old))
+                p.copy_(torch.where(keep, p, old))
+            for v, old in old_state:
+                v.copy_(torch.where(keep, v, old))
+            self.count += keep
+            if emit is not None:
+                for a, g in zip(self.acc, grads):
+                    a.copy_(torch.where(ok, torch.where(emit, 0.0, g), a))
+                self.micro = torch.where(ok, torch.where(emit, 0, self.micro + 1), self.micro)
         return ok
 
 
@@ -418,8 +423,9 @@ def training(conf: Config, output_dir: Path, args):
     logger.info("Model has %.2fM parameters", sum(p.numel() for p in model.parameters()) / 1e6)
     optimizer, schedule = build_optimizer(conf.train, model, steps_per_epoch)
     clip = conf.train.clip_grad
-    step = TrainStep(model, optimizer, schedule, conf.train.grad_accumulation,
-                     None if clip is None else float(clip))
+    accum = int(conf.train.grad_accumulation)
+    step = TrainStep(model, optimizer, schedule, accum, None if clip is None else float(clip),
+                     max_updates=math.ceil(conf.train.epochs * steps_per_epoch / accum))
 
     epoch0, total_iter, best_eval = 0, 0, None
     if args.restore:
@@ -456,7 +462,7 @@ def training(conf: Config, output_dir: Path, args):
                 n_samples += train_bs
                 if it % conf.train.log_every_iter == 0:
                     losses_np = {k: float(v) for k, v in losses.items()}  # the host read
-                    lr = schedule(total_iter // step.accum)
+                    lr = float(step.lr())
                     sps = n_samples / (time.time() - t_start + 1e-9)
                     logger.info("[E %d | it %d] loss {%s} lr %.2e %.1f samples/s", epoch, it,
                                 ", ".join(f"{k} {v:.3f}" for k, v in losses_np.items()), lr, sps)

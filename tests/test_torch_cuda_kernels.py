@@ -655,5 +655,42 @@ def test_train_step_kernels_against_plain_versions(dev, checkpointed):
     for m in model.modules():
         if hasattr(m, "flash"):
             m.flash = True
-    losses, _, info = train.TrainStep(model, opt, schedule)(batch)
+    losses, _, info = train.TrainStep(model, opt, schedule, max_updates=1)(batch)
     assert bool(info["ok"]) and torch.isfinite(losses["total"])
+
+
+@pytest.mark.parametrize("name,accum", [("adam", 1), ("adam", 3), ("rmsprop", 1), ("sgd", 2)])
+def test_train_step_update_makes_no_host_read(dev, name, accum):
+    """The optimizer update, the lr lookup, the micro-batch count and the
+    NaN-skip of `TrainStep` run on the device: under CUDA's sync debug mode
+    set to "error", steps (one with a non-finite loss) raise nothing, and
+    the count of applied updates is read only afterwards."""
+    from gluefactory_tpu_torch import train
+    from gluefactory_tpu_torch.core.config import Config, merge
+
+    class Toy(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.lin = torch.nn.Linear(4, 3)
+
+        def forward_with_loss(self, data, train=True, generator=None):
+            return {}, {"total": ((self.lin(data["x"]) - data["y"]) ** 2).sum(-1)}, {}
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    model = Toy().to(dev)
+    conf = merge(Config(train.default_train_conf),
+                 {"optimizer": name, "grad_accumulation": accum, "clip_grad": 1.0,
+                  "lr_schedule": {"type": "exp", "start": 0, "exp_div_10": 1}})
+    opt, schedule = train.build_optimizer(conf, model, 4)
+    step = train.TrainStep(model, opt, schedule, accum=accum, clip_grad=1.0, max_updates=6)
+    batches = [{"x": torch.randn(5, 4, generator=gen, device=dev),
+                "y": torch.randn(5, 3, generator=gen, device=dev)} for _ in range(6)]
+    batches[2]["x"][0, 0] = float("nan")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        oks = [step(b)[2]["ok"] for b in batches]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert [bool(o) for o in oks] == [i != 2 for i in range(6)]
+    assert step.updates == 5 // accum

@@ -34,7 +34,7 @@ leaked = sorted(m for m in sys.modules if m == "gluefactory_tpu" or m.startswith
 print(len(names), leaked)
 assert not leaked, leaked
 assert len(names) >= 45, names
-for name in ("train", "settings", "data.homographies", "data.base_dataset", "data.augmentations",
+for name in ("train", "optim", "settings", "data.homographies", "data.base_dataset", "data.augmentations",
              "data.raster", "geometry.homography", "geometry.gt_generation", "models.losses",
              "models.metrics", "models.matchers.homography_matcher", "utils.experiments",
              "utils.stdout_capturing", "utils.tensor", "utils.tools",

@@ -81,6 +81,18 @@ def test_train_checkpoint_and_restore(tmp_path):
     assert "Finished training." in (exp / "log.txt").read_text()
 
 
+def test_port_config_copy_parses_as_the_jax_one():
+    """The port's copy of the stage-1 config (the one chip_smoke.py trains
+    on) parses to the same config as the JAX package's file."""
+    from gluefactory_tpu.core.config import from_yaml as jax_from_yaml
+    from gluefactory_tpu_torch.core.config import from_yaml
+
+    ours = from_yaml(str(ROOT / "gluefactory_tpu_torch/configs/superpoint+lightglue_homography.yaml"))
+    theirs = jax_from_yaml(str(ROOT / CONF))
+    assert ours.to_dict() == theirs.to_dict()
+    assert ours.train.lr_schedule.type == "exp" and ours.model.matcher.checkpointed
+
+
 def test_default_device_is_cuda(monkeypatch, tmp_path):
     args = train.main_args(["x", "--conf", CONF])
     assert args.device == "cuda" and args.dotlist == []
@@ -111,7 +123,7 @@ def test_optimizers_and_opt_regexp(name):
     opt, schedule = train.build_optimizer(conf, model, 10)
     assert [p for g in opt.param_groups for p in g["params"]] == list(model[1].parameters())
     assert schedule(0) == 1e-3
-    step = train.TrainStep(_LossModel(model), opt, schedule, clip_grad=1e-3)
+    step = train.TrainStep(_LossModel(model), opt, schedule, clip_grad=1e-3, max_updates=1)
     before = [p.detach().clone() for p in model.parameters()]
     losses, _, info = step({"x": torch.ones(5, 3)})
     assert bool(info["ok"]) and math.isfinite(float(losses["total"]))

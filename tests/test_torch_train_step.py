@@ -132,7 +132,7 @@ def test_three_steps_match_jax(jax_run, checkpointed):
     ref = jax_run[checkpointed]
     model = port_model(jax_run["params"], checkpointed)
     opt, schedule = torch_train.build_optimizer(train_conf(), model, STEPS_PER_EPOCH)
-    step = torch_train.TrainStep(model, opt, schedule)
+    step = torch_train.TrainStep(model, opt, schedule, max_updates=STEPS)
     for i, (batch, want) in enumerate(zip(jax_run["batches"], ref["losses"])):
         losses, _, info = step(batch, torch.Generator().manual_seed(i))
         assert bool(info["ok"])
@@ -161,7 +161,7 @@ def _snapshot(model, opt):
 def test_non_finite_batch_leaves_everything_bit_equal(jax_run):
     model = port_model(jax_run["params"], False)
     opt, schedule = torch_train.build_optimizer(train_conf(), model, STEPS_PER_EPOCH)
-    step = torch_train.TrainStep(model, opt, schedule)
+    step = torch_train.TrainStep(model, opt, schedule, max_updates=3)
     good, bad = jax_run["batches"][0], dict(jax_run["batches"][1])
     bad["view1"] = {**bad["view1"], "image": torch.full_like(bad["view1"]["image"], float("nan"))}
     for first in (True, False):  # before any state exists, then after a good step
@@ -192,7 +192,7 @@ def test_grad_accumulation_equals_a_double_batch(jax_run):
         model = port_model(params, False)
         conf = train_conf(grad_accumulation=accum, optimizer="sgd")
         opt, schedule = torch_train.build_optimizer(conf, model, STEPS_PER_EPOCH)
-        step = torch_train.TrainStep(model, opt, schedule, accum=accum)
+        step = torch_train.TrainStep(model, opt, schedule, accum=accum, max_updates=1)
         for b in batches:
             assert bool(step(b)[2]["ok"])
         assert step.updates == 1
