@@ -66,9 +66,9 @@ Phases, in order; any failure exits non-zero before the last line:
 9. path E, stage-1 training (run before phase 8): `gluefactory_tpu_torch.
    train.main` on `superpoint+lightglue_homography.yaml` at full width
    (SuperPoint 512 keypoints frozen, LightGlue-9 d=256 with checkpointed
-   layers, 640 x 480, f32), cut to procedural images, identity photometry,
-   batch 32, 6 workers, 12 steps and 2 validation batches (the cuts are
-   printed); every loss term finite and every update applied, each attention
+   layers, 640 x 480, f32, the recipe's `lg` photometry), cut to procedural
+   images, batch 32, 6 workers, 12 steps and 2 validation batches (the cuts
+   are printed); every loss term finite and every update applied, each attention
    kernel exactly 18 launches a step (9 forward, 9 in the recompute) and 9 a
    validation batch, the last checkpoint reloaded bit-equal by `--restore`,
    one train step through the kernels against the plain versions (loss and
@@ -76,7 +76,20 @@ Phases, in order; any failure exits non-zero before the last line:
    samples/s (CUDA events over 10 steps after 2 warm-ups), the device busy
    share and peak memory, each attention kernel at the training shapes in
    f32 (forward, and forward + backward, against SDPA), and whether one step
-   at the published batch of 128 fits.
+   at the published batch of 128 fits; the loader's samples/s with `lg` (6
+   workers, the host's core count printed) beside the step's, and which of
+   the two sets the pace;
+9b. path E in bf16 (`train.mixed_precision=bf16`, all else as path E):
+   one bf16 step through the kernels against one through the plain
+   versions from the same state (loss and the matcher's gradient norm
+   within twice the gap bf16 rounding alone opens, plain bf16 against plain
+   f32), 18 launches of each attention kernel a step; ms a step, device ms
+   a step, busy share, peak memory and samples/s; each attention kernel at
+   the training shapes in bf16 against its bound and SDPA;
+9c. folder run: 64 procedural images written to a folder (JPEG through
+   Pillow where it is importable, else binary PPM), the loader's samples/s
+   from the files, and 2 training steps of path E's recipe on them
+   (`data.image_dir`, `data.synthetic_images=0`, batch 16).
 
 Each path resets every launch count just before its timed run and reads
 them just after. Prints the kernel JSON line, the card line, and as its last
@@ -90,6 +103,7 @@ import contextlib
 import copy
 import json
 import math
+import os
 import shutil
 import subprocess
 import sys
@@ -1362,7 +1376,6 @@ TRAIN_EXPERIMENT = "chip_smoke_path_e"
 # the run's cuts of the published recipe, printed and recorded
 TRAIN_REDUCED = {
     "data.synthetic_images": "procedural images instead of revisitop1m, which is not on disk",
-    "data.photometric.name": "identity instead of lg, which needs cv2",
     "data.batch_size": f"{TRAIN_BATCH} instead of {PUBLISHED_BATCH}, for the smoke's time",
     "data.num_workers": "6 instead of 14 (the card's machine has 8 cores)",
     "length": f"{TRAIN_STEPS} training steps (one epoch) and {VAL_BATCHES} validation batches",
@@ -1373,7 +1386,7 @@ TRAIN_ARGV = [
     "--max_val_iters", str(VAL_BATCHES),
     f"data.synthetic_images={TRAIN_BATCH * (TRAIN_STEPS + VAL_BATCHES)}",
     f"data.train_size={TRAIN_BATCH * TRAIN_STEPS}", f"data.val_size={TRAIN_BATCH * VAL_BATCHES}",
-    f"data.batch_size={TRAIN_BATCH}", "data.num_workers=6", "data.photometric.name=identity",
+    f"data.batch_size={TRAIN_BATCH}", "data.num_workers=6",
     "train.epochs=1", "train.log_every_iter=1", "train.eval_every_iter=1000000",
 ]
 # launches of each attention kernel: a train step runs every layer forward
@@ -1389,16 +1402,12 @@ def _check_launches(label: str, got: dict, want: dict) -> None:
             fail(f"{label}: {name} launched {n} times, expected {want.get(name, 0)}")
 
 
-def drive_training() -> tuple[dict, torch.nn.Module]:
-    """The trainer's CLI entry point (`gluefactory_tpu_torch.train.main`) on
-    the shipped config with TRAIN_ARGV's overrides, every launch count reset
-    just before and read just after. Every step's losses must be finite and
-    every update applied; each attention kernel must launch exactly
-    STEP_LAUNCHES a step and VAL_LAUNCHES a validation batch."""
+def run_trainer(argv: list) -> tuple[list, float, dict, torch.nn.Module]:
+    """`gluefactory_tpu_torch.train.main(argv)`, every launch count reset
+    just before and read just after: (each train step's (losses, metrics,
+    info), seconds, launches, the trained model)."""
     from gluefactory_tpu_torch import train
-    from gluefactory_tpu_torch.settings import TRAINING_PATH
 
-    shutil.rmtree(Path(TRAINING_PATH, TRAIN_EXPERIMENT), ignore_errors=True)
     records = []
     call = train.TrainStep.__call__
 
@@ -1411,12 +1420,22 @@ def drive_training() -> tuple[dict, torch.nn.Module]:
     reset_all_launches()
     t0 = time.perf_counter()
     try:
-        model = train.main(TRAIN_ARGV)
+        model = train.main(argv)
         torch.cuda.synchronize()
     finally:
         train.TrainStep.__call__ = call
-    seconds = time.perf_counter() - t0
-    launches = all_launches()
+    return records, time.perf_counter() - t0, all_launches(), model
+
+
+def drive_training() -> tuple[dict, torch.nn.Module]:
+    """The trainer's CLI entry point on the shipped config with
+    TRAIN_ARGV's overrides (`run_trainer`). Every step's losses must be
+    finite and every update applied; each attention kernel must launch
+    exactly STEP_LAUNCHES a step and VAL_LAUNCHES a validation batch."""
+    from gluefactory_tpu_torch.settings import TRAINING_PATH
+
+    shutil.rmtree(Path(TRAINING_PATH, TRAIN_EXPERIMENT), ignore_errors=True)
+    records, seconds, launches, model = run_trainer(TRAIN_ARGV)
     _check_launches("path E", launches, {k: TRAIN_STEPS * n + VAL_BATCHES * VAL_LAUNCHES[k]
                                          for k, n in STEP_LAUNCHES.items()})
     if len(records) != TRAIN_STEPS:
@@ -1484,47 +1503,56 @@ def train_step_vs_plain(model, batch) -> dict:
     return res
 
 
-def _timed_micro_batches(model, batches, gen, accum: int):
+def _timed_micro_batches(model, batches, gen, accum: int, mixed_precision=None):
     """(TrainStep under `grad_accumulation` accum with a fresh optimizer,
     ms per micro-batch over TIMED_STEPS after WARMUP_STEPS by CUDA events,
-    the last micro-batch's outputs)."""
+    the last micro-batch's outputs); each attention kernel must launch
+    STEP_LAUNCHES a timed micro-batch."""
     from gluefactory_tpu_torch import train
     from gluefactory_tpu_torch.core.config import merge
 
     conf = merge(train_conf().train, {"grad_accumulation": accum})
     optimizer, schedule = train.build_optimizer(conf, model, TRAIN_STEPS)
     step = train.TrainStep(model, optimizer, schedule, accum,
-                           max_updates=WARMUP_STEPS + TIMED_STEPS + 1)
+                           max_updates=WARMUP_STEPS + TIMED_STEPS + 1,
+                           mixed_precision=mixed_precision)
     for i in range(WARMUP_STEPS):
         step(batches[i % len(batches)], gen.manual_seed(i))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    reset_all_launches()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     for i in range(TIMED_STEPS):
         out = step(batches[i % len(batches)], gen.manual_seed(i))
     end.record()
     torch.cuda.synchronize()
+    _check_launches(f"path E timed steps ({mixed_precision or 'f32'})", all_launches(),
+                    {k: TIMED_STEPS * n for k, n in STEP_LAUNCHES.items()})
     return step, start.elapsed_time(end) / TIMED_STEPS, out
 
 
-def time_training(model, batches, device_info) -> dict:
+def time_training(model, batches, device_info, mixed_precision=None) -> dict:
     """ms per train step (TrainStep with a fresh optimizer on batches
     already on the card; CUDA events over TIMED_STEPS after WARMUP_STEPS),
-    samples/s, peak memory, and the device busy share of one step; then ms
-    per micro-batch under grad_accumulation 2, whose NaN-skip runs the
-    optimizer on every micro-batch."""
+    samples/s, peak memory, and the device time and busy share of one
+    step; then, in f32, ms per micro-batch under grad_accumulation 2, whose
+    NaN-skip runs the optimizer on every micro-batch."""
     gen = torch.Generator(device=DEVICE)
-    step, ms, (losses, _, info) = _timed_micro_batches(model, batches, gen, 1)
+    step, ms, (losses, _, info) = _timed_micro_batches(model, batches, gen, 1, mixed_precision)
     if not (bool(info["ok"]) and math.isfinite(float(losses["total"]))):
-        fail("path E: a timed step was not applied")
-    res = {"ms_per_step": ms, "samples_per_s": TRAIN_BATCH * 1e3 / ms,
+        fail(f"path E ({mixed_precision or 'f32'}): a timed step was not applied")
+    res = {"mixed_precision": mixed_precision, "ms_per_step": ms,
+           "samples_per_s": TRAIN_BATCH * 1e3 / ms,
            "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
            "batch": TRAIN_BATCH, "steps": TIMED_STEPS, "card": device_info["nvidia_smi"]}
     res["profile"] = profile_forward(lambda: step(batches[0], gen.manual_seed(0)), grad=True)
     dev_ms = res["profile"]["device_ms"]
+    res["device_ms_per_step"] = dev_ms
     res["busy_share"] = None if dev_ms is None else dev_ms / ms
     del step
+    if mixed_precision:
+        return res
     step, ms2, (losses, _, info) = _timed_micro_batches(model, batches, gen, 2)
     if not (bool(info["ok"]) and math.isfinite(float(losses["total"]))):
         fail("path E: a timed micro-batch under grad_accumulation 2 was not kept")
@@ -1533,17 +1561,19 @@ def time_training(model, batches, device_info) -> dict:
     return res
 
 
-def attention_at_training_shapes(dev) -> list[dict]:
-    """Each attention kernel at path E's shapes (f32, every token valid):
-    forward device time against its bound, its plain version and SDPA, and
-    forward + backward (the plain version's gradient) against SDPA's."""
+def attention_at_training_shapes(dev, dtype=torch.float32) -> list[dict]:
+    """Each attention kernel at path E's shapes (every token valid), in
+    `dtype`: forward device time against its bound, its plain version and
+    SDPA, and forward + backward (the plain version's gradient) against
+    SDPA's."""
     gen = torch.Generator(device=dev).manual_seed(5)
     F = torch.nn.functional
-    N, D, dtype = 512, HEAD_DIM, torch.float32
+    N, D = 512, HEAD_DIM
+    label = "float32" if dtype == torch.float32 else "bfloat16"
     out = []
     for name, B in (("fused_attention", 2 * TRAIN_BATCH), ("fused_bidirectional_attention", TRAIN_BATCH)):
         n_in = 3 if name == "fused_attention" else 4
-        xs = [torch.randn(B, HEADS, N, D, generator=gen, device=dev, requires_grad=True)
+        xs = [torch.randn(B, HEADS, N, D, generator=gen, device=dev).to(dtype).requires_grad_()
               for _ in range(n_in)]
         ones = torch.ones(B, N, dtype=torch.bool, device=dev)
         kernel = getattr(cuda_attention, name)
@@ -1558,7 +1588,7 @@ def attention_at_training_shapes(dev) -> list[dict]:
             args = (qk0, qk1, v0, v1, ones, ones)
             lib_in = (torch.cat([qk0, qk1]), torch.cat([qk1, qk0]), torch.cat([v1, v0]))
             n_ops, n_exps, n_out = 6.0 * B * HEADS * N * N * D, 2.0 * B * HEADS * N * N, 2
-        n_bytes = (n_in + n_out) * B * HEADS * N * D * 4 + 2 * ones.numel()
+        n_bytes = (n_in + n_out) * B * HEADS * N * D * xs[0].element_size() + 2 * ones.numel()
         bound_ms, bound_by = _bound(n_ops, n_bytes, dtype, n_exps)
 
         def fwd_bwd(fn):
@@ -1569,20 +1599,20 @@ def attention_at_training_shapes(dev) -> list[dict]:
         with torch.no_grad():
             got, want = kernel(*args), plain(*args)
             err = _err(got, want)
-            res = {"name": name, "shape": [B, HEADS, N, D], "dtype": "float32",
+            res = {"name": name, "shape": [B, HEADS, N, D], "dtype": label,
                    "max_abs_err": err, "tol": KERNEL_TOL[dtype],
                    "ms": device_time_ms(lambda: kernel(*args)),
                    "plain_ms": device_time_ms(lambda: plain(*args), reps=5),
                    "library_ms": device_time_ms(lambda: F.scaled_dot_product_attention(*lib_in)),
                    "bound_ms": bound_ms, "bound_by": bound_by}
         if not err <= KERNEL_TOL[dtype]:
-            fail(f"{name} at path E's shapes: max abs err {err}")
+            fail(f"{name} at path E's shapes, {label}: max abs err {err}")
         res["fwd_bwd_ms"] = device_time_ms(lambda: fwd_bwd(lambda: kernel(*args)), reps=5)
         res["backward_ms"] = res["fwd_bwd_ms"] - res["ms"]
         res["library_fwd_bwd_ms"] = device_time_ms(
             lambda: fwd_bwd(lambda: F.scaled_dot_product_attention(*lib_in)), reps=5)
         out.append(res)
-        print(f"path E {name} at {res['shape']} f32: {res['ms']:.4f} ms (plain {res['plain_ms']:.3f}, "
+        print(f"path E {name} at {res['shape']} {label}: {res['ms']:.4f} ms (plain {res['plain_ms']:.3f}, "
               f"SDPA {res['library_ms']:.4f}, bound {bound_ms:.4f} {bound_by}); forward + backward "
               f"{res['fwd_bwd_ms']:.3f} ms (backward {res['backward_ms']:.3f}), SDPA "
               f"{res['library_fwd_bwd_ms']:.3f}", flush=True)
@@ -1618,34 +1648,161 @@ def published_batch_fits(model, batches) -> dict:
     return res
 
 
-def phase_training(device_info: dict) -> dict:
-    """Path E: the trainer on the shipped stage-1 config at full width
-    (SuperPoint 512 keypoints frozen, LightGlue-9 d=256 with checkpointed
-    layers, 640 x 480, f32), cut as TRAIN_REDUCED says."""
+def _loss_and_grad(model, batch, bf16: bool, flash: bool) -> tuple:
+    """(loss, the matcher's gradient global norm, launches) of one forward
+    with loss and backward from the model's state, in bf16 as the trainer's
+    `mixed_precision: bf16` runs it (bf16 copies of the parameters and the
+    images) or in f32, through the kernels or the plain versions."""
+    from gluefactory_tpu_torch import train
+
+    set_flash(model, flash)
+    model.zero_grad(set_to_none=True)
+    reset_all_launches()
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    fb = train._ForwardBackward(model)
+    if bf16:
+        cast = {"model." + n: p.to(torch.bfloat16) for n, p in model.named_parameters()}
+        losses, _ = torch.func.functional_call(fb, cast, (train.bf16_batch(batch), gen))
+    else:
+        losses, _ = fb(batch, gen)
+    torch.cuda.synchronize()
+    out = (float(losses["total"].detach().float().mean()), float(_grad_norm(model.matcher)),
+           all_launches())
+    set_flash(model, True)
+    model.zero_grad(set_to_none=True)
+    return out
+
+
+def bf16_step_vs_plain(model, batch) -> dict:
+    """One bf16 step through the kernels against one through the plain
+    versions, from the same state: loss and the matcher's gradient norm
+    within twice the relative gap that bf16 rounding alone opens (plain
+    bf16 against plain f32; at least 1e-2, as phase 3's bf16 gates)."""
+    k16, p16, p32 = (_loss_and_grad(model, batch, bf16, flash)
+                     for bf16, flash in ((True, True), (True, False), (False, False)))
+    _check_launches("path E bf16 step, kernels", k16[2], STEP_LAUNCHES)
+    _check_launches("path E bf16 step, plain versions", p16[2], {})
+    rel = lambda a, b: abs(a - b) / abs(b)
+    res = {"loss": k16[0], "plain_loss": p16[0], "f32_plain_loss": p32[0],
+           "grad_norm": k16[1], "plain_grad_norm": p16[1], "f32_plain_grad_norm": p32[1],
+           "loss_rel_err": rel(k16[0], p16[0]), "grad_norm_rel_err": rel(k16[1], p16[1]),
+           "bf16_rounding_loss_gap": rel(p16[0], p32[0]),
+           "bf16_rounding_grad_norm_gap": rel(p16[1], p32[1])}
+    res["loss_tol"] = max(2 * res["bf16_rounding_loss_gap"], 1e-2)
+    res["grad_norm_tol"] = max(2 * res["bf16_rounding_grad_norm_gap"], 1e-2)
+    if not (math.isfinite(res["loss"]) and res["loss_rel_err"] <= res["loss_tol"]
+            and res["grad_norm_rel_err"] <= res["grad_norm_tol"]):
+        fail(f"path E bf16: a step through the kernels differs from the plain versions: {res}")
+    return res
+
+
+FOLDER_IMAGES, FOLDER_BATCH = 64, 16
+FOLDER_EXPERIMENT = "chip_smoke_folder"
+
+
+def write_image_folder(folder: Path) -> dict:
+    """FOLDER_IMAGES procedural 640 x 480 images, JPEG (quality 95) through
+    Pillow where it is importable, else binary PPM, and `list.txt` naming
+    them."""
+    from gluefactory_tpu_torch.data.homographies import generate_synthetic_image
+
+    try:
+        from PIL import Image
+    except ImportError:
+        Image = None
+    shutil.rmtree(folder, ignore_errors=True)
+    folder.mkdir(parents=True)
+    for i in range(FOLDER_IMAGES):
+        img = (generate_synthetic_image(1000 + i) * 255).astype(np.uint8)
+        if Image is not None:
+            Image.fromarray(img).save(folder / f"{i:03d}.jpg", quality=95)
+        else:
+            h, w = img.shape[:2]
+            (folder / f"{i:03d}.ppm").write_bytes(f"P6\n{w} {h}\n255\n".encode() + img.tobytes())
+    fmt = "jpeg" if Image is not None else "ppm"
+    names = sorted(p.name for p in folder.iterdir())
+    (folder / "list.txt").write_text("\n".join(names) + "\n")
+    return {"pillow": Image is not None, "format": fmt, "images": FOLDER_IMAGES}
+
+
+def phase_folder_run() -> dict:
+    """Path E's recipe on images from a folder: the loader's samples/s
+    from the files (6 workers, 3 batches, from the loader's start),
+    then 2 training steps and a validation batch through `train.main` with
+    `data.image_dir` and `data.image_list`."""
+    from gluefactory_tpu_torch.settings import TRAINING_PATH
+
+    folder = ROOT / "outputs" / "chip_smoke_images"
+    res = write_image_folder(folder)
+    print(f"folder run: {FOLDER_IMAGES} images as {res['format']} (Pillow found: {res['pillow']})",
+          flush=True)
+    data = {"image_dir": str(folder), "image_list": "list.txt", "synthetic_images": 0,
+            "batch_size": FOLDER_BATCH, "train_size": 2 * FOLDER_BATCH, "val_size": FOLDER_BATCH}
+    argv = [FOLDER_EXPERIMENT, "--conf", str(ROOT / TRAIN_YAML), "--no_tensorboard", "--no_capture",
+            "--max_val_iters", "1", "data.num_workers=6", "train.epochs=1",
+            "train.log_every_iter=1", "train.eval_every_iter=1000000",
+            *(f"data.{k}={v}" for k, v in data.items())]
+    conf = merge(train_conf(), {"data": {**data, "train_size": 3 * FOLDER_BATCH}})
+    res["loader_samples_per_s"], _ = loader_rate(conf.data)
+    print(f"folder run loader: {res['loader_samples_per_s']:.1f} samples/s from {res['format']} files "
+          f"(6 workers)", flush=True)
+    shutil.rmtree(Path(TRAINING_PATH, FOLDER_EXPERIMENT), ignore_errors=True)
+    records, res["seconds"], res["launches"], _ = run_trainer(argv)
+    _check_launches("folder run", res["launches"],
+                    {k: 2 * n + VAL_LAUNCHES[k] for k, n in STEP_LAUNCHES.items()})
+    if len(records) != 2:
+        fail(f"folder run: {len(records)} train steps, expected 2")
+    res["losses"] = [float(r[0]["total"]) for r in records]
+    if not (all(math.isfinite(v) for v in res["losses"]) and all(bool(r[2]["ok"]) for r in records)):
+        fail(f"folder run: a step was not applied or its loss is not finite: {res['losses']}")
+    res["argv"] = argv
+    shutil.rmtree(folder, ignore_errors=True)
+    print(f"folder run: 2 steps and 1 validation batch in {res['seconds']:.1f} s, losses "
+          f"{res['losses']}, launches {json.dumps(res['launches'])}", flush=True)
+    return res
+
+
+def loader_rate(data_conf, keep: int = 0) -> tuple[float, list]:
+    """samples/s of the homography dataset's training loader over its
+    whole split, from the loader's start (its workers' start-up included:
+    with 6 workers a batch from each is in flight at once, so the rate of
+    the batches after the first would count their overlap), and the first
+    `keep` batches on the card."""
     from gluefactory_tpu_torch.data import get_dataset
     from gluefactory_tpu_torch.data.base_dataset import prepare_batch
 
-    print(f"path E reduced: {json.dumps(TRAIN_REDUCED)}", flush=True)
+    loader = get_dataset("homographies")(data_conf).get_data_loader("train", pin_memory=True)
+    batches, samples = [], 0
+    t0 = time.perf_counter()
+    for b in loader:
+        samples += len(b["idx"])
+        if len(batches) < keep:
+            batches.append({k: v for k, v in prepare_batch(b, DEVICE).items()
+                            if k not in ("name", "idx")})
+    rate = samples / (time.perf_counter() - t0)
+    del loader
+    return rate, batches
+
+
+def phase_training(device_info: dict) -> dict:
+    """Path E: the trainer on the shipped stage-1 config at full width
+    (SuperPoint 512 keypoints frozen, LightGlue-9 d=256 with checkpointed
+    layers, 640 x 480, f32, `lg` photometry), cut as TRAIN_REDUCED says."""
+    print(f"path E reduced: {json.dumps(TRAIN_REDUCED)}; host cores (os.cpu_count): "
+          f"{os.cpu_count()}", flush=True)
     run, model = drive_training()
     print(f"path E: {TRAIN_STEPS} steps and {VAL_BATCHES} validation batches in "
           f"{run['seconds']:.1f} s, launches {json.dumps(run['launches'])}, losses finite, every "
           f"update applied; total {run['losses'][0]['total']:.4f} -> {run['losses'][-1]['total']:.4f}",
           flush=True)
-    res = {"reduced": TRAIN_REDUCED, "argv": TRAIN_ARGV, "run": run, "restore": check_restore(model)}
-    # the loader alone on the host's cores (6 workers): batches 3-6 after
-    # the workers' start; the first 4 are kept for the timed steps
-    loader = get_dataset("homographies")(train_conf().data).get_data_loader("train", pin_memory=True)
-    batches, stamps = [], []
-    for b in loader:
-        stamps.append(time.perf_counter())
-        if len(batches) < 4:
-            batches.append({k: v for k, v in prepare_batch(b, DEVICE).items()
-                            if k not in ("name", "idx")})
-        if len(stamps) == 6:
-            break
-    del loader
-    res["loader_samples_per_s"] = 4 * TRAIN_BATCH / (stamps[5] - stamps[1])
-    print(f"path E loader: {res['loader_samples_per_s']:.1f} samples/s (6 workers)", flush=True)
+    res = {"reduced": TRAIN_REDUCED, "argv": TRAIN_ARGV, "run": run, "restore": check_restore(model),
+           "cpu_count": os.cpu_count()}
+    # the loader alone on the host's cores (6 workers): the whole training
+    # split from the loader's start (worker start-up included); the first
+    # 4 batches are kept for the timed steps
+    res["loader_samples_per_s"], batches = loader_rate(train_conf().data, keep=4)
+    print(f"path E loader: {res['loader_samples_per_s']:.1f} samples/s with lg photometry "
+          f"(6 workers, {os.cpu_count()} cores)", flush=True)
     res["vs_plain"] = train_step_vs_plain(model, batches[0])
     print(f"path E step vs plain: {json.dumps(res['vs_plain'])}", flush=True)
     res["timing"] = time_training(model, batches, device_info)
@@ -1654,7 +1811,19 @@ def phase_training(device_info: dict) -> dict:
           f"busy share {t['busy_share']}, peak {t['peak_memory_gib']:.2f} GiB "
           f"({device_info['nvidia_smi']})", flush=True)
     print(f"path E grad_accumulation 2: {json.dumps(t['grad_accumulation_2'])}", flush=True)
+    res["pace"] = "loader" if res["loader_samples_per_s"] < t["samples_per_s"] else "step"
+    print(f"path E pace: the {res['pace']} sets it (loader {res['loader_samples_per_s']:.1f} "
+          f"samples/s, step {t['samples_per_s']:.1f} samples/s)", flush=True)
     res["attention"] = attention_at_training_shapes(torch.device(DEVICE))
+    res["bf16"] = {"vs_plain": bf16_step_vs_plain(model, batches[0])}
+    print(f"path E bf16 step vs plain: {json.dumps(res['bf16']['vs_plain'])}", flush=True)
+    res["bf16"]["timing"] = time_training(model, batches, device_info, "bf16")
+    t16 = res["bf16"]["timing"]
+    print(f"path E bf16 timing: {t16['ms_per_step']:.2f} ms/step, device "
+          f"{t16['device_ms_per_step']} ms/step, busy share {t16['busy_share']}, peak "
+          f"{t16['peak_memory_gib']:.2f} GiB, {t16['samples_per_s']:.1f} samples/s "
+          f"({device_info['nvidia_smi']})", flush=True)
+    res["bf16"]["attention"] = attention_at_training_shapes(torch.device(DEVICE), torch.bfloat16)
     res["published_batch"] = published_batch_fits(model, batches)
     print(f"path E batch {PUBLISHED_BATCH}: {json.dumps(res['published_batch'])}", flush=True)
     return res
@@ -1691,6 +1860,8 @@ def main() -> None:
     del main_model
     torch.cuda.empty_cache()
     path_e = phase_training(device_info)
+    torch.cuda.empty_cache()
+    path_e["folder_run"] = phase_folder_run()
     torch.cuda.empty_cache()
     kernels += phase_conv_study(device_info)  # launches from the tools' runs
     OUT_DIR.mkdir(exist_ok=True)

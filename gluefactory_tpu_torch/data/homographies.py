@@ -4,25 +4,34 @@ homographies, two warped patches with photometric augmentation, and the
 exact patch-to-patch homography `H_0to1`. Per-index generators
 `default_rng((seed, epoch, idx))` make epochs reproducible.
 
-The images are procedural (`synthetic_images` > 0), drawn from the JAX
-package's numpy random stream by a numpy rasteriser that draws as OpenCV
-does (`raster.py`). The warp is OpenCV's `cv2.warpPerspective` with
-INTER_LINEAR on a float32 image (OpenCV 5's arithmetic, which the JAX
+The images come from a folder (`image_dir`, by default
+`DATA_PATH/data_dir/jpg`; every file matching `glob` below it, or the
+files of `image_list`, a list or a file of paths relative to the folder),
+read by `preprocess.read_image`; an unreadable file gives a zero image and
+an image smaller than `source_size` is upscaled (bilinear) until it covers
+it, as the JAX package does. Or they are procedural (`synthetic_images` >
+0), drawn from the JAX package's numpy random stream by a numpy rasteriser
+that draws as OpenCV does (`raster.py`). The warp is OpenCV's
+`cv2.warpPerspective` with INTER_LINEAR on a float32 image (OpenCV 5's arithmetic, which the JAX
 dataset runs), written in numpy: no OpenCV is used. It matches cv2's
 pixels within an ulp but in the scalar tail of a row (`warp_patch` says
-how far). Image folders on disk, `load_features`,
-`detect_lines` and `emit_source` raise `NotImplementedError` for now.
+how far). `load_features`, `detect_lines` and `emit_source` raise
+`NotImplementedError` for now.
 """
 
 from __future__ import annotations
+
+from pathlib import Path
 
 import numpy as np
 import torch
 
 from ..core.config import merge
 from ..geometry.homography import sample_homography_corners
+from ..settings import DATA_PATH
 from .augmentations import IdentityAugmentation, augmentations
 from .base_dataset import BaseDataset
+from .preprocess import read_image, resize_image
 from .raster import fill_circle, fill_poly, fill_rect
 
 # ITU-R BT.601 luma, the weights of cv2's RGB2GRAY
@@ -124,6 +133,26 @@ class _HomographySplit(torch.utils.data.Dataset):
     def __len__(self):
         return len(self.image_names)
 
+    def _read_image(self, idx: int) -> tuple:
+        """(image, per-axis scale of the upscaling): a procedural image, or
+        the file, zeros of `source_size` if it cannot be read, upscaled by
+        the ratio that makes it cover `source_size` (the scale is the
+        effective one of the rounded-up size)."""
+        name = self.image_names[idx]
+        if isinstance(name, int):
+            return generate_synthetic_image(name, tuple(self.conf.source_size)), np.ones(2, np.float32)
+        sw, sh = self.conf.source_size
+        try:
+            img = read_image(name)
+        except IOError:
+            img = np.zeros((sh, sw, 3), np.float32)
+        h, w = img.shape[:2]
+        scale = np.ones(2, np.float32)
+        if w < sw or h < sh:
+            s = max(sw / w, sh / h)
+            img, scale = resize_image(img, (int(np.ceil(w * s)), int(np.ceil(h * s))))
+        return img, scale
+
     def _sample_view(self, img: np.ndarray, rng: np.random.Generator, aug, hconf) -> dict:
         h, w = img.shape[:2]
         patch_shape = tuple(hconf.patch_shape)
@@ -148,7 +177,7 @@ class _HomographySplit(torch.utils.data.Dataset):
         else:
             rng = np.random.default_rng()
         name = self.image_names[idx]
-        img = generate_synthetic_image(name, tuple(conf.source_size))
+        img, _ = self._read_image(idx)
         # right_only: view0 is the source rescaled to the patch (difficulty
         # 0), unaugmented; only the other views are warped and augmented
         left_hconf = self.parent.left_homography if conf.right_only else conf.homography
@@ -174,7 +203,12 @@ class _HomographySplit(torch.utils.data.Dataset):
 
 class HomographyDataset(BaseDataset):
     default_conf = {
-        "synthetic_images": 0,  # > 0: the procedural image pool (the only source ported)
+        "data_dir": "revisitop1m",
+        "image_dir": None,  # a folder of images; default DATA_PATH/data_dir/jpg
+        "image_list": None,  # paths relative to the folder: a list, or a file of one a line
+        "check_file_exists": False,
+        "glob": ["*.jpg", "*.png", "*.jpeg"],
+        "synthetic_images": 0,  # > 0: the procedural image pool instead of a folder
         "source_size": [640, 480],
         "train_size": 100,
         "val_size": 10,
@@ -199,16 +233,12 @@ class HomographyDataset(BaseDataset):
     }
 
     def _init(self, conf):
-        if conf.synthetic_images <= 0:
-            raise NotImplementedError("homographies: image folders on disk (data_dir, image_dir, "
-                                      "image_list) are not ported yet; set data.synthetic_images "
-                                      "for the procedural pool")
         for key in ("load_features", "detect_lines"):
             if conf[key].do:
                 raise NotImplementedError(f"homographies: {key} is not ported yet")
         if conf.emit_source:
             raise NotImplementedError("homographies: emit_source (on-device augmentation) is not ported yet")
-        names = list(range(conf.synthetic_images))
+        names = list(range(conf.synthetic_images)) if conf.synthetic_images > 0 else self._list(conf)
         perm = np.random.default_rng(conf.shuffle_seed).permutation(len(names))
         names = [names[i] for i in perm]
         train_size = min(conf.train_size, max(len(names) - conf.val_size, 1))
@@ -219,6 +249,33 @@ class HomographyDataset(BaseDataset):
         self.left_augment = IdentityAugmentation() if conf.right_only else self.photo_augment
         self.left_homography = merge(conf.homography, {"difficulty": 0.0})
         self.epoch = 0
+
+    @staticmethod
+    def _list(conf) -> list:
+        """The image paths of the folder: those of `image_list` (a list, or
+        a file under the folder when `image_dir` is set, else under
+        `DATA_PATH/data_dir`), or every match of `glob` below the folder."""
+        image_dir = Path(conf.image_dir) if conf.image_dir else DATA_PATH / conf.data_dir / "jpg"
+        if conf.image_list is None:
+            if not image_dir.exists():
+                raise FileNotFoundError(f"image dir {image_dir} not found; set data.image_dir or "
+                                        "use data.synthetic_images for a procedural pool")
+            return [p for pattern in conf.glob for p in sorted(image_dir.rglob(pattern))]
+        if isinstance(conf.image_list, (list, tuple)):
+            entries = [str(e) for e in conf.image_list]
+        else:
+            list_path = Path(conf.image_list)
+            if not list_path.is_absolute():
+                list_path = (image_dir if conf.image_dir else DATA_PATH / conf.data_dir) / list_path
+            if not list_path.exists():
+                raise FileNotFoundError(f"cannot find image list {list_path}")
+            entries = list_path.read_text().rstrip("\n").split("\n")
+        names = [image_dir / e for e in entries]
+        if conf.check_file_exists:
+            for p in names:
+                if not p.exists():
+                    raise FileNotFoundError(p)
+        return names
 
     def get_dataset(self, split: str):
         return _HomographySplit(self, split)

@@ -22,9 +22,16 @@ the NaN-skip: the running mean of K kept micro-batches makes one update,
 and the lr schedule counts real updates, in the epoch fraction
 `updates / (steps_per_epoch / K)`.
 
-Not ported yet, each raising `NotImplementedError`: `mixed_precision: bf16`,
-`steps_per_dispatch > 1`, `device_augment`, `run_benchmarks`, `plot` with a
-writer, and more than one device (DDP).
+`mixed_precision: bf16` runs the forward and the backward on bf16 copies of
+every float32 parameter (the frozen ones too) and of the views' images, as
+the JAX package does: the casts are in the graph, so the gradients come
+back in float32 onto the float32 parameters, which the NaN-skip, the
+accumulation and the optimizer then treat as in float32 training. The loss
+is taken in whatever dtype the model gives it.
+
+Not ported yet, each raising `NotImplementedError`: `steps_per_dispatch >
+1`, `device_augment`, `run_benchmarks`, `plot` with a writer, and more than
+one device (DDP).
 """
 
 from __future__ import annotations
@@ -174,6 +181,31 @@ def build_optimizer(conf, model, steps_per_epoch: int):
 # ---------------------------------------------------------------------------
 
 
+class _ForwardBackward(torch.nn.Module):
+    """forward_with_loss, then the backward of the mean total loss, in one
+    call: under `torch.func.functional_call` the backward, and the
+    recompute of checkpointed layers in it, then sees the parameters the
+    forward saw."""
+
+    def __init__(self, model):
+        super().__init__()
+        self.model = model
+
+    def forward(self, batch: dict, generator):
+        _, losses, metrics = self.model.forward_with_loss(batch, train=True, generator=generator)
+        losses["total"].mean().backward()
+        return losses, metrics
+
+
+def bf16_batch(batch: dict) -> dict:
+    """The batch with the float32 `image` of each view cast to bf16."""
+    batch = dict(batch)
+    for view in ("view0", "view1", "view2"):
+        if view in batch and "image" in batch[view] and batch[view]["image"].dtype == torch.float32:
+            batch[view] = {**batch[view], "image": batch[view]["image"].to(torch.bfloat16)}
+    return batch
+
+
 def _all_finite(tensors) -> torch.Tensor:
     """0-dim bool: every entry of every tensor is finite (a NaN or inf makes
     the tensor's max-abs norm non-finite)."""
@@ -195,11 +227,17 @@ class TrainStep:
     optimizer steps on that mean; the step is kept only at the K-th
     (`micro` == K - 1), and a micro-batch whose loss is not finite, or whose
     K-th step makes a parameter non-finite, leaves parameters, optimizer
-    state, `micro` and `acc` as they were."""
+    state, `micro` and `acc` as they were. `mixed_precision="bf16"` runs
+    the forward and backward on bf16 copies of the float32 parameters and
+    of the views' images."""
 
     def __init__(self, model, optimizer, schedule, accum: int = 1, clip_grad=None, *,
-                 max_updates: int):
+                 max_updates: int, mixed_precision=None):
+        if mixed_precision not in (None, "bf16"):
+            raise NotImplementedError(f"mixed_precision {mixed_precision!r} is not ported")
         self.model = model
+        self.mixed_precision = mixed_precision
+        self._forward_backward = _ForwardBackward(model)
         self.optimizer = optimizer
         self.schedule = schedule
         self.accum = int(accum)
@@ -236,9 +274,14 @@ class TrainStep:
     def __call__(self, batch: dict, generator: torch.Generator | None = None):
         for p in self.params:
             p.grad = None
-        _, losses, metrics = self.model.forward_with_loss(batch, train=True, generator=generator)
-        loss = losses["total"].mean()
-        loss.backward()
+        if self.mixed_precision == "bf16":
+            cast = {"model." + n: p.to(torch.bfloat16) if p.dtype == torch.float32 else p
+                    for n, p in self.model.named_parameters()}
+            losses, metrics = torch.func.functional_call(self._forward_backward, cast,
+                                                         (bf16_batch(batch), generator))
+        else:
+            losses, metrics = self._forward_backward(batch, generator)
+        loss = losses["total"].detach().mean()
         grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in self.params]
         grad_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
         # a gradient tensor with any non-finite entry is zeroed
@@ -374,8 +417,8 @@ def check_supported(conf, args) -> None:
     t = conf.train
     if args.n_devices not in (None, 1):
         raise NotImplementedError("training on more than one device (DDP) is not ported yet")
-    if t.mixed_precision:
-        raise NotImplementedError(f"mixed_precision {t.mixed_precision!r} is not ported yet")
+    if t.mixed_precision not in (None, "bf16"):
+        raise NotImplementedError(f"mixed_precision {t.mixed_precision!r} is not ported")
     if int(t.steps_per_dispatch) > 1:
         raise NotImplementedError("steps_per_dispatch > 1 is not ported yet")
     if t.device_augment:
@@ -425,7 +468,8 @@ def training(conf: Config, output_dir: Path, args):
     clip = conf.train.clip_grad
     accum = int(conf.train.grad_accumulation)
     step = TrainStep(model, optimizer, schedule, accum, None if clip is None else float(clip),
-                     max_updates=math.ceil(conf.train.epochs * steps_per_epoch / accum))
+                     max_updates=math.ceil(conf.train.epochs * steps_per_epoch / accum),
+                     mixed_precision=conf.train.mixed_precision)
 
     epoch0, total_iter, best_eval = 0, 0, None
     if args.restore:

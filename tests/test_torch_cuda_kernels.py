@@ -694,3 +694,52 @@ def test_train_step_update_makes_no_host_read(dev, name, accum):
         torch.cuda.set_sync_debug_mode("default")
     assert [bool(o) for o in oks] == [i != 2 for i in range(6)]
     assert step.updates == 5 // accum
+
+
+@pytest.mark.parametrize("checkpointed", [True, False])
+def test_bf16_train_step_runs_the_bf16_kernels(dev, checkpointed):
+    """One `mixed_precision: bf16` train step of a small SuperPoint +
+    LightGlue pipeline with `lg` photometry: both attention kernels run on
+    bf16 inputs under autograd, once a layer in the forward and once more in
+    each checkpoint's recompute; the loss is finite, the update applied, the
+    parameters and their gradients float32; the loss within 2e-2 relative of
+    the same bf16 step through the plain versions."""
+    from gluefactory_tpu_torch import train
+    from gluefactory_tpu_torch.core.config import Config, merge
+    from gluefactory_tpu_torch.data import get_dataset
+    from gluefactory_tpu_torch.data.base_dataset import prepare_batch
+    from gluefactory_tpu_torch.models import get_model
+
+    n_layers = 3
+    conf = {"extractor": {"name": "superpoint", "max_num_keypoints": 256, "force_num_keypoints": True,
+                          "detection_threshold": 0.0, "nms_radius": 3, "trainable": False},
+            "ground_truth": {"name": "homography_matcher", "th_positive": 3, "th_negative": 3},
+            "matcher": {"name": "lightglue", "n_layers": n_layers, "checkpointed": checkpointed}}
+    data = get_dataset("homographies")({
+        "synthetic_images": 4, "train_size": 2, "val_size": 1, "batch_size": 2,
+        "source_size": [320, 240], "homography": {"patch_shape": [320, 240], "difficulty": 0.7},
+        "photometric": {"name": "lg"}})
+    batch = prepare_batch(next(iter(data.get_data_loader("train"))), dev)
+    losses = {}
+    for flash in (True, False):
+        torch.manual_seed(0)
+        model = get_model("two_view_pipeline").from_conf(conf, device=dev)
+        for m in model.modules():
+            if hasattr(m, "flash"):
+                m.flash = flash
+        opt, schedule = train.build_optimizer(merge(Config(train.default_train_conf), {}), model, 1)
+        step = train.TrainStep(model, opt, schedule, max_updates=1, mixed_precision="bf16")
+        dtypes = []
+        model.matcher.transformers[0].register_forward_pre_hook(lambda m, a: dtypes.append(a[0].dtype))
+        cuda_attention.reset_launches()
+        out, _, info = step(batch, torch.Generator(device=dev).manual_seed(0))
+        torch.cuda.synchronize()
+        per_layer = (2 if checkpointed else 1) * n_layers * flash
+        assert cuda_attention.launches == {"fused_attention": per_layer,
+                                           "fused_bidirectional_attention": per_layer}
+        assert bool(info["ok"]) and torch.isfinite(out["total"])
+        assert dtypes and set(dtypes) == {torch.bfloat16}
+        assert all(p.dtype == torch.float32 for p in model.parameters())
+        assert all(p.grad.dtype == torch.float32 for p in model.parameters() if p.grad is not None)
+        losses[flash] = float(out["total"])
+    assert abs(losses[True] - losses[False]) <= 2e-2 * abs(losses[False])

@@ -13,7 +13,8 @@
 - the procedural images on >= 98% of pixels within 1e-6 (the rasteriser
   against cv2's drawing);
 - `collate` and the loader's item order (shuffled from `conf.seed`);
-- the options that are not ported raise `NotImplementedError`.
+- the options that are not ported raise `NotImplementedError`; `lg` and
+  `dark` keep `H_0to1` bit-equal to JAX's.
 """
 
 import numpy as np
@@ -142,14 +143,30 @@ def test_view_options(options):
         assert (np.abs(item[v]["image"] - ref[v]["image"]) <= 2e-2).mean() >= 0.99
 
 
-@pytest.mark.parametrize("override", [
-    {"photometric": {"name": "lg"}}, {"photometric": {"name": "dark"}},
-    {"synthetic_images": 0}, {"load_features": {"do": True}}, {"detect_lines": {"do": True}},
-    {"emit_source": True},
+@pytest.mark.parametrize("override,error", [
+    ({"photometric": {"name": "lg"}}, None), ({"photometric": {"name": "dark"}}, None),
+    ({"synthetic_images": 0}, FileNotFoundError), ({"load_features": {"do": True}}, NotImplementedError),
+    ({"detect_lines": {"do": True}}, NotImplementedError), ({"emit_source": True}, NotImplementedError),
 ], ids=["lg", "dark", "folders", "load_features", "detect_lines", "emit_source"])
-def test_not_ported_options_raise(override):
-    with pytest.raises(NotImplementedError):
-        HomographyDataset({**CONF, **override})
+def test_not_ported_options_raise(override, error, monkeypatch, tmp_path):
+    """`load_features`, `detect_lines` and `emit_source` raise
+    NotImplementedError. The photometric families `lg` and `dark` are
+    ported: they draw from the item's generator as JAX's do, so the next
+    view's homography and `H_0to1` stay bit-equal to JAX's. Image folders
+    are ported: without `synthetic_images` the dataset lists
+    DATA_PATH/revisitop1m/jpg, absent here, and raises FileNotFoundError
+    as JAX's does."""
+    from gluefactory_tpu_torch.data import homographies
+
+    monkeypatch.setattr(homographies, "DATA_PATH", tmp_path)
+    if error is not None:
+        with pytest.raises(error):
+            HomographyDataset({**CONF, **override})
+        return
+    ours = HomographyDataset({**CONF, **override}).get_dataset("train")
+    theirs = JaxHomographyDataset({**CONF, **override}).get_dataset("train")
+    for i in (0, 5):
+        np.testing.assert_array_equal(ours[i]["H_0to1"], theirs[i]["H_0to1"])
 
 
 def test_raster_against_cv2():

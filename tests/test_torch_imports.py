@@ -1,4 +1,5 @@
-"""The port stands alone (no JAX, nothing of `gluefactory_tpu`, no OpenCV),
+"""The port stands alone (no JAX, nothing of `gluefactory_tpu`, no OpenCV,
+no Pillow at import),
 and every kernel wrapper sends CUDA tensors to its kernel with no fallback."""
 
 import subprocess
@@ -25,6 +26,7 @@ import importlib, pkgutil, sys
 sys.modules["jax"] = None
 sys.modules["flax"] = None
 sys.modules["cv2"] = None
+sys.modules["PIL"] = None
 import gluefactory_tpu_torch.train, gluefactory_tpu_torch.data.homographies
 import gluefactory_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
@@ -35,7 +37,7 @@ print(len(names), leaked)
 assert not leaked, leaked
 assert len(names) >= 45, names
 for name in ("train", "optim", "settings", "data.homographies", "data.base_dataset", "data.augmentations",
-             "data.raster", "geometry.homography", "geometry.gt_generation", "models.losses",
+             "data.raster", "data.colour", "data.jpeg", "data.preprocess", "geometry.homography", "geometry.gt_generation", "models.losses",
              "models.metrics", "models.matchers.homography_matcher", "utils.experiments",
              "utils.stdout_capturing", "utils.tensor", "utils.tools",
              "ops.cuda_sinkhorn", "ops.cuda_detect", "ops.cuda_conv", "models.matchers.superglue",
@@ -190,6 +192,7 @@ import sys
 sys.modules["jax"] = None
 sys.modules["flax"] = None
 sys.modules["cv2"] = None
+sys.modules["PIL"] = None
 import bench_torch, chip_smoke
 leaked = sorted(m for m in sys.modules if m == "gluefactory_tpu" or m.startswith("gluefactory_tpu."))
 assert not leaked, leaked

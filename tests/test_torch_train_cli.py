@@ -103,17 +103,38 @@ def test_default_device_is_cuda(monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize("override,flag", [
-    ({"train": {"mixed_precision": "bf16"}}, None),
     ({"train": {"steps_per_dispatch": 2}}, None),
     ({"train": {"device_augment": {"name": "homography"}}}, None),
     ({"train": {"run_benchmarks": ["hpatches"]}}, None),
     ({}, "--n_devices=2"),
-], ids=["bf16", "steps_per_dispatch", "device_augment", "run_benchmarks", "n_devices"])
+], ids=["steps_per_dispatch", "device_augment", "run_benchmarks", "n_devices"])
 def test_not_ported_options_raise(override, flag):
     conf = merge(Config(train.default_conf), override)
     args = train.main_args(["x"] + ([flag] if flag else []))
     with pytest.raises(NotImplementedError):
         train.check_supported(conf, args)
+
+
+def test_bf16_trains_through_the_cli(tmp_path):
+    """`train.mixed_precision=bf16` with the recipe's `lg` photometry: finite
+    losses, the updates applied, float32 parameters in the checkpoint."""
+    recipe = [a for a in RECIPE if not a.startswith("data.photometric")]
+    env = {**os.environ, "GLUEFACTORY_TRAINING": str(tmp_path)}
+    res = subprocess.run([sys.executable, "-m", "gluefactory_tpu_torch.train", "vtest", "--device",
+                          "cpu", "--conf", CONF, *recipe, "--no_capture", "train.epochs=1",
+                          "train.mixed_precision=bf16", "model.matcher.checkpointed=True"],
+                         cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    log = res.stdout + res.stderr
+    assert res.returncode == 0, log
+    steps = losses_of(log)
+    assert [(e, i) for e, i, _ in steps] == [(0, 0), (0, 1)]
+    assert all(math.isfinite(v) for _, _, terms in steps for v in terms.values())
+    ckpt = experiments.load_checkpoint(tmp_path / "vtest" / "checkpoint_0_2.tar")
+    assert ckpt["step"]["updates"] == 2
+    assert all(v.dtype == torch.float32 for v in ckpt["model"].values() if v.is_floating_point())
+    with pytest.raises(NotImplementedError):
+        train.check_supported(merge(Config(train.default_conf), {"train": {"mixed_precision": "fp16"}}),
+                              train.main_args(["x"]))
 
 
 @pytest.mark.parametrize("name", ["adam", "adamw", "sgd", "rmsprop"])
