@@ -89,7 +89,22 @@ Phases, in order; any failure exits non-zero before the last line:
 9c. folder run: 64 procedural images written to a folder (JPEG through
    Pillow where it is importable, else binary PPM), the loader's samples/s
    from the files, and 2 training steps of path E's recipe on them
-   (`data.image_dir`, `data.synthetic_images=0`, batch 16).
+   (`data.image_dir`, `data.synthetic_images=0`, batch 16);
+10. path F, the HPatches benchmark (run after 9c, before phase 8): an
+   HPatches layout of 8 procedural sequences (4 i_, 4 v_; 1000 x 750, 5
+   views each with `H_1_k`) written under `outputs/chip_smoke_hpatches/`,
+   then `gluefactory_tpu_torch.eval.hpatches.main` in process on
+   `superpoint+lightglue-official`'s hpatches section at full width
+   (SuperPoint 1024 keypoints, LightGlue-9 dense, f32, 480 on the short
+   side) with `eval.estimator=xla_ransac` and random weights from seed 0
+   (`model.weights_file`); cut to 40 pairs of 540. Gates: 40 cached items
+   with the export keys, 9 + 9 attention launches a pair, every RANSAC
+   tensor on the card, finite DLT and RANSAC AUC@1/3/5 px; a run through the
+   plain versions (`model.matcher.flash=False`) and a grouped export
+   (`items_per_dispatch=4`, 9 + 9 launches a forward) each against the
+   kernels' per-item run within 1e-3 on the scores; an `--overwrite_eval`
+   rerun that reads the cache. Export pairs/s, the eval loop's seconds,
+   RANSAC ms a pair (CUDA events) and the busy share of one forward.
 
 Each path resets every launch count just before its timed run and reads
 them just after. Prints the kernel JSON line, the card line, and as its last
@@ -1829,6 +1844,370 @@ def phase_training(device_info: dict) -> dict:
     return res
 
 
+# --------------------------------------------------------------------------
+# 10. path F: the HPatches benchmark (superpoint+lightglue-official)
+# --------------------------------------------------------------------------
+
+# DATA_PATH of the run; the layout is written under it
+HPATCHES_ROOT = ROOT / "outputs" / "chip_smoke_hpatches"
+HPATCHES_SEQUENCES = [f"i_chip{k}" for k in range(4)] + [f"v_chip{k}" for k in range(4)]
+HPATCHES_SIZE = (1000, 750)  # (w, h) of each procedural scene
+HPATCHES_PAIRS = 5 * len(HPATCHES_SEQUENCES)
+HPATCHES_REDUCED = {
+    "pairs": f"{HPATCHES_PAIRS} of 540: {len(HPATCHES_SEQUENCES)} procedural sequences (4 i_, 4 v_) "
+             "written to outputs/chip_smoke_hpatches, since hpatches-sequences-release is not on disk",
+}
+HPATCHES_ARGV = ["--conf", "superpoint+lightglue-official", "eval.estimator=xla_ransac"]
+HPATCHES_DISPATCH = 4  # items_per_dispatch of the grouped run
+# predictions of two runs of path F (kernels / plain versions, grouped /
+# per item): phase 4's f32 tolerance on the matching scores
+EVAL_TOL = 1e-3
+
+
+def _write_ppm(path: Path, img: np.ndarray) -> None:
+    h, w = img.shape[:2]
+    path.write_bytes(f"P6\n{w} {h}\n255\n".encode() + (img * 255).round().astype(np.uint8).tobytes())
+
+
+def write_hpatches(root: Path) -> None:
+    """An HPatches layout: per sequence a procedural scene (`1.ppm`) and 5
+    views of it with `H_1_k`; i_ sequences change the light (gain, offset
+    and noise, H the identity), v_ sequences the viewpoint (a homography
+    about the centre: scale, rotation, shift and perspective)."""
+    from gluefactory_tpu_torch.data.homographies import generate_synthetic_image, warp_patch
+
+    shutil.rmtree(root, ignore_errors=True)
+    w, h = HPATCHES_SIZE
+    centre = np.array([[1, 0, w / 2], [0, 1, h / 2], [0, 0, 1.0]])
+    for s, seq in enumerate(HPATCHES_SEQUENCES):
+        rng = np.random.default_rng(7000 + s)
+        d = root / "hpatches-sequences-release" / seq
+        d.mkdir(parents=True)
+        base = generate_synthetic_image(7000 + s, HPATCHES_SIZE)
+        _write_ppm(d / "1.ppm", base)
+        for q in range(2, 7):
+            if seq.startswith("i_"):
+                H = np.eye(3)
+                img = base * rng.uniform(0.9, 1.1) + rng.uniform(-0.03, 0.03) \
+                    + rng.normal(0, 0.01, base.shape)
+            else:
+                a, sc = np.deg2rad(rng.uniform(-10, 10)), rng.uniform(0.85, 1.15)
+                M = np.array([[sc * np.cos(a), -sc * np.sin(a), rng.uniform(-40, 40)],
+                              [sc * np.sin(a), sc * np.cos(a), rng.uniform(-30, 30)],
+                              [rng.uniform(-1e-4, 1e-4), rng.uniform(-1e-4, 1e-4), 1.0]])
+                H = centre @ M @ np.linalg.inv(centre)
+                img = warp_patch(base, H, HPATCHES_SIZE)
+            _write_ppm(d / f"{q}.ppm", np.clip(img, 0, 1))
+            np.savetxt(str(d / f"H_1_{q}"), H)
+
+
+def hpatches_weights(path: Path, device) -> dict:
+    """Random weights of the official config's model, from seed 0, drawn as
+    flax draws them (lecun-normal kernels, zero biases), then the descriptor
+    head's bias set to minus its mean response on one procedural scene (a
+    data-dependent init): without it the random descriptors share one
+    direction (mean cosine ~0.97) and nothing matches above LightGlue's 0.1
+    filter. Saved as a state dict for `model.weights_file`."""
+    from gluefactory_tpu_torch.core.config import from_yaml
+    from gluefactory_tpu_torch.data.homographies import generate_synthetic_image
+    from gluefactory_tpu_torch.data.preprocess import ImagePreprocessor
+    from gluefactory_tpu_torch.eval.io import extract_benchmark_conf, load_model
+
+    conf = extract_benchmark_conf(from_yaml(str(ROOT / "gluefactory_tpu_torch/configs/"
+                                                 "superpoint+lightglue-official.yaml")), "hpatches")
+    torch.manual_seed(0)
+    model = load_model(conf.model, None, device)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("bias"):
+                p.zero_()
+            elif p.ndim >= 2:
+                torch.nn.init.normal_(p, std=p[0].numel() ** -0.5)
+        view = ImagePreprocessor({"resize": 480, "side": "short"})(
+            generate_synthetic_image(6999, HPATCHES_SIZE))
+        sp, out = model.extractor, {}
+        hook = sp.convDb.register_forward_hook(lambda mod, i, o: out.setdefault("desc", o))
+        sp({"image": torch.from_numpy(view["image"][None]).to(device),
+            "image_size": torch.from_numpy(view["image_size"][None]).to(device)})
+        hook.remove()
+        sp.convDb.bias.sub_(out["desc"].mean(dim=(0, 2, 3)))
+    torch.save(model.state_dict(), path)
+    return {"seed": 0, "init": "lecun-normal, zero biases, descriptor head centred on one scene",
+            "keypoints": conf.model.extractor.max_num_keypoints}
+
+
+def run_hpatches(argv: list) -> dict:
+    """`gluefactory_tpu_torch.eval.hpatches.main(argv)` with every launch
+    count reset just before and read just after; the export's and the eval
+    loop's seconds, and each RANSAC call's devices and time (CUDA events)."""
+    from gluefactory_tpu_torch.eval import hpatches
+    from gluefactory_tpu_torch.robust_estimators.homography import xla_ransac
+
+    calls, seconds = [], {}
+    ransac = xla_ransac.ransac_homography
+    methods = {k: getattr(hpatches.HPatchesPipeline, k) for k in ("get_predictions", "run_eval")}
+
+    def recorded(p0, p1, valid, th, seed=0, n_iters=1024):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        out = ransac(p0, p1, valid, th, seed=seed, n_iters=n_iters)
+        end.record()
+        torch.cuda.synchronize()
+        calls.append({"devices": sorted({str(t.device) for t in (p0, p1, valid, *out.values())}),
+                      "ms": start.elapsed_time(end), "host_ms": 1e3 * (time.perf_counter() - t0),
+                      "points": int(valid.shape[0])})
+        return out
+
+    def timed(name):
+        def wrapper(self, *a, **k):
+            t0 = time.perf_counter()
+            out = methods[name](self, *a, **k)
+            torch.cuda.synchronize()
+            seconds[name] = time.perf_counter() - t0
+            return out
+        return wrapper
+
+    xla_ransac.ransac_homography = recorded
+    for name in methods:
+        setattr(hpatches.HPatchesPipeline, name, timed(name))
+    reset_all_launches()
+    try:
+        s, _, r = hpatches.main(argv)
+        launches = all_launches()
+    finally:
+        xla_ransac.ransac_homography = ransac
+        for name, m in methods.items():
+            setattr(hpatches.HPatchesPipeline, name, m)
+    return {"summaries": s, "results": {k: np.asarray(v).tolist() for k, v in r.items()},
+            "launches": launches, "seconds": seconds, "ransac_calls": calls}
+
+
+def _cache(tag: str) -> dict:
+    from gluefactory_tpu_torch.settings import EVAL_PATH
+    from gluefactory_tpu_torch.utils.export_predictions import load_prediction, prediction_keys
+
+    with np.load(Path(EVAL_PATH, "hpatches", tag, "predictions.npz")) as npz:
+        keys = prediction_keys(npz)
+        return {name: load_prediction(npz, keys, name) for name in keys}
+
+
+def _detections(pred: dict, i: str) -> dict:
+    """{position: score} of a view's detections (score above the official
+    config's detection_threshold, 0; the cache keeps the padded slots, whose
+    positions a top-k over zeros picks in any order)."""
+    s = pred[f"keypoint_scores{i}"]
+    return dict(zip(map(tuple, pred[f"keypoints{i}"][s > 0].tolist()), s[s > 0].tolist()))
+
+
+def _match_pairs(pred: dict) -> dict:
+    """{(position in view 0, position in view 1): matching score}."""
+    k0, k1, m0 = pred["keypoints0"].tolist(), pred["keypoints1"].tolist(), pred["matches0"]
+    return {(tuple(k0[i]), tuple(k1[j])): float(pred["matching_scores0"][i])
+            for i, j in enumerate(m0.tolist()) if j >= 0}
+
+
+def compare_caches(a: dict, b: dict) -> dict:
+    """Two runs' predictions. SuperPoint's top-k breaks ties between equal
+    scores (plateaus of the random model's score map) in an order of its
+    own, so detections are compared by position: the sorted scores of each
+    view's detections, the views whose detection sets are equal, and on the
+    pairs whose sets are equal in both views the matches, by the positions
+    they join, and their scores."""
+    score_gap, views_equal, pairs_equal, match_gap, agreement = 0.0, 0, 0, 0.0, []
+    for name in a:
+        equal = True
+        for i in "01":
+            da, db = _detections(a[name], i), _detections(b[name], i)
+            sa, sb = np.sort(list(da.values())), np.sort(list(db.values()))
+            score_gap = max(score_gap, float(np.abs(sa - sb).max(initial=0.0)) if len(sa) == len(sb)
+                            else math.inf)
+            views_equal += da.keys() == db.keys()
+            equal &= da.keys() == db.keys()
+        if equal:
+            pairs_equal += 1
+            ma, mb = _match_pairs(a[name]), _match_pairs(b[name])
+            shared = ma.keys() & mb.keys()
+            agreement.append(len(shared) / max(len(ma), len(mb), 1))
+            match_gap = max([match_gap] + [abs(ma[k] - mb[k]) for k in shared])
+    return {"items": len(a), "views_equal_detections": views_equal,
+            "pairs_equal_detections": pairs_equal, "detection_scores_max_abs_err": score_gap,
+            "matching_scores_max_abs_err": match_gap,
+            "match_agreement": min(agreement, default=math.nan), "tol": EVAL_TOL}
+
+
+def _check_agreement(label: str, cmp: dict) -> None:
+    """The detections' scores within the tolerance on every view; matches
+    and their scores on the pairs whose detections are equal, of which
+    there is at least one."""
+    if cmp["items"] != HPATCHES_PAIRS or cmp["pairs_equal_detections"] == 0:
+        fail(f"path F {label}: no pair with equal detections to compare: {cmp}")
+    if not (cmp["detection_scores_max_abs_err"] <= EVAL_TOL
+            and cmp["matching_scores_max_abs_err"] <= EVAL_TOL and cmp["match_agreement"] >= 0.99):
+        fail(f"path F {label}: predictions differ beyond {EVAL_TOL}: {cmp}")
+
+
+def ransac_profile(pred: dict, device_info: dict) -> dict:
+    """One RANSAC call (`ops/ransac.py`, 1024 hypotheses) on a cached pair's
+    matches: wall ms (CUDA events, after a warm-up) and device ms by kernel
+    (torch.profiler): where a pair's RANSAC time goes."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gluefactory_tpu_torch.ops.ransac import ransac_homography
+    from gluefactory_tpu_torch.robust_estimators.homography.xla_ransac import bucket_pad
+
+    valid0 = pred["matches0"] >= 0
+    p0, p1, valid, n = bucket_pad(pred["keypoints0"][valid0],
+                                  pred["keypoints1"][pred["matches0"][valid0]])
+    args = [torch.from_numpy(x).to(DEVICE) for x in (p0, p1, valid)]
+    call = lambda: ransac_homography(*args, 0.5)
+    call()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(5):
+        call()
+    end.record()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    rows = sorted(((ev.key, ev.self_device_time_total / 1e3, ev.count) for ev in prof.key_averages()
+                   if ev.device_type == torch.autograd.DeviceType.CUDA and ev.self_device_time_total > 0),
+                  key=lambda r: -r[1])
+    return {"matches": n, "bucket": len(valid), "wall_ms": start.elapsed_time(end) / 5,
+            "device_ms": sum(r[1] for r in rows) if rows else None,
+            "device_launches": sum(r[2] for r in rows),
+            "top": [{"kernel": k[:100], "ms": ms, "calls": c} for k, ms, c in rows[:10]],
+            "card": device_info["nvidia_smi"]}
+
+
+def hpatches_forward_profile(weights: Path) -> dict:
+    """Device busy share of one forward at path F's shapes: device ms
+    (torch.profiler) over the forward's wall ms (CUDA events, after a
+    warm-up)."""
+    from gluefactory_tpu_torch.core.config import from_yaml
+    from gluefactory_tpu_torch.data import get_dataset
+    from gluefactory_tpu_torch.data.base_dataset import collate, prepare_batch
+    from gluefactory_tpu_torch.eval.io import extract_benchmark_conf, load_model
+
+    conf = extract_benchmark_conf(from_yaml(str(ROOT / "gluefactory_tpu_torch/configs/"
+                                                 "superpoint+lightglue-official.yaml")), "hpatches")
+    model = load_model(merge(conf.model, {"weights_file": str(weights)}), None, DEVICE)
+    item = get_dataset("hpatches")({}).get_dataset("test")[HPATCHES_PAIRS - 1]
+    batch = prepare_batch({k: collate([item[k]]) for k in ("view0", "view1")}, DEVICE)
+    forward = lambda: model(batch)
+    with torch.no_grad():
+        forward()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(5):
+            forward()
+        end.record()
+        torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / 5
+    prof = profile_forward(forward)
+    busy = prof["device_ms"] / ms if prof["device_ms"] is not None else None
+    return {"wall_ms": ms, "device_ms": prof["device_ms"], "busy_share": busy,
+            "attention_kernel_ms": prof["attention_kernel_ms"], "top": prof["top"][:8],
+            "image": [int(v) for v in item["view0"]["image_size"]]}
+
+
+def phase_hpatches(device_info: dict) -> dict:
+    """Path F: the HPatches CLI's `main` in process on the official config's
+    hpatches section at full width (SuperPoint 1024 keypoints, LightGlue-9
+    dense, f32, images at 480 on the short side), `eval.estimator=xla_ransac`,
+    cut as HPATCHES_REDUCED says. Gates: the cache's items and keys, 9 + 9
+    attention launches a pair, the RANSAC on the card, finite AUCs; a run
+    with the plain versions, a rerun with --overwrite_eval that reads the
+    cache, and a grouped export against the per-item one."""
+    import gluefactory_tpu_torch.settings as tsettings
+    from gluefactory_tpu_torch.eval.hpatches import HPatchesPipeline
+
+    card = device_info["nvidia_smi"]
+    print(f"path F reduced: {json.dumps(HPATCHES_REDUCED)}", flush=True)
+    t0 = time.perf_counter()
+    write_hpatches(HPATCHES_ROOT)
+    data_path, tsettings.DATA_PATH = tsettings.DATA_PATH, HPATCHES_ROOT
+    try:
+        weights = HPATCHES_ROOT / "weights.pth"
+        res = {"reduced": HPATCHES_REDUCED, "weights": hpatches_weights(weights, DEVICE),
+               "write_seconds": time.perf_counter() - t0}
+        argv = [*HPATCHES_ARGV, f"model.weights_file={weights}"]
+        run = run_hpatches([*argv, "--tag", "chip_smoke", "--overwrite"])
+        per_pair = {"fused_attention": LAYERS, "fused_bidirectional_attention": LAYERS}
+        _check_launches("path F", run["launches"], {k: HPATCHES_PAIRS * n for k, n in per_pair.items()})
+        cache = _cache("chip_smoke")
+        keys = set(HPatchesPipeline.export_keys)
+        if len(cache) != HPATCHES_PAIRS or any(set(p) != keys for p in cache.values()):
+            fail(f"path F: the cache holds {len(cache)} items, expected {HPATCHES_PAIRS} with {keys}")
+        calls = run["ransac_calls"]
+        card_device = str(torch.empty(0, device=DEVICE).device)
+        if not calls or any(c["devices"] != [card_device] for c in calls):
+            fail(f"path F: the RANSAC ran on {[c['devices'] for c in calls]}, expected the card")
+        s = run["summaries"]
+        aucs = {f"H_error_{k}@{t}px": s.get(f"H_error_{k}@{t}px") for k in ("dlt", "ransac") for t in (1, 3, 5)}
+        if not all(isinstance(v, float) and math.isfinite(v) for v in aucs.values()):
+            fail(f"path F: AUCs not finite: {aucs}")
+        export_s, eval_s = run["seconds"]["get_predictions"], run["seconds"]["run_eval"]
+        ransac_ms = [c["ms"] for c in calls]
+        res["run"] = {**{k: v for k, v in run.items() if k != "results"},
+                      "export_pairs_per_s": HPATCHES_PAIRS / export_s,
+                      "ransac_ms_per_call": float(np.mean(ransac_ms)),
+                      "ransac_ms_median": float(np.median(ransac_ms)),
+                      "ransac_ms_first": ransac_ms[0],
+                      "ransac_ms_range": [float(min(ransac_ms)), float(max(ransac_ms))],
+                      "ransac_host_ms_per_call": float(np.mean([c["host_ms"] for c in calls])),
+                      "ransac_calls": len(calls), "matches_per_pair": run["results"]["num_matches"]}
+        print(f"path F: {HPATCHES_PAIRS} pairs, launches {json.dumps(run['launches'])}, summaries "
+              f"{json.dumps(s)}", flush=True)
+        print(f"path F: export {res['run']['export_pairs_per_s']:.2f} pairs/s ({export_s:.1f} s), eval "
+              f"loop {eval_s:.2f} s, RANSAC {res['run']['ransac_ms_per_call']:.3f} ms a pair by CUDA "
+              f"events over {len(calls)} calls (median {res['run']['ransac_ms_median']:.3f}, first "
+              f"{ransac_ms[0]:.3f}; host {res['run']['ransac_host_ms_per_call']:.3f} ms) ({card})",
+              flush=True)
+        busiest = max(cache, key=lambda n: int((cache[n]["matches0"] >= 0).sum()))
+        res["ransac_profile"] = ransac_profile(cache[busiest], device_info)
+        print(f"path F RANSAC profile: {json.dumps(res['ransac_profile'])}", flush=True)
+        res["forward"] = hpatches_forward_profile(weights)
+        print(f"path F forward: {res['forward']['wall_ms']:.2f} ms wall, device "
+              f"{res['forward']['device_ms']} ms, busy share {res['forward']['busy_share']} ({card})",
+              flush=True)
+
+        plain = run_hpatches([*argv, "model.matcher.flash=False", "--tag", "chip_smoke_plain",
+                              "--overwrite"])
+        _check_launches("path F plain", plain["launches"], {})
+        res["vs_plain"] = compare_caches(cache, _cache("chip_smoke_plain"))
+        print(f"path F kernels vs plain versions: {json.dumps(res['vs_plain'])}", flush=True)
+        _check_agreement("kernels vs plain", res["vs_plain"])
+
+        mtime = (Path(tsettings.EVAL_PATH, "hpatches", "chip_smoke", "predictions.npz")).stat().st_mtime_ns
+        again = run_hpatches([*argv, "--tag", "chip_smoke", "--overwrite_eval"])
+        _check_launches("path F --overwrite_eval", again["launches"], {})
+        now = (Path(tsettings.EVAL_PATH, "hpatches", "chip_smoke", "predictions.npz")).stat().st_mtime_ns
+        if now != mtime or again["summaries"] != s:
+            fail("path F: the --overwrite_eval rerun did not reuse the cache or changed the summaries")
+        res["overwrite_eval"] = {"seconds": again["seconds"], "summaries_equal": True}
+        print(f"path F --overwrite_eval: cache reused, summaries equal, eval loop "
+              f"{again['seconds']['run_eval']:.2f} s", flush=True)
+
+        grouped = run_hpatches([*argv, f"items_per_dispatch={HPATCHES_DISPATCH}", "--tag",
+                                "chip_smoke_grouped", "--overwrite"])
+        forwards = -(-HPATCHES_PAIRS // HPATCHES_DISPATCH)
+        _check_launches("path F grouped", grouped["launches"],
+                        {k: forwards * n for k, n in per_pair.items()})
+        res["grouped"] = {**compare_caches(cache, _cache("chip_smoke_grouped")),
+                          "items_per_dispatch": HPATCHES_DISPATCH,
+                          "export_pairs_per_s": HPATCHES_PAIRS / grouped["seconds"]["get_predictions"]}
+        print(f"path F items_per_dispatch={HPATCHES_DISPATCH} vs per item: {json.dumps(res['grouped'])} "
+              f"({card})", flush=True)
+        _check_agreement("grouped vs per item", res["grouped"])
+    finally:
+        tsettings.DATA_PATH = data_path
+    res["seconds"] = time.perf_counter() - t0
+    res["card"] = card
+    return res
+
+
 def train_conf():
     """The trainer's conf of path E: its defaults, the shipped config and
     TRAIN_ARGV's overrides, as `train.main` merges them."""
@@ -1863,12 +2242,14 @@ def main() -> None:
     torch.cuda.empty_cache()
     path_e["folder_run"] = phase_folder_run()
     torch.cuda.empty_cache()
+    path_f = phase_hpatches(device_info)
+    torch.cuda.empty_cache()
     kernels += phase_conv_study(device_info)  # launches from the tools' runs
     OUT_DIR.mkdir(exist_ok=True)
     record = {"device": device_info, "build": build, "kernels": kernels, "gradients": gradients,
               "main_path": main_path,
               "path_b_superglue": path_b, "path_c_fused_superpoint": path_c,
-              "path_d_serving": path_d, "path_e_training": path_e,
+              "path_d_serving": path_d, "path_e_training": path_e, "path_f_hpatches": path_f,
               "seconds": time.perf_counter() - t0}
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(record, indent=1))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",

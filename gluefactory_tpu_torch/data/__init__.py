@@ -1,6 +1,7 @@
-"""Datasets and data loading for training (counterpart of
-`gluefactory_tpu/data/`). `get_dataset(name)` resolves a module name of this
-package (e.g. "homographies") or a dotted path to its BaseDataset subclass."""
+"""Datasets and data loading (counterpart of `gluefactory_tpu/data/`).
+`get_dataset(name)` resolves a module name of this package ("homographies"
+for training, "hpatches" for the benchmark) or a dotted path to its
+BaseDataset subclass."""
 
 from __future__ import annotations
 

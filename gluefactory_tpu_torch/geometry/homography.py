@@ -169,3 +169,46 @@ def homography_corner_error(T, T_gt, image_size) -> torch.Tensor:
                            torch.stack([w, h], -1), torch.stack([zeros, h], -1)], dim=-2)
     err = warp_points(corners, T) - warp_points(corners, T_gt)
     return torch.linalg.vector_norm(err, dim=-1).mean(dim=-1)
+
+
+def _hartley(pts: torch.Tensor, w: torch.Tensor):
+    """Points moved to their weighted centroid and scaled to a mean distance
+    of sqrt(2), and the 3 x 3 transform that does it."""
+    wsum = w.sum(dim=-1, keepdim=True) + 1e-8
+    mean = (pts * w[..., None]).sum(dim=-2, keepdim=True) / wsum[..., None]
+    d = torch.linalg.vector_norm(pts - mean, dim=-1)
+    scale = math.sqrt(2.0) / ((d * w).sum(dim=-1, keepdim=True) / wsum + 1e-8)
+    s, mx, my = scale[..., 0], mean[..., 0, 0], mean[..., 0, 1]
+    zero, one = torch.zeros_like(s), torch.ones_like(s)
+    T = torch.stack([s, zero, -s * mx, zero, s, -s * my, zero, zero, one], -1)
+    return (pts - mean) * scale[..., None], T.reshape(s.shape + (3, 3))
+
+
+def compute_homography_dlt(pts0: torch.Tensor, pts1: torch.Tensor, weights=None) -> torch.Tensor:
+    """Batched weighted DLT homography: (..., N, 2) x2 -> (..., 3, 3), the
+    JAX package's arithmetic in float32. Hartley-normalised; the smallest
+    eigenvector of A^T W A by `eigh`, divided by H[2, 2] so its sign does not
+    matter. A batch entry whose A^T W A is not finite gets NaN, as JAX's
+    `eigh` gives it: it is replaced by the identity before `eigh`, which on
+    a CUDA device checks for errors and would raise on it."""
+    dtype = torch.promote_types(pts0.dtype, torch.float32)
+    pts0, pts1 = pts0.to(dtype), pts1.to(dtype)
+    weights = torch.ones(pts0.shape[:-1], dtype=dtype, device=pts0.device) if weights is None \
+        else weights.to(dtype)
+    p0n, T0 = _hartley(pts0, weights)
+    p1n, T1 = _hartley(pts1, weights)
+    x, y = p0n[..., 0], p0n[..., 1]
+    u, v = p1n[..., 0], p1n[..., 1]
+    o, z = torch.ones_like(x), torch.zeros_like(x)
+    row1 = torch.stack([z, z, z, -x, -y, -o, v * x, v * y, v], dim=-1)
+    row2 = torch.stack([x, y, o, z, z, z, -u * x, -u * y, -u], dim=-1)
+    A = torch.cat([row1, row2], dim=-2)
+    w2 = torch.cat([weights, weights], dim=-1)
+    AtA = torch.einsum("...ni,...n,...nj->...ij", A, w2, A)
+    finite = torch.isfinite(AtA).all(dim=-1).all(dim=-1)
+    eye = torch.eye(9, dtype=dtype, device=AtA.device)
+    _, eigvecs = torch.linalg.eigh(torch.where(finite[..., None, None], AtA, eye))
+    Hn = eigvecs[..., :, 0].reshape(eigvecs.shape[:-2] + (3, 3))
+    H = torch.linalg.inv_ex(T1).inverse @ Hn @ T0
+    H = H / (H[..., 2:3, 2:3] + 1e-12)
+    return torch.where(finite[..., None, None], H, torch.full_like(H, float("nan")))

@@ -1,5 +1,8 @@
-"""Two-view pipeline: extractor -> matcher, with ground truth and the loss
-for training (counterpart of `gluefactory_tpu/models/two_view_pipeline.py`).
+"""Two-view pipeline: extractor -> matcher -> filter -> solver, with ground
+truth and the loss for training (counterpart of
+`gluefactory_tpu/models/two_view_pipeline.py`). The filter and the solver,
+where the conf names them, run after the matcher on the predictions merged
+so far, each adding its outputs.
 
 Per-view inputs live under `data["view0"/"view1"]`; extractor outputs are
 suffixed `0`/`1` into the flat prediction dict. With `batch_extraction`,
@@ -42,12 +45,10 @@ class TwoViewPipeline(BaseModel):
     }
     required_data_keys = ["view0", "view1"]
     strict_conf = False
+    components = ("extractor", "matcher", "filter", "solver", "ground_truth")
 
     def _init(self, conf):
-        for comp in ("filter", "solver"):
-            if conf[comp].get("name"):
-                raise NotImplementedError(f"pipeline component {comp} is not ported yet")
-        for comp in ("extractor", "matcher", "ground_truth"):
+        for comp in self.components:
             sub = conf[comp]
             model = None
             if sub.get("name"):
@@ -94,8 +95,10 @@ class TwoViewPipeline(BaseModel):
             pred0 = self.extract_view(data, "0", generator, train)
             pred1 = self.extract_view(data, "1", generator, train)
         pred = {**{k + "0": v for k, v in pred0.items()}, **{k + "1": v for k, v in pred1.items()}}
-        if self.matcher is not None:
-            pred = {**pred, **self.matcher({**data, **pred}, train=train)}
+        for comp in ("matcher", "filter", "solver"):
+            model = getattr(self, comp)
+            if model is not None:
+                pred = {**pred, **model({**data, **pred}, train=train)}
         if self.conf.run_gt_in_forward and self.ground_truth is not None:
             pred = {**pred, **self.ground_truth({**data, **pred}, train=train)}
         return pred
@@ -104,7 +107,7 @@ class TwoViewPipeline(BaseModel):
         if not self.conf.run_gt_in_forward and self.ground_truth is not None:
             pred = {**pred, **self.ground_truth({**data, **pred}, train=train)}
         losses, metrics, total = {}, {}, 0
-        for comp in ("extractor", "matcher"):
+        for comp in ("extractor", "matcher", "filter", "solver"):
             model = getattr(self, comp)
             if model is None or not model.is_trainable:
                 continue

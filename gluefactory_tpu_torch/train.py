@@ -29,9 +29,15 @@ back in float32 onto the float32 parameters, which the NaN-skip, the
 accumulation and the optimizer then treat as in float32 training. The loss
 is taken in whatever dtype the model gives it.
 
+`run_benchmarks` runs each named benchmark (`eval.run_benchmark`) at the
+end of every epoch on the model in memory, with its conf from
+`benchmark_conf.<name>`, into `<output_dir>/benchmarks/<name>`, and writes
+its scalar summaries to the writer; a benchmark that fails is logged and
+training goes on, as in the JAX package. Only `hpatches` is ported.
+
 Not ported yet, each raising `NotImplementedError`: `steps_per_dispatch >
-1`, `device_augment`, `run_benchmarks`, `plot` with a writer, and more than
-one device (DDP).
+1`, `device_augment`, benchmarks other than `hpatches`, `plot` with a
+writer, and more than one device (DDP).
 """
 
 from __future__ import annotations
@@ -423,8 +429,9 @@ def check_supported(conf, args) -> None:
         raise NotImplementedError("steps_per_dispatch > 1 is not ported yet")
     if t.device_augment:
         raise NotImplementedError("device_augment (on-device augmentation) is not ported yet")
-    if t.run_benchmarks:
-        raise NotImplementedError("run_benchmarks is not ported yet (the evals are not)")
+    for name in t.run_benchmarks or []:
+        if name != "hpatches":
+            raise NotImplementedError(f"benchmark {name} is not ported yet (only hpatches is)")
 
 
 def training(conf: Config, output_dir: Path, args):
@@ -539,6 +546,10 @@ def training(conf: Config, output_dir: Path, args):
                     break
                 total_iter += 1
 
+            for bench_name in conf.train.run_benchmarks or []:
+                run_benchmark_hook(bench_name, conf, model, output_dir, args.device, writer,
+                                   total_iter)
+
             state = {"model": model.state_dict(), "optimizer": optimizer.state_dict(),
                      "step": step.state_dict()}
             scalars = {k: v for k, v in results.items() if np.isscalar(v)}
@@ -551,6 +562,24 @@ def training(conf: Config, output_dir: Path, args):
     if writer:
         writer.close()
     return model
+
+
+def run_benchmark_hook(name: str, conf, model, output_dir: Path, device, writer, total_iter: int):
+    """One benchmark on the model in memory, its scalars to the writer; a
+    failure is logged with its traceback and training goes on."""
+    from .eval import run_benchmark
+
+    try:
+        s, _, _ = run_benchmark(name, conf.train.benchmark_conf.get(name, {}),
+                                output_dir / "benchmarks" / name, model=model, device=device)
+    except Exception:
+        logger.exception("benchmark %s failed", name)
+        return
+    logger.info("[Benchmark %s] %s", name, s)
+    if writer:
+        for k, v in s.items():
+            if np.isscalar(v) and not isinstance(v, str):
+                writer.add_scalar(f"benchmark/{name}/{k}", float(v), total_iter)
 
 
 @contextlib.contextmanager

@@ -20,7 +20,7 @@ import numpy as np
 import torch
 
 from .. import logger
-from ..core.config import Config
+from ..core.config import Config, from_yaml, merge
 from ..settings import TRAINING_PATH
 
 _NAME = re.compile(r"checkpoint_(\d+)_(\d+)(_interrupted)?\.tar")
@@ -94,3 +94,21 @@ def load_checkpoint(path: Path, map_location="cpu") -> dict:
     tensors, numbers, strings and containers, so it loads with
     `weights_only=True`."""
     return torch.load(path, map_location=map_location, weights_only=True)
+
+
+def load_experiment(exper, conf=None, get_last: bool = False, ckpt=None, device="cuda"):
+    """The model of a training run (its `config.yaml` merged with `conf`)
+    with the weights of its best checkpoint, or its last with `get_last`,
+    or of `ckpt`; returns (model, full conf). `exper` is a run's name under
+    TRAINING_PATH or its directory."""
+    from ..models import get_model
+
+    exper_dir = Path(exper) if Path(exper).exists() else Path(TRAINING_PATH, exper)
+    if ckpt is None:
+        ckpt = get_last_checkpoint(exper_dir) if get_last else get_best_checkpoint(exper_dir)
+    full_conf = merge(from_yaml(str(exper_dir / "config.yaml")), conf or {})
+    model_conf = full_conf.model
+    model = get_model(model_conf.name).from_conf(
+        {k: v for k, v in model_conf.to_dict().items() if k != "name"}, device=device)
+    model.load_state_dict(load_checkpoint(ckpt, map_location=device)["model"])
+    return model, full_conf

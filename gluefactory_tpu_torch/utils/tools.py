@@ -78,6 +78,43 @@ class RecallMetric:
         return float((arr < th).sum() / arr.size)
 
 
+def cal_error_auc(errors, thresholds) -> list:
+    """Error-recall AUC by the trapezoid rule up to each threshold, each
+    rounded to 4 decimals as the reference reports them."""
+    errors = np.sort(np.asarray(errors, dtype=np.float64))
+    if errors.size == 0:
+        return [0.0] * len(thresholds)
+    recall = (np.arange(len(errors)) + 1) / len(errors)
+    errors = np.r_[0.0, errors]
+    recall = np.r_[0.0, recall]
+    aucs = []
+    for t in thresholds:
+        last_index = np.searchsorted(errors, t)
+        r = np.r_[recall[:last_index], recall[last_index - 1]]
+        e = np.r_[errors[:last_index], t]
+        aucs.append(float(np.round(np.trapezoid(r, x=e) / t, 4)))
+    return aucs
+
+
+class AUCMetric:
+    """AUC at each threshold of every finite-or-infinite value seen, NaNs
+    left out."""
+
+    def __init__(self, thresholds, elements=None):
+        self._elements = [] if elements is None else list(np.atleast_1d(elements))
+        self.thresholds = thresholds if isinstance(thresholds, list) else [thresholds]
+
+    def update(self, values):
+        self._elements.extend(_values(values).tolist())
+
+    def compute(self):
+        arr = np.asarray(self._elements, dtype=np.float64)
+        arr = arr[~np.isnan(arr)]
+        if arr.size == 0:
+            return np.nan
+        return cal_error_auc(arr, self.thresholds)
+
+
 class PRMetric:
     """Accumulates (label, prediction) pairs for PR curves."""
 

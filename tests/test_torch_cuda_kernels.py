@@ -743,3 +743,61 @@ def test_bf16_train_step_runs_the_bf16_kernels(dev, checkpointed):
         assert all(p.grad.dtype == torch.float32 for p in model.parameters() if p.grad is not None)
         losses[flash] = float(out["total"])
     assert abs(losses[True] - losses[False]) <= 2e-2 * abs(losses[False])
+
+
+def _planted_matches(seed, n=300, inliers=180, th=3.0):
+    """Matches under a known homography (inliers within 0.3 px) and
+    outliers at least 2 th off, padded to a power of two."""
+    import numpy as np
+
+    from gluefactory_tpu_torch.robust_estimators.homography.xla_ransac import bucket_pad
+
+    rng = np.random.default_rng(seed)
+    H = np.array([[1.05, 0.04, 12.0], [-0.03, 0.97, -7.0], [2e-4, -1e-4, 1.0]])
+    p0 = rng.uniform(0, 640, (n, 2))
+    ph = np.c_[p0, np.ones(n)] @ H.T
+    p1 = ph[:, :2] / ph[:, 2:]
+    p1[:inliers] += rng.uniform(-0.3, 0.3, (inliers, 2))
+    p1[inliers:] += rng.uniform(2 * th + 5, 80, (n - inliers, 2)) * rng.choice([-1, 1], (n - inliers, 2))
+    return bucket_pad(p0.astype(np.float32), p1.astype(np.float32))
+
+
+def test_threefry_on_the_card_equals_the_cpu(dev):
+    from gluefactory_tpu_torch.utils import threefry
+
+    for seed, shape in ((0, (1024, 64)), (7, (1024, 2048)), (-3, (5, 7))):
+        assert torch.equal(threefry.random_bits(seed, shape, dev).cpu(), threefry.random_bits(seed, shape))
+        assert torch.equal(threefry.uniform(seed, shape, dev).cpu(), threefry.uniform(seed, shape))
+        got, want = threefry.gumbel(seed, shape, dev).cpu(), threefry.gumbel(seed, shape)
+        # each device's float64 logs, rounded to float32: within an ulp a step
+        ulp = torch.finfo(torch.float32).eps * want.abs().clamp(min=1)
+        assert ((got - want).abs() <= 2 * ulp).all()
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_ransac_on_the_card_equals_the_cpu(dev, seed):
+    """The RANSAC runs on the inputs' device; on the card it finds the CPU's
+    inliers and H (float32 DLTs by other solvers: within 1e-4 of H's
+    largest entry)."""
+    from gluefactory_tpu_torch.ops.ransac import ransac_homography
+
+    p0, p1, valid, n = _planted_matches(seed)
+    cpu = ransac_homography(*(torch.from_numpy(x) for x in (p0, p1, valid)), 3.0, seed=seed)
+    card = ransac_homography(*(torch.from_numpy(x).to(dev) for x in (p0, p1, valid)), 3.0, seed=seed)
+    assert all(v.device.type == "cuda" for v in card.values())
+    assert torch.equal(card["inliers"].cpu(), cpu["inliers"]) and int(card["num_inliers"]) == 180
+    H, Hc = card["M_0to1"].cpu(), cpu["M_0to1"]
+    assert (H - Hc).abs().max() <= 1e-4 * Hc.abs().max()
+
+
+def test_xla_ransac_estimator_on_the_card(dev):
+    import numpy as np
+
+    from gluefactory_tpu_torch.robust_estimators import load_estimator
+
+    p0, p1, _, n = _planted_matches(2)
+    data = {"m_kpts0": p0[:n], "m_kpts1": p1[:n]}
+    card = load_estimator("homography", "xla_ransac")({"device": "cuda"})(data)
+    cpu = load_estimator("homography", "xla_ransac")({"device": "cpu"})(data)
+    assert card["success"] and isinstance(card["M_0to1"], np.ndarray)
+    np.testing.assert_array_equal(card["inliers"], cpu["inliers"])

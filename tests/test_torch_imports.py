@@ -1,5 +1,5 @@
 """The port stands alone (no JAX, nothing of `gluefactory_tpu`, no OpenCV,
-no Pillow at import),
+no Pillow, no h5py at import),
 and every kernel wrapper sends CUDA tensors to its kernel with no fallback."""
 
 import subprocess
@@ -27,6 +27,7 @@ sys.modules["jax"] = None
 sys.modules["flax"] = None
 sys.modules["cv2"] = None
 sys.modules["PIL"] = None
+sys.modules["h5py"] = None
 import gluefactory_tpu_torch.train, gluefactory_tpu_torch.data.homographies
 import gluefactory_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
@@ -35,7 +36,7 @@ for name in names:
 leaked = sorted(m for m in sys.modules if m == "gluefactory_tpu" or m.startswith("gluefactory_tpu."))
 print(len(names), leaked)
 assert not leaked, leaked
-assert len(names) >= 45, names
+assert len(names) >= 60, names
 for name in ("train", "optim", "settings", "data.homographies", "data.base_dataset", "data.augmentations",
              "data.raster", "data.colour", "data.jpeg", "data.preprocess", "geometry.homography", "geometry.gt_generation", "models.losses",
              "models.metrics", "models.matchers.homography_matcher", "utils.experiments",
@@ -43,7 +44,12 @@ for name in ("train", "optim", "settings", "data.homographies", "data.base_datas
              "ops.cuda_sinkhorn", "ops.cuda_detect", "ops.cuda_conv", "models.matchers.superglue",
              "models.matchers.lightglue_serving",
              "ops.cuda_conv3x3", "scripts_dev", "scripts_dev.timing", "scripts_dev.conv_study",
-             "scripts_dev.profile_stream_conv", "scripts_dev.profile_npack"):
+             "scripts_dev.profile_stream_conv", "scripts_dev.profile_npack",
+             "data.hpatches", "utils.threefry", "utils.export_predictions", "ops.ransac",
+             "robust_estimators", "robust_estimators.base_estimator",
+             "robust_estimators.homography.xla_ransac", "robust_estimators.homography.opencv",
+             "eval", "eval.eval_pipeline", "eval.io", "eval.utils", "eval.hpatches",
+             "visualization.viz2d"):
     assert pkg.__name__ + "." + name in names, name
 """
 
