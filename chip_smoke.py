@@ -104,7 +104,30 @@ Phases, in order; any failure exits non-zero before the last line:
    (`items_per_dispatch=4`, 9 + 9 launches a forward) each against the
    kernels' per-item run within 1e-3 on the scores; an `--overwrite_eval`
    rerun that reads the cache. Export pairs/s, the eval loop's seconds,
-   RANSAC ms a pair (CUDA events) and the busy share of one forward.
+   RANSAC ms a pair (CUDA events) and the busy share of one forward;
+11. path G, the MegaDepth-1500 benchmark (run after path F, before phase
+   8): 2 procedural posed scenes (textured planes ray cast,
+   `gluefactory_tpu_torch/scripts_dev/posed_scenes.py`; 1920 x 1440 JPEGs
+   and 16-bit PNG depths, one PINHOLE and one SIMPLE_RADIAL scene, 20 pairs
+   each) written under `outputs/chip_smoke_megadepth1500/`, then
+   `gluefactory_tpu_torch.eval.megadepth1500.main` in process on
+   `superpoint+lightglue-official`'s megadepth1500 section at full width
+   (SuperPoint 2048 keypoints, nms 3, LightGlue-9 dense, filter 0.1, f32,
+   1600 on the long side) with `eval.estimator=xla_ransac`, `ransac_th
+   0.5`, `data.depth_format=png` and random weights drawn as path F draws
+   them, but on the CPU and centred on one of the path's views; cut to 40
+   pairs of 1500. Gates: 40 cached items with the export keys, 9 + 9
+   attention launches a pair, every RANSAC tensor on the card, finite
+   epipolar, reprojection and GT-match metrics and AUC@5/10/20 degrees;
+   runs through the plain versions and grouped by 4 against the per-item
+   cache within 1e-3; the `--overwrite_eval` rerun on the cache;
+   `ransac_essential` on the card on 1024 synthetic correspondences from a
+   known pose (30% outliers) within 1 degree of the truth and 0.5 of the
+   CPU's run; `gt_matches_from_pose_depth` on the card equal to the CPU's at
+   the path's keypoints. Export pairs/s, the eval loop's seconds, RANSAC
+   ms a pair with its launches, device ms and busy share, the forward's
+   device ms and busy share, and both attention kernels in f32 at N = 2048
+   against their bound and SDPA.
 
 Each path resets every launch count just before its timed run and reads
 them just after. Prints the kernel JSON line, the card line, and as its last
@@ -1581,12 +1604,20 @@ def attention_at_training_shapes(dev, dtype=torch.float32) -> list[dict]:
     `dtype`: forward device time against its bound, its plain version and
     SDPA, and forward + backward (the plain version's gradient) against
     SDPA's."""
+    return attention_at_shapes(dev, dtype, 512, TRAIN_BATCH, "path E")
+
+
+def attention_at_shapes(dev, dtype, N: int, pairs: int, path: str, backward: bool = True) -> list[dict]:
+    """Each attention kernel at N tokens a view for `pairs` pairs (self
+    attention over both views, 2 * pairs; cross attention, pairs), every
+    token valid, in `dtype`: as `attention_at_training_shapes`, the backward
+    only with `backward`."""
     gen = torch.Generator(device=dev).manual_seed(5)
     F = torch.nn.functional
-    N, D = 512, HEAD_DIM
+    D = HEAD_DIM
     label = "float32" if dtype == torch.float32 else "bfloat16"
     out = []
-    for name, B in (("fused_attention", 2 * TRAIN_BATCH), ("fused_bidirectional_attention", TRAIN_BATCH)):
+    for name, B in (("fused_attention", 2 * pairs), ("fused_bidirectional_attention", pairs)):
         n_in = 3 if name == "fused_attention" else 4
         xs = [torch.randn(B, HEADS, N, D, generator=gen, device=dev).to(dtype).requires_grad_()
               for _ in range(n_in)]
@@ -1621,16 +1652,18 @@ def attention_at_training_shapes(dev, dtype=torch.float32) -> list[dict]:
                    "library_ms": device_time_ms(lambda: F.scaled_dot_product_attention(*lib_in)),
                    "bound_ms": bound_ms, "bound_by": bound_by}
         if not err <= KERNEL_TOL[dtype]:
-            fail(f"{name} at path E's shapes, {label}: max abs err {err}")
-        res["fwd_bwd_ms"] = device_time_ms(lambda: fwd_bwd(lambda: kernel(*args)), reps=5)
-        res["backward_ms"] = res["fwd_bwd_ms"] - res["ms"]
-        res["library_fwd_bwd_ms"] = device_time_ms(
-            lambda: fwd_bwd(lambda: F.scaled_dot_product_attention(*lib_in)), reps=5)
+            fail(f"{name} at {path}'s shapes, {label}: max abs err {err}")
+        line = (f"{path} {name} at {res['shape']} {label}: {res['ms']:.4f} ms (plain "
+                f"{res['plain_ms']:.3f}, SDPA {res['library_ms']:.4f}, bound {bound_ms:.4f} {bound_by})")
+        if backward:
+            res["fwd_bwd_ms"] = device_time_ms(lambda: fwd_bwd(lambda: kernel(*args)), reps=5)
+            res["backward_ms"] = res["fwd_bwd_ms"] - res["ms"]
+            res["library_fwd_bwd_ms"] = device_time_ms(
+                lambda: fwd_bwd(lambda: F.scaled_dot_product_attention(*lib_in)), reps=5)
+            line += (f"; forward + backward {res['fwd_bwd_ms']:.3f} ms (backward {res['backward_ms']:.3f}), "
+                     f"SDPA {res['library_fwd_bwd_ms']:.3f}")
         out.append(res)
-        print(f"path E {name} at {res['shape']} {label}: {res['ms']:.4f} ms (plain {res['plain_ms']:.3f}, "
-              f"SDPA {res['library_ms']:.4f}, bound {bound_ms:.4f} {bound_by}); forward + backward "
-              f"{res['fwd_bwd_ms']:.3f} ms (backward {res['backward_ms']:.3f}), SDPA "
-              f"{res['library_fwd_bwd_ms']:.3f}", flush=True)
+        print(line, flush=True)
         del xs, args, lib_in, got, want
     return out
 
@@ -1901,30 +1934,38 @@ def write_hpatches(root: Path) -> None:
             np.savetxt(str(d / f"H_1_{q}"), H)
 
 
-def hpatches_weights(path: Path, device) -> dict:
-    """Random weights of the official config's model, from seed 0, drawn as
+def benchmark_weights(path: Path, device, benchmark: str = "hpatches", view: dict | None = None,
+                      draw_device=None) -> dict:
+    """Random weights of the official config's model (its `benchmark`
+    section), from seed 0, drawn as
     flax draws them (lecun-normal kernels, zero biases), then the descriptor
     head's bias set to minus its mean response on one procedural scene (a
     data-dependent init): without it the random descriptors share one
     direction (mean cosine ~0.97) and nothing matches above LightGlue's 0.1
-    filter. Saved as a state dict for `model.weights_file`."""
+    filter. The scene is `view` (a processed view: image, image_size), else
+    path F's 1000 x 750 procedural image at 480 on the short side. The
+    draw runs on `draw_device` (default `device`): the CPU's generator gives
+    the same weights on every machine. Saved as a state dict for
+    `model.weights_file`."""
     from gluefactory_tpu_torch.core.config import from_yaml
     from gluefactory_tpu_torch.data.homographies import generate_synthetic_image
     from gluefactory_tpu_torch.data.preprocess import ImagePreprocessor
     from gluefactory_tpu_torch.eval.io import extract_benchmark_conf, load_model
 
     conf = extract_benchmark_conf(from_yaml(str(ROOT / "gluefactory_tpu_torch/configs/"
-                                                 "superpoint+lightglue-official.yaml")), "hpatches")
+                                                 "superpoint+lightglue-official.yaml")), benchmark)
     torch.manual_seed(0)
-    model = load_model(conf.model, None, device)
+    model = load_model(conf.model, None, draw_device or device)
     with torch.no_grad():
         for name, p in model.named_parameters():
             if name.endswith("bias"):
                 p.zero_()
             elif p.ndim >= 2:
                 torch.nn.init.normal_(p, std=p[0].numel() ** -0.5)
-        view = ImagePreprocessor({"resize": 480, "side": "short"})(
-            generate_synthetic_image(6999, HPATCHES_SIZE))
+        model.to(device)
+        if view is None:
+            view = ImagePreprocessor({"resize": 480, "side": "short"})(
+                generate_synthetic_image(6999, HPATCHES_SIZE))
         sp, out = model.extractor, {}
         hook = sp.convDb.register_forward_hook(lambda mod, i, o: out.setdefault("desc", o))
         sp({"image": torch.from_numpy(view["image"][None]).to(device),
@@ -1937,21 +1978,28 @@ def hpatches_weights(path: Path, device) -> dict:
 
 
 def run_hpatches(argv: list) -> dict:
-    """`gluefactory_tpu_torch.eval.hpatches.main(argv)` with every launch
-    count reset just before and read just after; the export's and the eval
-    loop's seconds, and each RANSAC call's devices and time (CUDA events)."""
+    """`gluefactory_tpu_torch.eval.hpatches.main(argv)`, as `run_eval_cli`
+    runs it."""
     from gluefactory_tpu_torch.eval import hpatches
     from gluefactory_tpu_torch.robust_estimators.homography import xla_ransac
 
-    calls, seconds = [], {}
-    ransac = xla_ransac.ransac_homography
-    methods = {k: getattr(hpatches.HPatchesPipeline, k) for k in ("get_predictions", "run_eval")}
+    return run_eval_cli(hpatches.main, hpatches.HPatchesPipeline, xla_ransac, "ransac_homography", argv)
 
-    def recorded(p0, p1, valid, th, seed=0, n_iters=1024):
+
+def run_eval_cli(main_fn, pipeline_cls, estimator_module, ransac_name: str, argv: list) -> dict:
+    """A benchmark CLI's `main(argv)` with every launch count reset just
+    before and read just after; the export's and the eval loop's seconds,
+    and each call of the estimator module's RANSAC (`ransac_name`): its
+    devices and time (CUDA events)."""
+    calls, seconds = [], {}
+    ransac = getattr(estimator_module, ransac_name)
+    methods = {k: getattr(pipeline_cls, k) for k in ("get_predictions", "run_eval")}
+
+    def recorded(p0, p1, valid, th, **kw):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         t0 = time.perf_counter()
         start.record()
-        out = ransac(p0, p1, valid, th, seed=seed, n_iters=n_iters)
+        out = ransac(p0, p1, valid, th, **kw)
         end.record()
         torch.cuda.synchronize()
         calls.append({"devices": sorted({str(t.device) for t in (p0, p1, valid, *out.values())}),
@@ -1968,26 +2016,26 @@ def run_hpatches(argv: list) -> dict:
             return out
         return wrapper
 
-    xla_ransac.ransac_homography = recorded
+    setattr(estimator_module, ransac_name, recorded)
     for name in methods:
-        setattr(hpatches.HPatchesPipeline, name, timed(name))
+        setattr(pipeline_cls, name, timed(name))
     reset_all_launches()
     try:
-        s, _, r = hpatches.main(argv)
+        s, _, r = main_fn(argv)
         launches = all_launches()
     finally:
-        xla_ransac.ransac_homography = ransac
+        setattr(estimator_module, ransac_name, ransac)
         for name, m in methods.items():
-            setattr(hpatches.HPatchesPipeline, name, m)
+            setattr(pipeline_cls, name, m)
     return {"summaries": s, "results": {k: np.asarray(v).tolist() for k, v in r.items()},
             "launches": launches, "seconds": seconds, "ransac_calls": calls}
 
 
-def _cache(tag: str) -> dict:
+def _cache(tag: str, benchmark: str = "hpatches") -> dict:
     from gluefactory_tpu_torch.settings import EVAL_PATH
     from gluefactory_tpu_torch.utils.export_predictions import load_prediction, prediction_keys
 
-    with np.load(Path(EVAL_PATH, "hpatches", tag, "predictions.npz")) as npz:
+    with np.load(Path(EVAL_PATH, benchmark, tag, "predictions.npz")) as npz:
         keys = prediction_keys(npz)
         return {name: load_prediction(npz, keys, name) for name in keys}
 
@@ -2036,23 +2084,21 @@ def compare_caches(a: dict, b: dict) -> dict:
             "match_agreement": min(agreement, default=math.nan), "tol": EVAL_TOL}
 
 
-def _check_agreement(label: str, cmp: dict) -> None:
+def _check_agreement(label: str, cmp: dict, items: int = HPATCHES_PAIRS, path: str = "path F") -> None:
     """The detections' scores within the tolerance on every view; matches
     and their scores on the pairs whose detections are equal, of which
     there is at least one."""
-    if cmp["items"] != HPATCHES_PAIRS or cmp["pairs_equal_detections"] == 0:
-        fail(f"path F {label}: no pair with equal detections to compare: {cmp}")
+    if cmp["items"] != items or cmp["pairs_equal_detections"] == 0:
+        fail(f"{path} {label}: no pair with equal detections to compare: {cmp}")
     if not (cmp["detection_scores_max_abs_err"] <= EVAL_TOL
             and cmp["matching_scores_max_abs_err"] <= EVAL_TOL and cmp["match_agreement"] >= 0.99):
-        fail(f"path F {label}: predictions differ beyond {EVAL_TOL}: {cmp}")
+        fail(f"{path} {label}: predictions differ beyond {EVAL_TOL}: {cmp}")
 
 
 def ransac_profile(pred: dict, device_info: dict) -> dict:
     """One RANSAC call (`ops/ransac.py`, 1024 hypotheses) on a cached pair's
     matches: wall ms (CUDA events, after a warm-up) and device ms by kernel
     (torch.profiler): where a pair's RANSAC time goes."""
-    from torch.profiler import ProfilerActivity, profile
-
     from gluefactory_tpu_torch.ops.ransac import ransac_homography
     from gluefactory_tpu_torch.robust_estimators.homography.xla_ransac import bucket_pad
 
@@ -2060,7 +2106,15 @@ def ransac_profile(pred: dict, device_info: dict) -> dict:
     p0, p1, valid, n = bucket_pad(pred["keypoints0"][valid0],
                                   pred["keypoints1"][pred["matches0"][valid0]])
     args = [torch.from_numpy(x).to(DEVICE) for x in (p0, p1, valid)]
-    call = lambda: ransac_homography(*args, 0.5)
+    return {"matches": n, "bucket": len(valid), **profile_call(lambda: ransac_homography(*args, 0.5)),
+            "card": device_info["nvidia_smi"]}
+
+
+def profile_call(call) -> dict:
+    """One call's wall ms (CUDA events over 5 calls after a warm-up) and
+    device ms by kernel (torch.profiler), with its device launches."""
+    from torch.profiler import ProfilerActivity, profile
+
     call()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
@@ -2074,26 +2128,31 @@ def ransac_profile(pred: dict, device_info: dict) -> dict:
     rows = sorted(((ev.key, ev.self_device_time_total / 1e3, ev.count) for ev in prof.key_averages()
                    if ev.device_type == torch.autograd.DeviceType.CUDA and ev.self_device_time_total > 0),
                   key=lambda r: -r[1])
-    return {"matches": n, "bucket": len(valid), "wall_ms": start.elapsed_time(end) / 5,
+    return {"wall_ms": start.elapsed_time(end) / 5,
             "device_ms": sum(r[1] for r in rows) if rows else None,
             "device_launches": sum(r[2] for r in rows),
-            "top": [{"kernel": k[:100], "ms": ms, "calls": c} for k, ms, c in rows[:10]],
-            "card": device_info["nvidia_smi"]}
+            "top": [{"kernel": k[:100], "ms": ms, "calls": c} for k, ms, c in rows[:10]]}
 
 
 def hpatches_forward_profile(weights: Path) -> dict:
-    """Device busy share of one forward at path F's shapes: device ms
-    (torch.profiler) over the forward's wall ms (CUDA events, after a
-    warm-up)."""
-    from gluefactory_tpu_torch.core.config import from_yaml
+    """`forward_profile` of path F's last pair."""
     from gluefactory_tpu_torch.data import get_dataset
+
+    return forward_profile(weights, "hpatches",
+                           get_dataset("hpatches")({}).get_dataset("test")[HPATCHES_PAIRS - 1])
+
+
+def forward_profile(weights: Path, benchmark: str, item: dict) -> dict:
+    """Device busy share of one forward of the official config's
+    `benchmark` model on `item`: device ms (torch.profiler) over the
+    forward's wall ms (CUDA events, after a warm-up)."""
+    from gluefactory_tpu_torch.core.config import from_yaml
     from gluefactory_tpu_torch.data.base_dataset import collate, prepare_batch
     from gluefactory_tpu_torch.eval.io import extract_benchmark_conf, load_model
 
     conf = extract_benchmark_conf(from_yaml(str(ROOT / "gluefactory_tpu_torch/configs/"
-                                                 "superpoint+lightglue-official.yaml")), "hpatches")
+                                                 "superpoint+lightglue-official.yaml")), benchmark)
     model = load_model(merge(conf.model, {"weights_file": str(weights)}), None, DEVICE)
-    item = get_dataset("hpatches")({}).get_dataset("test")[HPATCHES_PAIRS - 1]
     batch = prepare_batch({k: collate([item[k]]) for k in ("view0", "view1")}, DEVICE)
     forward = lambda: model(batch)
     with torch.no_grad():
@@ -2130,7 +2189,7 @@ def phase_hpatches(device_info: dict) -> dict:
     data_path, tsettings.DATA_PATH = tsettings.DATA_PATH, HPATCHES_ROOT
     try:
         weights = HPATCHES_ROOT / "weights.pth"
-        res = {"reduced": HPATCHES_REDUCED, "weights": hpatches_weights(weights, DEVICE),
+        res = {"reduced": HPATCHES_REDUCED, "weights": benchmark_weights(weights, DEVICE),
                "write_seconds": time.perf_counter() - t0}
         argv = [*HPATCHES_ARGV, f"model.weights_file={weights}"]
         run = run_hpatches([*argv, "--tag", "chip_smoke", "--overwrite"])
@@ -2208,6 +2267,247 @@ def phase_hpatches(device_info: dict) -> dict:
     return res
 
 
+# --------------------------------------------------------------------------
+# 11. path G: the MegaDepth-1500 benchmark (superpoint+lightglue-official)
+# --------------------------------------------------------------------------
+
+# DATA_PATH of the run; the posed-images layout is written under it
+MD_ROOT = ROOT / "outputs" / "chip_smoke_megadepth1500"
+MD_SCENES = [("scene0", "PINHOLE", 0), ("scene1", "SIMPLE_RADIAL", 1)]  # (scene, camera, seed)
+MD_VIEWS, MD_PAIRS_PER_SCENE = 7, 20
+MD_SIZE = (1920, 1440)  # (w, h): resized to 1600 on the long side by `area`, depths by `nearest`
+MD_PAIRS = MD_PAIRS_PER_SCENE * len(MD_SCENES)
+MD_REDUCED = {
+    "pairs": f"{MD_PAIRS} of 1500: {len(MD_SCENES)} procedural posed scenes (textured planes ray cast, "
+             f"{MD_VIEWS} views each, one PINHOLE and one SIMPLE_RADIAL) written to "
+             "outputs/chip_smoke_megadepth1500, since megadepth1500 is not on disk",
+    "depth_format": "png (16-bit, 1/256 units) for h5: the card's host has no h5py",
+    "weights": "random from seed 0, drawn as path F draws them but on the CPU, the descriptor head "
+               "centred on one of the path's views: official weights are not on disk",
+}
+MD_ARGV = ["--conf", "superpoint+lightglue-official", "eval.estimator=xla_ransac", "eval.ransac_th=0.5",
+           "data.depth_format=png"]
+MD_DISPATCH = 4  # items_per_dispatch of the grouped run
+# the card's RANSAC on synthetic correspondences: points, outlier share,
+# normalized threshold; R and t within 1 degree of the truth and 0.5 of the
+# CPU's, inlier masks 99% equal (cuSOLVER picks other bases than LAPACK)
+MD_SYNTH = {"points": 1024, "outliers": 0.3, "th": 2e-3, "truth_deg": 1.0, "cpu_deg": 0.5,
+            "inliers_equal": 0.99}
+
+
+def write_megadepth(root: Path) -> None:
+    from gluefactory_tpu_torch.scripts_dev.posed_scenes import write_posed_images
+
+    shutil.rmtree(root, ignore_errors=True)
+    for scene, model, seed in MD_SCENES:
+        write_posed_images(root / "megadepth1500", scene, n_views=MD_VIEWS, n_pairs=MD_PAIRS_PER_SCENE,
+                           size=MD_SIZE, model=model, seed=seed)
+
+
+def run_megadepth(argv: list) -> dict:
+    from gluefactory_tpu_torch.eval import megadepth1500
+    from gluefactory_tpu_torch.robust_estimators.relative_pose import xla_ransac
+
+    return run_eval_cli(megadepth1500.main, megadepth1500.MegaDepth1500Pipeline, xla_ransac,
+                        "ransac_essential", argv)
+
+
+def essential_on_the_card() -> dict:
+    """`ransac_essential` (5pt, 512 hypotheses sets) on synthetic
+    correspondences from a known pose, on the card and on the CPU: the
+    card's R and t against the truth and the CPU's, the inlier masks."""
+    from gluefactory_tpu_torch.eval.utils import angle_error_mat_np, angle_error_vec_np
+    from gluefactory_tpu_torch.ops.ransac import ransac_essential
+    from gluefactory_tpu_torch.robust_estimators.homography.xla_ransac import bucket_pad
+    from gluefactory_tpu_torch.scripts_dev.posed_scenes import synthetic_correspondences
+
+    p0, p1, R, t, _, _ = synthetic_correspondences(np.random.default_rng(11), MD_SYNTH["points"],
+                                                   3e-4, MD_SYNTH["outliers"])
+    args = [torch.from_numpy(x) for x in bucket_pad(p0, p1)[:3]]
+    cpu = ransac_essential(*args, MD_SYNTH["th"], seed=0, n_iters=512)
+    card = ransac_essential(*(x.to(DEVICE) for x in args), MD_SYNTH["th"], seed=0, n_iters=512)
+    devices = sorted({str(v.device) for v in card.values()})
+    Rc, tc = card["R"].cpu().double().numpy(), card["t"].cpu().double().numpy()
+    res = {**{k: MD_SYNTH[k] for k in ("points", "outliers", "th")}, "devices": devices,
+           "success": bool(card["success"]), "num_inliers": int(card["num_inliers"]),
+           "num_inliers_cpu": int(cpu["num_inliers"]),
+           "R_err_deg": float(angle_error_mat_np(Rc, R)), "t_err_deg": float(angle_error_vec_np(tc, t)),
+           "R_vs_cpu_deg": float(angle_error_mat_np(Rc, cpu["R"].double().numpy())),
+           "t_vs_cpu_deg": float(angle_error_vec_np(tc, cpu["t"].double().numpy())),
+           "inliers_equal": float((card["inliers"].cpu() == cpu["inliers"]).float().mean())}
+    if not (res["success"] and devices == [str(torch.empty(0, device=DEVICE).device)]
+            and max(res["R_err_deg"], res["t_err_deg"]) <= MD_SYNTH["truth_deg"]
+            and max(res["R_vs_cpu_deg"], res["t_vs_cpu_deg"]) <= MD_SYNTH["cpu_deg"]
+            and res["inliers_equal"] >= MD_SYNTH["inliers_equal"]):
+        fail(f"path G: ransac_essential on the card: {res}")
+    return res
+
+
+def gt_on_the_card(item: dict, pred: dict) -> dict:
+    """`gt_matches_from_pose_depth` on a cached pair's keypoints (in the
+    processed images' pixels), its depths, cameras and pose, on the card
+    and on the CPU: the matches and visibilities equal."""
+    from gluefactory_tpu_torch.data.base_dataset import collate, prepare_batch
+    from gluefactory_tpu_torch.geometry.gt_generation import gt_matches_from_pose_depth
+
+    batch = prepare_batch(collate([item]), "cpu")
+    kp = [torch.from_numpy(pred[f"keypoints{i}"] * item[f"view{i}"]["scales"])[None] for i in "01"]
+    args = (*kp, batch["view0"]["camera"], batch["view1"]["camera"], batch["T_0to1"],
+            batch["view0"]["depth"], batch["view1"]["depth"])
+    cpu = gt_matches_from_pose_depth(*args)
+    card = gt_matches_from_pose_depth(*(a.to(DEVICE) for a in args))
+    keys = ("matches0", "matches1", "visible0", "visible1")
+    res = {"keypoints": [int(k.shape[1]) for k in kp], "positives": int((cpu["matches0"] >= 0).sum()),
+           "unmatched": int((cpu["matches0"] == -1).sum()),
+           "devices": sorted({str(card[k].device) for k in keys}),
+           "differ": {k: int((card[k].cpu() != cpu[k]).sum()) for k in keys}}
+    if any(res["differ"].values()) or res["devices"] != [str(torch.empty(0, device=DEVICE).device)]:
+        fail(f"path G: gt_matches_from_pose_depth on the card differs from the CPU: {res}")
+    return res
+
+
+def essential_ransac_profile(item: dict, pred: dict, device_info: dict) -> dict:
+    """One call of the relative-pose estimator (`xla_ransac` on the card:
+    the 5-point RANSAC over 512 minimal sets) on a cached pair's matches, as
+    the eval loop makes it: wall ms, device ms by kernel and device launches
+    (`profile_call`)."""
+    from gluefactory_tpu_torch.data.base_dataset import collate, prepare_batch
+    from gluefactory_tpu_torch.robust_estimators import load_estimator
+    from gluefactory_tpu_torch.utils.tensor import rbd
+
+    batch = rbd(prepare_batch(collate([item]), "cpu"))
+    m = pred["matches0"] >= 0
+    data = {"m_kpts0": pred["keypoints0"][m] * item["view0"]["scales"],
+            "m_kpts1": pred["keypoints1"][pred["matches0"][m]] * item["view1"]["scales"],
+            "camera0": batch["view0"]["camera"], "camera1": batch["view1"]["camera"]}
+    estimator = load_estimator("relative_pose", "xla_ransac")({"ransac_th": 0.5, "device": DEVICE})
+    res = {"matches": int(m.sum()), **profile_call(lambda: estimator(data)), "card": device_info["nvidia_smi"]}
+    res["busy_share"] = res["device_ms"] / res["wall_ms"] if res["device_ms"] is not None else None
+    return res
+
+
+def phase_megadepth(device_info: dict) -> dict:
+    """Path G: the MegaDepth-1500 CLI's `main` in process on the official
+    config's megadepth1500 section at full width (SuperPoint 2048
+    keypoints, nms 3, LightGlue-9 dense, filter 0.1, f32, 1600 on the long
+    side), `eval.estimator=xla_ransac`, `ransac_th 0.5`, cut as MD_REDUCED
+    says. Gates: the cache's items and keys, 9 + 9 attention launches a
+    pair, the RANSAC on the card, finite match metrics and AUCs; a run with
+    the plain versions and a grouped export against the per-item one; an
+    --overwrite_eval rerun that reads the cache; the essential RANSAC and
+    the pose-depth ground truth on the card against the CPU."""
+    import gluefactory_tpu_torch.settings as tsettings
+    from gluefactory_tpu_torch.data import get_dataset
+    from gluefactory_tpu_torch.eval.megadepth1500 import MegaDepth1500Pipeline
+
+    card = device_info["nvidia_smi"]
+    print(f"path G reduced: {json.dumps(MD_REDUCED)}", flush=True)
+    t0 = time.perf_counter()
+    write_megadepth(MD_ROOT)
+    data_path, tsettings.DATA_PATH = tsettings.DATA_PATH, MD_ROOT
+    try:
+        res = {"reduced": MD_REDUCED, "write_seconds": time.perf_counter() - t0}
+        # both attention kernels against their plain versions (and timed) at
+        # the path's shape before the path runs them
+        res["attention"] = attention_at_shapes(torch.device(DEVICE), torch.float32, KEYPOINTS, 1,
+                                               "path G", backward=False)
+        items = get_dataset("posed_images")(MegaDepth1500Pipeline(
+            {"data": {"depth_format": "png"}}).conf.data).get_dataset("test")
+        weights = MD_ROOT / "weights.pth"
+        # drawn on the CPU: the card's draw from seed 0 matched nothing at 2048
+        # keypoints (matching scores below 0.012), the CPU's 10-21 points a pair
+        res["weights"] = benchmark_weights(weights, DEVICE, "megadepth1500", items[MD_PAIRS - 1]["view1"],
+                                           draw_device="cpu")
+        argv = [*MD_ARGV, f"model.weights_file={weights}"]
+        run = run_megadepth([*argv, "--tag", "chip_smoke", "--overwrite"])
+        per_pair = {"fused_attention": LAYERS, "fused_bidirectional_attention": LAYERS}
+        _check_launches("path G", run["launches"], {k: MD_PAIRS * n for k, n in per_pair.items()})
+        cache = _cache("chip_smoke", "megadepth1500")
+        keys = set(MegaDepth1500Pipeline.export_keys)
+        if len(cache) != MD_PAIRS or any(set(p) != keys for p in cache.values()):
+            fail(f"path G: the cache holds {len(cache)} items, expected {MD_PAIRS} with {keys}")
+        calls = run["ransac_calls"]
+        card_device = str(torch.empty(0, device=DEVICE).device)
+        if not calls or any(c["devices"] != [card_device] for c in calls):
+            fail(f"path G: the RANSAC ran on {[c['devices'] for c in calls]}, expected the card "
+                 f"(matches a pair: {run['results']['num_matches']})")
+        s = run["summaries"]
+        metrics = {k: s.get(k) for k in ("mepi_prec@1e-4", "mepi_prec@5e-4", "mepi_prec@1e-3",
+                                          "mreproj_prec@1px", "mreproj_prec@3px", "mreproj_prec@5px",
+                                          "mgt_match_recall@3px", "mgt_match_precision@3px",
+                                          "rel_pose_error@5°", "rel_pose_error@10°", "rel_pose_error@20°")}
+        if not all(isinstance(v, float) and math.isfinite(v) for v in metrics.values()):
+            fail(f"path G: metrics not finite: {metrics}")
+        export_s, eval_s = run["seconds"]["get_predictions"], run["seconds"]["run_eval"]
+        ransac_ms = [c["ms"] for c in calls]
+        res["run"] = {**{k: v for k, v in run.items() if k != "results"},
+                      "export_pairs_per_s": MD_PAIRS / export_s,
+                      "ransac_ms_per_call": float(np.mean(ransac_ms)),
+                      "ransac_ms_median": float(np.median(ransac_ms)),
+                      "ransac_ms_first": ransac_ms[0],
+                      "ransac_ms_range": [float(min(ransac_ms)), float(max(ransac_ms))],
+                      "ransac_host_ms_per_call": float(np.mean([c["host_ms"] for c in calls])),
+                      "ransac_calls": len(calls), "matches_per_pair": run["results"]["num_matches"],
+                      "rel_pose_error": run["results"]["rel_pose_error"]}
+        print(f"path G: {MD_PAIRS} pairs, launches {json.dumps(run['launches'])}, summaries "
+              f"{json.dumps(s)}", flush=True)
+        print(f"path G: export {res['run']['export_pairs_per_s']:.2f} pairs/s ({export_s:.1f} s), eval "
+              f"loop {eval_s:.2f} s, RANSAC {res['run']['ransac_ms_per_call']:.3f} ms a pair by CUDA "
+              f"events over {len(calls)} calls (median {res['run']['ransac_ms_median']:.3f}, first "
+              f"{ransac_ms[0]:.3f}; host {res['run']['ransac_host_ms_per_call']:.3f} ms) ({card})",
+              flush=True)
+
+        names = [items.parent.items[i] for i in range(MD_PAIRS)]
+        index = {"/".join(n[1:]): i for i, n in enumerate(names)}
+        busiest = max(cache, key=lambda n: int((cache[n]["matches0"] >= 0).sum()))
+        item = items[index[busiest]]
+        res["ransac_profile"] = essential_ransac_profile(item, cache[busiest], device_info)
+        print(f"path G RANSAC profile: {json.dumps(res['ransac_profile'])}", flush=True)
+        res["gt_on_card"] = gt_on_the_card(item, cache[busiest])
+        print(f"path G gt_matches_from_pose_depth, card vs CPU: {json.dumps(res['gt_on_card'])}", flush=True)
+        res["essential_on_card"] = essential_on_the_card()
+        print(f"path G ransac_essential on the card: {json.dumps(res['essential_on_card'])} ({card})",
+              flush=True)
+        res["forward"] = forward_profile(weights, "megadepth1500", item)
+        print(f"path G forward: {res['forward']['wall_ms']:.2f} ms wall, device "
+              f"{res['forward']['device_ms']} ms, busy share {res['forward']['busy_share']} ({card})",
+              flush=True)
+
+        plain = run_megadepth([*argv, "model.matcher.flash=False", "--tag", "chip_smoke_plain",
+                               "--overwrite"])
+        _check_launches("path G plain", plain["launches"], {})
+        res["vs_plain"] = compare_caches(cache, _cache("chip_smoke_plain", "megadepth1500"))
+        print(f"path G kernels vs plain versions: {json.dumps(res['vs_plain'])}", flush=True)
+        _check_agreement("kernels vs plain", res["vs_plain"], MD_PAIRS, "path G")
+
+        cache_file = Path(tsettings.EVAL_PATH, "megadepth1500", "chip_smoke", "predictions.npz")
+        mtime = cache_file.stat().st_mtime_ns
+        again = run_megadepth([*argv, "--tag", "chip_smoke", "--overwrite_eval"])
+        _check_launches("path G --overwrite_eval", again["launches"], {})
+        if cache_file.stat().st_mtime_ns != mtime or again["summaries"] != s:
+            fail("path G: the --overwrite_eval rerun did not reuse the cache or changed the summaries")
+        res["overwrite_eval"] = {"seconds": again["seconds"], "summaries_equal": True}
+        print(f"path G --overwrite_eval: cache reused, summaries equal, eval loop "
+              f"{again['seconds']['run_eval']:.2f} s", flush=True)
+
+        grouped = run_megadepth([*argv, f"items_per_dispatch={MD_DISPATCH}", "--tag",
+                                 "chip_smoke_grouped", "--overwrite"])
+        forwards = -(-MD_PAIRS // MD_DISPATCH)
+        _check_launches("path G grouped", grouped["launches"],
+                        {k: forwards * n for k, n in per_pair.items()})
+        res["grouped"] = {**compare_caches(cache, _cache("chip_smoke_grouped", "megadepth1500")),
+                          "items_per_dispatch": MD_DISPATCH,
+                          "export_pairs_per_s": MD_PAIRS / grouped["seconds"]["get_predictions"]}
+        print(f"path G items_per_dispatch={MD_DISPATCH} vs per item: {json.dumps(res['grouped'])} "
+              f"({card})", flush=True)
+        _check_agreement("grouped vs per item", res["grouped"], MD_PAIRS, "path G")
+    finally:
+        tsettings.DATA_PATH = data_path
+    res["seconds"] = time.perf_counter() - t0
+    res["card"] = card
+    return res
+
+
 def train_conf():
     """The trainer's conf of path E: its defaults, the shipped config and
     TRAIN_ARGV's overrides, as `train.main` merges them."""
@@ -2244,12 +2544,15 @@ def main() -> None:
     torch.cuda.empty_cache()
     path_f = phase_hpatches(device_info)
     torch.cuda.empty_cache()
+    path_g = phase_megadepth(device_info)
+    torch.cuda.empty_cache()
     kernels += phase_conv_study(device_info)  # launches from the tools' runs
     OUT_DIR.mkdir(exist_ok=True)
     record = {"device": device_info, "build": build, "kernels": kernels, "gradients": gradients,
               "main_path": main_path,
               "path_b_superglue": path_b, "path_c_fused_superpoint": path_c,
               "path_d_serving": path_d, "path_e_training": path_e, "path_f_hpatches": path_f,
+              "path_g_megadepth1500": path_g,
               "seconds": time.perf_counter() - t0}
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(record, indent=1))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",

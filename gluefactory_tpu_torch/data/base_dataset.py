@@ -4,8 +4,8 @@
 Datasets run on the host in the loader's workers and emit nested dicts of
 numpy arrays with static shapes per split. `collate` stacks them into torch
 tensors, which the loader pins when the batches go to a CUDA device, so
-that `prepare_batch` copies them there without blocking the host. Camera
-and pose conversion (stage 2) is not ported yet.
+that `prepare_batch` copies them there without blocking the host, and turns
+`camera` dicts into `Camera` and `T_*` matrices into `Pose` there.
 """
 
 from __future__ import annotations
@@ -15,6 +15,7 @@ import torch
 import torch.utils.data as torch_data
 
 from ..core.config import Config, merge
+from ..geometry.wrappers import Camera, Pose
 from ..utils.tensor import batch_to_device
 
 
@@ -37,8 +38,20 @@ def collate(batch: list):
 
 
 def prepare_batch(batch, device):
-    """A collated batch on `device` (non-blocking from pinned memory)."""
-    return batch_to_device(batch, device)
+    """A collated batch on `device` (non-blocking from pinned memory), with
+    every `camera` dict as a `Camera` and every `T_*` matrix (..., 4, 4) as
+    a float32 `Pose`."""
+
+    def convert(key, value):
+        if isinstance(value, dict):
+            if key == "camera":
+                return Camera(value["size"], value["f"], value["c"], value.get("dist"))
+            return {k: convert(k, v) for k, v in value.items()}
+        if isinstance(key, str) and key.startswith("T_") and torch.is_tensor(value):
+            return Pose.from_4x4mat(value.to(torch.float32))
+        return value
+
+    return {k: convert(k, v) for k, v in batch_to_device(batch, device).items()}
 
 
 class LoopSampler(torch_data.Sampler):

@@ -25,8 +25,11 @@ fixed-point BGR -> grey ((4899 R + 9617 G + 1868 B + 2^13) >> 14).
   in SSE's pairwise order on the columns of its 4-lane loop), at any other
   downscale the overlap weights of `computeResizeAreaTab` accumulated in
   float32 as `resizeArea_` does (source row by row, then rows); when an
-  axis grows, the two-tap interpolation with the area-mode weights.
-`cubic` and `nearest` raise `NotImplementedError`.
+  axis grows, the two-tap interpolation with the area-mode weights;
+- `nearest` is `INTER_NEAREST` (not `INTER_NEAREST_EXACT`): destination
+  index x takes source index floor(x / (dst / src)), in float64, clamped to
+  the last one (the depth maps' resize).
+`cubic` raises `NotImplementedError`.
 
 `ImagePreprocessor` resizes by side (`short` / `long` / `vert` / `horz`),
 trims to `edge_divisible_by`, downsamples with `area` under `antialias`,
@@ -228,14 +231,25 @@ def _resize_area(img: np.ndarray, nw: int, nh: int) -> np.ndarray:
     return _accumulate(_accumulate(src, 1, nw, sx), 0, nh, sy)
 
 
+def _resize_nearest(img: np.ndarray, nw: int, nh: int) -> np.ndarray:
+    h, w = img.shape[:2]
+
+    def index(dst, src):
+        return np.minimum(np.floor(np.arange(dst) * (1.0 / (dst / src))).astype(np.int64), src - 1)
+
+    return img.reshape(h, w, -1)[index(nh, h)][:, index(nw, w)]
+
+
+_RESIZE = {"linear": _resize_linear, "area": _resize_area, "nearest": _resize_nearest}
+
+
 def resize_image(img: np.ndarray, size, interp: str = "linear"):
     """Resize to (w, h); returns (resized, scales (2,) new/old [x, y])."""
-    if interp not in ("linear", "area"):
+    if interp not in _RESIZE:
         raise NotImplementedError(f"resize_image: interpolation {interp!r} is not ported")
     h, w = img.shape[:2]
     nw, nh = int(size[0]), int(size[1])
-    resize = _resize_area if interp == "area" else _resize_linear
-    return resize(img, nw, nh), np.array([nw / w, nh / h], dtype=np.float32)
+    return _RESIZE[interp](img, nw, nh), np.array([nw / w, nh / h], dtype=np.float32)
 
 
 class ImagePreprocessor:

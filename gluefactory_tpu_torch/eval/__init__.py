@@ -1,12 +1,12 @@
 """Benchmarks (counterpart of `gluefactory_tpu/eval/__init__.py`). Ported:
-`hpatches`. MegaDepth-1500, ScanNet-1500, ETH3D and ZEB need the camera
-geometry, the relative-pose solvers and depth, which are not ported yet."""
+`hpatches`, `megadepth1500` and `scannet1500`. ETH3D and ZEB are not
+ported yet."""
 
 from __future__ import annotations
 
 from pathlib import Path
 
-_WAITING = ("megadepth1500", "scannet1500", "eth3d", "zeb")
+_WAITING = ("eth3d", "zeb")
 
 
 def get_benchmark(benchmark: str):
@@ -14,10 +14,16 @@ def get_benchmark(benchmark: str):
         from .hpatches import HPatchesPipeline
 
         return HPatchesPipeline
+    if benchmark == "megadepth1500":
+        from .megadepth1500 import MegaDepth1500Pipeline
+
+        return MegaDepth1500Pipeline
+    if benchmark == "scannet1500":
+        from .scannet1500 import ScanNet1500Pipeline
+
+        return ScanNet1500Pipeline
     if benchmark in _WAITING:
-        raise NotImplementedError(
-            f"benchmark {benchmark} is not ported yet: it needs the camera geometry "
-            "(geometry/wrappers.py), the relative-pose solvers and depth (ROADMAP queue 5)")
+        raise NotImplementedError(f"benchmark {benchmark} is not ported yet (ROADMAP queue 5)")
     raise ValueError(f"unknown benchmark {benchmark}")
 
 

@@ -1,11 +1,9 @@
-"""Per-pair evaluation metrics (counterpart of `gluefactory_tpu/eval/utils.py`,
-its homography and generic parts).
+"""Per-pair evaluation metrics (counterpart of `gluefactory_tpu/eval/utils.py`).
 
 They run in the eval pipeline's second loop, one item at a time on the
-host, in numpy over the cached predictions; the robust estimators come from
-the registry (`xla_ransac` runs on the device its conf names). The
-epipolar, depth and relative-pose metrics wait for the camera geometry
-(`geometry/wrappers.py`).
+host, in numpy over the cached predictions, and the depth metrics in torch
+on the CPU, where the JAX package pins them; the robust estimators come
+from the registry (`xla_ransac` runs on the device its conf names).
 """
 
 from __future__ import annotations
@@ -13,7 +11,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..geometry.depth import symmetric_reprojection_error
+from ..geometry.gt_generation import gt_matches_from_pose_depth
 from ..geometry.homography import compute_homography_dlt
+from ..geometry.wrappers import Camera, Pose
 from ..robust_estimators import load_estimator
 from ..utils.tools import AUCMetric
 
@@ -29,6 +30,45 @@ def sym_homography_error_np(kpts0, kpts1, H) -> np.ndarray:
     d01 = np.linalg.norm(warp_points_np(kpts0, H) - kpts1, axis=-1)
     d10 = np.linalg.norm(warp_points_np(kpts1, H, inverse=True) - kpts0, axis=-1)
     return 0.5 * (d01 + d10)
+
+
+def sym_epipolar_distance_np(p0, p1, E, squared=True) -> np.ndarray:
+    """Symmetric epipolar distance; its non-squared form is the mean of the
+    two point-to-line distances."""
+    p0h = np.concatenate([p0, np.ones_like(p0[..., :1])], -1)
+    p1h = np.concatenate([p1, np.ones_like(p1[..., :1])], -1)
+    Ep0 = p0h @ E.T
+    Etp1 = p1h @ E
+    p1Ep0 = np.sum(p1h * Ep0, -1)
+    d0 = np.maximum(Ep0[..., 0] ** 2 + Ep0[..., 1] ** 2, 1e-6)
+    d1 = np.maximum(Etp1[..., 0] ** 2 + Etp1[..., 1] ** 2, 1e-6)
+    if squared:
+        return p1Ep0**2 * (1.0 / d0 + 1.0 / d1)
+    return np.abs(p1Ep0) * (1.0 / np.sqrt(d0) + 1.0 / np.sqrt(d1)) / 2.0
+
+
+def pose_to_E(T: Pose) -> np.ndarray:
+    R, t = np.asarray(T.R), np.asarray(T.t)
+    tx = np.array([[0, -t[2], t[1]], [t[2], 0, -t[0]], [-t[1], t[0], 0]], dtype=np.float64)
+    return tx @ R
+
+
+def angle_error_mat_np(R1, R2):
+    cos = np.clip((np.trace(R1.T @ R2) - 1) / 2, -1.0, 1.0)
+    return np.rad2deg(np.abs(np.arccos(cos)))
+
+
+def angle_error_vec_np(v1, v2):
+    """The angle between two directions, up to sign (at most 90 degrees)."""
+    n = np.linalg.norm(v1) * np.linalg.norm(v2)
+    err = np.rad2deg(np.arccos(np.clip(np.dot(v1, v2) / (n + 1e-15), -1.0, 1.0)))
+    return min(err, 180.0 - err)
+
+
+def relative_pose_error_np(T_0to1: Pose, R, t):
+    """(rotation error, translation direction error) in degrees."""
+    R_gt, t_gt = np.asarray(T_0to1.R), np.asarray(T_0to1.t)
+    return angle_error_mat_np(np.asarray(R), R_gt), angle_error_vec_np(np.asarray(t), t_gt)
 
 
 def get_matches_scores(kpts0, kpts1, matches0, mscores0):
@@ -62,6 +102,84 @@ def eval_matches_homography(data: dict, pred: dict) -> dict:
         "prec@3px": _precision(err, 3),
         "num_matches": int(pts0.shape[0]),
         "num_keypoints": float(n0 + n1) / 2.0,
+    }
+
+
+def eval_matches_epipolar(data: dict, pred: dict) -> dict:
+    """The matches' epipolar precisions (mean line distance in normalized
+    coordinates below 1e-4, 5e-4, 1e-3; 0 without matches)."""
+    camera0: Camera = data["view0"]["camera"]
+    camera1: Camera = data["view1"]["camera"]
+    pts0, pts1, _ = _matches(pred)
+    p0 = camera0.normalize(torch.from_numpy(np.asarray(pts0, np.float32)[None]))[0].numpy()
+    p1 = camera1.normalize(torch.from_numpy(np.asarray(pts1, np.float32)[None]))[0].numpy()
+    epi_err = sym_epipolar_distance_np(p0, p1, pose_to_E(data["T_0to1"]), squared=False)
+    return {
+        "epi_prec@1e-4": _precision(epi_err, 1e-4),
+        "epi_prec@5e-4": _precision(epi_err, 5e-4),
+        "epi_prec@1e-3": _precision(epi_err, 1e-3),
+        "num_matches": int(pts0.shape[0]),
+        "num_keypoints": (len(pred["keypoints0"]) + len(pred["keypoints1"])) / 2.0,
+    }
+
+
+def _batched(x) -> torch.Tensor:
+    return torch.from_numpy(np.asarray(x, np.float32)[None])
+
+
+def eval_matches_depth(data: dict, pred: dict) -> dict:
+    """Reprojection precisions through the GT depths (over the matches with
+    valid depth in both views; 0 without any), the covisible count and
+    share, and the recall and precision of the matches against GT matches
+    from pose and depth at 3 / 5 px. On the CPU, in float32."""
+    camera0: Camera = data["view0"]["camera"]
+    camera1: Camera = data["view1"]["camera"]
+    T_0to1: Pose = data["T_0to1"]
+    depth0, depth1 = _batched(data["view0"]["depth"]), _batched(data["view1"]["depth"])
+    pts0, pts1, _ = _matches(pred)
+    results: dict = {"num_matches": int(pts0.shape[0])}
+    if pts0.shape[0] == 0:
+        results.update({"reproj_prec@1px": 0.0, "reproj_prec@3px": 0.0, "reproj_prec@5px": 0.0,
+                        "covisible": 0.0, "covisible_percent": 0.0})
+    else:
+        err, valid = symmetric_reprojection_error(_batched(pts0), _batched(pts1), camera0, camera1,
+                                                  T_0to1, depth0, depth1)
+        err, valid = err[0].numpy(), valid[0].numpy()
+        sel = np.nan_to_num(err[valid], nan=np.inf)
+        results.update({
+            "reproj_prec@1px": _precision(sel, 1),
+            "reproj_prec@3px": _precision(sel, 3),
+            "reproj_prec@5px": _precision(sel, 5),
+            "covisible": float(valid.sum()),
+            "covisible_percent": float(valid.mean()) * 100.0,
+        })
+    gt = gt_matches_from_pose_depth(_batched(pred["keypoints0"]), _batched(pred["keypoints1"]),
+                                    camera0, camera1, T_0to1, depth0, depth1, pos_th=3.0, neg_th=5.0)
+    gt_m = gt["matches0"][0].numpy()
+    m = np.asarray(pred["matches0"])
+    pos = (gt_m > -1).astype(np.float64)
+    results["gt_match_recall@3px"] = float(((m == gt_m) * pos).sum() / (1e-8 + pos.sum()))
+    pmask = ((m > -1) & (gt_m >= -1)).astype(np.float64)
+    results["gt_match_precision@3px"] = float(((m == gt_m) * pmask).sum() / (1e-8 + pmask.sum()))
+    return results
+
+
+def eval_relative_pose_robust(data: dict, pred: dict, conf) -> dict:
+    """The estimator `conf["estimator"]` on the matches and its pose error,
+    the larger of the rotation and translation angles (inf where it
+    fails); `conf` also goes to the estimator (`ransac_th`, `device`)."""
+    pts0, pts1, _ = _matches(pred)
+    est = load_estimator("relative_pose", conf["estimator"])(conf)(
+        {"m_kpts0": pts0, "m_kpts1": pts1, "camera0": data["view0"]["camera"],
+         "camera1": data["view1"]["camera"]})
+    if not est["success"]:
+        return {"rel_pose_error": np.inf, "ransac_inl": 0, "ransac_inl%": 0.0}
+    inl = np.asarray(est["inliers"])
+    r_err, t_err = relative_pose_error_np(data["T_0to1"], est["M_0to1"].R, est["M_0to1"].t)
+    return {
+        "rel_pose_error": float(max(r_err, t_err)),
+        "ransac_inl": int(inl.sum()),
+        "ransac_inl%": float(inl.mean()) if inl.size else 0.0,
     }
 
 

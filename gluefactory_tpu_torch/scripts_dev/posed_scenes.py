@@ -1,0 +1,215 @@
+"""Procedural posed scenes for the relative-pose benchmarks: textured planes
+at several depths, ray cast from each camera, so that every view's image
+and depth map come from one geometry.
+
+`synthetic_correspondences(rng, n, ...)` draws normalized correspondences
+of random points under a random relative pose, with outliers, for the
+essential-matrix RANSAC.
+
+`write_posed_images(root, scene, ...)` writes a scene in MegaDepth-1500's
+posed-images layout (`<root>/<scene>/images/*.jpg`, `depths/*.png` as
+16-bit PNG in 1/256 units, `views.txt`, `pairs.txt`);
+`write_image_pairs(root, scene, ...)` writes ScanNet-1500's
+(`<root>/<scene>/*.jpg` and lines of `pairs_calibrated.txt`). Views are
+named `<scene>_imNN`. Images are
+written by Pillow (JPEG quality 95). A scene is the same for the same
+seed: a back wall, a floor and two tilted panels, each with a procedural
+texture (`data.homographies.generate_synthetic_image`), seen by cameras
+spread around the origin, looking down +z.
+
+    python -m gluefactory_tpu_torch.scripts_dev.posed_scenes <root> [--size 1920 1440]
+"""
+
+from __future__ import annotations
+
+import argparse
+import itertools
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from ..data.homographies import generate_synthetic_image
+from ..geometry.utils import image_grid, so3exp_map
+from ..geometry.wrappers import Camera
+
+
+def synthetic_correspondences(rng, n: int, noise: float = 0.0, outliers: float = 0.0):
+    """n correspondences (normalized coordinates, float32) of points 2-6 in
+    front of camera 0 under a random pose (rotation 0.1-0.5 rad about a
+    random axis, unit translation), Gaussian `noise` on both views, a share
+    of `outliers` of view 1's points replaced by uniform ones in
+    [-0.5, 0.5]. Returns (p0, p1, R, t, unit E, outlier mask)."""
+    a = rng.normal(size=3)
+    a = a / np.linalg.norm(a) * rng.uniform(0.1, 0.5)
+    th = np.linalg.norm(a)
+    k = a / th
+    K = np.array([[0, -k[2], k[1]], [k[2], 0, -k[0]], [-k[1], k[0], 0]])
+    R = np.eye(3) + np.sin(th) * K + (1 - np.cos(th)) * K @ K
+    t = rng.normal(size=3)
+    t /= np.linalg.norm(t)
+    X = rng.uniform(-1, 1, (n, 3))
+    X[:, 2] = rng.uniform(2, 6, n)
+    X1 = X @ R.T + t
+    p0 = X[:, :2] / X[:, 2:] + rng.normal(size=(n, 2)) * noise
+    p1 = X1[:, :2] / X1[:, 2:] + rng.normal(size=(n, 2)) * noise
+    out = np.zeros(n, bool)
+    out[rng.choice(n, int(round(outliers * n)), replace=False)] = True
+    p1[out] = rng.uniform(-0.5, 0.5, (out.sum(), 2))
+    tx = np.array([[0, -t[2], t[1]], [t[2], 0, -t[0]], [-t[1], t[0], 0]])
+    E = tx @ R
+    return p0.astype(np.float32), p1.astype(np.float32), R, t, E / np.linalg.norm(E), out
+
+
+def _rot_y(deg: float) -> np.ndarray:
+    a = np.deg2rad(deg)
+    return np.array([[np.cos(a), 0, np.sin(a)], [0, 1, 0], [-np.sin(a), 0, np.cos(a)]])
+
+
+def make_planes(seed: int, texture_size=(512, 384)) -> list:
+    """(centre, axis a, axis b, half extents, texture) of each plane, in
+    world coordinates: not one plane, so that the relative pose is not
+    degenerate."""
+    rng = np.random.default_rng(seed)
+    specs = [
+        ((0.0, 0.0, 9.0), np.eye(3), (12.0, 9.0)),  # back wall
+        ((0.0, 2.2, 5.5), np.array([[1, 0, 0], [0, 0, 1], [0, -1, 0]], float), (12.0, 5.0)),  # floor
+        ((-1.3, -0.4, 4.5 + rng.uniform(-0.3, 0.3)), _rot_y(rng.uniform(20, 40)), (1.1, 1.0)),
+        ((1.5, 0.3, 6.0 + rng.uniform(-0.3, 0.3)), _rot_y(-rng.uniform(20, 40)), (1.3, 1.6)),
+    ]
+    planes = []
+    for k, (centre, rot, ext) in enumerate(specs):
+        tex = generate_synthetic_image(seed * 10 + k, texture_size).astype(np.float64)
+        planes.append((np.array(centre), rot[:, 0], rot[:, 1], np.array(ext), tex))
+    return planes
+
+
+def render(planes: list, camera: Camera, R: np.ndarray, t: np.ndarray):
+    """Ray cast a (w, h) view with world-to-camera pose (R, t): the image
+    (h, w, 3) in [0, 1] (each plane's texture, nearest texel) and the depth
+    (h, w) along the optical axis (0 where no plane is hit)."""
+    w, h = (int(v) for v in camera.size.tolist())
+    rays = camera.image2cam(image_grid(h, w, dtype=torch.float64).reshape(1, -1, 2))[0]
+    rays = rays.numpy() @ R  # world directions of unit-depth camera rays
+    origin = -R.T @ t
+    depth = np.full(h * w, np.inf)
+    image = np.zeros((h * w, 3))
+    for centre, a, b, ext, tex in planes:
+        n = np.cross(a, b)
+        denom = rays @ n
+        with np.errstate(divide="ignore", invalid="ignore"):
+            s = ((centre - origin) @ n) / denom
+        hit = origin + s[:, None] * rays - centre
+        u, v = hit @ a, hit @ b
+        inside = (s > 0) & (np.abs(u) <= ext[0]) & (np.abs(v) <= ext[1]) & (s < depth)
+        th, tw = tex.shape[:2]
+        tx = np.clip(((u[inside] / ext[0] + 1) / 2 * (tw - 1)).round().astype(int), 0, tw - 1)
+        ty = np.clip(((v[inside] / ext[1] + 1) / 2 * (th - 1)).round().astype(int), 0, th - 1)
+        image[inside] = tex[ty, tx]
+        depth[inside] = s[inside]
+    depth[~np.isfinite(depth)] = 0.0
+    return image.reshape(h, w, 3), depth.reshape(h, w)
+
+
+def make_cameras(seed: int, n_views: int, size, model: str = "PINHOLE"):
+    """n_views (COLMAP camera dict, R, t) spread around the origin: centres
+    within +-0.8 in x and +-0.4 in y, rotations of up to ~8 degrees."""
+    rng = np.random.default_rng(seed)
+    w, h = size
+    f = 0.8 * w
+    out = []
+    for _ in range(n_views):
+        if model == "PINHOLE":
+            params = [f, f * rng.uniform(0.98, 1.02), w / 2, h / 2]
+        elif model == "SIMPLE_RADIAL":
+            params = [f, w / 2, h / 2, rng.uniform(-0.04, 0.04)]
+        else:
+            raise ValueError(f"procedural scenes take PINHOLE or SIMPLE_RADIAL, not {model}")
+        R = so3exp_map(torch.from_numpy(rng.normal(size=3) * np.deg2rad(4))).numpy()
+        centre = np.array([rng.uniform(-0.8, 0.8), rng.uniform(-0.4, 0.4), rng.uniform(-0.3, 0.3)])
+        out.append(({"model": model, "width": w, "height": h, "params": params}, R, -R @ centre))
+    return out
+
+
+def _save_jpeg(path: Path, image: np.ndarray) -> None:
+    from PIL import Image
+
+    Image.fromarray((image * 255).round().astype(np.uint8)).save(path, quality=95)
+
+
+def _save_depth_png(path: Path, depth: np.ndarray) -> None:
+    from PIL import Image
+
+    Image.fromarray(np.clip(np.round(depth * 256), 0, 65535).astype(np.uint16)).save(path)
+
+
+def _render_views(scene: str, seed: int, n_views: int, size, model: str):
+    """(name, camera dict, R, t, image, depth) of each view; names carry the
+    scene, so that pair names are unique across scenes."""
+    planes = make_planes(seed)
+    for i, (cam, R, t) in enumerate(make_cameras(seed + 1, n_views, size, model)):
+        image, depth = render(planes, Camera.from_colmap(cam).to(torch.float64), R, t)
+        yield f"{scene}_im{i:02d}", cam, R, t, image, depth
+
+
+def _pairs(n_views: int, n_pairs: int) -> list:
+    pairs = list(itertools.combinations(range(n_views), 2))
+    if n_pairs > len(pairs):
+        raise ValueError(f"{n_views} views make {len(pairs)} pairs, not {n_pairs}")
+    return pairs[:n_pairs]
+
+
+def write_posed_images(root: Path, scene: str, n_views: int = 7, n_pairs: int = 20,
+                       size=(1920, 1440), model: str = "PINHOLE", seed: int = 0) -> int:
+    """One scene in the posed-images layout; returns the number of pairs."""
+    d = Path(root) / scene
+    (d / "images").mkdir(parents=True, exist_ok=True)
+    (d / "depths").mkdir(exist_ok=True)
+    lines, names = [], []
+    for name, cam, R, t, image, depth in _render_views(scene, seed, n_views, size, model):
+        names.append(f"{name}.jpg")
+        _save_jpeg(d / "images" / f"{name}.jpg", image)
+        _save_depth_png(d / "depths" / f"{name}.png", depth)
+        lines.append(" ".join([f"{name}.jpg", *(repr(float(x)) for x in R.ravel()),
+                               *(repr(float(x)) for x in t), cam["model"], str(cam["width"]),
+                               str(cam["height"]), *(repr(float(x)) for x in cam["params"])]))
+    (d / "views.txt").write_text("\n".join(lines) + "\n")
+    pairs = _pairs(n_views, n_pairs)
+    (d / "pairs.txt").write_text("".join(f"{names[i]} {names[j]}\n" for i, j in pairs))
+    return len(pairs)
+
+
+def write_image_pairs(root: Path, scene: str, n_views: int = 4, n_pairs: int = 5,
+                      size=(640, 480), seed: int = 0) -> list:
+    """One scene's PINHOLE views as `<root>/<scene>/<name>.jpg`; returns the
+    lines of `pairs_calibrated.txt` (names relative to root, K0, K1 and the
+    relative pose as 12 numbers)."""
+    d = Path(root) / scene
+    d.mkdir(parents=True, exist_ok=True)
+    views = []
+    for name, cam, R, t, image, _ in _render_views(scene, seed, n_views, size, "PINHOLE"):
+        _save_jpeg(d / f"{name}.jpg", image)
+        fx, fy, cx, cy = cam["params"]
+        views.append((f"{scene}/{name}.jpg", np.array([[fx, 0, cx], [0, fy, cy], [0, 0, 1]]), R, t))
+    lines = []
+    for i, j in _pairs(n_views, n_pairs):
+        (n0, K0, R0, t0), (n1, K1, R1, t1) = views[i], views[j]
+        T = np.concatenate([R1 @ R0.T, (t1 - R1 @ R0.T @ t0)[:, None]], axis=1)
+        lines.append(" ".join([n0, n1, *(repr(float(x)) for x in np.concatenate(
+            [K0.ravel(), K1.ravel(), T.ravel()]))]))
+    return lines
+
+
+def main(argv=None) -> None:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("root", type=Path)
+    parser.add_argument("--size", type=int, nargs=2, default=(1920, 1440))
+    parser.add_argument("--scenes", type=int, default=2)
+    args = parser.parse_args(argv)
+    for s in range(args.scenes):
+        write_posed_images(args.root, f"scene{s}", size=tuple(args.size),
+                           model="SIMPLE_RADIAL" if s % 2 else "PINHOLE", seed=s)
+
+
+if __name__ == "__main__":
+    main()

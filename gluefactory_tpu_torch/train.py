@@ -33,10 +33,11 @@ is taken in whatever dtype the model gives it.
 end of every epoch on the model in memory, with its conf from
 `benchmark_conf.<name>`, into `<output_dir>/benchmarks/<name>`, and writes
 its scalar summaries to the writer; a benchmark that fails is logged and
-training goes on, as in the JAX package. Only `hpatches` is ported.
+training goes on, as in the JAX package. Ported: `hpatches`,
+`megadepth1500` and `scannet1500`.
 
 Not ported yet, each raising `NotImplementedError`: `steps_per_dispatch >
-1`, `device_augment`, benchmarks other than `hpatches`, `plot` with a
+1`, `device_augment`, the benchmarks `eth3d` and `zeb`, `plot` with a
 writer, and more than one device (DDP).
 """
 
@@ -430,8 +431,8 @@ def check_supported(conf, args) -> None:
     if t.device_augment:
         raise NotImplementedError("device_augment (on-device augmentation) is not ported yet")
     for name in t.run_benchmarks or []:
-        if name != "hpatches":
-            raise NotImplementedError(f"benchmark {name} is not ported yet (only hpatches is)")
+        if name not in ("hpatches", "megadepth1500", "scannet1500"):
+            raise NotImplementedError(f"benchmark {name} is not ported yet")
 
 
 def training(conf: Config, output_dir: Path, args):

@@ -16,7 +16,10 @@ def is_array(x) -> bool:
 
 def map_tensor(input_, func):
     """Apply `func` to every tensor or array leaf of a nested dict / list /
-    tuple; strings, None and other leaves pass through unchanged."""
+    tuple, and to the tensors of a `Camera` or `Pose` (`map_tensors`);
+    strings, None and other leaves pass through unchanged."""
+    if hasattr(input_, "map_tensors"):
+        return input_.map_tensors(func)
     if isinstance(input_, dict):
         return {k: map_tensor(v, func) for k, v in input_.items()}
     if isinstance(input_, (list, tuple)):

@@ -87,9 +87,11 @@ def _assert_summaries_close(got: dict, want: dict, rtol: float):
         np.testing.assert_allclose(got[k], v, rtol=rtol, atol=1e-12, err_msg=k)
 
 
-def test_pipeline_equals_jax(fake_hpatches, capsys):
-    tmp, _ = fake_hpatches
-    conf = {"data": DATA, "model": MODEL, "eval": {"estimator": "xla_ransac", "ransac_th": [1.0, 3.0]}}
+def random_models():
+    """(JAX model, its params, the port's model) with the same random
+    weights: drawn in the port's layout as flax draws them (seed 4),
+    converted by the JAX package's converter, loaded back through
+    `from_jax_params`."""
     pj = jax_get_model("two_view_pipeline").from_conf(
         {"extractor": MODEL["extractor"], "matcher": {**MODEL["matcher"], "checkpointed": False}})
     torch.manual_seed(4)
@@ -107,6 +109,13 @@ def test_pipeline_equals_jax(fake_hpatches, capsys):
                          "matcher_model": convert_lightglue(part("matcher."), n_layers=2, dim=64,
                                                             num_heads=2)}}
     pt.load_state_dict(from_jax_params(params["params"], "two_view_pipeline", num_heads=2))
+    return pj, params, pt
+
+
+def test_pipeline_equals_jax(fake_hpatches, capsys):
+    tmp, _ = fake_hpatches
+    conf = {"data": DATA, "model": MODEL, "eval": {"estimator": "xla_ransac", "ransac_th": [1.0, 3.0]}}
+    pj, params, pt = random_models()
     sj, _, rj = jax_hpatches.HPatchesPipeline(conf).run(
         tmp / "jax", model=pj, variables=params, overwrite=True, overwrite_eval=True)
     th_jax = _best_threshold(capsys.readouterr().out)

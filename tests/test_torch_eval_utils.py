@@ -369,9 +369,13 @@ def test_load_model_from_a_training_run(tmp_path, monkeypatch):
 
 def test_benchmark_registry():
     from gluefactory_tpu_torch.eval.hpatches import HPatchesPipeline
+    from gluefactory_tpu_torch.eval.megadepth1500 import MegaDepth1500Pipeline
+    from gluefactory_tpu_torch.eval.scannet1500 import ScanNet1500Pipeline
 
     assert get_benchmark("hpatches") is HPatchesPipeline
-    for name in ("megadepth1500", "scannet1500", "eth3d", "zeb"):
+    assert get_benchmark("megadepth1500") is MegaDepth1500Pipeline
+    assert get_benchmark("scannet1500") is ScanNet1500Pipeline
+    for name in ("eth3d", "zeb"):
         with pytest.raises(NotImplementedError, match="queue 5"):
             get_benchmark(name)
     with pytest.raises(ValueError):

@@ -36,7 +36,7 @@ for name in names:
 leaked = sorted(m for m in sys.modules if m == "gluefactory_tpu" or m.startswith("gluefactory_tpu."))
 print(len(names), leaked)
 assert not leaked, leaked
-assert len(names) >= 60, names
+assert len(names) >= 84, names
 for name in ("train", "optim", "settings", "data.homographies", "data.base_dataset", "data.augmentations",
              "data.raster", "data.colour", "data.jpeg", "data.preprocess", "geometry.homography", "geometry.gt_generation", "models.losses",
              "models.metrics", "models.matchers.homography_matcher", "utils.experiments",
@@ -49,7 +49,12 @@ for name in ("train", "optim", "settings", "data.homographies", "data.base_datas
              "robust_estimators", "robust_estimators.base_estimator",
              "robust_estimators.homography.xla_ransac", "robust_estimators.homography.opencv",
              "eval", "eval.eval_pipeline", "eval.io", "eval.utils", "eval.hpatches",
-             "visualization.viz2d"):
+             "visualization.viz2d", "geometry.utils", "geometry.wrappers", "geometry.epipolar",
+             "geometry.depth", "data.geometry_io", "data.posed_images", "data.image_pairs",
+             "ops.essential5", "robust_estimators.relative_pose",
+             "robust_estimators.relative_pose.xla_ransac",
+             "robust_estimators.relative_pose.opencv", "eval.megadepth1500",
+             "eval.scannet1500"):
     assert pkg.__name__ + "." + name in names, name
 """
 
