@@ -1440,16 +1440,19 @@ def _check_launches(label: str, got: dict, want: dict) -> None:
             fail(f"{label}: {name} launched {n} times, expected {want.get(name, 0)}")
 
 
-def run_trainer(argv: list) -> tuple[list, float, dict, torch.nn.Module]:
+def run_trainer(argv: list, first_state: list | None = None) -> tuple[list, float, dict, torch.nn.Module]:
     """`gluefactory_tpu_torch.train.main(argv)`, every launch count reset
     just before and read just after: (each train step's (losses, metrics,
-    info), seconds, launches, the trained model)."""
+    info), seconds, launches, the trained model). With `first_state`, a
+    copy of the model's state dict before its first step is appended to it."""
     from gluefactory_tpu_torch import train
 
     records = []
     call = train.TrainStep.__call__
 
     def recorded(self, batch, generator=None):
+        if first_state is not None and not records:
+            first_state.append({k: v.clone() for k, v in self.model.state_dict().items()})
         out = call(self, batch, generator)
         records.append(out)
         return out
@@ -1488,22 +1491,24 @@ def drive_training() -> tuple[dict, torch.nn.Module]:
             "grad_norms": [float(r[2]["grad_norm"]) for r in records]}, model
 
 
-def check_restore(model) -> dict:
+def check_restore(model, argv: list = TRAIN_ARGV, experiment: str = TRAIN_EXPERIMENT,
+                  updates: int = TRAIN_STEPS, label: str = "path E") -> dict:
     """The last checkpoint holds the trained weights, and `--restore`
-    reloads them bit-equal (the run has no epoch left, so it trains none)."""
+    reloads them bit-equal (the run has no epoch left, so it trains none);
+    the checkpoint counts `updates` applied updates."""
     from gluefactory_tpu_torch import train
     from gluefactory_tpu_torch.utils.experiments import get_last_checkpoint, load_checkpoint
 
-    path = get_last_checkpoint(TRAIN_EXPERIMENT)
+    path = get_last_checkpoint(experiment)
     payload = load_checkpoint(path, map_location=DEVICE)
-    restored = train.main(TRAIN_ARGV + ["--restore"])
+    restored = train.main(argv + ["--restore"])
     trained, saved, back = model.state_dict(), payload["model"], restored.state_dict()
     for k, v in trained.items():
         if not (torch.equal(v, saved[k]) and torch.equal(v, back[k])):
-            fail(f"path E: checkpoint round trip changed {k}")
+            fail(f"{label}: checkpoint round trip changed {k}")
     steps = {int(s["step"]) for s in payload["optimizer"]["state"].values()}
-    if payload["step"]["updates"] != TRAIN_STEPS or steps != {TRAIN_STEPS}:
-        fail(f"path E: checkpoint counts {payload['step']}, optimizer steps {steps}")
+    if payload["step"]["updates"] != updates or steps != {updates}:
+        fail(f"{label}: checkpoint counts {payload['step']}, optimizer steps {steps}")
     return {"checkpoint": path.name, "tensors": len(trained), "bit_equal": True}
 
 
@@ -1512,11 +1517,12 @@ def _grad_norm(module) -> torch.Tensor:
         [p.grad.norm() for p in module.parameters() if p.grad is not None]))
 
 
-def train_step_vs_plain(model, batch) -> dict:
+def train_step_vs_plain(model, batch, label: str = "path E") -> dict:
     """One forward with loss and backward on `batch` through the kernels and
     through the plain versions (`flash` off): the loss and the matcher's
-    gradient global norm within TRAIN_TOL relative, and the kernels'
-    launches in the step exactly STEP_LAUNCHES."""
+    gradient global norm within TRAIN_TOL relative, every entry of the
+    matcher's gradients within TRAIN_TOL of the plain gradients' global
+    norm, and the kernels' launches in the step exactly STEP_LAUNCHES."""
     gen = torch.Generator(device=DEVICE)
     out = {}
     for flash in (True, False):
@@ -1527,32 +1533,39 @@ def train_step_vs_plain(model, batch) -> dict:
         losses["total"].mean().backward()
         torch.cuda.synchronize()
         out[flash] = (float(losses["total"].mean().detach()), float(_grad_norm(model.matcher)),
-                      all_launches())
+                      all_launches(), [p.grad.clone() for p in model.matcher.parameters()
+                                       if p.grad is not None])
     set_flash(model, True)
     model.zero_grad(set_to_none=True)
-    _check_launches("path E step, kernels", out[True][2], STEP_LAUNCHES)
-    _check_launches("path E step, plain versions", out[False][2], {})
+    _check_launches(f"{label} step, kernels", out[True][2], STEP_LAUNCHES)
+    _check_launches(f"{label} step, plain versions", out[False][2], {})
     res = {"loss": out[True][0], "plain_loss": out[False][0], "grad_norm": out[True][1],
            "plain_grad_norm": out[False][1], "tol": TRAIN_TOL}
     res["loss_rel_err"] = abs(res["loss"] - res["plain_loss"]) / abs(res["plain_loss"])
     res["grad_norm_rel_err"] = abs(res["grad_norm"] - res["plain_grad_norm"]) / res["plain_grad_norm"]
-    if not (res["loss_rel_err"] <= TRAIN_TOL and res["grad_norm_rel_err"] <= TRAIN_TOL):
-        fail(f"path E: a train step through the kernels differs from the plain versions: {res}")
+    # every gradient entry, against the plain gradients' global norm
+    res["grad_max_rel_err"] = max(float((a - b).abs().max()) for a, b in zip(out[True][3], out[False][3])
+                                  ) / res["plain_grad_norm"]
+    if not (res["loss_rel_err"] <= TRAIN_TOL and res["grad_norm_rel_err"] <= TRAIN_TOL
+            and res["grad_max_rel_err"] <= TRAIN_TOL and len(out[True][3]) == len(out[False][3])):
+        fail(f"{label}: a train step through the kernels differs from the plain versions: {res}")
     return res
 
 
-def _timed_micro_batches(model, batches, gen, accum: int, mixed_precision=None):
+def _timed_micro_batches(model, batches, gen, accum: int, mixed_precision=None, conf=None,
+                         label: str = "path E", timed: int = TIMED_STEPS):
     """(TrainStep under `grad_accumulation` accum with a fresh optimizer,
     ms per micro-batch over TIMED_STEPS after WARMUP_STEPS by CUDA events,
     the last micro-batch's outputs); each attention kernel must launch
-    STEP_LAUNCHES a timed micro-batch."""
+    STEP_LAUNCHES a timed micro-batch. `conf`: the trainer's conf (path E's
+    by default)."""
     from gluefactory_tpu_torch import train
     from gluefactory_tpu_torch.core.config import merge
 
-    conf = merge(train_conf().train, {"grad_accumulation": accum})
+    conf = merge((conf or train_conf()).train, {"grad_accumulation": accum})
     optimizer, schedule = train.build_optimizer(conf, model, TRAIN_STEPS)
     step = train.TrainStep(model, optimizer, schedule, accum,
-                           max_updates=WARMUP_STEPS + TIMED_STEPS + 1,
+                           max_updates=WARMUP_STEPS + timed + 1,
                            mixed_precision=mixed_precision)
     for i in range(WARMUP_STEPS):
         step(batches[i % len(batches)], gen.manual_seed(i))
@@ -1561,35 +1574,40 @@ def _timed_micro_batches(model, batches, gen, accum: int, mixed_precision=None):
     reset_all_launches()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
-    for i in range(TIMED_STEPS):
+    for i in range(timed):
         out = step(batches[i % len(batches)], gen.manual_seed(i))
     end.record()
     torch.cuda.synchronize()
-    _check_launches(f"path E timed steps ({mixed_precision or 'f32'})", all_launches(),
-                    {k: TIMED_STEPS * n for k, n in STEP_LAUNCHES.items()})
-    return step, start.elapsed_time(end) / TIMED_STEPS, out
+    _check_launches(f"{label} timed steps ({mixed_precision or 'f32'})", all_launches(),
+                    {k: timed * n for k, n in STEP_LAUNCHES.items()})
+    return step, start.elapsed_time(end) / timed, out
 
 
-def time_training(model, batches, device_info, mixed_precision=None) -> dict:
+def time_training(model, batches, device_info, mixed_precision=None, conf=None,
+                  batch: int = TRAIN_BATCH, label: str = "path E", accum2: bool = True,
+                  timed: int = TIMED_STEPS) -> dict:
     """ms per train step (TrainStep with a fresh optimizer on batches
     already on the card; CUDA events over TIMED_STEPS after WARMUP_STEPS),
     samples/s, peak memory, and the device time and busy share of one
-    step; then, in f32, ms per micro-batch under grad_accumulation 2, whose
-    NaN-skip runs the optimizer on every micro-batch."""
+    step; then, in f32 with `accum2`, ms per micro-batch under
+    grad_accumulation 2, whose NaN-skip runs the optimizer on every
+    micro-batch. `conf`, `batch`: the trainer's conf and batch (path E's by
+    default)."""
     gen = torch.Generator(device=DEVICE)
-    step, ms, (losses, _, info) = _timed_micro_batches(model, batches, gen, 1, mixed_precision)
+    step, ms, (losses, _, info) = _timed_micro_batches(model, batches, gen, 1, mixed_precision,
+                                                       conf, label, timed)
     if not (bool(info["ok"]) and math.isfinite(float(losses["total"]))):
-        fail(f"path E ({mixed_precision or 'f32'}): a timed step was not applied")
+        fail(f"{label} ({mixed_precision or 'f32'}): a timed step was not applied")
     res = {"mixed_precision": mixed_precision, "ms_per_step": ms,
-           "samples_per_s": TRAIN_BATCH * 1e3 / ms,
+           "samples_per_s": batch * 1e3 / ms,
            "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
-           "batch": TRAIN_BATCH, "steps": TIMED_STEPS, "card": device_info["nvidia_smi"]}
+           "batch": batch, "steps": timed, "card": device_info["nvidia_smi"]}
     res["profile"] = profile_forward(lambda: step(batches[0], gen.manual_seed(0)), grad=True)
     dev_ms = res["profile"]["device_ms"]
     res["device_ms_per_step"] = dev_ms
     res["busy_share"] = None if dev_ms is None else dev_ms / ms
     del step
-    if mixed_precision:
+    if mixed_precision or not accum2:
         return res
     step, ms2, (losses, _, info) = _timed_micro_batches(model, batches, gen, 2)
     if not (bool(info["ok"]) and math.isfinite(float(losses["total"]))):
@@ -1810,25 +1828,38 @@ def phase_folder_run() -> dict:
     return res
 
 
-def loader_rate(data_conf, keep: int = 0) -> tuple[float, list]:
-    """samples/s of the homography dataset's training loader over its
-    whole split, from the loader's start (its workers' start-up included:
-    with 6 workers a batch from each is in flight at once, so the rate of
-    the batches after the first would count their overlap), and the first
-    `keep` batches on the card."""
+def _cat_batches(batches: list):
+    """Collated batches (nested dicts of tensors and lists) as one batch."""
+    first = batches[0]
+    if isinstance(first, dict):
+        return {k: _cat_batches([b[k] for b in batches]) for k in first}
+    if torch.is_tensor(first):
+        return torch.cat(batches)
+    return [x for b in batches for x in b]
+
+
+def loader_rate(data_conf, keep: int = 0, dataset: str = "homographies",
+                merge: int = 1) -> tuple[float, list]:
+    """samples/s of a dataset's training loader (the homography dataset's
+    by default) over its whole split, from the loader's start (its workers'
+    start-up included: with 6 workers a batch from each is in flight at
+    once, so the rate of the batches after the first would count their
+    overlap), and the first `keep` batches on the card, each made of
+    `merge` of the loader's batches."""
     from gluefactory_tpu_torch.data import get_dataset
     from gluefactory_tpu_torch.data.base_dataset import prepare_batch
 
-    loader = get_dataset("homographies")(data_conf).get_data_loader("train", pin_memory=True)
-    batches, samples = [], 0
+    loader = get_dataset(dataset)(data_conf).get_data_loader("train", pin_memory=True)
+    raw, samples = [], 0
     t0 = time.perf_counter()
     for b in loader:
         samples += len(b["idx"])
-        if len(batches) < keep:
-            batches.append({k: v for k, v in prepare_batch(b, DEVICE).items()
-                            if k not in ("name", "idx")})
+        if len(raw) < keep * merge:
+            raw.append(b)
     rate = samples / (time.perf_counter() - t0)
     del loader
+    batches = [{k: v for k, v in prepare_batch(_cat_batches(raw[i:i + merge]), DEVICE).items()
+                if k not in ("name", "idx", "scene")} for i in range(0, len(raw) - merge + 1, merge)]
     return rate, batches
 
 
@@ -2508,14 +2539,253 @@ def phase_megadepth(device_info: dict) -> dict:
     return res
 
 
-def train_conf():
-    """The trainer's conf of path E: its defaults, the shipped config and
-    TRAIN_ARGV's overrides, as `train.main` merges them."""
+# --------------------------------------------------------------------------
+# 12. path H: stage-2 training (superpoint+lightglue_megadepth.yaml)
+# --------------------------------------------------------------------------
+
+S2_YAML = "gluefactory_tpu_torch/configs/superpoint+lightglue_megadepth.yaml"
+# DATA_PATH of the run; the D2-Net layout is written under megadepth/
+S2_ROOT = ROOT / "outputs" / "chip_smoke_stage2"
+S2_TRAIN_SCENES, S2_VAL_SCENE = ("scene0", "scene1", "scene2"), "scene3"
+# each scene's seed: the training scenes' fill every bin with >= 2 ordered
+# pairs to spare
+S2_SEEDS = {"scene0": 20, "scene1": 21, "scene2": 23, "scene3": 22}
+S2_VIEWS, S2_SIZE = 12, (1600, 1200)  # (w, h): 1024 on the long side by `area`, square-padded
+S2_PER_SCENE = 24  # the config's three overlap bins, 8 pairs each
+S2_BATCH, S2_ACCUM = 32, 1
+S2_LOADER_BATCH = 4  # the batch of the loader's own rate (all 8 workers busy)
+S2_EPOCHS, S2_WORKERS, S2_VAL_BATCH, S2_TIMED_STEPS = 2, 8, 8, 6
+# training steps an epoch (micro-batches; the loader drops a partial one)
+S2_STEPS = len(S2_TRAIN_SCENES) * S2_PER_SCENE // S2_BATCH
+S2_EXPERIMENT = "chip_smoke_path_h"
+S2_REDUCED = {
+    "data": f"{len(S2_TRAIN_SCENES)} procedural training scenes and 1 validation scene of {S2_VIEWS} "
+            "views at 1600 x 1200 in MegaDepth's D2-Net layout (ray-cast planes, HDF5 depths; "
+            "scripts_dev/posed_scenes.write_megadepth_scene) written to outputs/chip_smoke_stage2, "
+            "the splits as explicit lists, since MegaDepth is not on disk",
+    "data.train_num_per_scene": f"{S2_PER_SCENE} instead of 300 (3 bins of {S2_PER_SCENE // 3}; "
+                                "a bin is kept with >= 2x its quota of pairs)",
+    "data.val_pairs": f"{S2_VAL_BATCH} pairs of the validation scene (overlap 0.1-0.7) for "
+                      f"valid_pairs.txt, one validation batch of {S2_VAL_BATCH} an epoch",
+    "data.num_workers": f"{S2_WORKERS} instead of 14 (the card's machine has 8 cores)",
+    "data.batch_size": f"{S2_BATCH} with grad_accumulation {S2_ACCUM}: the config's 32, which fits",
+    "length": f"{S2_EPOCHS} epochs of {S2_STEPS} steps instead of 50 epochs",
+    "train.load_experiment": f"path E's experiment ({TRAIN_EXPERIMENT}) for sp+lg_homography",
+    "--no_tensorboard --no_capture": "no writer, no log capture",
+}
+S2_ARGV = [
+    S2_EXPERIMENT, "--conf", str(ROOT / S2_YAML), "--no_tensorboard", "--no_capture",
+    "--max_val_iters", "1", "data.data_dir=megadepth",
+    f"data.train_split=[{','.join(S2_TRAIN_SCENES)}]", f"data.val_split=[{S2_VAL_SCENE}]",
+    f"data.train_num_per_scene={S2_PER_SCENE}", f"data.batch_size={S2_BATCH}",
+    f"data.val_batch_size={S2_VAL_BATCH}", f"data.num_workers={S2_WORKERS}",
+    f"train.grad_accumulation={S2_ACCUM}", f"train.epochs={S2_EPOCHS}", "train.log_every_iter=1",
+    "train.eval_every_iter=1000000", f"train.load_experiment={TRAIN_EXPERIMENT}",
+]
+
+
+def write_stage2_data(root: Path) -> dict:
+    """The procedural scenes under `root/megadepth` (each scene's views by
+    S2_WORKERS processes) and `scene_lists/valid_pairs.txt`: the
+    validation scene's S2_VAL_BATCH pairs of highest overlap within the
+    config's (0.1, 0.7]. Each training scene must fill the three bins (at
+    least twice the quota of ordered pairs in each). Returns each scene's
+    `write_megadepth_scene` record (the depths' SHA-256)."""
+    from gluefactory_tpu_torch.scripts_dev.posed_scenes import write_megadepth_scene
+
+    shutil.rmtree(root, ignore_errors=True)
+    base = root / "megadepth"
+    written = {}
+    for scene in (*S2_TRAIN_SCENES, S2_VAL_SCENE):
+        written[scene] = write_megadepth_scene(base, scene, S2_VIEWS, S2_SIZE, seed=S2_SEEDS[scene],
+                                               workers=S2_WORKERS)
+    for scene in S2_TRAIN_SCENES:
+        m = np.load(base / "scene_info" / f"{scene}.npz", allow_pickle=True)["overlap_matrix"]
+        counts = [int(((m > lo) & (m <= hi)).sum()) for lo, hi in ((0.1, 0.3), (0.3, 0.5), (0.5, 0.7))]
+        if min(counts) < 2 * (S2_PER_SCENE // 3):
+            fail(f"path H: scene {scene}'s overlaps fill the bins with {counts} ordered pairs")
+    info = np.load(base / "scene_info" / f"{S2_VAL_SCENE}.npz", allow_pickle=True)
+    m = info["overlap_matrix"]
+    pairs = sorted(((m[i, j], i, j) for i in range(S2_VIEWS) for j in range(i + 1, S2_VIEWS)
+                    if 0.1 < m[i, j] <= 0.7), reverse=True)[:S2_VAL_BATCH]
+    names = [str(p).split("/", 1)[1] for p in info["image_paths"]]  # below Undistorted_SfM/
+    (base / "scene_lists").mkdir(exist_ok=True)
+    (base / "scene_lists" / "valid_pairs.txt").write_text(
+        "".join(f"{names[i]} {names[j]}\n" for _, i, j in pairs))
+    return written
+
+
+def check_depths(root: Path, written: dict) -> dict:
+    """Every depth file read by `data/hdf5.py` equals the array written
+    (SHA-256 of its float32 bytes), with the shape of its image."""
+    import hashlib
+
+    from gluefactory_tpu_torch.data.hdf5 import read_dataset
+
+    n = 0
+    for scene, rec in written.items():
+        info = np.load(root / "megadepth" / "scene_info" / f"{scene}.npz", allow_pickle=True)
+        for rel, digest in zip(info["depth_paths"], rec["depth_sha256"]):
+            depth = read_dataset(root / "megadepth" / str(rel), "/depth")
+            if depth.dtype != np.float32 or depth.shape != S2_SIZE[::-1] or \
+                    hashlib.sha256(depth.tobytes()).hexdigest() != digest:
+                fail(f"path H: {rel} read by data/hdf5.py differs from the array written")
+            n += 1
+    return {"files": n, "equal": True}
+
+
+def drive_stage2(conf) -> tuple[dict, torch.nn.Module]:
+    """The trainer's CLI entry point on the stage-2 config with S2_ARGV's
+    overrides (`run_trainer`). Gates: finite losses and every update
+    applied; each attention kernel launched STEP_LAUNCHES a step and
+    VAL_LAUNCHES a validation batch; the model before its first step
+    bit-equal to path E's best checkpoint (the warm start); the training
+    pairs drawn with `seed + epoch` at each epoch, epoch 1's equal to a
+    fresh `sample_new_items(seed + 1)` and not to epoch 0's."""
+    from gluefactory_tpu_torch.data import get_dataset, megadepth
+    from gluefactory_tpu_torch.settings import TRAINING_PATH
+    from gluefactory_tpu_torch.utils.experiments import get_best_checkpoint, load_checkpoint
+
+    shutil.rmtree(Path(TRAINING_PATH, S2_EXPERIMENT), ignore_errors=True)
+    sampled, first_state = [], []
+    sample = megadepth._MegaDepthItems.sample_new_items
+
+    def recorded(self, seed):
+        sample(self, seed)
+        if self.split == "train":
+            sampled.append((seed, list(self.items)))
+
+    megadepth._MegaDepthItems.sample_new_items = recorded
+    try:
+        records, seconds, launches, model = run_trainer(S2_ARGV, first_state)
+    finally:
+        megadepth._MegaDepthItems.sample_new_items = sample
+    steps = S2_EPOCHS * S2_STEPS
+    _check_launches("path H", launches, {k: steps * n + S2_EPOCHS * VAL_LAUNCHES[k]
+                                         for k, n in STEP_LAUNCHES.items()})
+    if len(records) != steps:
+        fail(f"path H: {len(records)} train steps, expected {steps}")
+    losses = [{k: float(v) for k, v in r[0].items()} for r in records]
+    for i, (step_losses, (_, _, info)) in enumerate(zip(losses, records)):
+        if not all(math.isfinite(v) for v in step_losses.values()):
+            fail(f"path H: step {i} has a non-finite loss term: {step_losses}")
+        if not bool(info["ok"]):
+            fail(f"path H: the update of step {i} was not applied")
+
+    best = load_checkpoint(get_best_checkpoint(TRAIN_EXPERIMENT), map_location="cpu")["model"]
+    state = first_state[0]
+    if set(state) != set(best) or any(not torch.equal(state[k].cpu(), v) for k, v in best.items()):
+        fail("path H: the warm-started model differs from path E's best checkpoint")
+    warm = {"experiment": TRAIN_EXPERIMENT, "tensors": len(best), "bit_equal": True}
+
+    seed = int(conf.train.seed)
+    seeds = [s for s, _ in sampled]
+    dataset = get_dataset("megadepth")(conf.data)
+    fresh = dataset.get_dataset("train")
+    fresh.sample_new_items(seed + 1)
+    if seeds != [int(dataset.conf.seed), seed, seed + 1] or sampled[2][1] != fresh.items or sampled[2][1] == sampled[1][1]:
+        fail(f"path H: per-epoch resampling: seeds {seeds}, epoch 1 equal to a fresh draw of seed "
+             f"{seed + 1}: {sampled[2][1] == fresh.items}, differs from epoch 0: "
+             f"{sampled[2][1] != sampled[1][1]}")
+    resampling = {"seeds": seeds, "items": len(fresh.items), "epoch1_equals_fresh_draw": True,
+                  "epoch1_differs_from_epoch0": True}
+    return {"seconds": seconds, "launches": launches, "losses": losses,
+            "grad_norms": [float(r[2]["grad_norm"]) for r in records], "warm_start": warm,
+            "resampling": resampling}, model
+
+
+def gt_batch_on_the_card(model, batch) -> dict:
+    """`depth_matcher` (the pipeline's ground truth) on one full training
+    batch on the card and on the CPU, at the keypoints the extractor gives
+    on the card: matches, assignment and visibilities equal, padding slots
+    and the square padding's zero depths included."""
+    from gluefactory_tpu_torch.utils.tensor import map_tensor
+
+    with torch.no_grad():
+        pred = model(batch, generator=torch.Generator(device=DEVICE).manual_seed(0))
+        data = {**batch, **{k: v for k, v in pred.items() if k.startswith("keypoint")}}
+        card = model.ground_truth(data)
+        cpu = model.ground_truth(map_tensor(data, lambda t: t.cpu() if torch.is_tensor(t) else t))
+    res = {"pairs": int(batch["view0"]["image"].shape[0]), "keypoints": int(pred["keypoints0"].shape[1]),
+           "positives": int((cpu["gt_matches0"] >= 0).sum()),
+           "unmatched": int((cpu["gt_matches0"] == -1).sum()),
+           "ignored": int((cpu["gt_matches0"] == -2).sum()),
+           "devices": sorted({str(v.device) for v in card.values()}),
+           "differ": {k: int((card[k].cpu() != cpu[k]).sum()) for k in cpu}}
+    if any(res["differ"].values()) or res["devices"] != [str(torch.empty(0, device=DEVICE).device)]:
+        fail(f"path H: depth_matcher on the card differs from the CPU: {res}")
+    return res
+
+
+def phase_stage2(device_info: dict) -> dict:
+    """Path H: the trainer on the shipped stage-2 config at full width
+    (SuperPoint 2048 keypoints frozen, 1024 square-padded, LightGlue-9
+    d=256 checkpointed, depth_matcher GT, f32, TF32 off), warm-started
+    from path E's experiment and resampled each epoch, cut as S2_REDUCED
+    says; then its gates and numbers."""
+    import gluefactory_tpu_torch.settings as tsettings
+
+    card = device_info["nvidia_smi"]
+    print(f"path H reduced: {json.dumps(S2_REDUCED)}", flush=True)
+    t0 = time.perf_counter()
+    written = write_stage2_data(S2_ROOT)
+    data_path, tsettings.DATA_PATH = tsettings.DATA_PATH, S2_ROOT
+    try:
+        res = {"reduced": S2_REDUCED, "argv": S2_ARGV, "write_seconds": time.perf_counter() - t0,
+               "depths": check_depths(S2_ROOT, written), "cpu_count": os.cpu_count()}
+        conf = train_conf(S2_ARGV, S2_YAML)
+        run, model = drive_stage2(conf)
+        res["run"] = run
+        print(f"path H: {len(run['losses'])} steps and {S2_EPOCHS} validation batches in "
+              f"{run['seconds']:.1f} s, launches {json.dumps(run['launches'])}, losses finite, every "
+              f"update applied; total {run['losses'][0]['total']:.4f} -> {run['losses'][-1]['total']:.4f}; "
+              f"warm start {json.dumps(run['warm_start'])}; resampling {json.dumps(run['resampling'])}; "
+              f"depths {json.dumps(res['depths'])}", flush=True)
+        res["restore"] = check_restore(model, S2_ARGV, S2_EXPERIMENT, S2_EPOCHS * S2_STEPS // S2_ACCUM,
+                                       "path H")
+        # a worker makes whole batches: at batch 32 the split's 2 batches
+        # would keep 2 of the 8 workers busy, where a real epoch keeps all 8
+        # busy; so the loader runs the split in batches of S2_LOADER_BATCH,
+        # merged into 2 batches of S2_BATCH for the timed steps
+        res["loader_samples_per_s"], batches = loader_rate(
+            merge(conf.data, {"batch_size": S2_LOADER_BATCH}), keep=2, dataset="megadepth",
+            merge=S2_BATCH // S2_LOADER_BATCH)
+        print(f"path H loader: {res['loader_samples_per_s']:.2f} samples/s ({S2_WORKERS} workers, "
+              f"{os.cpu_count()} cores, batches of {S2_LOADER_BATCH}, the split's "
+              f"{len(S2_TRAIN_SCENES) * S2_PER_SCENE} pairs from the loader's start)", flush=True)
+        res["gt_on_card"] = gt_batch_on_the_card(model, batches[0])
+        print(f"path H depth_matcher, card vs CPU: {json.dumps(res['gt_on_card'])}", flush=True)
+        res["vs_plain"] = train_step_vs_plain(model, batches[0], "path H")
+        print(f"path H step vs plain: {json.dumps(res['vs_plain'])}", flush=True)
+        res["timing"] = time_training(model, batches, device_info, conf=conf, batch=S2_BATCH,
+                                      label="path H", accum2=False, timed=S2_TIMED_STEPS)
+        t = res["timing"]
+        print(f"path H timing: {t['ms_per_step']:.2f} ms/step, device {t['device_ms_per_step']} ms/step, "
+              f"busy share {t['busy_share']}, {t['samples_per_s']:.2f} samples/s, peak "
+              f"{t['peak_memory_gib']:.2f} GiB at batch {S2_BATCH} ({card})", flush=True)
+        print(f"path H top device items: {json.dumps(t['profile']['top'][:8])}", flush=True)
+        res["pace"] = "loader" if res["loader_samples_per_s"] < t["samples_per_s"] else "step"
+        print(f"path H pace: the {res['pace']} sets it (loader {res['loader_samples_per_s']:.2f} "
+              f"samples/s, step {t['samples_per_s']:.2f} samples/s)", flush=True)
+        del model, batches
+        torch.cuda.empty_cache()
+        res["attention"] = attention_at_shapes(torch.device(DEVICE), torch.float32, KEYPOINTS, S2_BATCH,
+                                               "path H")
+    finally:
+        tsettings.DATA_PATH = data_path
+    res["seconds"] = time.perf_counter() - t0
+    res["card"] = card
+    return res
+
+
+def train_conf(argv: list | None = None, yaml: str = TRAIN_YAML):
+    """The trainer's conf of path E (or of `argv` on `yaml`): its defaults,
+    the shipped config and the overrides, as `train.main` merges them."""
     from gluefactory_tpu_torch import train
     from gluefactory_tpu_torch.core.config import Config, from_dotlist, from_yaml, merge
 
-    dotlist = [a for a in TRAIN_ARGV if "=" in a and not a.startswith("-")]
-    return merge(Config(train.default_conf), from_yaml(str(ROOT / TRAIN_YAML)), from_dotlist(dotlist))
+    dotlist = [a for a in (argv or TRAIN_ARGV) if "=" in a and not a.startswith("-")]
+    return merge(Config(train.default_conf), from_yaml(str(ROOT / yaml)), from_dotlist(dotlist))
 
 
 def main() -> None:
@@ -2546,13 +2816,15 @@ def main() -> None:
     torch.cuda.empty_cache()
     path_g = phase_megadepth(device_info)
     torch.cuda.empty_cache()
+    path_h = phase_stage2(device_info)
+    torch.cuda.empty_cache()
     kernels += phase_conv_study(device_info)  # launches from the tools' runs
     OUT_DIR.mkdir(exist_ok=True)
     record = {"device": device_info, "build": build, "kernels": kernels, "gradients": gradients,
               "main_path": main_path,
               "path_b_superglue": path_b, "path_c_fused_superpoint": path_c,
               "path_d_serving": path_d, "path_e_training": path_e, "path_f_hpatches": path_f,
-              "path_g_megadepth1500": path_g,
+              "path_g_megadepth1500": path_g, "path_h_stage2": path_h,
               "seconds": time.perf_counter() - t0}
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(record, indent=1))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",

@@ -8,7 +8,8 @@ pairs.txt line names the views of one item (`name0 name1 [...]`). Each item
 holds its views (image, camera scaled with the image, `T_w2cam`, and with
 `depth_dir` the depth resized by `nearest` and `valid_depth`) and
 `T_0to{i}`. Depths are 16-bit PNGs in 1/256 units (`depth_format: png`,
-read through Pillow) or HDF5 files (`h5`, which needs h5py).
+read through Pillow) or HDF5 files (`h5`, their `/depth` dataset read by
+`data/hdf5.py`, without h5py).
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ from .. import settings
 from .base_dataset import BaseDataset
 from .geometry_io import (camera_dict_from_colmap, compose_pose, invert_pose, pose_matrix_from_Rt,
                           scale_camera_dict)
+from .hdf5 import read_dataset
 from .preprocess import ImagePreprocessor, read_image
 
 
@@ -66,13 +68,7 @@ def load_depth(depth_path, dformat: str) -> np.ndarray:
     if dformat == "png":
         return _read_png_depth(Path(depth_path)).astype(np.float32) / 256.0
     if dformat == "h5":
-        try:
-            import h5py
-        except ImportError as e:
-            raise ImportError("depth_format h5 needs h5py, which is not installed; "
-                              "store the depths as 16-bit PNG (depth_format=png)") from e
-        with h5py.File(str(depth_path), "r") as f:
-            return f["/depth"][...].astype(np.float32)
+        return read_dataset(depth_path, "/depth").astype(np.float32)
     raise ValueError(dformat)
 
 

@@ -14,8 +14,8 @@ then the pose AUC@5/10/20 degrees at the threshold with the best mAA.
 reads the posed-images layout under `DATA_PATH/megadepth1500/`
 (`<scene>/{images,depths}/`, `views.txt`, `pairs.txt`) and writes under
 `EVAL_PATH/megadepth1500/<tag>/`. Without `--device` it runs on `cuda` and
-raises where there is none. `estimator=opencv` needs cv2, and
-`depth_format=h5` (the default) needs h5py.
+raises where there is none. `estimator=opencv` needs cv2;
+`depth_format=h5` (the default) is read by `data/hdf5.py`, without h5py.
 """
 
 from __future__ import annotations

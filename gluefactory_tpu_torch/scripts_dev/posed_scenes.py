@@ -10,7 +10,11 @@ essential-matrix RANSAC.
 posed-images layout (`<root>/<scene>/images/*.jpg`, `depths/*.png` as
 16-bit PNG in 1/256 units, `views.txt`, `pairs.txt`);
 `write_image_pairs(root, scene, ...)` writes ScanNet-1500's
-(`<root>/<scene>/*.jpg` and lines of `pairs_calibrated.txt`). Views are
+(`<root>/<scene>/*.jpg` and lines of `pairs_calibrated.txt`);
+`write_megadepth_scene(root, scene, ...)` writes MegaDepth's D2-Net layout
+for training (`Undistorted_SfM/<scene>/images/*.jpg`,
+`depth_undistorted/<scene>/*.h5` through `hdf5_write.py`,
+`scene_info/<scene>.npz` with the overlap matrix of the geometry). Views are
 named `<scene>_imNN`. Images are
 written by Pillow (JPEG quality 95). A scene is the same for the same
 seed: a back wall, a floor and two tilted panels, each with a procedural
@@ -18,12 +22,16 @@ texture (`data.homographies.generate_synthetic_image`), seen by cameras
 spread around the origin, looking down +z.
 
     python -m gluefactory_tpu_torch.scripts_dev.posed_scenes <root> [--size 1920 1440]
+    python -m gluefactory_tpu_torch.scripts_dev.posed_scenes <root> --megadepth [--size 1600 1200]
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import itertools
+import multiprocessing
+from concurrent.futures import ProcessPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -32,6 +40,7 @@ import torch
 from ..data.homographies import generate_synthetic_image
 from ..geometry.utils import image_grid, so3exp_map
 from ..geometry.wrappers import Camera
+from .hdf5_write import write_datasets
 
 
 def synthetic_correspondences(rng, n: int, noise: float = 0.0, outliers: float = 0.0):
@@ -200,12 +209,134 @@ def write_image_pairs(root: Path, scene: str, n_views: int = 4, n_pairs: int = 5
     return lines
 
 
+# MegaDepth views: PINHOLE cameras on an arc in front of the planes, yawed
+# so that the pairs' overlaps spread over 0-1
+MD_YAW_DEG, MD_BASELINE = 26.0, 1.6
+OVERLAP_STRIDE = 8  # the overlap's pixel grid: every 8th pixel of each axis
+OVERLAP_DEPTH_TOL = 0.05  # relative depth difference of a co-visible point
+
+
+def make_arc_cameras(seed: int, n_views: int, size) -> list:
+    """n_views (PINHOLE camera dict, R, t): centres spread over +-MD_BASELINE
+    in x (and a little in y and z), yaws over +-MD_YAW_DEG with the centre,
+    a few degrees of jitter on every axis."""
+    rng = np.random.default_rng(seed)
+    w, h = size
+    f = 0.8 * w
+    out = []
+    for u in np.linspace(-1.0, 1.0, n_views) + rng.uniform(-0.1, 0.1, n_views):
+        rvec = rng.normal(size=3) * np.deg2rad(2) + np.array([0.0, np.deg2rad(MD_YAW_DEG) * -u, 0.0])
+        R = so3exp_map(torch.from_numpy(rvec)).numpy()
+        centre = np.array([MD_BASELINE * u, rng.uniform(-0.3, 0.3), rng.uniform(-0.3, 0.3)])
+        params = [f, f * rng.uniform(0.98, 1.02), w / 2 + rng.uniform(-8, 8), h / 2 + rng.uniform(-8, 8)]
+        out.append(({"model": "PINHOLE", "width": w, "height": h, "params": params}, R, -R @ centre))
+    return out
+
+
+def _K(cam: dict) -> np.ndarray:
+    fx, fy, cx, cy = cam["params"]
+    return np.array([[fx, 0, cx], [0, fy, cy], [0, 0, 1]])
+
+
+def overlap_matrix(cameras: list, depths: list) -> np.ndarray:
+    """The scene's overlap matrix: entry (i, j) is the smaller of the two
+    shares of co-visible pixels, where the share of view i in view j is the
+    fraction of view i's pixels with valid depth (> 0), on a grid of every
+    OVERLAP_STRIDE-th pixel centre, whose 3D point projects inside view j in
+    front of it onto a pixel whose depth agrees within OVERLAP_DEPTH_TOL
+    (relative). The diagonal is 1. `cameras` are (camera dict, R, t) with
+    world-to-camera poses; `depths` the full-size depth maps."""
+    n = len(cameras)
+    share = np.eye(n)
+    points = []
+    for (cam, R, t), depth in zip(cameras, depths):
+        ys, xs = np.mgrid[0:depth.shape[0]:OVERLAP_STRIDE, 0:depth.shape[1]:OVERLAP_STRIDE]
+        d = depth[ys, xs].ravel()
+        keep = d > 0
+        pix = np.stack([xs.ravel() + 0.5, ys.ravel() + 0.5, np.ones(xs.size)], 0)[:, keep]
+        cam_pts = np.linalg.solve(_K(cam), pix) * d[keep]
+        points.append(R.T @ (cam_pts - t[:, None]))  # world points
+    for i in range(n):
+        for j in range(n):
+            if i == j or points[i].shape[1] == 0:
+                continue
+            cam, R, t = cameras[j]
+            p = R @ points[i] + t[:, None]
+            z = p[2]
+            with np.errstate(divide="ignore", invalid="ignore"):
+                uv = (_K(cam) @ p)[:2] / z
+            h, w = depths[j].shape
+            inside = (z > 0) & (uv[0] >= 0) & (uv[0] < w) & (uv[1] >= 0) & (uv[1] < h)
+            dj = np.zeros_like(z)
+            dj[inside] = depths[j][uv[1, inside].astype(int), uv[0, inside].astype(int)]
+            ok = inside & (dj > 0) & (np.abs(dj - z) <= OVERLAP_DEPTH_TOL * z)
+            share[i, j] = ok.mean()
+    return np.minimum(share, share.T)
+
+
+def _write_md_view(args) -> tuple:
+    """Render one MegaDepth view and write its JPEG and HDF5 depth; returns
+    (the depth's SHA-256, the depth)."""
+    planes_seed, cam, R, t, image_path, depth_path = args
+    image, depth = render(make_planes(planes_seed), Camera.from_colmap(cam).to(torch.float64), R, t)
+    depth = depth.astype(np.float32)
+    _save_jpeg(image_path, image)
+    write_datasets(depth_path, {"depth": depth})
+    return hashlib.sha256(depth.tobytes()).hexdigest(), depth
+
+
+def write_megadepth_scene(root: Path, scene: str, n_views: int = 12, size=(1600, 1200),
+                          seed: int = 0, workers: int = 1) -> dict:
+    """One scene in MegaDepth's D2-Net layout under `root`: the views'
+    JPEGs, their depths as HDF5 (`/depth`, float32, 0 where no plane is
+    hit) and `scene_info/<scene>.npz` (`image_paths` and `depth_paths`
+    relative to `root` as object arrays, world-to-camera `poses` (n, 4, 4),
+    `intrinsics` (n, 3, 3), `overlap_matrix` (`overlap_matrix`)). Views are
+    rendered by `workers` processes. Returns the image paths and the
+    SHA-256 of each depth array written."""
+    root = Path(root)
+    img_dir = root / "Undistorted_SfM" / scene / "images"
+    depth_dir = root / "depth_undistorted" / scene
+    img_dir.mkdir(parents=True, exist_ok=True)
+    depth_dir.mkdir(parents=True, exist_ok=True)
+    (root / "scene_info").mkdir(exist_ok=True)
+    cameras = make_arc_cameras(seed + 1, n_views, size)
+    names = [f"{scene}_im{i:02d}" for i in range(n_views)]
+    jobs = [(seed, cam, R, t, img_dir / f"{n}.jpg", depth_dir / f"{n}.h5")
+            for n, (cam, R, t) in zip(names, cameras)]
+    if workers > 1:
+        # one torch thread a child, as in a DataLoader's workers: a child
+        # forked after torch's OpenMP pool ran hangs in its first parallel
+        # region otherwise
+        fork = multiprocessing.get_context("fork")
+        with ProcessPoolExecutor(min(workers, n_views), mp_context=fork,
+                                 initializer=torch.set_num_threads, initargs=(1,)) as pool:
+            written = list(pool.map(_write_md_view, jobs))
+    else:
+        written = [_write_md_view(job) for job in jobs]
+    poses = np.stack([np.concatenate([np.concatenate([R, t[:, None]], 1), [[0, 0, 0, 1]]])
+                      for _, R, t in cameras])
+    image_paths = [f"Undistorted_SfM/{scene}/images/{n}.jpg" for n in names]
+    np.savez(root / "scene_info" / f"{scene}.npz",
+             image_paths=np.array(image_paths, object),
+             depth_paths=np.array([f"depth_undistorted/{scene}/{n}.h5" for n in names], object),
+             poses=poses, intrinsics=np.stack([_K(cam) for cam, _, _ in cameras]),
+             overlap_matrix=overlap_matrix(cameras, [d for _, d in written]))
+    return {"image_paths": image_paths, "depth_sha256": [h for h, _ in written]}
+
+
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("root", type=Path)
     parser.add_argument("--size", type=int, nargs=2, default=(1920, 1440))
     parser.add_argument("--scenes", type=int, default=2)
+    parser.add_argument("--megadepth", action="store_true",
+                        help="MegaDepth's D2-Net layout (training) instead of the posed-images one")
     args = parser.parse_args(argv)
+    if args.megadepth:
+        for s in range(args.scenes):
+            write_megadepth_scene(args.root, f"scene{s}", size=tuple(args.size), seed=s)
+        return
     for s in range(args.scenes):
         write_posed_images(args.root, f"scene{s}", size=tuple(args.size),
                            model="SIMPLE_RADIAL" if s % 2 else "PINHOLE", seed=s)

@@ -152,9 +152,7 @@ def set_seed(seed: int, device="cpu") -> torch.Generator:
 def fork_rng(seed=None):
     """Run a block with the host RNGs (python, numpy, torch's CPU one) forked,
     optionally seeded, and restore their state after it."""
-    py_state = random.getstate()
-    np_state = np.random.get_state()
-    torch_state = torch.random.get_rng_state()
+    state = get_random_state()
     try:
         if seed is not None:
             random.seed(seed)
@@ -162,6 +160,16 @@ def fork_rng(seed=None):
             torch.manual_seed(seed)
         yield
     finally:
-        random.setstate(py_state)
-        np.random.set_state(np_state)
-        torch.random.set_rng_state(torch_state)
+        set_random_state(state)
+
+
+def get_random_state() -> dict:
+    """The host RNGs' state (python, numpy, torch's CPU one)."""
+    return {"python": random.getstate(), "numpy": np.random.get_state(),
+            "torch": torch.random.get_rng_state()}
+
+
+def set_random_state(state: dict) -> None:
+    random.setstate(state["python"])
+    np.random.set_state(state["numpy"])
+    torch.random.set_rng_state(state["torch"])

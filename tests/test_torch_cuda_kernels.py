@@ -429,6 +429,33 @@ def test_kernel_gradients_equal_plain(dev, monkeypatch, name):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("name", ["fused_attention", "fused_bidirectional_attention"])
+def test_attention_at_stage2_training_shape(dev, name):
+    """Both attention kernels at stage 2's N = 2048 keypoints in f32 (two
+    pairs, 4 heads, d = 64, a tail of masked keys): the forward within
+    TOL of the plain version, and the gradients the plain version's."""
+    gen = torch.Generator(device=dev).manual_seed(12)
+    n, heads = 2048, 4
+    masks = torch.rand(2, n, generator=gen, device=dev) > 0.2
+    masks[:, -100:] = False
+    if name == "fused_attention":
+        xs = [_leaf(gen, dev, 4, heads, n, 64) for _ in range(3)]
+        inputs = [*xs, torch.cat([masks, masks]), None]
+        kernel, plain = cuda_attention.fused_attention, cuda_attention.attention_plain
+    else:
+        xs = [_leaf(gen, dev, 2, heads, n, 64) for _ in range(4)]
+        inputs = [*xs, masks, masks.flip(0)]
+        kernel, plain = cuda_attention.fused_bidirectional_attention, cuda_attention.bidirectional_plain
+    with torch.no_grad():
+        got, want = kernel(*inputs), plain(*inputs)
+    for a, b in zip(got if isinstance(got, tuple) else (got,), want if isinstance(want, tuple) else (want,)):
+        assert (a - b).abs().max() <= TOL[torch.float32]
+    outs = plain(*inputs)
+    cot = [torch.randn(o.shape, generator=gen, device=dev) for o in (outs if isinstance(outs, tuple) else (outs,))]
+    for a, b in zip(_grads(kernel, inputs, cot), _grads(plain, inputs, cot)):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
 def test_detect_raises_under_grad(dev):
     s = torch.rand(1, 64, 64, device=dev, requires_grad=True)
     with pytest.raises(RuntimeError, match="no gradient"):
