@@ -127,7 +127,29 @@ Phases, in order; any failure exits non-zero before the last line:
    the path's keypoints. Export pairs/s, the eval loop's seconds, RANSAC
    ms a pair with its launches, device ms and busy share, the forward's
    device ms and busy share, and both attention kernels in f32 at N = 2048
-   against their bound and SDPA.
+   against their bound and SDPA;
+12. path H, stage-2 training (run after path G, before phase 8): 4
+   procedural scenes of 12 views at 1600 x 1200 in MegaDepth's D2-Net
+   layout under `outputs/chip_smoke_stage2/`, then `train.main` on
+   `superpoint+lightglue_megadepth.yaml` at its widths (SuperPoint 2048
+   keypoints frozen, 1024 square-padded, LightGlue-9 `checkpointed`, f32),
+   warm-started from path E, 2 epochs of 2 steps at batch 32; gates and
+   numbers as `phase_stage2` says;
+13. path I, stage 2 on cached features (run after path H, before phase 8):
+   `scripts/export_megadepth.py --method sp --with_depth` in process on
+   path H's scenes (SuperPoint with path E's best checkpoint's weights) into
+   `exports/megadepth-undist-depth-r1024_SP-k2048-nms3/{scene}.h5` there;
+   gates: a group for each of a scene's images in every file, every array
+   read back by `data/hdf5.py` equal to what went into the writer,
+   keypoints finite and inside the image, `valid_depth_keypoints` bool.
+   Then `train.main` on path H's argv with `data.load_features.do=true`;
+   gates: finite losses and applied updates, 18 launches of each attention
+   kernel a step and 9 a validation batch, SuperPoint never called, the
+   dataset's caches equal to the export's arrays as the loader scales and
+   pads them, the batch's `keypoint_mask0/1`, a step vs `flash` off,
+   `--restore` bit-equal; ms / device ms a step, busy share, samples/s and
+   peak memory beside path H's, the loader's rate with `read_image` true
+   and false, and which sets the pace.
 
 Each path resets every launch count just before its timed run and reads
 them just after. Prints the kernel JSON line, the card line, and as its last
@@ -2778,6 +2800,225 @@ def phase_stage2(device_info: dict) -> dict:
     return res
 
 
+# --------------------------------------------------------------------------
+# 13. path I: stage 2 on cached SuperPoint features
+# --------------------------------------------------------------------------
+
+S3_EXPERIMENT = "chip_smoke_path_i"
+S3_SCENE_LIST = "chip_smoke_scenes.txt"  # path H's 4 scenes, under megadepth/scene_lists/
+S3_RESIZE = 1024
+S3_ARGV = [S3_EXPERIMENT, *S2_ARGV[1:], "data.load_features.do=true"]
+S3_REDUCED = {
+    "export": f"path H's {len(S2_TRAIN_SCENES) + 1} procedural scenes ({S2_VIEWS} views each, "
+              "1600 x 1200) instead of MegaDepth's 196 training scenes; the extractor is path E's "
+              "best checkpoint's SuperPoint (random weights from a seed, trained 12 steps), since no "
+              "official weights are on disk",
+    "training": "path H's cuts (S2_REDUCED) and its overrides, with data.load_features.do=true",
+}
+
+
+def _array_digest(a: np.ndarray) -> tuple:
+    import hashlib
+
+    return str(a.dtype), tuple(a.shape), hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+
+def export_path_e_features(root: Path) -> dict:
+    """`scripts/export_megadepth.py --method sp --with_depth` in process on
+    path H's scenes, SuperPoint with path E's best checkpoint's weights (the
+    ones the stage-2 trainer warm-starts from). Returns each written item's
+    arrays' digests as the writer took them, the seconds and the bytes."""
+    from gluefactory_tpu_torch.scripts import export_megadepth
+    from gluefactory_tpu_torch.utils import export_predictions
+    from gluefactory_tpu_torch.utils.experiments import get_best_checkpoint, load_checkpoint
+
+    best = load_checkpoint(get_best_checkpoint(TRAIN_EXPERIMENT), map_location="cpu")["model"]
+    weights = root / "superpoint_path_e.pth"
+    torch.save({k[len("extractor."):]: v for k, v in best.items() if k.startswith("extractor.")}, weights)
+    scenes = (*S2_TRAIN_SCENES, S2_VAL_SCENE)
+    (root / "megadepth" / "scene_lists" / S3_SCENE_LIST).write_text("".join(f"{s}\n" for s in scenes))
+    shutil.rmtree(export_megadepth.export_root("sp"), ignore_errors=True)
+    written, write = {}, export_predictions.H5PredictionWriter.write
+
+    def recorded(self, name, arrays):
+        before = set(self.names)
+        write(self, name, arrays)
+        (group,) = self.names - before  # the name written, suffixed where it was taken
+        written[(Path(self.file.fh.name).stem, group)] = {
+            k: _array_digest(v) for k, v in arrays.items() if isinstance(v, np.ndarray)}
+
+    export_predictions.H5PredictionWriter.write = recorded
+    t0 = time.perf_counter()
+    try:
+        files = export_megadepth.main(["--method", "sp", "--scenes", S3_SCENE_LIST, "--num_workers",
+                                       str(S2_WORKERS), "--resize", str(S3_RESIZE), "--with_depth",
+                                       "--weights_file", str(weights), "--device", DEVICE])
+    finally:
+        export_predictions.H5PredictionWriter.write = write
+    seconds = time.perf_counter() - t0
+    return {"files": files, "written": written, "seconds": seconds, "scenes": scenes,
+            "bytes": sum(f.stat().st_size for f in files)}
+
+
+def check_export(root: Path, export: dict) -> dict:
+    """Gates: a file for each scene holding a group for each of its images
+    (the JAX script's narrowed item list gives every later scene none);
+    every array read back by `data/hdf5.py` equal (dtype, shape, bytes) to
+    what went into the writer, float16 where float; keypoints finite and
+    inside the image; `valid_depth_keypoints` bool."""
+    from gluefactory_tpu_torch.data.hdf5 import H5File
+
+    W, H = S2_SIZE
+    n_items, keypoints, valid = 0, 0, 0
+    for scene, path in zip(export["scenes"], export["files"]):
+        info = np.load(root / "megadepth" / "scene_info" / f"{scene}.npz", allow_pickle=True)
+        names = sorted(Path(str(p)).name for p in info["image_paths"])
+        with H5File(path) as f:
+            if f.keys() != names:
+                fail(f"path I: {path.name} holds groups {f.keys()}, expected the scene's {names}")
+            for name in names:
+                grp = f[name]
+                arrays = {k: grp[k] for k in grp.keys()}
+                if {k: _array_digest(v) for k, v in arrays.items()} != export["written"][(scene, name)]:
+                    fail(f"path I: {scene}/{name} read by data/hdf5.py differs from what was written")
+                kpts = arrays["keypoints"].astype(np.float32)
+                if any(a.dtype.kind == "f" and a.dtype != np.float16 for a in arrays.values()) or \
+                        arrays["valid_depth_keypoints"].dtype != bool or not np.isfinite(kpts).all() or \
+                        (kpts < 0).any() or (kpts[:, 0] > W).any() or (kpts[:, 1] > H).any():
+                    fail(f"path I: {scene}/{name}: dtypes {[str(a.dtype) for a in arrays.values()]}, "
+                         f"keypoints in [{kpts.min(0)}, {kpts.max(0)}]")
+                n_items += 1
+                keypoints += len(kpts)
+                valid += int(arrays["valid_depth_keypoints"].sum())
+    return {"files": len(export["files"]), "items": n_items, "keypoints": keypoints,
+            "valid_depth_share": valid / max(keypoints, 1), "read_back_equal": True}
+
+
+def check_cache_items(conf, root: Path) -> dict:
+    """The training split's first items through the dataset with the cache:
+    each view's cache equals the export's arrays at the original
+    resolution, cast to float32 and scaled by the view's `scales` (the
+    keypoints), padded to the config's padding_length with the mask."""
+    from gluefactory_tpu_torch.data import get_dataset
+    from gluefactory_tpu_torch.data.hdf5 import H5File
+    from gluefactory_tpu_torch.scripts import export_megadepth
+
+    items = get_dataset("megadepth")(conf.data).get_dataset("train")
+    pad = int(conf.data.load_features.padding_length)
+    padded, views = 0, 0
+    for i in range(4):
+        data = items[i]
+        scene = data["scene"]
+        with H5File(export_megadepth.export_root("sp") / f"{scene}.h5") as f:
+            for v in ("view0", "view1"):
+                view, cache = data[v], data[v]["cache"]
+                grp = f[view["name"]]
+                n = min(len(grp["keypoints"]), pad)
+                want = {"keypoints": grp["keypoints"][:n].astype(np.float32) * view["scales"].astype(np.float32),
+                        "keypoint_scores": grp["keypoint_scores"][:n].astype(np.float32),
+                        "descriptors": grp["descriptors"][:n].astype(np.float32)}
+                mask = cache["keypoint_mask"]
+                if mask.shape != (pad,) or int(mask.sum()) != n or any(
+                        cache[k].dtype != np.float32 or not np.array_equal(cache[k][:n], w)
+                        for k, w in want.items()):
+                    fail(f"path I: item {i} {v}: the loader's cache differs from the export's arrays")
+                padded += pad - n
+                views += 1
+    return {"views": views, "padding_length": pad, "padded_slots": padded, "equal": True}
+
+
+def phase_cached(device_info: dict, path_h: dict) -> dict:
+    """Path I: path H's scenes exported with `scripts/export_megadepth.py`,
+    then the trainer on the shipped stage-2 config with
+    `data.load_features.do=true` (no SuperPoint in the step: LightGlue-9
+    on the cached 2048 keypoints with their masks, checkpointed, f32),
+    warm-started from path E; its gates and numbers beside path H's."""
+    import gluefactory_tpu_torch.settings as tsettings
+    from gluefactory_tpu_torch.models.extractors.superpoint import SuperPoint
+
+    card = device_info["nvidia_smi"]
+    print(f"path I reduced: {json.dumps(S3_REDUCED)}", flush=True)
+    t0 = time.perf_counter()
+    data_path, tsettings.DATA_PATH = tsettings.DATA_PATH, S2_ROOT
+    forward, extractor_calls = SuperPoint.forward, []
+
+    def counted(self, *args, **kwargs):
+        extractor_calls.append(1)
+        return forward(self, *args, **kwargs)
+
+    try:
+        export = export_path_e_features(S2_ROOT)
+        res = {"reduced": S3_REDUCED, "argv": S3_ARGV, "export": check_export(S2_ROOT, export)}
+        res["export"].update({"seconds": export["seconds"], "bytes": export["bytes"],
+                              "images_per_s": res["export"]["items"] / export["seconds"]})
+        print(f"path I export: {json.dumps(res['export'])} ({card})", flush=True)
+        conf = train_conf(S3_ARGV, S2_YAML)
+        res["cache_items"] = check_cache_items(conf, S2_ROOT)
+        print(f"path I loader cache vs export: {json.dumps(res['cache_items'])}", flush=True)
+
+        SuperPoint.forward = counted
+        shutil.rmtree(Path(tsettings.TRAINING_PATH, S3_EXPERIMENT), ignore_errors=True)
+        records, seconds, launches, model = run_trainer(S3_ARGV)
+        steps = S2_EPOCHS * S2_STEPS
+        _check_launches("path I", launches, {k: steps * n + S2_EPOCHS * VAL_LAUNCHES[k]
+                                             for k, n in STEP_LAUNCHES.items()})
+        if len(records) != steps:
+            fail(f"path I: {len(records)} train steps, expected {steps}")
+        losses = [{k: float(v) for k, v in r[0].items()} for r in records]
+        for i, (step_losses, (_, _, info)) in enumerate(zip(losses, records)):
+            if not all(math.isfinite(v) for v in step_losses.values()):
+                fail(f"path I: step {i} has a non-finite loss term: {step_losses}")
+            if not bool(info["ok"]):
+                fail(f"path I: the update of step {i} was not applied")
+        res["run"] = {"seconds": seconds, "launches": launches, "losses": losses,
+                      "grad_norms": [float(r[2]["grad_norm"]) for r in records],
+                      "extractor_calls": len(extractor_calls)}
+        print(f"path I: {steps} steps and {S2_EPOCHS} validation batches in {seconds:.1f} s, launches "
+              f"{json.dumps(launches)}, losses finite, every update applied; total "
+              f"{losses[0]['total']:.4f} -> {losses[-1]['total']:.4f}; extractor forwards "
+              f"{len(extractor_calls)}", flush=True)
+        res["restore"] = check_restore(model, S3_ARGV, S3_EXPERIMENT, steps // S2_ACCUM, "path I")
+        res["loader_samples_per_s"], batches = loader_rate(
+            merge(conf.data, {"batch_size": S2_LOADER_BATCH}), keep=2, dataset="megadepth",
+            merge=S2_BATCH // S2_LOADER_BATCH)
+        res["loader_no_image_samples_per_s"], _ = loader_rate(
+            merge(conf.data, {"batch_size": S2_LOADER_BATCH, "read_image": False}), dataset="megadepth")
+        print(f"path I loader: {res['loader_samples_per_s']:.2f} samples/s with the cache as shipped "
+              f"(read_image true), {res['loader_no_image_samples_per_s']:.2f} with read_image false; path "
+              f"H's {path_h['loader_samples_per_s']:.2f} ({S2_WORKERS} workers)", flush=True)
+        masks = [batches[0][v]["cache"]["keypoint_mask"] for v in ("view0", "view1")]
+        res["batch_masks"] = {"shape": list(masks[0].shape),
+                              "padded_slots": [int((~m).sum()) for m in masks]}
+        if any(m.dtype != torch.bool or m.shape != (S2_BATCH, KEYPOINTS) for m in masks):
+            fail(f"path I: the batch's keypoint masks are {[(m.dtype, m.shape) for m in masks]}")
+        print(f"path I batch keypoint_mask0/1: {json.dumps(res['batch_masks'])}", flush=True)
+        res["vs_plain"] = train_step_vs_plain(model, batches[0], "path I")
+        print(f"path I step vs plain: {json.dumps(res['vs_plain'])}", flush=True)
+        res["timing"] = time_training(model, batches, device_info, conf=conf, batch=S2_BATCH,
+                                      label="path I", accum2=False, timed=S2_TIMED_STEPS)
+        res["extractor_calls"] = len(extractor_calls)
+        if extractor_calls:
+            fail(f"path I: the extractor ran {len(extractor_calls)} times in cached training")
+        t, th = res["timing"], path_h["timing"]
+        print(f"path I timing: {t['ms_per_step']:.2f} ms/step (path H {th['ms_per_step']:.2f}), device "
+              f"{t['device_ms_per_step']} ms/step (path H {th['device_ms_per_step']}), busy share "
+              f"{t['busy_share']} (path H {th['busy_share']}), {t['samples_per_s']:.2f} samples/s (path H "
+              f"{th['samples_per_s']:.2f}), peak {t['peak_memory_gib']:.2f} GiB (path H "
+              f"{th['peak_memory_gib']:.2f}) at batch {S2_BATCH} ({card})", flush=True)
+        print(f"path I top device items: {json.dumps(t['profile']['top'][:8])}", flush=True)
+        res["pace"] = "loader" if res["loader_samples_per_s"] < t["samples_per_s"] else "step"
+        print(f"path I pace: the {res['pace']} sets it (loader {res['loader_samples_per_s']:.2f} "
+              f"samples/s, step {t['samples_per_s']:.2f} samples/s)", flush=True)
+        del model, batches
+        torch.cuda.empty_cache()
+    finally:
+        SuperPoint.forward = forward
+        tsettings.DATA_PATH = data_path
+    res["seconds"] = time.perf_counter() - t0
+    res["card"] = card
+    return res
+
+
 def train_conf(argv: list | None = None, yaml: str = TRAIN_YAML):
     """The trainer's conf of path E (or of `argv` on `yaml`): its defaults,
     the shipped config and the overrides, as `train.main` merges them."""
@@ -2818,13 +3059,15 @@ def main() -> None:
     torch.cuda.empty_cache()
     path_h = phase_stage2(device_info)
     torch.cuda.empty_cache()
+    path_i = phase_cached(device_info, path_h)
+    torch.cuda.empty_cache()
     kernels += phase_conv_study(device_info)  # launches from the tools' runs
     OUT_DIR.mkdir(exist_ok=True)
     record = {"device": device_info, "build": build, "kernels": kernels, "gradients": gradients,
               "main_path": main_path,
               "path_b_superglue": path_b, "path_c_fused_superpoint": path_c,
               "path_d_serving": path_d, "path_e_training": path_e, "path_f_hpatches": path_f,
-              "path_g_megadepth1500": path_g, "path_h_stage2": path_h,
+              "path_g_megadepth1500": path_g, "path_h_stage2": path_h, "path_i_cached": path_i,
               "seconds": time.perf_counter() - t0}
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(record, indent=1))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",

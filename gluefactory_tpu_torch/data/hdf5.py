@@ -1,8 +1,18 @@
 """A numpy reader for the part of HDF5 that h5py writes by default, in the
-place of `h5py.File(path)[key][...]` (MegaDepth's `depth_undistorted/*.h5`,
-the posed-images datasets' `h5` depths). It imports numpy and zlib only.
+place of `h5py.File(path)` (MegaDepth's `depth_undistorted/*.h5`, the
+posed-images datasets' `h5` depths, the feature caches of
+`scripts/export_megadepth.py`). It imports numpy and zlib only.
 
     depth = read_dataset(path, "/depth")
+    with H5File(path) as f:
+        if "im0.jpg" in f:
+            kpts = f["im0.jpg/keypoints"]      # a dataset: a numpy array
+            names = f["im0.jpg"].keys()        # a group: an `H5Group`
+
+`H5File` reads each group's name -> entry table once (a lookup is then a
+dict hit) and each dataset's header once, and reads through `os.pread`: no
+file offset is shared, so a file opened before a DataLoader forks serves
+every worker, and after unpickling the handle opens again.
 
 Read: superblock v0 and v1 (a user block before it too), version-1 object
 headers with their continuation blocks, symbol-table groups (v1 B-tree of
@@ -10,19 +20,22 @@ symbol nodes, local heap for the names) at any depth of the path, and a
 dataset's dataspace, datatype, fill value, layout (version 1-3: compact,
 contiguous, or chunked through a v1 B-tree of chunks) and filter pipeline
 (deflate, shuffle). Integers of 1-8 bytes and IEEE floats of 2, 4 or 8 bytes,
-in either byte order. Storage never allocated, and chunks never written,
-read as the fill value.
+in either byte order, and h5py's `bool` (an enum of base int8 with members
+FALSE = 0 and TRUE = 1) as `np.bool_`. Storage never allocated, and chunks
+never written, read as the fill value.
 
 Anything else raises `NotImplementedError` naming what it met (a superblock
 v2 or v3, as `libver='latest'` writes, a version-2 object header, a
 new-style group, a layout message v4, the szip, nbit, scale-offset or
-fletcher32 filter, a string or compound type, a shared message): the reader
+fletcher32 filter, a string or compound type, any other enum, a shared
+message): the reader
 never returns an array it could not read whole. A file that is not HDF5
 raises `ValueError`.
 """
 
 from __future__ import annotations
 
+import os
 import struct
 import zlib
 from pathlib import Path
@@ -40,13 +53,13 @@ FILTER_NAMES = {1: "deflate", 2: "shuffle", 3: "fletcher32", 4: "szip", 5: "nbit
 
 
 class _File:
-    """The superblock's sizes and positioned reads of one open file."""
+    """The superblock's sizes and positioned reads of one open file: `fh`
+    is anything with a `fileno()` (a file opened "rb", an `H5File`)."""
 
     def __init__(self, fh):
         self.fh = fh
         self.base = self._find_superblock()
-        fh.seek(self.base + 8)
-        head = fh.read(16)
+        head = self.read(self.base + 8, 16, relative=False)
         version = head[0]
         if version > 1:
             raise NotImplementedError(
@@ -65,14 +78,12 @@ class _File:
 
     def _find_superblock(self) -> int:
         for pos in (0, 512, 1024, 2048, 4096, 8192, 16384, 32768, 65536):
-            self.fh.seek(pos)
-            if self.fh.read(8) == SIGNATURE:
+            if os.pread(self.fh.fileno(), 8, pos) == SIGNATURE:
                 return pos
         raise ValueError("not an HDF5 file (no superblock signature)")
 
     def read(self, addr: int, n: int, relative: bool = True) -> bytes:
-        self.fh.seek(addr + (self.base if relative else 0))
-        data = self.fh.read(n)
+        data = os.pread(self.fh.fileno(), n, addr + (self.base if relative else 0)) if n else b""
         if len(data) != n:
             raise ValueError(f"HDF5 file truncated: {n} bytes wanted at {addr}, {len(data)} read")
         return data
@@ -87,14 +98,19 @@ class _File:
 
     def symbol_entry(self, pos: int) -> dict:
         """A symbol-table entry at absolute position `pos`."""
+        return self.parse_entry(self.read(pos, 2 * self.so + 24, relative=False), 0)
+
+    def parse_entry(self, buf: bytes, pos: int) -> dict:
+        """A symbol-table entry at `pos` of `buf`."""
         so = self.so
-        name_off = self._uint(pos, self.so)
-        header = self.offset(pos + so)
-        cache = self._uint(pos + 2 * so, 4)
-        entry = {"name_offset": name_off, "header": header, "cache": cache}
+        undefined = (1 << (8 * so)) - 1
+        header = _uint(buf, pos + so, so)
+        cache = _uint(buf, pos + 2 * so, 4)
+        entry = {"name_offset": _uint(buf, pos, so),
+                 "header": UNDEFINED if header == undefined else header, "cache": cache}
         if cache == 1:
-            entry["btree"] = self.offset(pos + 2 * so + 8)
-            entry["heap"] = self.offset(pos + 3 * so + 8)
+            entry["btree"] = _uint(buf, pos + 2 * so + 8, so)
+            entry["heap"] = _uint(buf, pos + 3 * so + 8, so)
         return entry
 
 
@@ -166,31 +182,25 @@ def _btree_children(f: _File, addr: int, node_type: int, key_size: int) -> list:
     return out
 
 
-def _group_lookup(f: _File, btree: int, heap_addr: int, name: str) -> dict:
+def _group_table(f: _File, btree: int, heap_addr: int) -> dict:
+    """{name: symbol entry} of every member of a symbol-table group."""
     heap = _local_heap(f, heap_addr)
     entry_size = 2 * f.so + 24
+    table = {}
     for _, snod in _btree_children(f, btree, 0, f.sl):
         head = f.read(snod, 8)
         if head[:4] != b"SNOD":
             raise ValueError(f"HDF5 symbol table node expected at {snod}")
-        for i in range(struct.unpack_from("<H", head, 6)[0]):
-            entry = f.symbol_entry(f.base + snod + 8 + i * entry_size)
-            if _heap_name(heap, entry["name_offset"]) == name:
-                return entry
-    raise KeyError(name)
+        n = struct.unpack_from("<H", head, 6)[0]
+        body = f.read(snod + 8, n * entry_size)
+        for i in range(n):
+            entry = f.parse_entry(body, i * entry_size)
+            table[_heap_name(heap, entry["name_offset"])] = entry
+    return table
 
 
-def _group_tables(f: _File, entry: dict) -> tuple[int, int]:
-    """(B-tree, local heap) addresses of the group behind a symbol entry."""
-    if entry.get("cache") == 1:
-        return entry["btree"], entry["heap"]
-    for mtype, data in _messages(f, entry["header"]):
-        if mtype == SYMBOL_TABLE:
-            return _uint(data, 0, f.so), _uint(data, f.so, f.so)
-        if mtype in (LINK_INFO, LINK):
-            raise NotImplementedError("HDF5 new-style group (link messages, libver 'v18' or "
-                                      "later): only symbol-table groups are read")
-    raise KeyError("not a group")
+def _group_lookup(f: _File, btree: int, heap_addr: int, name: str) -> dict:
+    return _group_table(f, btree, heap_addr)[name]
 
 
 def _datatype(data: bytes) -> np.dtype:
@@ -215,9 +225,27 @@ def _datatype(data: bytes) -> np.dtype:
                 (sign, e_loc, e_size, m_loc, m_size, bias) != ieee[size]:
             raise NotImplementedError(f"HDF5 float of {size} bytes that is not IEEE 754")
         return np.dtype(f"{order}f{size}")
+    if cls == 8 and version in (1, 2) and _is_h5py_bool(data, size):
+        return np.dtype(bool)
     names = {2: "time", 3: "string", 4: "bitfield", 5: "opaque", 6: "compound", 7: "reference",
              8: "enum", 9: "variable-length", 10: "array"}
     raise NotImplementedError(f"HDF5 {names.get(cls, f'class {cls}')} datatype (version {version})")
+
+
+def _is_h5py_bool(data: bytes, size: int) -> bool:
+    """Whether an enum datatype message (version 1 or 2) is h5py's `bool`:
+    one byte, base int8, members FALSE = 0 and TRUE = 1 (in either order)."""
+    n_members = data[1] | (data[2] << 8)
+    base = data[8:20]  # an integer's message: 8 bytes of header, 4 of properties
+    if size != 1 or n_members != 2 or base[0] != 0x10 or not base[1] & 0x08 or \
+            struct.unpack_from("<I", base, 4)[0] != 1:
+        return False
+    names, pos = [], 20
+    for _ in range(n_members):
+        end = data.index(b"\0", pos)
+        names.append(data[pos:end])
+        pos += (end - pos + 8) // 8 * 8  # the name and its NUL, padded to 8 bytes
+    return dict(zip(names, data[pos:pos + 2])) == {b"FALSE": 0, b"TRUE": 1}
 
 
 def _dataspace(data: bytes, sl: int) -> tuple:
@@ -353,54 +381,155 @@ def _read_chunked(f: _File, layout: dict, shape: tuple, dtype: np.dtype, filters
         out[sl] = block[tuple(slice(0, s.stop - s.start) for s in sl)]
 
 
-def _read_dataset(f: _File, header: int) -> np.ndarray:
-    shape, dtype, layout, fill, filters = None, None, None, None, []
-    for mtype, data in _messages(f, header):
+def _dataset_meta(f: _File, messages: list) -> dict:
+    """Shape, dtype, layout, fill value and filters of a dataset's header."""
+    meta = {"shape": None, "dtype": None, "layout": None, "fill": None, "filters": []}
+    for mtype, data in messages:
         if mtype == DATASPACE:
-            shape = _dataspace(data, f.sl)
+            meta["shape"] = _dataspace(data, f.sl)
         elif mtype == DATATYPE:
-            dtype = _datatype(data)
+            meta["dtype"] = _datatype(data)
         elif mtype == LAYOUT:
-            layout = _layout(data, f.so, f.sl)
+            meta["layout"] = _layout(data, f.so, f.sl)
         elif mtype in (FILL_OLD, FILL):
             value = _fill_value(mtype, data)
-            fill = value if value is not None or mtype == FILL else fill
+            meta["fill"] = value if value is not None or mtype == FILL else meta["fill"]
         elif mtype == FILTERS:
-            filters = _filters(data)
+            meta["filters"] = _filters(data)
         elif mtype == SYMBOL_TABLE:
             raise IsADirectoryError("an HDF5 group, not a dataset")
-    if shape is None or dtype is None or layout is None:
+    if meta["shape"] is None or meta["dtype"] is None or meta["layout"] is None:
         raise ValueError("HDF5 object is not a dataset (no dataspace, datatype or layout)")
+    if meta["fill"] is not None and len(meta["fill"]) != meta["dtype"].itemsize:
+        raise ValueError(f"HDF5 fill value of {len(meta['fill'])} bytes for {meta['dtype']}")
+    return meta
+
+
+def _read_data(f: _File, meta: dict) -> np.ndarray:
+    shape, dtype, layout, fill = meta["shape"], meta["dtype"], meta["layout"], meta["fill"]
     n = int(np.prod(shape))
-    if fill is not None and len(fill) != dtype.itemsize:
-        raise ValueError(f"HDF5 fill value of {len(fill)} bytes for {dtype}")
     out = np.full(shape, np.frombuffer(fill, dtype)[0] if fill is not None else 0, dtype)
     if layout["class"] == 0:
         out[...] = np.frombuffer(layout["raw"], dtype, n).reshape(shape)
     elif layout["class"] == 1:
-        if filters:
+        if meta["filters"]:
             raise ValueError("HDF5 filters on a contiguous dataset")
         if layout["address"] != UNDEFINED and n:
             out[...] = np.frombuffer(f.read(layout["address"], n * dtype.itemsize), dtype).reshape(shape)
     else:
-        _read_chunked(f, layout, shape, dtype, filters, out)
+        _read_chunked(f, layout, shape, dtype, meta["filters"], out)
     return out.astype(dtype.newbyteorder("="), copy=False)
+
+
+def _read_dataset(f: _File, header: int) -> np.ndarray:
+    return _read_data(f, _dataset_meta(f, _messages(f, header)))
+
+
+class H5Group:
+    """A group of an open `H5File`: `in`, `keys()` (in HDF5's name order,
+    as h5py lists them) and `[name]` for a member (a group or a dataset's
+    array)."""
+
+    def __init__(self, file: "H5File", path: str, table: dict):
+        self.file, self.path, self._table = file, path, table
+
+    def __contains__(self, name) -> bool:
+        return f"{self.path}/{name}" in self.file
+
+    def keys(self) -> list:
+        return sorted(self._table, key=str.encode)
+
+    def __getitem__(self, name):
+        return self.file[f"{self.path}/{name}"]
+
+
+class H5File:
+    """An HDF5 file open for reading: `in`, `keys()`, `[path]` (a group as
+    an `H5Group`, a dataset as a numpy array in the native byte order; a
+    path of groups from the root, e.g. "a/b.jpg/keypoints"), `close()`,
+    and use as a context manager. Group tables and dataset headers are
+    read once; reads are positioned (`os.pread`), and the handle opens
+    again in a process that did not open it (a spawned or unpickled copy)."""
+
+    def __init__(self, path):
+        self.path = Path(path)
+        self._fh, self._pid = None, None
+        self._f = _File(self)
+        self._objects: dict = {}  # header address -> ("group", table) or ("dataset", meta)
+
+    def fileno(self) -> int:
+        if self._fh is None or self._pid != os.getpid():
+            self._fh, self._pid = open(self.path, "rb"), os.getpid()
+        return self._fh.fileno()
+
+    def close(self) -> None:
+        if self._fh is not None and self._pid == os.getpid():
+            self._fh.close()
+        self._fh = None
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+    def __getstate__(self):
+        return {**self.__dict__, "_fh": None, "_pid": None}
+
+    def _object(self, entry: dict) -> tuple:
+        header = entry["header"]
+        if header not in self._objects:
+            if entry.get("cache") == 1:
+                obj = ("group", _group_table(self._f, entry["btree"], entry["heap"]))
+            else:
+                messages = _messages(self._f, header)
+                kinds = {mtype for mtype, _ in messages}
+                if SYMBOL_TABLE in kinds:
+                    data = next(d for mtype, d in messages if mtype == SYMBOL_TABLE)
+                    obj = ("group", _group_table(self._f, _uint(data, 0, self._f.so),
+                                                 _uint(data, self._f.so, self._f.so)))
+                elif kinds & {LINK_INFO, LINK}:
+                    raise NotImplementedError("HDF5 new-style group (link messages, libver 'v18' or "
+                                              "later): only symbol-table groups are read")
+                else:
+                    obj = ("dataset", _dataset_meta(self._f, messages))
+            self._objects[header] = obj
+        return self._objects[header]
+
+    def _resolve(self, key: str) -> tuple:
+        """(path, kind, table or meta) of `key`; KeyError where a name is
+        missing or a dataset stands where a group is wanted."""
+        names = [n for n in str(key).split("/") if n]
+        kind, obj = self._object(self._f.root)
+        for i, name in enumerate(names):
+            if kind != "group" or name not in obj:
+                raise KeyError(f"{'/'.join(names[:i + 1])} not found in {self.path}")
+            kind, obj = self._object(obj[name])
+        return "/".join(names), kind, obj
+
+    def __contains__(self, key) -> bool:
+        try:
+            self._resolve(key)
+        except KeyError:
+            return False
+        return True
+
+    def keys(self) -> list:
+        return self["/"].keys()
+
+    def __getitem__(self, key):
+        path, kind, obj = self._resolve(key)
+        if kind == "group":
+            return H5Group(self, path, obj)
+        return _read_data(self._f, obj)
 
 
 def read_dataset(path, key: str = "/depth") -> np.ndarray:
     """The dataset `key` (a path of groups from the root, e.g. "/depth" or
     "a/b/depth") of the HDF5 file at `path`, as a numpy array in the native
     byte order."""
-    names = [n for n in str(key).split("/") if n]
-    if not names:
-        raise IsADirectoryError("the root group is not a dataset")
-    with open(Path(path), "rb") as fh:
-        f = _File(fh)
-        entry = f.root
-        for i, name in enumerate(names):
-            try:
-                btree, heap = _group_tables(f, entry)
-                entry = _group_lookup(f, btree, heap, name)
-            except KeyError:
-                raise KeyError(f"{'/'.join(names[:i + 1])} not found in {path}") from None
-        return _read_dataset(f, entry["header"])
+    with H5File(path) as f:
+        value = f[key]
+    if isinstance(value, H5Group):
+        raise IsADirectoryError(f"{key} in {path} is an HDF5 group, not a dataset")
+    return value

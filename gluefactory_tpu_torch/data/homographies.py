@@ -15,7 +15,18 @@ that draws as OpenCV does (`raster.py`). The warp is OpenCV's
 `cv2.warpPerspective` with INTER_LINEAR on a float32 image (OpenCV 5's arithmetic, which the JAX
 dataset runs), written in numpy: no OpenCV is used. It matches cv2's
 pixels within an ulp but in the scalar tail of a row (`warp_patch` says
-how far). `load_features`, `detect_lines` and `emit_source` raise
+how far).
+
+Cached features (`load_features.do`): the image's group of an HDF5 cache
+(`scripts/export_local_features.py` writes one), scaled by the image's
+upscaling, then in each view warped by its homography, kept where inside
+the patch (every per-keypoint array filtered, where the JAX package
+filters only the keypoints), thresholded on `thresh`, cut to the
+`max_num_keypoints` best scores and, with `force_num_keypoints`, padded to
+that count with a mask: `view["cache"]`. Divergence from the JAX package,
+which looks a file up by its absolute path: the group of a file is its
+path relative to the image folder, the name the export writes (a
+procedural image's is its index). `detect_lines` and `emit_source` raise
 `NotImplementedError` for now.
 """
 
@@ -28,6 +39,7 @@ import torch
 
 from ..core.config import merge
 from ..geometry.homography import sample_homography_corners
+from ..models.cache_loader import CacheLoader, pad_local_features
 from ..settings import DATA_PATH
 from .augmentations import IdentityAugmentation, augmentations
 from .base_dataset import BaseDataset
@@ -63,6 +75,12 @@ def generate_synthetic_image(seed: int, size=(640, 480)) -> np.ndarray:
             fill_poly(img, [(int(x), int(y)) for x, y in pts], color)
     img += rng.normal(0, 0.02, img.shape).astype(np.float32)
     return np.clip(img, 0, 1)
+
+
+def _warp_points_np(points: np.ndarray, H: np.ndarray) -> np.ndarray:
+    """(N, 2) points mapped by the homography H."""
+    pts = np.concatenate([points, np.ones_like(points[:, :1])], axis=1) @ H.T
+    return pts[:, :2] / pts[:, 2:]
 
 
 def _fma32(a, b, c) -> np.ndarray:
@@ -153,7 +171,38 @@ class _HomographySplit(torch.utils.data.Dataset):
             img, scale = resize_image(img, (int(np.ceil(w * s)), int(np.ceil(h * s))))
         return img, scale
 
-    def _sample_view(self, img: np.ndarray, rng: np.random.Generator, aug, hconf) -> dict:
+    def _transform_features(self, features: dict, H: np.ndarray, patch_shape) -> dict:
+        """The cached features warped into a view: keypoints mapped by H,
+        every per-keypoint array kept where the keypoint lies in the patch,
+        then `thresh`, the top `max_num_keypoints` by score and
+        `force_num_keypoints`."""
+        lf = self.conf.load_features
+        kpts = _warp_points_np(np.asarray(features["keypoints"], np.float32), np.asarray(H, np.float32))
+        w, h = patch_shape
+        valid = (kpts[:, 0] >= 0) & (kpts[:, 0] <= w - 1) & (kpts[:, 1] >= 0) & (kpts[:, 1] <= h - 1)
+        features = dict(features, keypoints=kpts.astype(np.float32))
+        features = {k: v[valid] for k, v in features.items()}
+        if lf.thresh > 0:
+            keep = features["keypoint_scores"] >= lf.thresh
+            features = {k: v[keep] for k, v in features.items()}
+        n = lf.max_num_keypoints
+        if n > -1:
+            inds = np.argsort(-features["keypoint_scores"])
+            features = {k: v[inds[:n]] for k, v in features.items()}
+            if lf.force_num_keypoints:
+                features = pad_local_features(features, n)
+        return features
+
+    def cache_key(self, idx: int) -> str:
+        """The cache group of image idx: its path relative to the folder
+        (a procedural image's index)."""
+        name = self.image_names[idx]
+        if isinstance(name, int):
+            return str(name)
+        return Path(name).relative_to(self.parent.image_dir).as_posix()
+
+    def _sample_view(self, img: np.ndarray, rng: np.random.Generator, aug, hconf,
+                     features=None) -> dict:
         h, w = img.shape[:2]
         patch_shape = tuple(hconf.patch_shape)
         H, _, _, _ = sample_homography_corners(
@@ -164,11 +213,14 @@ class _HomographySplit(torch.utils.data.Dataset):
         patch = aug(warp_patch(img, H, patch_shape), rng)
         if self.conf.grayscale:
             patch = (patch @ GRAY)[..., None]
-        return {
+        view = {
             "image": patch.astype(np.float32),
             "image_size": np.array(patch_shape, dtype=np.float32),
             "H_": H.astype(np.float32),
         }
+        if features is not None:
+            view["cache"] = self._transform_features(features, H, patch_shape)
+        return view
 
     def __getitem__(self, idx: int) -> dict:
         conf = self.conf
@@ -177,19 +229,22 @@ class _HomographySplit(torch.utils.data.Dataset):
         else:
             rng = np.random.default_rng()
         name = self.image_names[idx]
-        img, _ = self._read_image(idx)
+        img, upscale = self._read_image(idx)
+        features = None
+        if self.parent.feature_loader is not None:
+            features = self.parent.feature_loader({"name": self.cache_key(idx), "scales": upscale})
         # right_only: view0 is the source rescaled to the patch (difficulty
         # 0), unaugmented; only the other views are warped and augmented
         left_hconf = self.parent.left_homography if conf.right_only else conf.homography
         views = [
             self._sample_view(img, rng,
                               self.parent.left_augment if i == 0 else self.parent.photo_augment,
-                              left_hconf if i == 0 else conf.homography)
+                              left_hconf if i == 0 else conf.homography, features)
             for i in range(3 if conf.triplet else 2)
         ]
         data = {"original_image_size": np.array(img.shape[:2][::-1], np.float32)}
         for i, v in enumerate(views):
-            data[f"view{i}"] = {k: v[k] for k in ("image", "image_size")}
+            data[f"view{i}"] = {k: v[k] for k in v if k != "H_"}
         H0, H1 = views[0]["H_"], views[1]["H_"]
         data["H_0to1"] = (H1 @ np.linalg.inv(H0)).astype(np.float32)
         if conf.triplet:
@@ -228,14 +283,15 @@ class HomographyDataset(BaseDataset):
             "min_convexity": 0.05,
         },
         "photometric": {"name": "dark", "p": 0.75},
-        "load_features": {"do": False},
+        # features from a cache, warped into each view
+        "load_features": {"do": False, **CacheLoader.default_conf, "thresh": 0.0,
+                          "max_num_keypoints": -1, "force_num_keypoints": False},
         "detect_lines": {"do": False},
     }
 
     def _init(self, conf):
-        for key in ("load_features", "detect_lines"):
-            if conf[key].do:
-                raise NotImplementedError(f"homographies: {key} is not ported yet")
+        if conf.detect_lines.do:
+            raise NotImplementedError("homographies: detect_lines is not ported yet")
         if conf.emit_source:
             raise NotImplementedError("homographies: emit_source (on-device augmentation) is not ported yet")
         names = list(range(conf.synthetic_images)) if conf.synthetic_images > 0 else self._list(conf)
@@ -248,14 +304,24 @@ class HomographyDataset(BaseDataset):
         self.photo_augment = augmentations[conf.photometric.name](conf.photometric)
         self.left_augment = IdentityAugmentation() if conf.right_only else self.photo_augment
         self.left_homography = merge(conf.homography, {"difficulty": 0.0})
+        self.image_dir = self.image_folder(conf)
+        self.feature_loader = None
+        if conf.load_features.do:
+            self.feature_loader = CacheLoader(
+                {k: v for k, v in conf.load_features.to_dict().items()
+                 if k not in ("do", "thresh", "max_num_keypoints", "force_num_keypoints")})
         self.epoch = 0
+
+    @staticmethod
+    def image_folder(conf) -> Path:
+        return Path(conf.image_dir) if conf.image_dir else DATA_PATH / conf.data_dir / "jpg"
 
     @staticmethod
     def _list(conf) -> list:
         """The image paths of the folder: those of `image_list` (a list, or
         a file under the folder when `image_dir` is set, else under
         `DATA_PATH/data_dir`), or every match of `glob` below the folder."""
-        image_dir = Path(conf.image_dir) if conf.image_dir else DATA_PATH / conf.data_dir / "jpg"
+        image_dir = HomographyDataset.image_folder(conf)
         if conf.image_list is None:
             if not image_dir.exists():
                 raise FileNotFoundError(f"image dir {image_dir} not found; set data.image_dir or "

@@ -17,14 +17,19 @@ training pairs; the trainer calls it at each epoch with `seed + epoch`
 (`train.dataset_callback_fn`). Views can be rotated by +-90 degrees
 (`p_rotate`, training only) with their intrinsics and pose.
 
+Cached features (`load_features.do`, the conf of `models/cache_loader.py`):
+each view's group `name` of the scene's cache (`scripts/export_megadepth.py`
+writes it), scaled into the processed image and, for a rotated view, its
+keypoints rotated with it, as `data["cache"]`; the pipeline's
+`allow_no_extract` then skips the extractor.
+
 Scene lists: a file of `data_dir/scene_lists/` first, else this package's
 copy of upstream's lists (`megadepth_scene_lists/`, written by
 `scripts/make_scene_lists.py` for other corpora).
 
-Not ported yet, each raising `NotImplementedError`: `load_features.do`
-(cached features: `models/cache_loader.py`, `scripts/export_megadepth.py`)
-and `detect_lines.do` (`models/lines/wireframe.py`). The dataset
-visualizer waits with `visualization/`.
+Not ported yet, raising `NotImplementedError`: `detect_lines.do`
+(`models/lines/wireframe.py`). The dataset visualizer waits with
+`visualization/`.
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ from pathlib import Path
 import numpy as np
 
 from .. import logger, settings
+from ..models.cache_loader import CacheLoader
 from ..utils.tools import fork_rng
 from .base_dataset import BaseDataset
 from .geometry_io import camera_dict_from_K, compose_pose, invert_pose
@@ -86,19 +92,12 @@ class MegaDepth(BaseDataset):
         "p_rotate": 0.0,
         "reseed": False,
         "seed": 0,
-        # the JAX package's CacheLoader conf
-        "load_features": {"do": False, "path": "???",
-                          "data_keys": ["keypoints", "keypoint_scores", "descriptors"],
-                          "scale": ["keypoints", "lines", "orig_lines"], "padding_length": None,
-                          "numeric_type": "float32", "collate": False},
+        # features from a cache
+        "load_features": {"do": False, **CacheLoader.default_conf},
         "detect_lines": {"do": False, "max_num_lines": 250, "min_length": 15.0, "nms_radius": 3.0},
     }
 
     def _init(self, conf):
-        if conf.load_features.do:
-            raise NotImplementedError("megadepth load_features: cached features need "
-                                      "models/cache_loader.py and scripts/export_megadepth.py, "
-                                      "not ported yet")
         if conf.detect_lines.do:
             raise NotImplementedError("megadepth detect_lines: needs models/lines/wireframe.py, "
                                       "not ported yet")
@@ -132,6 +131,10 @@ class _MegaDepthItems:
         else:
             raise ValueError(f"unknown split conf {split_conf}")
         scenes = sorted(set(scenes))
+        self.feature_loader = None
+        if conf.load_features.do:
+            self.feature_loader = CacheLoader(
+                {k: v for k, v in conf.load_features.to_dict().items() if k != "do"})
         self.preprocessor = ImagePreprocessor(conf.preprocessing)
 
         self.images, self.depths, self.poses, self.intrinsics = {}, {}, {}, {}
@@ -280,6 +283,7 @@ class _MegaDepthItems:
             depth = read_dataset(depth_path, "/depth").astype(np.float32)
 
         # +-90 degree rotation: the image, the depth, K and the pose
+        k_rot = 0
         if conf.p_rotate > 0.0 and self.split == "train" and rng.random() < conf.p_rotate:
             k_rot = int(rng.choice(2)) * 2 - 1  # -1 or +1 (cw / ccw)
             pre_shape = img.shape[:2]  # rotate_intrinsics takes the pre-rotation (h, w)
@@ -299,6 +303,20 @@ class _MegaDepthItems:
         data["scene"] = scene
         data["T_w2cam"] = T
         data["camera"] = camera_dict_from_K(K, data["image_size"][0], data["image_size"][1])
+
+        if self.feature_loader is not None:
+            features = self.feature_loader({**data, "scene": scene, "name": path.name})
+            if k_rot != 0 and "keypoints" in features:
+                # the cache holds the unrotated image's keypoints
+                kpts = features["keypoints"].copy()
+                x, y = kpts[..., 0].copy(), kpts[..., 1].copy()
+                w, h = data["image_size"]
+                if k_rot == 1:
+                    kpts[..., 0], kpts[..., 1] = w - y, x
+                else:
+                    kpts[..., 0], kpts[..., 1] = y, h - x
+                features["keypoints"] = kpts
+            data["cache"] = features
         return data
 
     def __len__(self):

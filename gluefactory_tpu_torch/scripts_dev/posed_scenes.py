@@ -13,7 +13,7 @@ posed-images layout (`<root>/<scene>/images/*.jpg`, `depths/*.png` as
 (`<root>/<scene>/*.jpg` and lines of `pairs_calibrated.txt`);
 `write_megadepth_scene(root, scene, ...)` writes MegaDepth's D2-Net layout
 for training (`Undistorted_SfM/<scene>/images/*.jpg`,
-`depth_undistorted/<scene>/*.h5` through `hdf5_write.py`,
+`depth_undistorted/<scene>/*.h5` through `utils/hdf5_write.py`,
 `scene_info/<scene>.npz` with the overlap matrix of the geometry). Views are
 named `<scene>_imNN`. Images are
 written by Pillow (JPEG quality 95). A scene is the same for the same
@@ -40,7 +40,7 @@ import torch
 from ..data.homographies import generate_synthetic_image
 from ..geometry.utils import image_grid, so3exp_map
 from ..geometry.wrappers import Camera
-from .hdf5_write import write_datasets
+from ..utils.hdf5_write import write_datasets
 
 
 def synthetic_correspondences(rng, n: int, noise: float = 0.0, outliers: float = 0.0):

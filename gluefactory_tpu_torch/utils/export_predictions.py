@@ -6,10 +6,13 @@ and lines back to the original resolution, and write one group per item.
 Masked (padded) keypoints and lines are trimmed before writing, with the
 match indices remapped, so the cache holds exactly the valid sets.
 
-The cache is one zip that `np.load` reads (`predictions.npz`): a member
-`<name>/<key>.npy` per array, written item by item through `zipfile` and
-`np.lib.format.write_array`, so nothing accumulates in memory and no HDF5
-library is needed. A name written before gets the suffix `_<n>`, n the
+An output file ending in `.h5` is an HDF5 file as the JAX package writes
+it, one group per item (the feature caches that `models/cache_loader.py`
+reads), written by `utils/hdf5_write.py` (no h5py). Any other is one zip
+that `np.load` reads (the eval caches, `predictions.npz`): a member
+`<name>/<key>.npy` per array, through `zipfile` and
+`np.lib.format.write_array`. Both stream item by item, so nothing
+accumulates in memory. A name written before gets the suffix `_<n>`, n the
 number of items written so far, as the JAX package's HDF5 groups do.
 """
 
@@ -22,6 +25,7 @@ import numpy as np
 import torch
 
 from .. import logger
+from .hdf5_write import H5Writer
 from .tensor import map_tensor
 
 
@@ -165,6 +169,29 @@ class PredictionWriter:
         self.zip.close()
 
 
+class H5PredictionWriter:
+    """Items written one by one as groups `<name>` of one HDF5 file (a name
+    with "/" as nested groups), each array a dataset."""
+
+    def __init__(self, path: Path):
+        self.file = H5Writer(path)
+        self.names: set = set()
+
+    def write(self, name: str, arrays: dict) -> None:
+        try:
+            grp = self.file.create_group(name)
+        except ValueError:
+            name = f"{name}_{len(self.names)}"
+            grp = self.file.create_group(name)
+        self.names.add(name)
+        for k, v in arrays.items():
+            if isinstance(v, np.ndarray):
+                grp.create_dataset(k, data=v)
+
+    def close(self) -> None:
+        self.file.close()
+
+
 def prediction_keys(npz) -> dict:
     """{name: [keys]} of a cache opened with `np.load`."""
     out: dict = {}
@@ -193,11 +220,13 @@ def export_predictions(loader, apply_fn, output_file: Path, as_half: bool = Fals
     comes. Each item's outputs are unbatched, filtered to `keys`, passed to
     `callback_fn(pred, item)` (its keys added under the model's), trimmed,
     un-scaled, and with `as_half` their float32 arrays stored as float16.
+    An `output_file` ending in `.h5` is written as HDF5, any other as a zip
+    of `.npy` files.
     """
     output_file = Path(output_file)
     output_file.parent.mkdir(exist_ok=True, parents=True)
     buckets: dict = {}
-    writer = PredictionWriter(output_file)
+    writer = (H5PredictionWriter if output_file.suffix == ".h5" else PredictionWriter)(output_file)
 
     def flush(group):
         n_real = len(group)

@@ -456,6 +456,40 @@ def test_attention_at_stage2_training_shape(dev, name):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("name", ["fused_attention", "fused_bidirectional_attention"])
+def test_attention_with_cached_feature_padding(dev, name):
+    """Both attention kernels under autograd as cached-feature training
+    runs them: (B, 4, 2048, 64) f32 with each view's `keypoint_mask` valid
+    on a prefix and padded after it (`pad_local_features`, padding_length
+    2048), one view with no padding and one with most of it padded. The
+    forward within 1e-3 of the plain version; every gradient entry within
+    1e-3 of the plain gradient's global norm."""
+    gen = torch.Generator(device=dev).manual_seed(16)
+    n, heads, pairs = 2048, 4, 4
+    counts = torch.tensor([2048, 1531, 977, 128], device=dev)
+    masks = torch.arange(n, device=dev)[None] < counts[:, None]
+    if name == "fused_attention":
+        xs = [_leaf(gen, dev, 2 * pairs, heads, n, 64) for _ in range(3)]
+        both = torch.cat([masks, masks.flip(0)])
+        inputs = [*xs, both, both]  # as LightGlue's self attention: keys and queries masked
+        kernel, plain = cuda_attention.fused_attention, cuda_attention.attention_plain
+    else:
+        xs = [_leaf(gen, dev, pairs, heads, n, 64) for _ in range(4)]
+        inputs = [*xs, masks, masks.flip(0)]
+        kernel, plain = cuda_attention.fused_bidirectional_attention, cuda_attention.bidirectional_plain
+    with torch.no_grad():
+        got, want = kernel(*inputs), plain(*inputs)
+    for a, b in zip(got if isinstance(got, tuple) else (got,), want if isinstance(want, tuple) else (want,)):
+        assert (a - b).abs().max() <= 1e-3
+    outs = plain(*inputs)
+    cot = [torch.randn(o.shape, generator=gen, device=dev) for o in (outs if isinstance(outs, tuple) else (outs,))]
+    got, want = _grads(kernel, inputs, cot), _grads(plain, inputs, cot)
+    norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in want]))
+    assert norm > 0
+    for a, b in zip(got, want):
+        assert (a - b).abs().max() <= 1e-3 * norm
+
+
 def test_detect_raises_under_grad(dev):
     s = torch.rand(1, 64, 64, device=dev, requires_grad=True)
     with pytest.raises(RuntimeError, match="no gradient"):

@@ -2,16 +2,16 @@
 h5py on files h5py writes by default: every dtype, layout, filter and group
 depth it reads gives h5py's array exactly (bit for bit, dtype included,
 in the native byte order); what it does not read raises
-`NotImplementedError`. And h5py reads the fixture writer's files
-(`scripts_dev/hdf5_write.py`) equal to what was written."""
+`NotImplementedError`. And h5py reads the package writer's files
+(`utils/hdf5_write.py`) equal to what was written."""
 
 import h5py
 import numpy as np
 import pytest
 
 from gluefactory_tpu_torch.data import hdf5
-from gluefactory_tpu_torch.data.hdf5 import read_dataset
-from gluefactory_tpu_torch.scripts_dev.hdf5_write import write_datasets
+from gluefactory_tpu_torch.data.hdf5 import H5File, H5Group, read_dataset
+from gluefactory_tpu_torch.utils.hdf5_write import H5Writer, write_datasets
 
 DTYPES = ["<f4", "<f8", "<u2", ">f4", ">f8", ">i4", "<i8", "<f2", "u1", "<i2"]
 LAYOUTS = {
@@ -112,6 +112,55 @@ def test_depth_map_as_megadepth_stores_it(tmp_path):
     _assert_same(read_dataset(tmp_path / "im.h5", "/depth"), depth)
 
 
+def test_bool_is_read_and_other_enums_raise(tmp_path):
+    """h5py's `bool` (an enum of base int8, FALSE = 0 and TRUE = 1) reads
+    as `np.bool_`, empty too; an enum of other members or base raises."""
+    path = tmp_path / "enum.h5"
+    rng = np.random.default_rng(3)
+    with h5py.File(path, "w") as f:
+        f.create_dataset("flags", data=rng.random((17, 3)) > 0.5)
+        f.create_dataset("none", data=np.zeros(0, bool))
+        f.create_dataset("chunked", data=rng.random(100) > 0.2, chunks=(7,), compression="gzip")
+        f.create_dataset("colour", data=np.array([0, 2, 1], np.int8),
+                         dtype=h5py.enum_dtype({"RED": 0, "GREEN": 1, "BLUE": 2}, basetype="i1"))
+        f.create_dataset("wide", data=np.array([0, 1], np.int32),
+                         dtype=h5py.enum_dtype({"FALSE": 0, "TRUE": 1}, basetype="i4"))
+    for key in ("flags", "none", "chunked"):
+        _assert_same(read_dataset(path, key), _h5py_read(path, key))
+        assert read_dataset(path, key).dtype == np.bool_
+    for key in ("colour", "wide"):
+        with pytest.raises(NotImplementedError, match="enum"):
+            read_dataset(path, key)
+
+
+def test_open_file_lists_and_reads_many_nested_groups(tmp_path):
+    """`H5File` on an h5py file with 400 groups at the root (a B-tree of
+    two levels), nested names and datasets beside groups: `keys()` in
+    h5py's order, `in`, groups as `H5Group`, datasets as arrays."""
+    path = tmp_path / "groups.h5"
+    rng = np.random.default_rng(4)
+    want = {}
+    with h5py.File(path, "w") as f:
+        for i in range(400):
+            name = f"im{i:03d}.jpg" if i % 5 else f"dir{i % 3}/sub/im{i:03d}.jpg"
+            want[name] = rng.normal(size=(i % 9, 2)).astype(np.float16)
+            f.create_group(name).create_dataset("keypoints", data=want[name])
+        f.create_dataset("top", data=np.arange(4))
+        top_keys = list(f.keys())
+        dir_keys = list(f["dir0/sub"].keys())
+    with H5File(path) as f:
+        assert f.keys() == top_keys and f["dir0/sub"].keys() == dir_keys
+        assert isinstance(f["dir1"], H5Group) and "sub" in f["dir1"] and "im000.jpg" not in f["dir1"]
+        assert "top" in f and "nope.jpg" not in f and "top/x" not in f
+        _assert_same(f["top"], np.arange(4))
+        for name, a in want.items():
+            assert name in f and "keypoints" in f[name]
+            _assert_same(f[name]["keypoints"], a)
+            _assert_same(f[f"/{name}/keypoints"], a)
+        with pytest.raises(KeyError):
+            f["dir0/missing.jpg"]
+
+
 @pytest.mark.parametrize("libver", ["latest", "v108", "v110"])
 def test_later_formats_raise(tmp_path, libver):
     path = tmp_path / "late.h5"
@@ -201,4 +250,15 @@ def test_writer_refuses_what_it_does_not_write(tmp_path):
     with pytest.raises(ValueError):
         write_datasets(tmp_path / "x.h5", {"a": np.ones(2, ">f4")})
     with pytest.raises(ValueError):
-        write_datasets(tmp_path / "x.h5", {f"d{i}": np.ones(2) for i in range(9)})
+        write_datasets(tmp_path / "x.h5", {"a": np.array(["text"])})
+    with pytest.raises(ValueError):
+        write_datasets(tmp_path / "x.h5", {})
+    with H5Writer(tmp_path / "y.h5") as f:
+        g = f.create_group("g")
+        g.create_dataset("d", data=np.ones(2))
+        with pytest.raises(ValueError):  # a group twice
+            f.create_group("g")
+        with pytest.raises(ValueError):  # a group where a dataset is
+            f.create_group("g/d")
+        with pytest.raises(ValueError):  # a dataset twice
+            g.create_dataset("d", data=np.ones(2))

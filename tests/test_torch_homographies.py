@@ -13,8 +13,8 @@
 - the procedural images on >= 98% of pixels within 1e-6 (the rasteriser
   against cv2's drawing);
 - `collate` and the loader's item order (shuffled from `conf.seed`);
-- the options that are not ported raise `NotImplementedError`; `lg` and
-  `dark` keep `H_0to1` bit-equal to JAX's.
+- the options that are not ported raise `NotImplementedError`; `lg`,
+  `dark` and `load_features` keep `H_0to1` bit-equal to JAX's.
 """
 
 import numpy as np
@@ -145,20 +145,30 @@ def test_view_options(options):
 
 @pytest.mark.parametrize("override,error", [
     ({"photometric": {"name": "lg"}}, None), ({"photometric": {"name": "dark"}}, None),
-    ({"synthetic_images": 0}, FileNotFoundError), ({"load_features": {"do": True}}, NotImplementedError),
+    ({"synthetic_images": 0}, FileNotFoundError), ({"load_features": {"do": True}}, None),
     ({"detect_lines": {"do": True}}, NotImplementedError), ({"emit_source": True}, NotImplementedError),
 ], ids=["lg", "dark", "folders", "load_features", "detect_lines", "emit_source"])
 def test_not_ported_options_raise(override, error, monkeypatch, tmp_path):
-    """`load_features`, `detect_lines` and `emit_source` raise
-    NotImplementedError. The photometric families `lg` and `dark` are
-    ported: they draw from the item's generator as JAX's do, so the next
-    view's homography and `H_0to1` stay bit-equal to JAX's. Image folders
-    are ported: without `synthetic_images` the dataset lists
-    DATA_PATH/revisitop1m/jpg, absent here, and raises FileNotFoundError
-    as JAX's does."""
+    """`detect_lines` and `emit_source` raise NotImplementedError. The
+    photometric families `lg` and `dark` are ported: they draw from the
+    item's generator as JAX's do, so the next view's homography and
+    `H_0to1` stay bit-equal to JAX's. `load_features` is ported (a cache
+    of every procedural image, keyed by its index in both packages), and
+    draws nothing. Image folders are ported: without `synthetic_images`
+    the dataset lists DATA_PATH/revisitop1m/jpg, absent here, and raises
+    FileNotFoundError as JAX's does."""
     from gluefactory_tpu_torch.data import homographies
+    from gluefactory_tpu_torch.utils.hdf5_write import H5Writer
 
     monkeypatch.setattr(homographies, "DATA_PATH", tmp_path)
+    if "load_features" in override:
+        rng = np.random.default_rng(0)
+        with H5Writer(tmp_path / "c.h5") as f:
+            for i in range(CONF["synthetic_images"]):
+                g = f.create_group(str(i))
+                g.create_dataset("keypoints", data=rng.uniform(0, 160, (20, 2)).astype(np.float32))
+                g.create_dataset("keypoint_scores", data=rng.random(20).astype(np.float32))
+        override = {"load_features": {"do": True, "path": str(tmp_path / "c.h5")}}
     if error is not None:
         with pytest.raises(error):
             HomographyDataset({**CONF, **override})

@@ -36,7 +36,7 @@ for name in names:
 leaked = sorted(m for m in sys.modules if m == "gluefactory_tpu" or m.startswith("gluefactory_tpu."))
 print(len(names), leaked)
 assert not leaked, leaked
-assert len(names) >= 91, names
+assert len(names) >= 95, names
 for name in ("train", "optim", "settings", "data.homographies", "data.base_dataset", "data.augmentations",
              "data.raster", "data.colour", "data.jpeg", "data.preprocess", "geometry.homography", "geometry.gt_generation", "models.losses",
              "models.metrics", "models.matchers.homography_matcher", "utils.experiments",
@@ -56,7 +56,8 @@ for name in ("train", "optim", "settings", "data.homographies", "data.base_datas
              "robust_estimators.relative_pose.opencv", "eval.megadepth1500",
              "eval.scannet1500", "data.hdf5", "data.megadepth", "data.utils",
              "models.matchers.depth_matcher", "scripts", "scripts.make_scene_lists",
-             "scripts_dev.hdf5_write", "scripts_dev.posed_scenes"):
+             "scripts_dev.posed_scenes", "utils.hdf5_write", "models.cache_loader",
+             "scripts.export_megadepth", "scripts.export_local_features", "data.image_folder"):
     assert pkg.__name__ + "." + name in names, name
 """
 

@@ -210,8 +210,12 @@ def test_batches_through_the_loader(both, md_root):
 
 
 def test_not_ported_options_raise(both):
-    with pytest.raises(NotImplementedError, match="cache_loader"):
-        get_dataset("megadepth")({"load_features": {"do": True}})
+    """`detect_lines` raises; `load_features` is ported: both packages
+    build their cache loader from it (`tests/test_torch_cached_features.py`
+    holds the items)."""
+    jax_items, items = both({"train_split": ["0001"], "train_num_per_scene": 2,
+                             "load_features": {"do": True, "path": "c/{scene}.h5"}})
+    assert items.feature_loader.conf.path == jax_items.feature_loader.conf.path == "c/{scene}.h5"
     with pytest.raises(NotImplementedError, match="wireframe"):
         get_dataset("megadepth")({"detect_lines": {"do": True}})
 
