@@ -149,11 +149,39 @@ Phases, in order; any failure exits non-zero before the last line:
    pads them, the batch's `keypoint_mask0/1`, a step vs `flash` off,
    `--restore` bit-equal; ms / device ms a step, busy share, samples/s and
    peak memory beside path H's, the loader's rate with `read_image` true
-   and false, and which sets the pace.
+   and false (over the first 40 training samples), and which sets the pace;
+14. path J, the last two benchmarks (run after path I, before phase 8):
+   2 procedural ETH3D scenes of 4 views at the DSLR size 6048 x 4032
+   (`scripts_dev/posed_scenes.write_eth3d_scene`: COLMAP `cameras.txt` and
+   both `images.txt` with 15000 points' observations, 16-bit PNG depths at
+   756 x 504) and 2 ZEB scenes of 10 pair files at 1600 x 1200
+   (`write_zeb_scene`) written under `outputs/chip_smoke_path_j/`; then
+   `eval.eth3d.main` with `--conf superpoint+lightglue-official` (9 + 9
+   attention launches a pair) and with `--conf superpoint+NN` (none), and
+   `eval.zeb.main` with `--conf superpoint+superglue-official` (36
+   attention launches and one Sinkhorn a pair) and `eval.estimator=
+   xla_ransac`, each config by name, random weights drawn as path F's.
+   Gates: finite AP and AUCs, the caches' items and keys, exact launch
+   counts, `depth_matcher` and the RANSAC on the card, the NN matcher's
+   outputs against a CPU recomputation of the same tensors, each cache
+   read back by an `--overwrite_eval` rerun;
+15. path K, SuperGlue stage-1 training (run after path J, before phase
+   8): `train.main` on path E's config with SuperGlue at the official
+   widths (9 layer pairs, 4 heads, 50 Sinkhorn iterations, checkpointed)
+   as its matcher, written to a temporary directory; 4 steps at batch 32
+   and one validation batch. Gates: finite losses, every update applied,
+   72 `fused_attention` and 1 `log_sinkhorn` launches a step (36 and 1 a
+   validation batch), `--restore` bit-equal with the BatchNorm statistics,
+   a step through the kernels against the plain versions (every gradient
+   entry within 1e-3 of the norm, the BatchNorm statistics after it), the
+   Sinkhorn kernel at (32, 513, 513) under autograd against the plain
+   loop, one `TripletPipeline` forward and loss on a batch of 8 triplets;
+   then ms / device ms a step, busy share, samples/s, peak memory and the
+   loader's rate.
 
 Each path resets every launch count just before its timed run and reads
-them just after. Prints the kernel JSON line, the card line, and as its last
-line {"ok": true, "device": {...}}. Full results go to
+them just after. Prints the script's seconds, the kernel JSON line, the card
+line, and as its last line {"ok": true, "device": {...}}. Full results go to
 chiprun_out/chip_smoke.json.
 """
 
@@ -1539,15 +1567,32 @@ def _grad_norm(module) -> torch.Tensor:
         [p.grad.norm() for p in module.parameters() if p.grad is not None]))
 
 
-def train_step_vs_plain(model, batch, label: str = "path E") -> dict:
+def _float_buffers(model) -> dict:
+    return {n: b.clone() for n, b in model.named_buffers() if b.is_floating_point()}
+
+
+def _set_buffers(model, buffers: dict) -> None:
+    with torch.no_grad():
+        for n, b in model.named_buffers():
+            if n in buffers:
+                b.copy_(buffers[n])
+
+
+def train_step_vs_plain(model, batch, label: str = "path E", step_launches: dict = STEP_LAUNCHES) -> dict:
     """One forward with loss and backward on `batch` through the kernels and
-    through the plain versions (`flash` off): the loss and the matcher's
-    gradient global norm within TRAIN_TOL relative, every entry of the
-    matcher's gradients within TRAIN_TOL of the plain gradients' global
-    norm, and the kernels' launches in the step exactly STEP_LAUNCHES."""
+    through the plain versions (`flash` off), each from the model's buffers
+    as they were (a train-mode BatchNorm updates its running statistics):
+    the loss and the matcher's gradient global norm within TRAIN_TOL
+    relative, every entry of the matcher's gradients within TRAIN_TOL of
+    the plain gradients' global norm, the running statistics after the two
+    steps within TRAIN_TOL of their tensor's largest entry, and the
+    kernels' launches in the step exactly `step_launches`. The buffers are
+    set back after."""
     gen = torch.Generator(device=DEVICE)
+    before = _float_buffers(model)
     out = {}
     for flash in (True, False):
+        _set_buffers(model, before)
         set_flash(model, flash)
         model.zero_grad(set_to_none=True)
         reset_all_launches()
@@ -1556,10 +1601,11 @@ def train_step_vs_plain(model, batch, label: str = "path E") -> dict:
         torch.cuda.synchronize()
         out[flash] = (float(losses["total"].mean().detach()), float(_grad_norm(model.matcher)),
                       all_launches(), [p.grad.clone() for p in model.matcher.parameters()
-                                       if p.grad is not None])
+                                       if p.grad is not None], _float_buffers(model))
+    _set_buffers(model, before)
     set_flash(model, True)
     model.zero_grad(set_to_none=True)
-    _check_launches(f"{label} step, kernels", out[True][2], STEP_LAUNCHES)
+    _check_launches(f"{label} step, kernels", out[True][2], step_launches)
     _check_launches(f"{label} step, plain versions", out[False][2], {})
     res = {"loss": out[True][0], "plain_loss": out[False][0], "grad_norm": out[True][1],
            "plain_grad_norm": out[False][1], "tol": TRAIN_TOL}
@@ -1568,19 +1614,28 @@ def train_step_vs_plain(model, batch, label: str = "path E") -> dict:
     # every gradient entry, against the plain gradients' global norm
     res["grad_max_rel_err"] = max(float((a - b).abs().max()) for a, b in zip(out[True][3], out[False][3])
                                   ) / res["plain_grad_norm"]
+    stats, plain_stats = ({n: v for n, v in o[4].items() if "running" in n} for o in (out[True], out[False]))
+    res["running_stats"] = len(stats)
+    res["running_stats_max_rel_err"] = max(
+        [float((v - plain_stats[n]).abs().max() / plain_stats[n].abs().max().clamp(min=1e-12))
+         for n, v in stats.items()], default=0.0)
+    res["running_stats_moved"] = min([float((v - before[n]).abs().max()) for n, v in stats.items()],
+                                     default=None)
     if not (res["loss_rel_err"] <= TRAIN_TOL and res["grad_norm_rel_err"] <= TRAIN_TOL
-            and res["grad_max_rel_err"] <= TRAIN_TOL and len(out[True][3]) == len(out[False][3])):
+            and res["grad_max_rel_err"] <= TRAIN_TOL and len(out[True][3]) == len(out[False][3])
+            and res["running_stats_max_rel_err"] <= TRAIN_TOL):
         fail(f"{label}: a train step through the kernels differs from the plain versions: {res}")
     return res
 
 
 def _timed_micro_batches(model, batches, gen, accum: int, mixed_precision=None, conf=None,
-                         label: str = "path E", timed: int = TIMED_STEPS):
+                         label: str = "path E", timed: int = TIMED_STEPS,
+                         step_launches: dict = STEP_LAUNCHES):
     """(TrainStep under `grad_accumulation` accum with a fresh optimizer,
     ms per micro-batch over TIMED_STEPS after WARMUP_STEPS by CUDA events,
-    the last micro-batch's outputs); each attention kernel must launch
-    STEP_LAUNCHES a timed micro-batch. `conf`: the trainer's conf (path E's
-    by default)."""
+    the last micro-batch's outputs); each kernel must launch
+    `step_launches` a timed micro-batch. `conf`: the trainer's conf (path
+    E's by default)."""
     from gluefactory_tpu_torch import train
     from gluefactory_tpu_torch.core.config import merge
 
@@ -1601,13 +1656,13 @@ def _timed_micro_batches(model, batches, gen, accum: int, mixed_precision=None, 
     end.record()
     torch.cuda.synchronize()
     _check_launches(f"{label} timed steps ({mixed_precision or 'f32'})", all_launches(),
-                    {k: timed * n for k, n in STEP_LAUNCHES.items()})
+                    {k: timed * n for k, n in step_launches.items()})
     return step, start.elapsed_time(end) / timed, out
 
 
 def time_training(model, batches, device_info, mixed_precision=None, conf=None,
                   batch: int = TRAIN_BATCH, label: str = "path E", accum2: bool = True,
-                  timed: int = TIMED_STEPS) -> dict:
+                  timed: int = TIMED_STEPS, step_launches: dict = STEP_LAUNCHES) -> dict:
     """ms per train step (TrainStep with a fresh optimizer on batches
     already on the card; CUDA events over TIMED_STEPS after WARMUP_STEPS),
     samples/s, peak memory, and the device time and busy share of one
@@ -1617,7 +1672,7 @@ def time_training(model, batches, device_info, mixed_precision=None, conf=None,
     default)."""
     gen = torch.Generator(device=DEVICE)
     step, ms, (losses, _, info) = _timed_micro_batches(model, batches, gen, 1, mixed_precision,
-                                                       conf, label, timed)
+                                                       conf, label, timed, step_launches)
     if not (bool(info["ok"]) and math.isfinite(float(losses["total"]))):
         fail(f"{label} ({mixed_precision or 'f32'}): a timed step was not applied")
     res = {"mixed_precision": mixed_precision, "ms_per_step": ms,
@@ -1647,17 +1702,20 @@ def attention_at_training_shapes(dev, dtype=torch.float32) -> list[dict]:
     return attention_at_shapes(dev, dtype, 512, TRAIN_BATCH, "path E")
 
 
-def attention_at_shapes(dev, dtype, N: int, pairs: int, path: str, backward: bool = True) -> list[dict]:
-    """Each attention kernel at N tokens a view for `pairs` pairs (self
-    attention over both views, 2 * pairs; cross attention, pairs), every
-    token valid, in `dtype`: as `attention_at_training_shapes`, the backward
-    only with `backward`."""
+def attention_at_shapes(dev, dtype, N: int, pairs: int, path: str, backward: bool = True,
+                        names=("fused_attention", "fused_bidirectional_attention")) -> list[dict]:
+    """Each attention kernel of `names` at N tokens a view for `pairs` pairs
+    (self attention over both views, 2 * pairs; cross attention, pairs),
+    every token valid, in `dtype`: as `attention_at_training_shapes`, the
+    backward only with `backward`."""
     gen = torch.Generator(device=dev).manual_seed(5)
     F = torch.nn.functional
     D = HEAD_DIM
     label = "float32" if dtype == torch.float32 else "bfloat16"
     out = []
     for name, B in (("fused_attention", 2 * pairs), ("fused_bidirectional_attention", pairs)):
+        if name not in names:
+            continue
         n_in = 3 if name == "fused_attention" else 4
         xs = [torch.randn(B, HEADS, N, D, generator=gen, device=dev).to(dtype).requires_grad_()
               for _ in range(n_in)]
@@ -1861,13 +1919,13 @@ def _cat_batches(batches: list):
 
 
 def loader_rate(data_conf, keep: int = 0, dataset: str = "homographies",
-                merge: int = 1) -> tuple[float, list]:
+                merge: int = 1, max_samples: int | None = None) -> tuple[float, list]:
     """samples/s of a dataset's training loader (the homography dataset's
-    by default) over its whole split, from the loader's start (its workers'
-    start-up included: with 6 workers a batch from each is in flight at
-    once, so the rate of the batches after the first would count their
-    overlap), and the first `keep` batches on the card, each made of
-    `merge` of the loader's batches."""
+    by default) over its whole split, or its first `max_samples`, from the
+    loader's start (its workers' start-up included: with 6 workers a batch
+    from each is in flight at once, so the rate of the batches after the
+    first would count their overlap), and the first `keep` batches on the
+    card, each made of `merge` of the loader's batches."""
     from gluefactory_tpu_torch.data import get_dataset
     from gluefactory_tpu_torch.data.base_dataset import prepare_batch
 
@@ -1878,6 +1936,8 @@ def loader_rate(data_conf, keep: int = 0, dataset: str = "homographies",
         samples += len(b["idx"])
         if len(raw) < keep * merge:
             raw.append(b)
+        if max_samples is not None and samples >= max_samples and len(raw) >= keep * merge:
+            break
     rate = samples / (time.perf_counter() - t0)
     del loader
     batches = [{k: v for k, v in prepare_batch(_cat_batches(raw[i:i + merge]), DEVICE).items()
@@ -1988,9 +2048,9 @@ def write_hpatches(root: Path) -> None:
 
 
 def benchmark_weights(path: Path, device, benchmark: str = "hpatches", view: dict | None = None,
-                      draw_device=None) -> dict:
-    """Random weights of the official config's model (its `benchmark`
-    section), from seed 0, drawn as
+                      draw_device=None, config: str = "superpoint+lightglue-official") -> dict:
+    """Random weights of the official config's model (`config`, its
+    `benchmark` section), from seed 0, drawn as
     flax draws them (lecun-normal kernels, zero biases), then the descriptor
     head's bias set to minus its mean response on one procedural scene (a
     data-dependent init): without it the random descriptors share one
@@ -2005,8 +2065,8 @@ def benchmark_weights(path: Path, device, benchmark: str = "hpatches", view: dic
     from gluefactory_tpu_torch.data.preprocess import ImagePreprocessor
     from gluefactory_tpu_torch.eval.io import extract_benchmark_conf, load_model
 
-    conf = extract_benchmark_conf(from_yaml(str(ROOT / "gluefactory_tpu_torch/configs/"
-                                                 "superpoint+lightglue-official.yaml")), benchmark)
+    conf = extract_benchmark_conf(from_yaml(str(ROOT / f"gluefactory_tpu_torch/configs/{config}.yaml")),
+                                  benchmark)
     torch.manual_seed(0)
     model = load_model(conf.model, None, draw_device or device)
     with torch.no_grad():
@@ -2025,9 +2085,32 @@ def benchmark_weights(path: Path, device, benchmark: str = "hpatches", view: dic
             "image_size": torch.from_numpy(view["image_size"][None]).to(device)})
         hook.remove()
         sp.convDb.bias.sub_(out["desc"].mean(dim=(0, 2, 3)))
+        if hasattr(model.matcher, "gnn"):
+            superglue_pass_through(model.matcher)
     torch.save(model.state_dict(), path)
     return {"seed": 0, "init": "lecun-normal, zero biases, descriptor head centred on one scene",
             "keypoints": conf.model.extractor.max_num_keypoints}
+
+
+SG_PASS_SCALE, SG_UPDATE_SCALE = 16.0, 0.1
+
+
+def superglue_pass_through(matcher) -> None:
+    """Random SuperGlue weights rescaled so that the descriptors pass
+    through and match: with every weight random, the transport plan is
+    near uniform and no score reaches the 0.2 filter (0 matches on path
+    J's 20 ZEB pairs at 2048 keypoints, on an H100 80GB HBM3 at 700 W).
+    The last layer of the keypoint encoder's and of each GNN layer's MLP
+    times SG_UPDATE_SCALE (their updates stay small beside the residual),
+    `final_proj` SG_PASS_SCALE x the identity, so the similarity is ~16 x
+    the descriptors' cosine."""
+    with torch.no_grad():
+        matcher.kenc.encoder[-1].weight.mul_(SG_UPDATE_SCALE)
+        for layer in matcher.gnn.layers:
+            layer.mlp[-1].weight.mul_(SG_UPDATE_SCALE)
+        w = matcher.final_proj.weight
+        w.copy_(SG_PASS_SCALE * torch.eye(w.shape[0], device=w.device)[..., None])
+        matcher.final_proj.bias.zero_()
 
 
 def run_hpatches(argv: list) -> dict:
@@ -2042,10 +2125,10 @@ def run_hpatches(argv: list) -> dict:
 def run_eval_cli(main_fn, pipeline_cls, estimator_module, ransac_name: str, argv: list) -> dict:
     """A benchmark CLI's `main(argv)` with every launch count reset just
     before and read just after; the export's and the eval loop's seconds,
-    and each call of the estimator module's RANSAC (`ransac_name`): its
-    devices and time (CUDA events)."""
+    and each call of the estimator module's RANSAC (`ransac_name`; none
+    without an `estimator_module`): its devices and time (CUDA events)."""
     calls, seconds = [], {}
-    ransac = getattr(estimator_module, ransac_name)
+    ransac = getattr(estimator_module, ransac_name) if estimator_module is not None else None
     methods = {k: getattr(pipeline_cls, k) for k in ("get_predictions", "run_eval")}
 
     def recorded(p0, p1, valid, th, **kw):
@@ -2069,7 +2152,8 @@ def run_eval_cli(main_fn, pipeline_cls, estimator_module, ransac_name: str, argv
             return out
         return wrapper
 
-    setattr(estimator_module, ransac_name, recorded)
+    if estimator_module is not None:
+        setattr(estimator_module, ransac_name, recorded)
     for name in methods:
         setattr(pipeline_cls, name, timed(name))
     reset_all_launches()
@@ -2077,7 +2161,8 @@ def run_eval_cli(main_fn, pipeline_cls, estimator_module, ransac_name: str, argv
         s, _, r = main_fn(argv)
         launches = all_launches()
     finally:
-        setattr(estimator_module, ransac_name, ransac)
+        if estimator_module is not None:
+            setattr(estimator_module, ransac_name, ransac)
         for name, m in methods.items():
             setattr(pipeline_cls, name, m)
     return {"summaries": s, "results": {k: np.asarray(v).tolist() for k, v in r.items()},
@@ -2808,12 +2893,16 @@ S3_EXPERIMENT = "chip_smoke_path_i"
 S3_SCENE_LIST = "chip_smoke_scenes.txt"  # path H's 4 scenes, under megadepth/scene_lists/
 S3_RESIZE = 1024
 S3_ARGV = [S3_EXPERIMENT, *S2_ARGV[1:], "data.load_features.do=true"]
+# the loader's rates read the first 40 of the 72 training pairs (10 of the
+# loader's batches of 4), its workers' start-up included
+S3_LOADER_SAMPLES = 40
 S3_REDUCED = {
     "export": f"path H's {len(S2_TRAIN_SCENES) + 1} procedural scenes ({S2_VIEWS} views each, "
               "1600 x 1200) instead of MegaDepth's 196 training scenes; the extractor is path E's "
               "best checkpoint's SuperPoint (random weights from a seed, trained 12 steps), since no "
               "official weights are on disk",
     "training": "path H's cuts (S2_REDUCED) and its overrides, with data.load_features.do=true",
+    "loader rates": f"the first {S3_LOADER_SAMPLES} samples of the training split, not all of it",
 }
 
 
@@ -2980,9 +3069,10 @@ def phase_cached(device_info: dict, path_h: dict) -> dict:
         res["restore"] = check_restore(model, S3_ARGV, S3_EXPERIMENT, steps // S2_ACCUM, "path I")
         res["loader_samples_per_s"], batches = loader_rate(
             merge(conf.data, {"batch_size": S2_LOADER_BATCH}), keep=2, dataset="megadepth",
-            merge=S2_BATCH // S2_LOADER_BATCH)
+            merge=S2_BATCH // S2_LOADER_BATCH, max_samples=S3_LOADER_SAMPLES)
         res["loader_no_image_samples_per_s"], _ = loader_rate(
-            merge(conf.data, {"batch_size": S2_LOADER_BATCH, "read_image": False}), dataset="megadepth")
+            merge(conf.data, {"batch_size": S2_LOADER_BATCH, "read_image": False}), dataset="megadepth",
+            max_samples=S3_LOADER_SAMPLES)
         print(f"path I loader: {res['loader_samples_per_s']:.2f} samples/s with the cache as shipped "
               f"(read_image true), {res['loader_no_image_samples_per_s']:.2f} with read_image false; path "
               f"H's {path_h['loader_samples_per_s']:.2f} ({S2_WORKERS} workers)", flush=True)
@@ -3016,6 +3106,460 @@ def phase_cached(device_info: dict, path_h: dict) -> dict:
         tsettings.DATA_PATH = data_path
     res["seconds"] = time.perf_counter() - t0
     res["card"] = card
+    return res
+
+
+# --------------------------------------------------------------------------
+# 14. path J: the ETH3D and ZEB benchmarks through their CLIs
+# --------------------------------------------------------------------------
+
+# DATA_PATH of the run: ETH3D_undistorted/ and zeb/ are written under it
+J_ROOT = ROOT / "outputs" / "chip_smoke_path_j"
+ETH3D_SCENES = (("courtyard", 0), ("pipes", 1))  # (scene, seed)
+# the DSLR size; the loader resizes each image to max(h, w) // 8 = 756
+ETH3D_VIEWS, ETH3D_SIZE, ETH3D_DOWNSIZE = 4, (6048, 4032), 8
+ETH3D_POINTS = 15000  # 3D points on the planes: > 500 covisible a pair
+ETH3D_PAIRS = len(ETH3D_SCENES) * ETH3D_VIEWS * (ETH3D_VIEWS - 1) // 2
+ZEB_SCENES = (("gl3d", 10), ("kitti", 11))
+ZEB_VIEWS, ZEB_PAIRS_PER_SCENE, ZEB_SIZE = 5, 10, (1600, 1200)
+ZEB_PAIRS = len(ZEB_SCENES) * ZEB_PAIRS_PER_SCENE
+J_REDUCED = {
+    "eth3d": f"{ETH3D_PAIRS} pairs of {len(ETH3D_SCENES)} procedural scenes of {ETH3D_VIEWS} views "
+             f"(the DSLR size {ETH3D_SIZE[0]} x {ETH3D_SIZE[1]}, rendered at 1/{ETH3D_DOWNSIZE // 2} and "
+             f"upsampled by pixel repetition; 16-bit PNG depths at 1/{ETH3D_DOWNSIZE}; COLMAP calibration "
+             f"with {ETH3D_POINTS} points on the planes) in ETH3D's undistorted DSLR layout, for ETH3D's "
+             "13 scenes, which are not on disk",
+    "zeb": f"{ZEB_PAIRS} pair files of {len(ZEB_SCENES)} procedural scenes ({ZEB_VIEWS} views at "
+           f"{ZEB_SIZE[0]} x {ZEB_SIZE[1]}) in ZEB's layout, for ZEB's 46800 pairs, which are not on disk",
+    "weights": "random from seed 0, drawn on the CPU as path F draws them, the descriptor head centred "
+               "on one of the benchmark's views; SuperGlue's rescaled to pass the descriptors through "
+               "(`superglue_pass_through`): official weights are not on disk",
+    "estimator": "ZEB: xla_ransac for opencv (the card's host has no cv2)",
+}
+ETH3D_LAUNCHES = MAIN_LAUNCHES  # a pair: LightGlue-9, 9 of each attention kernel
+ZEB_LAUNCHES = {"fused_attention": 4 * LAYERS, "log_sinkhorn": 1}  # a pair: SuperGlue
+NN_TOL = 1e-5  # the card's similarity against the CPU's: f32 sums of 256 products in another order
+
+
+def write_path_j(root: Path) -> dict:
+    """The ETH3D and ZEB layouts under `root`; each ETH3D scene's fewest
+    covisible points of a pair."""
+    from gluefactory_tpu_torch.scripts_dev.posed_scenes import write_eth3d_scene, write_zeb_scene
+
+    shutil.rmtree(root, ignore_errors=True)
+    covisible = {}
+    for scene, seed in ETH3D_SCENES:
+        out = write_eth3d_scene(root / "ETH3D_undistorted", scene, n_views=ETH3D_VIEWS, size=ETH3D_SIZE,
+                                downsize_factor=ETH3D_DOWNSIZE, n_points=ETH3D_POINTS, seed=seed,
+                                workers=ETH3D_VIEWS)
+        covisible[scene] = min(out["covisible"].values())
+    for scene, seed in ZEB_SCENES:
+        write_zeb_scene(root / "zeb", scene, n_views=ZEB_VIEWS, n_pairs=ZEB_PAIRS_PER_SCENE,
+                        size=ZEB_SIZE, seed=seed)
+    return {"eth3d_min_covisible": covisible}
+
+
+@contextlib.contextmanager
+def recorded_forward(cls, record: list, keep):
+    """`cls._forward` patched to append `keep(self, data, out)` to `record`
+    after each call."""
+    forward = cls._forward
+
+    def wrapped(self, data, *args, **kwargs):
+        out = forward(self, data, *args, **kwargs)
+        record.append(keep(self, data, out))
+        return out
+
+    cls._forward = wrapped
+    try:
+        yield record
+    finally:
+        cls._forward = forward
+
+
+def _gt_record(self, data, out) -> dict:
+    """The depth ground truth's devices and counts of one call."""
+    return {"devices": sorted({str(v.device) for v in out.values()}),
+            "positives": int((out["gt_matches0"] >= 0).sum()),
+            "unmatched": int((out["gt_matches0"] == -1).sum())}
+
+
+def _nn_record(self, data, out) -> dict:
+    """The nearest-neighbour matcher's call on the card against a plain CPU
+    recomputation of the same tensors: the similarity of the descriptors
+    within NN_TOL, and the matcher's outputs from the card's similarity
+    (`match_similarity` on the CPU) equal, the log assignment within
+    NN_TOL on its entries above -1e6."""
+    def cpu(t):
+        return None if t is None else t.detach().cpu()
+
+    m0, m1 = cpu(data.get("keypoint_mask0")), cpu(data.get("keypoint_mask1"))
+    sim = cpu(out["similarity"])
+    sim_cpu = torch.einsum("bnd,bmd->bnm", cpu(data["descriptors0"]), cpu(data["descriptors1"]))
+    valid = sim > -1e8
+    with torch.no_grad():
+        again = self.match_similarity(sim, m0, m1)
+    la, la_cpu = cpu(out["log_assignment"]), again["log_assignment"]
+    near = (la_cpu > -1e6) & (la > -1e6)
+    return {"device": str(out["matches0"].device), "matches": int((out["matches0"] >= 0).sum()),
+            "keypoints": list(sim.shape[1:]),
+            "similarity_err": float((sim - sim_cpu)[valid].abs().max()),
+            "differ": {k: int((again[k] != cpu(out[k])).sum())
+                       for k in ("matches0", "matches1", "matching_scores0", "matching_scores1")},
+            "log_assignment_err": float((la - la_cpu)[near].abs().max()),
+            "log_assignment_far_equal": bool(torch.equal(la > -1e6, la_cpu > -1e6))}
+
+
+def run_eth3d(argv: list) -> dict:
+    from gluefactory_tpu_torch.eval import eth3d
+
+    return run_eval_cli(eth3d.main, eth3d.ETH3DPipeline, None, "", argv)
+
+
+def run_zeb(argv: list) -> dict:
+    from gluefactory_tpu_torch.eval import zeb
+    from gluefactory_tpu_torch.robust_estimators.relative_pose import xla_ransac
+
+    return run_eval_cli(zeb.main, zeb.ZEBPipeline, xla_ransac, "ransac_essential", argv)
+
+
+def check_cache_rerun(label: str, run_fn, argv: list, benchmark: str, tag: str, summaries: dict) -> dict:
+    """An `--overwrite_eval` rerun reads the cache (its file untouched, no
+    kernel launched) and gives the same summaries."""
+    import gluefactory_tpu_torch.settings as tsettings
+
+    cache_file = Path(tsettings.EVAL_PATH, benchmark, tag, "predictions.npz")
+    mtime = cache_file.stat().st_mtime_ns
+    again = run_fn([*argv, "--tag", tag, "--overwrite_eval"])
+    _check_launches(f"{label} --overwrite_eval", again["launches"], {})
+    if cache_file.stat().st_mtime_ns != mtime or again["summaries"] != summaries:
+        fail(f"{label}: the --overwrite_eval rerun did not reuse the cache or changed the summaries")
+    return {"seconds": again["seconds"], "summaries_equal": True}
+
+
+def _finite_summaries(label: str, s: dict, keys) -> dict:
+    metrics = {k: s.get(k) for k in keys}
+    if not all(isinstance(v, float) and math.isfinite(v) for v in metrics.values()):
+        fail(f"{label}: summaries not finite: {metrics}")
+    return metrics
+
+
+def phase_benchmarks(device_info: dict) -> dict:
+    """Path J: the ETH3D CLI (`eval.eth3d.main`) with
+    `superpoint+lightglue-official` (LightGlue-9, 9 + 9 attention launches
+    a pair) and with `superpoint+NN` (no kernel), each config resolved by
+    name, `depth_matcher` in the forward on the card; then the ZEB CLI
+    (`eval.zeb.main`) with `superpoint+superglue-official` by name (36
+    attention launches and one Sinkhorn a pair at 2048 keypoints) and
+    `eval.estimator=xla_ransac`; cut as J_REDUCED says. Gates: finite AP
+    and AUCs, the caches' items and keys, exact launch counts, the ground
+    truth and the RANSAC on the card, the NN matcher's outputs against a
+    CPU recomputation, `--overwrite_eval` reruns that read the caches."""
+    import gluefactory_tpu_torch.settings as tsettings
+    from gluefactory_tpu_torch.data import get_dataset
+    from gluefactory_tpu_torch.eval import eth3d, zeb
+    from gluefactory_tpu_torch.models.matchers.depth_matcher import DepthMatcher
+    from gluefactory_tpu_torch.models.matchers.nearest_neighbor_matcher import NearestNeighborMatcher
+
+    card = device_info["nvidia_smi"]
+    card_device = str(torch.empty(0, device=DEVICE).device)
+    print(f"path J reduced: {json.dumps(J_REDUCED)}", flush=True)
+    t0 = time.perf_counter()
+    res = {"reduced": J_REDUCED, "write": write_path_j(J_ROOT)}
+    res["write"]["seconds"] = time.perf_counter() - t0
+    print(f"path J layouts written in {res['write']['seconds']:.1f} s: {json.dumps(res['write'])}",
+          flush=True)
+    if min(res["write"]["eth3d_min_covisible"].values()) < 500:
+        fail(f"path J: an ETH3D pair has fewer than 500 covisible points: {res['write']}")
+    data_path, tsettings.DATA_PATH = tsettings.DATA_PATH, J_ROOT
+    try:
+        items = get_dataset("eth3d")(eth3d.ETH3DPipeline.default_conf["data"]).get_dataset("test")
+        view = items[0]["view0"]
+        if len(items) != ETH3D_PAIRS or view["image"].shape[:2] != (504, 756):
+            fail(f"path J: ETH3D gives {len(items)} pairs of {view['image'].shape}, expected "
+                 f"{ETH3D_PAIRS} of (504, 756, 1)")
+        weights, sp_weights = J_ROOT / "weights_lg.pth", J_ROOT / "weights_sp.pth"
+        res["weights"] = benchmark_weights(weights, DEVICE, "eth3d", view, draw_device="cpu")
+        torch.save({k[len("extractor."):]: v for k, v in torch.load(weights, weights_only=True).items()
+                    if k.startswith("extractor.")}, sp_weights)
+
+        # ETH3D, LightGlue
+        gt_calls = []
+        argv = ["--conf", "superpoint+lightglue-official", f"model.weights_file={weights}"]
+        with recorded_forward(DepthMatcher, gt_calls, _gt_record):
+            lg = run_eth3d([*argv, "--tag", "chip_smoke_lg", "--overwrite"])
+        _check_launches("path J ETH3D lightglue", lg["launches"],
+                        {k: ETH3D_PAIRS * n for k, n in ETH3D_LAUNCHES.items()})
+        if len(gt_calls) != ETH3D_PAIRS or any(c["devices"] != [card_device] for c in gt_calls):
+            fail(f"path J: depth_matcher ran {len(gt_calls)} times on {[c['devices'] for c in gt_calls]}")
+        cache = _cache("chip_smoke_lg", "eth3d")
+        if len(cache) != ETH3D_PAIRS or any(set(p) != set(eth3d.ETH3DPipeline.export_keys)
+                                            for p in cache.values()):
+            fail(f"path J: the ETH3D cache holds {len(cache)} items with {[sorted(p) for p in cache.values()][:1]}")
+        res["eth3d_lightglue"] = {
+            "summaries": _finite_summaries("path J ETH3D lightglue", lg["summaries"], ["AP"]),
+            "launches": lg["launches"], "seconds": lg["seconds"],
+            "export_pairs_per_s": ETH3D_PAIRS / lg["seconds"]["get_predictions"],
+            "gt_positives_per_pair": float(np.mean([c["positives"] for c in gt_calls])),
+            "keypoints_per_view": float(np.mean([len(p["keypoints0"]) for p in cache.values()])),
+            "matches_per_pair": float(np.mean([(p["matches0"] >= 0).sum() for p in cache.values()])),
+            "rerun": check_cache_rerun("path J ETH3D lightglue", run_eth3d, argv, "eth3d",
+                                       "chip_smoke_lg", lg["summaries"])}
+        print(f"path J ETH3D superpoint+lightglue-official: {json.dumps(res['eth3d_lightglue'])} "
+              f"({card})", flush=True)
+
+        # ETH3D, nearest neighbours
+        nn_calls, gt_calls = [], []
+        argv = ["--conf", "superpoint+NN", f"model.extractor.weights_file={sp_weights}"]
+        with recorded_forward(NearestNeighborMatcher, nn_calls, _nn_record), \
+                recorded_forward(DepthMatcher, gt_calls, _gt_record):
+            nn = run_eth3d([*argv, "--tag", "chip_smoke_nn", "--overwrite"])
+        _check_launches("path J ETH3D NN", nn["launches"], {})
+        bad = [c for c in nn_calls if c["device"] != card_device or any(c["differ"].values())
+               or c["similarity_err"] > NN_TOL or c["log_assignment_err"] > NN_TOL
+               or not c["log_assignment_far_equal"]]
+        if len(nn_calls) != ETH3D_PAIRS or bad or any(c["devices"] != [card_device] for c in gt_calls):
+            fail(f"path J: the NN matcher on the card against the CPU: {len(nn_calls)} calls, {bad[:2]}")
+        res["eth3d_nn"] = {
+            "summaries": _finite_summaries("path J ETH3D NN", nn["summaries"], ["AP"]),
+            "launches": nn["launches"], "seconds": nn["seconds"],
+            "export_pairs_per_s": ETH3D_PAIRS / nn["seconds"]["get_predictions"],
+            "vs_cpu": {"calls": len(nn_calls), "tol": NN_TOL,
+                       "similarity_err": max(c["similarity_err"] for c in nn_calls),
+                       "log_assignment_err": max(c["log_assignment_err"] for c in nn_calls),
+                       "outputs_differ": 0, "keypoints": nn_calls[0]["keypoints"],
+                       "matches_per_pair": float(np.mean([c["matches"] for c in nn_calls]))},
+            "rerun": check_cache_rerun("path J ETH3D NN", run_eth3d, argv, "eth3d", "chip_smoke_nn",
+                                       nn["summaries"])}
+        print(f"path J ETH3D superpoint+NN: {json.dumps(res['eth3d_nn'])} ({card})", flush=True)
+
+        # ZEB, SuperGlue
+        zitems = get_dataset("zeb")(zeb.ZEBPipeline.default_conf["data"]).get_dataset("test")
+        if len(zitems) != ZEB_PAIRS:
+            fail(f"path J: ZEB gives {len(zitems)} pairs, expected {ZEB_PAIRS}")
+        sg_weights = J_ROOT / "weights_sg.pth"
+        res["zeb_weights"] = benchmark_weights(sg_weights, DEVICE, "zeb", zitems[0]["view0"],
+                                               draw_device="cpu", config="superpoint+superglue-official")
+        argv = ["--conf", "superpoint+superglue-official", "eval.estimator=xla_ransac",
+                f"model.weights_file={sg_weights}"]
+        z = run_zeb([*argv, "--tag", "chip_smoke", "--overwrite"])
+        _check_launches("path J ZEB superglue", z["launches"],
+                        {k: ZEB_PAIRS * n for k, n in ZEB_LAUNCHES.items()})
+        calls = z["ransac_calls"]
+        if not calls or any(c["devices"] != [card_device] for c in calls):
+            fail(f"path J: the ZEB RANSAC ran on {[c['devices'] for c in calls]}")
+        zcache = _cache("chip_smoke", "zeb")
+        if len(zcache) != ZEB_PAIRS or any(set(p) != set(zeb.ZEBPipeline.export_keys)
+                                           for p in zcache.values()):
+            fail(f"path J: the ZEB cache holds {len(zcache)} items")
+        res["zeb_superglue"] = {
+            "summaries": _finite_summaries("path J ZEB", z["summaries"],
+                                           ["rel_pose_error@5°", "rel_pose_error@10°",
+                                            "rel_pose_error@20°", "mepi_prec@1e-4"]),
+            "launches": z["launches"], "seconds": z["seconds"],
+            "export_pairs_per_s": ZEB_PAIRS / z["seconds"]["get_predictions"],
+            "ransac_calls": len(calls), "ransac_ms_per_call": float(np.mean([c["ms"] for c in calls])),
+            "keypoints_per_view": float(np.mean([len(p["keypoints0"]) for p in zcache.values()])),
+            "matches_per_pair": float(np.mean([(p["matches0"] >= 0).sum() for p in zcache.values()])),
+            "rerun": check_cache_rerun("path J ZEB", run_zeb, argv, "zeb", "chip_smoke", z["summaries"])}
+        print(f"path J ZEB superpoint+superglue-official: {json.dumps(res['zeb_superglue'])} ({card})",
+              flush=True)
+    finally:
+        tsettings.DATA_PATH = data_path
+    res["seconds"] = time.perf_counter() - t0
+    res["card"] = card
+    print(f"path J: {res['seconds']:.1f} s", flush=True)
+    return res
+
+
+# --------------------------------------------------------------------------
+# 15. path K: SuperGlue stage-1 training
+# --------------------------------------------------------------------------
+
+K_EXPERIMENT = "chip_smoke_path_k"
+# the official SuperGlue widths in place of path E's LightGlue
+K_MATCHER = {"name": "superglue", "descriptor_dim": DIM, "keypoint_encoder": [32, 64, 128, 256],
+             "n_layers": LAYERS, "num_heads": HEADS, "sinkhorn_iterations": SINKHORN_ITERS,
+             "filter_threshold": 0.2, "checkpointed": True}
+K_STEPS, K_VAL_BATCHES, K_TIMED_STEPS, K_TRIPLET_BATCH = 4, 1, 4, 8
+# a train step: 36 attention calls forward and 36 in the checkpoints'
+# recompute, one Sinkhorn (its backward is the plain loop's gradient); a
+# validation batch: 36 and one
+K_STEP_LAUNCHES = {"fused_attention": 2 * 4 * LAYERS, "log_sinkhorn": 1}
+K_VAL_LAUNCHES = {"fused_attention": 4 * LAYERS, "log_sinkhorn": 1}
+K_REDUCED = {
+    "config": "path E's superpoint+lightglue_homography.yaml with its matcher replaced by SuperGlue at "
+              "the official widths (d 256, keypoint encoder [32, 64, 128, 256], 9 layer pairs, 4 heads, "
+              "50 Sinkhorn iterations, checkpointed), written to a temporary directory: the JAX package "
+              "ships no SuperGlue training config",
+    "data": "path E's cuts: procedural images, batch 32 for 128, 6 workers for 14",
+    "length": f"{K_STEPS} training steps (one epoch) and {K_VAL_BATCHES} validation batch",
+    "triplet": f"one TripletPipeline forward and loss (train, backward) on a batch of {K_TRIPLET_BATCH} "
+               "triplets of the homography dataset (`triplet: true`)",
+}
+
+
+def k_argv(conf_path: Path) -> list:
+    return [K_EXPERIMENT, "--conf", str(conf_path), "--no_tensorboard", "--no_capture",
+            "--max_val_iters", str(K_VAL_BATCHES),
+            f"data.synthetic_images={TRAIN_BATCH * (K_STEPS + K_VAL_BATCHES)}",
+            f"data.train_size={TRAIN_BATCH * K_STEPS}", f"data.val_size={TRAIN_BATCH * K_VAL_BATCHES}",
+            f"data.batch_size={TRAIN_BATCH}", "data.num_workers=6", "train.epochs=1",
+            "train.log_every_iter=1", "train.eval_every_iter=1000000"]
+
+
+def write_superglue_config(path: Path) -> Path:
+    """Path E's shipped config with K_MATCHER as its matcher, as YAML."""
+    from gluefactory_tpu_torch.core.config import Config, from_yaml
+
+    conf = from_yaml(str(ROOT / TRAIN_YAML)).to_dict()
+    conf["model"]["matcher"] = dict(K_MATCHER)
+    path.write_text(Config(conf).to_yaml())
+    return path
+
+
+def triplet_forward(model, conf) -> dict:
+    """A TripletPipeline with the trained model's components and weights:
+    one forward and loss (train) and the backward on a batch of
+    K_TRIPLET_BATCH triplets (views 0, 1, 2), the three pairs stacked in one
+    matcher pass; launches exactly K_STEP_LAUNCHES, every loss finite."""
+    from gluefactory_tpu_torch.core.config import merge
+    from gluefactory_tpu_torch.data import get_dataset
+    from gluefactory_tpu_torch.data.base_dataset import collate, prepare_batch
+    from gluefactory_tpu_torch.models import get_model
+
+    mconf = {k: v for k, v in conf.model.to_dict().items() if k != "name"}
+    triplet = get_model("triplet_pipeline").from_conf(mconf, device=DEVICE)
+    triplet.load_state_dict(model.state_dict())
+    ds = get_dataset("homographies")(merge(conf.data, {"triplet": True})).get_dataset("val")
+    batch = prepare_batch({k: v for k, v in collate([ds[i] for i in range(K_TRIPLET_BATCH)]).items()
+                           if k not in ("name", "idx")}, DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    reset_all_launches()
+    t0 = time.perf_counter()
+    pred, losses, _ = triplet.forward_with_loss(batch, train=True, generator=gen)
+    losses["total"].mean().backward()
+    torch.cuda.synchronize()
+    launches = all_launches()
+    _check_launches("path K triplet", launches, K_STEP_LAUNCHES)
+    values = {k: float(v.detach().float().mean()) for k, v in losses.items()}
+    shapes = {idx: list(pred[f"log_assignment_{idx}"].shape) for idx in ("0to1", "0to2", "1to2")}
+    if not all(math.isfinite(v) for v in values.values()) or any(
+            s != [K_TRIPLET_BATCH, REDUCED_KEYPOINTS + 1, REDUCED_KEYPOINTS + 1] for s in shapes.values()):
+        fail(f"path K triplet: losses {values}, log assignments {shapes}")
+    return {"batch": K_TRIPLET_BATCH, "launches": launches, "losses": values,
+            "log_assignment_shapes": shapes, "seconds": time.perf_counter() - t0}
+
+
+def sinkhorn_at_training_shape(dev) -> dict:
+    """`log_sinkhorn` at path K's shape, (32, 513, 513) f32, 50 iterations,
+    as its train step runs it: the forward against the plain loop (1e-4),
+    the gradient (the plain loop's, through `ops/_autograd.py`) within
+    1e-3 of the plain gradient's norm; times of the kernel's forward and of
+    forward + backward against the plain loop's, and the bound of the
+    forward's exponentials; no single library call computes it."""
+    B, M = TRAIN_BATCH, REDUCED_KEYPOINTS + 1
+    gen = torch.Generator(device=dev).manual_seed(20)
+    Z = (torch.randn(B, M, M, generator=gen, device=dev) * 2.0).requires_grad_(True)
+    log_mu = torch.full((B, M), -math.log(2 * (M - 1)), device=dev)
+    log_nu = torch.full((B, M), -math.log(2 * (M - 1)), device=dev)
+    cot = torch.randn(B, M, M, generator=gen, device=dev)
+    kernel, plain = cuda_sinkhorn.log_sinkhorn, cuda_sinkhorn.plain_log_sinkhorn
+
+    def forward(fn):
+        with torch.no_grad():
+            return fn(Z, log_mu, log_nu, SINKHORN_ITERS)
+
+    def forward_backward(fn):
+        return torch.autograd.grad(fn(Z, log_mu, log_nu, SINKHORN_ITERS), Z, cot)[0]
+
+    err = _finite_log_err(forward(kernel), forward(plain))
+    g, g_plain = forward_backward(kernel), forward_backward(plain)
+    grad_err = float((g - g_plain).abs().max() / torch.linalg.vector_norm(g_plain))
+    exps = 2.0 * SINKHORN_ITERS * B * M * M
+    t_bytes = (2 * B * M * M * 4 + 2 * M * B * 4) / PEAK_BYTES * 1e3
+    t_ops = max(exps / PEAK_SFU, 4 * exps / PEAK_OPS[torch.float32]) * 1e3
+    res = {"shape": [B, M, M, SINKHORN_ITERS], "max_abs_err": err, "tol": 1e-4,
+           "grad_max_rel_err": grad_err, "grad_tol": TRAIN_TOL,
+           "ms": cuda_time_ms(lambda: forward(kernel)), "plain_ms": cuda_time_ms(lambda: forward(plain), reps=3),
+           "forward_backward_ms": cuda_time_ms(lambda: forward_backward(kernel), reps=3),
+           "plain_forward_backward_ms": cuda_time_ms(lambda: forward_backward(plain), reps=3),
+           "bound_ms": max(t_bytes, t_ops), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           "library_ms": None}
+    if not (err <= 1e-4 and grad_err <= TRAIN_TOL):
+        fail(f"path K: log_sinkhorn at the training shape against the plain loop: {res}")
+    return res
+
+
+def phase_superglue_training(device_info: dict) -> dict:
+    """Path K: the trainer on path E's config with SuperGlue at the official
+    widths as its matcher (SuperPoint 512 keypoints frozen, 640 x 480, f32,
+    TF32 off, `lg`, batch 32), cut as K_REDUCED says. Gates: finite losses
+    and every update applied, exact launches a step and a validation batch,
+    `--restore` bit-equal (BatchNorm statistics included), a step through
+    the kernels against the plain versions (gradients within 1e-3 of their
+    norm, the BatchNorm statistics after it), the Sinkhorn kernel at the
+    step's shape under autograd, one TripletPipeline forward and loss; then
+    ms a step, device ms, busy share, samples/s, peak memory and the
+    loader's rate."""
+    import tempfile
+
+    from gluefactory_tpu_torch.settings import TRAINING_PATH
+
+    card = device_info["nvidia_smi"]
+    print(f"path K reduced: {json.dumps(K_REDUCED)}", flush=True)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        conf_path = write_superglue_config(Path(tmp) / "superpoint+superglue_homography.yaml")
+        argv = k_argv(conf_path)
+        conf = train_conf(argv, str(conf_path))
+        shutil.rmtree(Path(TRAINING_PATH, K_EXPERIMENT), ignore_errors=True)
+        records, seconds, launches, model = run_trainer(argv)
+        _check_launches("path K", launches, {k: K_STEPS * n + K_VAL_BATCHES * K_VAL_LAUNCHES[k]
+                                             for k, n in K_STEP_LAUNCHES.items()})
+        if len(records) != K_STEPS:
+            fail(f"path K: {len(records)} train steps, expected {K_STEPS}")
+        losses = [{k: float(v) for k, v in r[0].items()} for r in records]
+        for i, (step_losses, (_, _, info)) in enumerate(zip(losses, records)):
+            if not all(math.isfinite(v) for v in step_losses.values()):
+                fail(f"path K: step {i} has a non-finite loss term: {step_losses}")
+            if not bool(info["ok"]):
+                fail(f"path K: the update of step {i} was not applied")
+        res = {"reduced": K_REDUCED, "matcher": K_MATCHER,
+               "run": {"seconds": seconds, "launches": launches, "losses": losses,
+                       "grad_norms": [float(r[2]["grad_norm"]) for r in records]}}
+        print(f"path K: {K_STEPS} steps and {K_VAL_BATCHES} validation batch in {seconds:.1f} s, launches "
+              f"{json.dumps(launches)}, losses finite, every update applied; total "
+              f"{losses[0]['total']:.4f} -> {losses[-1]['total']:.4f}", flush=True)
+        res["restore"] = check_restore(model, argv, K_EXPERIMENT, K_STEPS, "path K")
+        res["restore"]["buffers"] = sum(1 for _ in model.buffers())
+        res["loader_samples_per_s"], batches = loader_rate(conf.data, keep=2)
+        res["vs_plain"] = train_step_vs_plain(model, batches[0], "path K", K_STEP_LAUNCHES)
+        if not (res["vs_plain"]["running_stats"] == 2 * (4 + 2 * LAYERS)
+                and res["vs_plain"]["running_stats_moved"] > 0):
+            fail(f"path K: the step did not move every BatchNorm statistic: {res['vs_plain']}")
+        print(f"path K step vs plain: {json.dumps(res['vs_plain'])}", flush=True)
+        res["sinkhorn"] = sinkhorn_at_training_shape(torch.device(DEVICE))
+        print(f"path K log_sinkhorn at (32, 513, 513): {json.dumps(res['sinkhorn'])} ({card})", flush=True)
+        # SuperGlue's attention runs each view alone: (32, 4, 512, 64) a call
+        res["attention"] = attention_at_shapes(torch.device(DEVICE), torch.float32, REDUCED_KEYPOINTS,
+                                               TRAIN_BATCH // 2, "path K", names=("fused_attention",))
+        res["timing"] = time_training(model, batches, device_info, conf=conf, label="path K",
+                                      accum2=False, timed=K_TIMED_STEPS, step_launches=K_STEP_LAUNCHES)
+        t = res["timing"]
+        res["pace"] = "loader" if res["loader_samples_per_s"] < t["samples_per_s"] else "step"
+        print(f"path K timing: {t['ms_per_step']:.2f} ms/step, device {t['device_ms_per_step']} ms/step, "
+              f"busy share {t['busy_share']}, {t['samples_per_s']:.2f} samples/s, peak "
+              f"{t['peak_memory_gib']:.2f} GiB, loader {res['loader_samples_per_s']:.2f} samples/s, the "
+              f"{res['pace']} sets the pace ({card})", flush=True)
+        print(f"path K top device items: {json.dumps(t['profile']['top'][:8])}", flush=True)
+        res["triplet"] = triplet_forward(model, conf)
+        print(f"path K triplet: {json.dumps(res['triplet'])}", flush=True)
+        del model, batches
+        torch.cuda.empty_cache()
+    res["seconds"] = time.perf_counter() - t0
+    res["card"] = card
+    print(f"path K: {res['seconds']:.1f} s", flush=True)
     return res
 
 
@@ -3061,6 +3605,10 @@ def main() -> None:
     torch.cuda.empty_cache()
     path_i = phase_cached(device_info, path_h)
     torch.cuda.empty_cache()
+    path_j = phase_benchmarks(device_info)
+    torch.cuda.empty_cache()
+    path_k = phase_superglue_training(device_info)
+    torch.cuda.empty_cache()
     kernels += phase_conv_study(device_info)  # launches from the tools' runs
     OUT_DIR.mkdir(exist_ok=True)
     record = {"device": device_info, "build": build, "kernels": kernels, "gradients": gradients,
@@ -3068,10 +3616,12 @@ def main() -> None:
               "path_b_superglue": path_b, "path_c_fused_superpoint": path_c,
               "path_d_serving": path_d, "path_e_training": path_e, "path_f_hpatches": path_f,
               "path_g_megadepth1500": path_g, "path_h_stage2": path_h, "path_i_cached": path_i,
+              "path_j_benchmarks": path_j, "path_k_superglue_training": path_k,
               "seconds": time.perf_counter() - t0}
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(record, indent=1))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
+    print(f"chip_smoke: {record['seconds']:.1f} s in all", flush=True)
     print(json.dumps({"kernels": [{k: kern[k] for k in keys} for kern in kernels]}))
     print(device_info["nvidia_smi"])
     if not all(math.isfinite(k["ms"]) for k in kernels):

@@ -1,13 +1,9 @@
-"""Benchmarks (counterpart of `gluefactory_tpu/eval/__init__.py`). Ported:
-`hpatches`, `megadepth1500` and `scannet1500`. ETH3D and ZEB are not
-ported yet."""
+"""Benchmarks (counterpart of `gluefactory_tpu/eval/__init__.py`):
+`hpatches`, `megadepth1500`, `scannet1500`, `eth3d` and `zeb`."""
 
 from __future__ import annotations
 
 from pathlib import Path
-
-_WAITING = ("eth3d", "zeb")
-
 
 def get_benchmark(benchmark: str):
     if benchmark == "hpatches":
@@ -22,8 +18,14 @@ def get_benchmark(benchmark: str):
         from .scannet1500 import ScanNet1500Pipeline
 
         return ScanNet1500Pipeline
-    if benchmark in _WAITING:
-        raise NotImplementedError(f"benchmark {benchmark} is not ported yet (ROADMAP queue 5)")
+    if benchmark == "eth3d":
+        from .eth3d import ETH3DPipeline
+
+        return ETH3DPipeline
+    if benchmark == "zeb":
+        from .zeb import ZEBPipeline
+
+        return ZEBPipeline
     raise ValueError(f"unknown benchmark {benchmark}")
 
 

@@ -1,7 +1,8 @@
 """The two-loop evaluation protocol (counterpart of
 `gluefactory_tpu/eval/eval_pipeline.py`).
 
-Loop 1, `get_predictions`: export the model's outputs to `predictions.npz`.
+Loop 1, `get_predictions`: export the model's outputs to `predictions.npz`
+(`export_keys` and, where the model gives them, `optional_export_keys`).
 Loop 2, `run_eval`: read the cache and compute the metrics into
 `results.npz` (the per-pair results) and `summaries.json`, with the figures
 as PNG files. A conf whose `model` changed since the last run needs
@@ -20,6 +21,8 @@ import numpy as np
 
 from .. import logger
 from ..core.config import Config, from_yaml, merge
+from ..utils.export_predictions import export_predictions
+from .io import load_model, make_apply_fn
 
 
 def load_eval(dir_: Path):
@@ -67,7 +70,18 @@ class EvalPipeline:
         raise NotImplementedError
 
     def get_predictions(self, experiment_dir, model=None, overwrite=False):
-        raise NotImplementedError
+        """`predictions.npz` of `experiment_dir`, exported first (the export
+        and optional keys, masked entries trimmed) unless it exists and is
+        not to be overwritten; `model` in memory, else the conf's."""
+        pred_file = Path(experiment_dir) / "predictions.npz"
+        if not pred_file.exists() or overwrite:
+            if model is None:
+                model = load_model(self.conf.model, self.conf.get("checkpoint"), self.device)
+            export_predictions(self.get_dataloader(self.conf.get("data")),
+                               make_apply_fn(model, self.device), pred_file,
+                               keys=self.export_keys + self.optional_export_keys,
+                               items_per_dispatch=self.conf.get("items_per_dispatch"))
+        return pred_file
 
     def run_eval(self, loader, pred_file):
         raise NotImplementedError

@@ -24,12 +24,12 @@ import numpy as np
 
 from ..data import get_dataset
 from ..settings import EVAL_PATH
-from ..utils.export_predictions import export_predictions, load_prediction, prediction_keys
+from ..utils.export_predictions import load_prediction, prediction_keys
 from ..utils.tensor import map_tensor
 from ..utils.tools import AUCMetric
 from ..visualization.viz2d import plot_cumulative
 from .eval_pipeline import EvalPipeline
-from .io import check_device, get_eval_parser, load_model, make_apply_fn, parse_eval_args
+from .io import check_device, get_eval_parser, parse_eval_args
 from .utils import eval_homography_dlt, eval_homography_robust, eval_matches_homography, eval_poses
 
 
@@ -81,20 +81,6 @@ class HPatchesPipeline(EvalPipeline):
     def get_dataloader(cls, data_conf=None):
         data_conf = data_conf or cls.default_conf["data"]
         return get_dataset("hpatches")(data_conf).get_data_loader("test")
-
-    def get_predictions(self, experiment_dir, model=None, overwrite=False):
-        pred_file = Path(experiment_dir) / "predictions.npz"
-        if not pred_file.exists() or overwrite:
-            if model is None:
-                model = load_model(self.conf.model, self.conf.get("checkpoint"), self.device)
-            export_predictions(
-                self.get_dataloader(self.conf.get("data")),
-                make_apply_fn(model, self.device),
-                pred_file,
-                keys=self.export_keys + self.optional_export_keys,
-                items_per_dispatch=self.conf.get("items_per_dispatch"),
-            )
-        return pred_file
 
     def run_eval(self, loader, pred_file):
         conf = self.conf.eval

@@ -30,12 +30,12 @@ import numpy as np
 from ..data import get_dataset
 from ..data.base_dataset import prepare_batch
 from ..settings import EVAL_PATH
-from ..utils.export_predictions import export_predictions, prediction_keys
+from ..utils.export_predictions import prediction_keys
 from ..utils.tensor import map_tensor, rbd
 from ..visualization.viz2d import plot_cumulative
 from .eval_pipeline import EvalPipeline
 from .hpatches import load_cached_prediction
-from .io import check_device, get_eval_parser, load_model, make_apply_fn, parse_eval_args
+from .io import check_device, get_eval_parser, parse_eval_args
 from .utils import eval_matches_depth, eval_matches_epipolar, eval_poses, eval_relative_pose_robust
 
 SWEEP = [0.5, 1.0, 1.5, 2.0, 2.5, 3.0]
@@ -83,17 +83,6 @@ class MegaDepth1500Pipeline(EvalPipeline):
         data_conf = data_conf or cls.default_conf["data"]
         name = data_conf["name"] if isinstance(data_conf, dict) else data_conf.name
         return get_dataset(name)(data_conf).get_data_loader("test")
-
-    def get_predictions(self, experiment_dir, model=None, overwrite=False):
-        pred_file = Path(experiment_dir) / "predictions.npz"
-        if not pred_file.exists() or overwrite:
-            if model is None:
-                model = load_model(self.conf.model, self.conf.get("checkpoint"), self.device)
-            export_predictions(self.get_dataloader(self.conf.get("data")),
-                               make_apply_fn(model, self.device), pred_file,
-                               keys=self.export_keys,
-                               items_per_dispatch=self.conf.get("items_per_dispatch"))
-        return pred_file
 
     def run_eval(self, loader, pred_file):
         conf = self.conf.eval

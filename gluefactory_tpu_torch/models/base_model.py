@@ -9,11 +9,12 @@ Counterpart of `gluefactory_tpu/models/base_model.py` (role of glue-factory's
 
 The `train` argument of `forward`, `forward_with_loss` and `loss` is the JAX
 package's flag: it selects the loss terms (LightGlue's deep supervision and
-token-confidence BCE at train, `matcher_metrics` at eval) and SuperPoint's
-keypoint count (`max_num_keypoints_val` only at eval). It is kept apart from
-`torch.nn.Module.train()`, whose mode decides nothing in these models (they
-have no dropout and no BatchNorm in training mode), so a model behaves the
-same in either mode for the same flag.
+token-confidence BCE at train, `matcher_metrics` at eval), SuperPoint's
+keypoint count (`max_num_keypoints_val` only at eval) and SuperGlue's
+BatchNorm mode (by the batch, updating the running statistics, at train).
+It is kept apart from `torch.nn.Module.train()`, whose mode decides nothing
+in these models (they have no dropout, and BatchNorm follows the flag), so
+a model behaves the same in either mode for the same flag.
 
 Entry points run on the card: `Model.from_conf(conf)` places the model on
 `cuda` unless the caller passes another `device` (the tests pass "cpu").

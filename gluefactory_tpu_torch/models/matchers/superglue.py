@@ -1,5 +1,5 @@
 """SuperGlue: attentional GNN matcher with log-domain Sinkhorn optimal
-transport, inference forward (counterpart of
+transport, inference and training (counterpart of
 `gluefactory_tpu/models/matchers/superglue.py`).
 
 Parameters carry the names and shapes of the official MagicLeap release
@@ -8,7 +8,20 @@ with BatchNorm1d at 1, 4, 7, 10; `gnn.layers.{i}.attn.proj.{0,1,2}`,
 `gnn.layers.{i}.attn.merge`, `gnn.layers.{i}.mlp.{0,1,3}`; `final_proj`;
 `bin_score`. Conv1d weights are (O, I, 1), so official checkpoints load as
 they are. The forward runs on (B, N, C) tokens with each 1x1 Conv1d as a
-linear map, and BatchNorm uses its running statistics (inference).
+linear map.
+
+BatchNorm follows flax's, as the JAX model uses it, and the `train`
+argument picks the mode (`torch.nn.Module.training` decides nothing):
+`train=False` normalises by the running statistics; `train=True` by the
+batch's mean and biased variance over every B x N token, padded slots
+included (the JAX model does not mask them), and then sets each running
+statistic to 0.9 old + 0.1 batch, the biased variance included (PyTorch's
+own training mode would store the unbiased one). Each BatchNorm is updated
+once per call in the JAX model's order: the keypoint encoder on view 0,
+then view 1; each GNN layer on its view-0 update, then its view-1 one.
+With `checkpointed` (and grad enabled), each GNN layer call runs under
+`torch.utils.checkpoint`; its statistics are applied when the forward
+returns, so the recompute in the backward does not update them again.
 
 Head layout: the official attention packs channels head-fastest,
 c = dh * H + h, but the attention kernel wants each head's features
@@ -19,7 +32,8 @@ when one is saved: inside the module the heads are head-major
 
 Each layer calls `mha` once per view in self layers and once per direction in
 cross layers, as the JAX model does: 36 attention launches per forward at 9
-layer pairs, and one Sinkhorn launch.
+layer pairs (and 36 more in a checkpointed backward's recompute), and one
+Sinkhorn launch.
 """
 
 from __future__ import annotations
@@ -29,11 +43,17 @@ import copy
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ...ops.assignment import filter_matches, log_optimal_transport
 from ...ops.attention import mha
 from ..base_model import BaseModel
+from ..losses import nll_components
+from ..metrics import matcher_metrics
 from .lightglue import merge_heads, split_heads
+
+# flax's BatchNorm momentum: running = MOMENTUM * running + (1 - MOMENTUM) * batch
+MOMENTUM = 0.9
 
 
 def normalize_keypoints_sg(kpts: torch.Tensor, size: torch.Tensor) -> torch.Tensor:
@@ -49,12 +69,32 @@ def _pointwise(layer: nn.Conv1d, x: torch.Tensor) -> torch.Tensor:
     return F.linear(x, layer.weight[..., 0], layer.bias)
 
 
-def _batch_norm(bn: nn.BatchNorm1d, x: torch.Tensor) -> torch.Tensor:
-    """Inference BatchNorm on (B, N, C), from the running statistics in any
-    module mode (one kernel)."""
-    y = F.batch_norm(x.reshape(-1, x.shape[-1]), bn.running_mean, bn.running_var, bn.weight,
-                     bn.bias, training=False, eps=bn.eps)
-    return y.reshape(x.shape)
+def _batch_norm(bn: nn.BatchNorm1d, x: torch.Tensor, stats: list | None = None) -> torch.Tensor:
+    """BatchNorm on (B, N, C). `stats` None: by the running statistics (one
+    kernel). A list: by the batch's mean and biased variance over every
+    token, in float32 as flax computes them (E[x^2] - E[x]^2, at least 0),
+    and the (mean, variance) pair appended to `stats` for
+    `update_running_stats`; the running statistics are not read."""
+    if stats is None:
+        y = F.batch_norm(x.reshape(-1, x.shape[-1]), bn.running_mean, bn.running_var, bn.weight,
+                         bn.bias, training=False, eps=bn.eps)
+        return y.reshape(x.shape)
+    flat = x.reshape(-1, x.shape[-1]).float()
+    mean = flat.mean(0)
+    var = ((flat * flat).mean(0) - mean * mean).clamp(min=0.0)
+    y = (flat - mean) * (torch.rsqrt(var + bn.eps) * bn.weight.float()) + bn.bias.float()
+    stats.append((mean.detach(), var.detach()))
+    return y.to(x.dtype).reshape(x.shape)
+
+
+def update_running_stats(bns: list, stats: list) -> None:
+    """Each BatchNorm's running mean and variance to MOMENTUM old + (1 -
+    MOMENTUM) batch, from the (mean, biased variance) pairs `_batch_norm`
+    appended, in order."""
+    with torch.no_grad():
+        for bn, (mean, var) in zip(bns, stats):
+            bn.running_mean.copy_(MOMENTUM * bn.running_mean + (1.0 - MOMENTUM) * mean)
+            bn.running_var.copy_(MOMENTUM * bn.running_var + (1.0 - MOMENTUM) * var)
 
 
 def make_mlp(channels: list) -> nn.Sequential:
@@ -69,15 +109,21 @@ def make_mlp(channels: list) -> nn.Sequential:
     return nn.Sequential(*layers)
 
 
-def run_mlp(mlp: nn.Sequential, x: torch.Tensor) -> torch.Tensor:
+def run_mlp(mlp: nn.Sequential, x: torch.Tensor, stats: list | None = None) -> torch.Tensor:
+    """The MLP on (B, N, C); BatchNorm by the batch with a `stats` list
+    (`_batch_norm`), else by the running statistics."""
     for layer in mlp:
         if isinstance(layer, nn.Conv1d):
             x = _pointwise(layer, x)
         elif isinstance(layer, nn.BatchNorm1d):
-            x = _batch_norm(layer, x)
+            x = _batch_norm(layer, x, stats)
         else:
             x = torch.relu(x)
     return x
+
+
+def batch_norms(mlp: nn.Sequential) -> list:
+    return [m for m in mlp if isinstance(m, nn.BatchNorm1d)]
 
 
 def head_major_permutation(dim: int, num_heads: int) -> torch.Tensor:
@@ -133,12 +179,12 @@ class AttentionalPropagation(nn.Module):
         self.mlp = make_mlp([2 * feature_dim, 2 * feature_dim, feature_dim])
         nn.init.constant_(self.mlp[-1].bias, 0.0)
 
-    def forward(self, x, source, mask_q=None, mask_k=None):
+    def forward(self, x, source, mask_q=None, mask_k=None, stats: list | None = None):
         q, k, v = (split_heads(_pointwise(p, t), self.num_heads)
                    for p, t in zip(self.attn.proj, (x, source, source)))
         ctx = mha(q, k, v, mask_q=mask_q, mask_k=mask_k, flash=self.flash)
         message = _pointwise(self.attn.merge, merge_heads(ctx))
-        return x + run_mlp(self.mlp, torch.cat([x, message], dim=-1))
+        return x + run_mlp(self.mlp, torch.cat([x, message], dim=-1), stats)
 
 
 class KeypointEncoder(nn.Module):
@@ -164,7 +210,6 @@ class SuperGlue(BaseModel):
         "num_heads": 4,
         "sinkhorn_iterations": 50,
         "filter_threshold": 0.2,
-        # training-only keys of the JAX model, accepted for its configs
         "checkpointed": True,
         "weights": None,
         "loss": {"nll_balancing": 0.5},
@@ -184,9 +229,21 @@ class SuperGlue(BaseModel):
         self.final_proj = nn.Conv1d(d, d, kernel_size=1, bias=True)
         self.bin_score = nn.Parameter(torch.tensor(1.0))
 
+    def _layer(self, layer, x, source, mask_q, mask_k, train: bool):
+        """One GNN layer call; with `train`, its BatchNorm by the batch and
+        its running statistics updated after the call (outside a
+        checkpoint, so that the recompute leaves them alone)."""
+        stats = [] if train else None
+        if self.conf.checkpointed and torch.is_grad_enabled():
+            out = checkpoint(layer, x, source, mask_q, mask_k, stats, use_reentrant=False)
+        else:
+            out = layer(x, source, mask_q, mask_k, stats)
+        if train:
+            update_running_stats(batch_norms(layer.mlp), stats)
+        return out
+
     def _forward(self, data: dict, train: bool = False) -> dict:
-        """Inference; `train` is accepted for the pipeline's sake and changes
-        nothing (SuperGlue's training is not ported)."""
+        """`train`: BatchNorm by the batch, the running statistics updated."""
         c = self.conf
         desc0, desc1 = data["descriptors0"], data["descriptors1"]
         mask0 = data.get("keypoint_mask0")
@@ -199,16 +256,21 @@ class SuperGlue(BaseModel):
         def encode(kpts, size, scores, desc):
             p = normalize_keypoints_sg(kpts, size)
             enc_in = torch.cat([p, scores[..., None].to(p.dtype)], dim=-1).to(desc.dtype)
-            return desc + run_mlp(self.kenc.encoder, enc_in)
+            stats = [] if train else None
+            out = desc + run_mlp(self.kenc.encoder, enc_in, stats)
+            if train:
+                update_running_stats(batch_norms(self.kenc.encoder), stats)
+            return out
 
         x0 = encode(data["keypoints0"], size0, data["keypoint_scores0"], desc0)
         x1 = encode(data["keypoints1"], size1, data["keypoint_scores1"], desc1)
         for i, layer in enumerate(self.gnn.layers):
             if i % 2 == 0:  # self-attention
-                x0 = layer(x0, x0, mask0, mask0)
-                x1 = layer(x1, x1, mask1, mask1)
+                x0 = self._layer(layer, x0, x0, mask0, mask0, train)
+                x1 = self._layer(layer, x1, x1, mask1, mask1, train)
             else:  # cross-attention
-                x0, x1 = layer(x0, x1, mask0, mask1), layer(x1, x0, mask1, mask0)
+                x0, x1 = (self._layer(layer, x0, x1, mask0, mask1, train),
+                          self._layer(layer, x1, x0, mask1, mask0, train))
 
         mdesc0 = _pointwise(self.final_proj, x0)
         mdesc1 = _pointwise(self.final_proj, x1)
@@ -224,3 +286,27 @@ class SuperGlue(BaseModel):
             "matching_scores0": ms0,
             "matching_scores1": ms1,
         }
+
+    def loss(self, pred: dict, data: dict, train: bool = False):
+        """NLL on the transport plan, the negative counts clamped as a sum
+        (SuperGlue's convention), balanced by `loss.nll_balancing`, with the
+        diagnostics `nll_pos`, `nll_neg`, `num_matchable`, `num_unmatchable`
+        and `bin_score`; `matcher_metrics` only at eval."""
+        scores = pred["log_assignment"]
+        nll_pos, nll_neg, num_pos, num_neg = nll_components(
+            scores, data["gt_assignment"], data["gt_matches0"], data["gt_matches1"],
+            per_side_clamp=False)
+        b = self.conf.loss.nll_balancing
+        nll = b * nll_pos + (1.0 - b) * nll_neg
+        losses = {
+            "total": nll,
+            "assignment_nll": nll,
+            "nll_pos": nll_pos,
+            "nll_neg": nll_neg,
+            "num_matchable": num_pos,
+            "num_unmatchable": num_neg,
+            "bin_score": self.bin_score.detach().expand(scores.shape[0]),
+        }
+        if train:
+            return losses, {}
+        return losses, matcher_metrics(pred, data)

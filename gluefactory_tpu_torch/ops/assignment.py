@@ -1,7 +1,8 @@
 """Assignment heads and match filtering (counterpart of
 `gluefactory_tpu/ops/assignment.py`): LightGlue's
 `sigmoid_log_double_softmax`, SuperGlue's log-domain optimal transport
-(`log_sinkhorn_iterations`, `log_optimal_transport`), `filter_matches`.
+(`log_sinkhorn_iterations`, `log_optimal_transport`), `filter_matches`, and
+the nearest-neighbour matcher's `find_nn` and `mutual_check`.
 
 Mask-aware: padded keypoints get -1e9 scores and never match (-1).
 """
@@ -110,3 +111,39 @@ def filter_matches(scores: torch.Tensor, th: float, mask0=None, mask1=None):
     matches0 = torch.where(valid0, m0, -1).to(torch.int32)
     matches1 = torch.where(valid1, m1, -1).to(torch.int32)
     return matches0, matches1, mscores0, mscores1
+
+
+def _top2(sim):
+    """The two largest entries of the last axis and their indices, the
+    lower index first among equal values (as `jax.lax.top_k`)."""
+    v0, i0 = sim.max(dim=-1)
+    rest = sim.scatter(-1, i0[..., None], float("-inf"))
+    v1, i1 = rest.max(dim=-1)
+    return torch.stack([v0, v1], -1), torch.stack([i0, i1], -1)
+
+
+def find_nn(sim, ratio_th=None, distance_th=None, mask0=None, mask1=None):
+    """Nearest neighbours over a cosine-similarity matrix (B, M, N) along its
+    last axis, with Lowe's ratio test and a distance threshold on the
+    distances 2 (1 - sim): (matches (B, M) int32, -1 where a test fails;
+    scores (sim + 1) / 2, 0 there)."""
+    sim = _mask_sim(sim, mask0, mask1)
+    sim_nn, ind_nn = _top2(sim)
+    dist_nn = 2.0 * (1.0 - sim_nn)
+    mask = torch.ones_like(sim_nn[..., 0], dtype=torch.bool)
+    if ratio_th is not None:
+        mask = mask & (dist_nn[..., 0] <= (ratio_th**2) * dist_nn[..., 1])
+    if distance_th is not None:
+        mask = mask & (dist_nn[..., 0] <= distance_th**2)
+    matches = torch.where(mask, ind_nn[..., 0], -1)
+    scores = torch.where(mask, (sim_nn[..., 0] + 1) / 2.0, torch.zeros_like(sim_nn[..., 0]))
+    return matches.to(torch.int32), scores
+
+
+def mutual_check(m0: torch.Tensor, m1: torch.Tensor) -> torch.Tensor:
+    """m0 where its target points back to it in m1, else -1; an unmatched
+    entry (-1) reads m1 at index 0 and stays -1."""
+    inds0 = torch.arange(m0.shape[-1], device=m0.device)[None]
+    loop = m1.gather(-1, m0.clamp(0, m1.shape[-1] - 1).long())
+    ok = (m0 >= 0) & (inds0 == loop)
+    return torch.where(ok, m0, -1).to(m0.dtype)

@@ -14,9 +14,16 @@ posed-images layout (`<root>/<scene>/images/*.jpg`, `depths/*.png` as
 `write_megadepth_scene(root, scene, ...)` writes MegaDepth's D2-Net layout
 for training (`Undistorted_SfM/<scene>/images/*.jpg`,
 `depth_undistorted/<scene>/*.h5` through `utils/hdf5_write.py`,
-`scene_info/<scene>.npz` with the overlap matrix of the geometry). Views are
-named `<scene>_imNN`. Images are
-written by Pillow (JPEG quality 95). A scene is the same for the same
+`scene_info/<scene>.npz` with the overlap matrix of the geometry);
+`write_eth3d_scene(root, scene, ...)` writes ETH3D's undistorted DSLR
+layout (`images/dslr_images_undistorted/*.JPG` at the DSLR size,
+`ground_truth_depth/undistorted_depth/*.png` at the downsized size, COLMAP
+`cameras.txt` and `images.txt` with each image's observations of points
+sampled on the planes); `write_zeb_scene(root, scene, ...)` writes a ZEB
+scene (`<sub>-<img>.jpg` images and `<sub>-<img0>-<img1>.txt` pair files
+with both overlaps, K0, K1 and the relative pose). Views are named
+`<scene>_imNN` except in the ETH3D and ZEB layouts. Images are written by
+Pillow (JPEG quality 95). A scene is the same for the same
 seed: a back wall, a floor and two tilted panels, each with a procedural
 texture (`data.homographies.generate_synthetic_image`), seen by cameras
 spread around the origin, looking down +z.
@@ -140,10 +147,14 @@ def make_cameras(seed: int, n_views: int, size, model: str = "PINHOLE"):
     return out
 
 
-def _save_jpeg(path: Path, image: np.ndarray) -> None:
+def _save_jpeg(path: Path, image: np.ndarray, repeat: int = 1) -> None:
+    """`image` in [0, 1] as a JPEG, each pixel repeated `repeat` x `repeat`."""
     from PIL import Image
 
-    Image.fromarray((image * 255).round().astype(np.uint8)).save(path, quality=95)
+    img = (image * 255).round().astype(np.uint8)
+    if repeat > 1:
+        img = np.repeat(np.repeat(img, repeat, 0), repeat, 1)
+    Image.fromarray(img).save(path, quality=95)
 
 
 def _save_depth_png(path: Path, depth: np.ndarray) -> None:
@@ -240,12 +251,18 @@ def _K(cam: dict) -> np.ndarray:
 
 def overlap_matrix(cameras: list, depths: list) -> np.ndarray:
     """The scene's overlap matrix: entry (i, j) is the smaller of the two
-    shares of co-visible pixels, where the share of view i in view j is the
-    fraction of view i's pixels with valid depth (> 0), on a grid of every
-    OVERLAP_STRIDE-th pixel centre, whose 3D point projects inside view j in
-    front of it onto a pixel whose depth agrees within OVERLAP_DEPTH_TOL
-    (relative). The diagonal is 1. `cameras` are (camera dict, R, t) with
-    world-to-camera poses; `depths` the full-size depth maps."""
+    shares of co-visible pixels (`overlap_shares`)."""
+    share = overlap_shares(cameras, depths)
+    return np.minimum(share, share.T)
+
+
+def overlap_shares(cameras: list, depths: list) -> np.ndarray:
+    """Entry (i, j): the share of view i in view j, the fraction of view i's
+    pixels with valid depth (> 0), on a grid of every OVERLAP_STRIDE-th
+    pixel centre, whose 3D point projects inside view j in front of it onto
+    a pixel whose depth agrees within OVERLAP_DEPTH_TOL (relative). The
+    diagonal is 1. `cameras` are (camera dict, R, t) with world-to-camera
+    poses; `depths` the full-size depth maps."""
     n = len(cameras)
     share = np.eye(n)
     points = []
@@ -271,7 +288,7 @@ def overlap_matrix(cameras: list, depths: list) -> np.ndarray:
             dj[inside] = depths[j][uv[1, inside].astype(int), uv[0, inside].astype(int)]
             ok = inside & (dj > 0) & (np.abs(dj - z) <= OVERLAP_DEPTH_TOL * z)
             share[i, j] = ok.mean()
-    return np.minimum(share, share.T)
+    return share
 
 
 def _write_md_view(args) -> tuple:
@@ -323,6 +340,174 @@ def write_megadepth_scene(root: Path, scene: str, n_views: int = 12, size=(1600,
              poses=poses, intrinsics=np.stack([_K(cam) for cam, _, _ in cameras]),
              overlap_matrix=overlap_matrix(cameras, [d for _, d in written]))
     return {"image_paths": image_paths, "depth_sha256": [h for h, _ in written]}
+
+
+def rotmat2qvec(R: np.ndarray) -> np.ndarray:
+    """A rotation matrix as COLMAP's quaternion (w, x, y, z), w >= 0."""
+    Rxx, Ryx, Rzx, Rxy, Ryy, Rzy, Rxz, Ryz, Rzz = np.asarray(R, np.float64).ravel()
+    K = np.array([[Rxx - Ryy - Rzz, 0, 0, 0],
+                  [Ryx + Rxy, Ryy - Rxx - Rzz, 0, 0],
+                  [Rzx + Rxz, Rzy + Ryz, Rzz - Rxx - Ryy, 0],
+                  [Ryz - Rzy, Rzx - Rxz, Rxy - Ryx, Rxx + Ryy + Rzz]]) / 3.0
+    eigvals, eigvecs = np.linalg.eigh(K)
+    qvec = eigvecs[[3, 0, 1, 2], np.argmax(eigvals)]
+    return -qvec if qvec[0] < 0 else qvec
+
+
+def _scaled(cam: dict, s: float) -> dict:
+    """A PINHOLE camera dict at `s` times its size."""
+    fx, fy, cx, cy = cam["params"]
+    return {"model": "PINHOLE", "width": round(cam["width"] * s), "height": round(cam["height"] * s),
+            "params": [fx * s, fy * s, cx * s, cy * s]}
+
+
+def _render_at(planes: list, cam: dict, R, t, scale: float):
+    return render(planes, Camera.from_colmap(_scaled(cam, scale)).to(torch.float64), R, t)
+
+
+def _plane_points(planes: list, n: int, rng) -> np.ndarray:
+    """n world points spread over the planes, each plane by its area."""
+    areas = np.array([ext[0] * ext[1] for _, _, _, ext, _ in planes])
+    which = rng.choice(len(planes), n, p=areas / areas.sum())
+    uv = rng.uniform(-1, 1, (n, 2))
+    return np.stack([planes[k][0] + u * planes[k][3][0] * planes[k][1] + v * planes[k][3][1] * planes[k][2]
+                     for k, (u, v) in zip(which, uv)])
+
+
+def _observations(points: np.ndarray, cam: dict, R, t, depth: np.ndarray, scale: float) -> list:
+    """(x, y, point id) of the points seen by a view: in front of it, inside
+    its image and not hidden (the depth map at `scale` agrees within
+    OVERLAP_DEPTH_TOL)."""
+    p = points @ R.T + t
+    z = p[:, 2]
+    with np.errstate(divide="ignore", invalid="ignore"):
+        uv = (p @ _K(cam).T)[:, :2] / z[:, None]
+    h, w = depth.shape
+    ij = np.floor(uv * scale).astype(np.int64)
+    inside = (z > 0) & (ij[:, 0] >= 0) & (ij[:, 0] < w) & (ij[:, 1] >= 0) & (ij[:, 1] < h)
+    seen = np.zeros(len(points), bool)
+    d = depth[ij[inside, 1], ij[inside, 0]]
+    seen[inside] = (d > 0) & (np.abs(d - z[inside]) <= OVERLAP_DEPTH_TOL * z[inside])
+    return [(float(uv[k, 0]), float(uv[k, 1]), int(k)) for k in np.nonzero(seen)[0]]
+
+
+def _eth3d_pose(R: np.ndarray):
+    """(COLMAP quaternion of R, the rotation it gives back in float64)."""
+    qvec = rotmat2qvec(R)
+    w, x, y, z = qvec
+    return qvec, np.array([[1 - 2 * y**2 - 2 * z**2, 2 * x * y - 2 * z * w, 2 * x * z + 2 * y * w],
+                           [2 * x * y + 2 * z * w, 1 - 2 * x**2 - 2 * z**2, 2 * y * z - 2 * x * w],
+                           [2 * x * z - 2 * y * w, 2 * y * z + 2 * x * w, 1 - 2 * x**2 - 2 * y**2]])
+
+
+# Gaussian noise on the ETH3D and ZEB images (in [0, 1] units): it breaks
+# the textures' flat regions into distinct detector scores, so that no
+# top-k meets a tie between equal scores, which two implementations may
+# break differently
+IMAGE_NOISE = 0.05
+
+
+def _noisy(image: np.ndarray, rng) -> np.ndarray:
+    return np.clip(image + rng.normal(scale=IMAGE_NOISE, size=image.shape), 0, 1)
+
+
+def _write_eth3d_view(args) -> list:
+    """Render one ETH3D view, write its JPEG and depth PNG; returns its
+    observations of the scene's points."""
+    seed, k, cam, R, t, points, img_path, depth_path, downsize_factor = args
+    planes = make_planes(seed)
+    render_scale = max(downsize_factor // 2, 1)
+    image, _ = _render_at(planes, cam, R, t, 1.0 / render_scale)
+    _save_jpeg(img_path, _noisy(image, np.random.default_rng((seed, k))), render_scale)
+    _, depth = _render_at(planes, cam, R, t, 1.0 / downsize_factor)
+    _save_depth_png(depth_path, depth)
+    return _observations(points, cam, R, t, depth, 1.0 / downsize_factor)
+
+
+def write_eth3d_scene(root: Path, scene: str, n_views: int = 4, size=(6048, 4032),
+                      downsize_factor: int = 8, n_points: int = 6000, seed: int = 0,
+                      workers: int = 1) -> dict:
+    """One scene in ETH3D's undistorted DSLR layout under `root/scene`.
+    PINHOLE views of the planes as `DSC_NNNN.JPG` at `size`, rendered at
+    twice the size the loader resizes them to (1 / `downsize_factor`) with
+    IMAGE_NOISE and upsampled by pixel repetition; depths as 16-bit PNGs
+    (1/256 units) rendered at 1 / `downsize_factor`, as the loader reads
+    them; `dslr_calibration_undistorted/cameras.txt` (one camera an image)
+    and `images.txt` (COLMAP quaternion poses, each followed by its
+    observations of `n_points` points spread over the planes, one -1 entry
+    a view), and `dslr_calibration_jpg/images.txt`. Views are rendered by
+    `workers` processes. Returns the names and each pair's count of
+    covisible points."""
+    d = Path(root) / scene
+    img_dir = d / "images" / "dslr_images_undistorted"
+    depth_dir = d / "ground_truth_depth" / "undistorted_depth"
+    calib = d / "dslr_calibration_undistorted"
+    for p in (img_dir, depth_dir, calib, d / "dslr_calibration_jpg"):
+        p.mkdir(parents=True, exist_ok=True)
+    points = _plane_points(make_planes(seed), n_points, np.random.default_rng(seed + 2))
+    names = [f"DSC_{k:04d}.JPG" for k in range(n_views)]
+    views = [(cam, *_eth3d_pose(R), t) for cam, R, t in make_cameras(seed + 1, n_views, size, "PINHOLE")]
+    jobs = [(seed, k, cam, R, t, points, img_dir / name, depth_dir / f"{name[:-4]}.png",
+             downsize_factor)
+            for k, (name, (cam, _, R, t)) in enumerate(zip(names, views))]
+    if workers > 1:
+        # one torch thread a child, as write_megadepth_scene's
+        fork = multiprocessing.get_context("fork")
+        with ProcessPoolExecutor(min(workers, n_views), mp_context=fork,
+                                 initializer=torch.set_num_threads, initargs=(1,)) as pool:
+            observations = list(pool.map(_write_eth3d_view, jobs))
+    else:
+        observations = [_write_eth3d_view(job) for job in jobs]
+    cameras = ["# Camera list", "#   CAMERA_ID, MODEL, WIDTH, HEIGHT, PARAMS[]",
+               f"# Number of cameras: {n_views}"]
+    images = ["# Image list with two lines of data per image:",
+              "#   IMAGE_ID, QW, QX, QY, QZ, TX, TY, TZ, CAMERA_ID, NAME",
+              "#   POINTS2D[] as (X, Y, POINT3D_ID)", f"# Number of images: {n_views}"]
+    for k, (name, (cam, qvec, _, t), obs) in enumerate(zip(names, views, observations)):
+        cameras.append(" ".join([str(k + 1), "PINHOLE", str(cam["width"]), str(cam["height"]),
+                                 *(repr(float(v)) for v in cam["params"])]))
+        images.append(" ".join([str(k + 1), *(repr(float(v)) for v in qvec),
+                                *(repr(float(v)) for v in t), str(k + 1),
+                                f"dslr_images_undistorted/{name}"]))
+        images.append(" ".join(f"{u!r} {v!r} {i}" for u, v, i in obs + [(0.5, 0.5, -1)]))
+    (calib / "cameras.txt").write_text("\n".join(cameras) + "\n")
+    (calib / "images.txt").write_text("\n".join(images) + "\n")
+    (d / "dslr_calibration_jpg" / "images.txt").write_text("\n".join(images) + "\n")
+    seen = [{i for _, _, i in obs} for obs in observations]
+    covisible = {(names[i], names[j]): len(seen[i] & seen[j])
+                 for i, j in itertools.combinations(range(n_views), 2)}
+    return {"names": names, "covisible": covisible}
+
+
+def write_zeb_scene(root: Path, scene: str, n_views: int = 5, n_pairs: int = 10,
+                    size=(1600, 1200), seed: int = 0) -> list:
+    """One ZEB scene under `root/scene`: PINHOLE views with IMAGE_NOISE as
+    `s0-NNNN.jpg` (one subscene, `s0`) and a pair file `s0-<i>-<j>.txt`
+    for each of the first `n_pairs` pairs, its line `NNNN.jpg MMMM.jpg
+    overlap0 overlap1 K0(9) K1(9) T_0to1(12)` (the overlaps are the views'
+    shares of co-visible pixels, `overlap_shares`). Returns the pair
+    files' paths."""
+    d = Path(root) / scene
+    d.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(seed + 2)
+    views, depths = [], []
+    for k, (_, cam, R, t, image, depth) in enumerate(_render_views(scene, seed, n_views, size, "PINHOLE")):
+        _save_jpeg(d / f"s0-{k:04d}.jpg", _noisy(image, rng))
+        views.append((cam, R, t))
+        depths.append(depth)
+    share = overlap_shares(views, depths)
+    files = []
+    for i, j in _pairs(n_views, n_pairs):
+        (c0, R0, t0), (c1, R1, t1) = views[i], views[j]
+        T = np.concatenate([R1 @ R0.T, (t1 - R1 @ R0.T @ t0)[:, None]], axis=1)
+        line = " ".join([f"{i:04d}.jpg", f"{j:04d}.jpg", repr(float(share[i, j])),
+                         repr(float(share[j, i])),
+                         *(repr(float(x)) for x in np.concatenate([_K(c0).ravel(), _K(c1).ravel(),
+                                                                   T.ravel()]))])
+        path = d / f"s0-{i:04d}-{j:04d}.txt"
+        path.write_text(line + "\n")
+        files.append(path)
+    return files
 
 
 def main(argv=None) -> None:

@@ -33,12 +33,18 @@ is taken in whatever dtype the model gives it.
 end of every epoch on the model in memory, with its conf from
 `benchmark_conf.<name>`, into `<output_dir>/benchmarks/<name>`, and writes
 its scalar summaries to the writer; a benchmark that fails is logged and
-training goes on, as in the JAX package. Ported: `hpatches`,
-`megadepth1500` and `scannet1500`.
+training goes on, as in the JAX package: `hpatches`, `megadepth1500`,
+`scannet1500`, `eth3d` and `zeb`.
+
+Models with BatchNorm in training mode (SuperGlue) update their running
+statistics in the forward; the NaN-skip restores only the trained tensors
+and the optimizer state, so a rejected step keeps that update, as the JAX
+trainer keeps its `batch_stats`. Checkpoints hold the statistics (they are
+in the model's state dict), and validation (`train=False`) normalises by
+them.
 
 Not ported yet, each raising `NotImplementedError`: `steps_per_dispatch >
-1`, `device_augment`, the benchmarks `eth3d` and `zeb`, `plot` with a
-writer, and more than one device (DDP).
+1`, `device_augment`, `plot` with a writer, and more than one device (DDP).
 """
 
 from __future__ import annotations
@@ -431,8 +437,8 @@ def check_supported(conf, args) -> None:
     if t.device_augment:
         raise NotImplementedError("device_augment (on-device augmentation) is not ported yet")
     for name in t.run_benchmarks or []:
-        if name not in ("hpatches", "megadepth1500", "scannet1500"):
-            raise NotImplementedError(f"benchmark {name} is not ported yet")
+        if name not in ("hpatches", "megadepth1500", "scannet1500", "eth3d", "zeb"):
+            raise NotImplementedError(f"benchmark {name}: the port has no such benchmark")
 
 
 def training(conf: Config, output_dir: Path, args):

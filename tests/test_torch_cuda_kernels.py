@@ -490,6 +490,65 @@ def test_attention_with_cached_feature_padding(dev, name):
         assert (a - b).abs().max() <= 1e-3 * norm
 
 
+def test_attention_at_superglue_training_shape(dev):
+    """`fused_attention` under autograd as SuperGlue's training runs it: (64,
+    4, 512, 64) f32 (a batch of 32 pairs, both views stacked), queries and
+    keys masked with 128-512 valid slots an item (the cross layers' masks
+    differ between queries and keys). The forward within 1e-3 of the plain
+    version; every gradient entry within 1e-3 of the plain gradient's
+    global norm."""
+    gen = torch.Generator(device=dev).manual_seed(17)
+    n, heads, items = 512, 4, 64
+    counts = torch.randint(128, n + 1, (items,), generator=gen, device=dev)
+    mask_q = torch.arange(n, device=dev)[None] < counts[:, None]
+    mask_k = mask_q.roll(1, 0)
+    inputs = [*(_leaf(gen, dev, items, heads, n, 64) for _ in range(3)), mask_k, mask_q]
+    kernel, plain = cuda_attention.fused_attention, cuda_attention.attention_plain
+    with torch.no_grad():
+        assert (kernel(*inputs) - plain(*inputs)).abs().max() <= 1e-3
+    cot = [torch.randn(items, heads, n, 64, generator=gen, device=dev)]
+    got, want = _grads(kernel, inputs, cot), _grads(plain, inputs, cot)
+    norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in want]))
+    assert norm > 0
+    for a, b in zip(got, want):
+        assert (a - b).abs().max() <= 1e-3 * norm
+
+
+def test_sinkhorn_in_superglue_training(dev):
+    """`log_sinkhorn` under autograd inside `log_optimal_transport` as
+    SuperGlue's training runs it: (32, 513, 513) f32 couplings with the
+    dustbin score, 50 iterations, each item's `keypoint_mask`s valid on
+    128-512 slots. The log assignment within 1e-4 of the plain loop's on
+    its finite entries (masked ones sit near -1e9 and are compared
+    relatively); the gradients of the scores and the dustbin score within
+    1e-3 of the plain gradients' global norm; one launch a forward."""
+    gen = torch.Generator(device=dev).manual_seed(18)
+    B, n = 32, 512
+    counts = torch.randint(128, n + 1, (2, B), generator=gen, device=dev)
+    m0 = torch.arange(n, device=dev)[None] < counts[0][:, None]
+    m1 = torch.arange(n, device=dev)[None] < counts[1][:, None]
+    scores = _leaf(gen, dev, B, n, n, scale=2.0)
+    bin_score = torch.tensor(1.0, device=dev, requires_grad=True)
+    outs = {}
+    for flash in (True, False):
+        cuda_sinkhorn.reset_launches()
+        la = log_optimal_transport(scores, bin_score, 50, m0, m1, flash=flash)
+        cot = torch.randn(la.shape, generator=gen.manual_seed(19), device=dev) * (la > -1e8)
+        grads = torch.autograd.grad(la, [scores, bin_score], cot)
+        torch.cuda.synchronize()
+        outs[flash] = (la.detach(), grads, cuda_sinkhorn.launches.get("log_sinkhorn", 0))
+    (la, g, n_kernel), (la_p, g_p, n_plain) = outs[True], outs[False]
+    assert (n_kernel, n_plain) == (1, 0)
+    small = la_p > -1e6
+    assert torch.equal(small, la > -1e6)
+    assert (la - la_p)[small].abs().max() <= 1e-4
+    assert ((la - la_p)[~small].abs() <= 1e-6 * la_p[~small].abs()).all()
+    norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(x) for x in g_p]))
+    assert norm > 0
+    for a, b in zip(g, g_p):
+        assert (a - b).abs().max() <= 1e-3 * norm
+
+
 def test_detect_raises_under_grad(dev):
     s = torch.rand(1, 64, 64, device=dev, requires_grad=True)
     with pytest.raises(RuntimeError, match="no gradient"):

@@ -19,7 +19,7 @@ import pytest
 import torch
 
 from gluefactory_tpu.eval import hpatches as jax_hpatches
-from gluefactory_tpu_torch.eval import hpatches
+from gluefactory_tpu_torch.eval import eval_pipeline, hpatches
 from gluefactory_tpu_torch.utils.export_predictions import PredictionWriter
 from test_torch_eval_hpatches import DATA, H, MODEL, PAIRS, W, _assert_summaries_close, _best_threshold
 from test_torch_eval_hpatches import fake_hpatches  # noqa: F401  (the fixture)
@@ -95,7 +95,7 @@ def test_cli_on_cpu(fake_hpatches, monkeypatch):
     def no_model(*a, **k):
         raise AssertionError("the cache was not read")
 
-    monkeypatch.setattr(hpatches, "load_model", no_model)
+    monkeypatch.setattr(eval_pipeline, "load_model", no_model)
     s2, _, _ = hpatches.main(argv + ["--overwrite_eval"])
     assert s2 == s and (out / "predictions.npz").stat().st_mtime_ns == mtime
     with pytest.raises(ValueError, match="overwrite_eval"):

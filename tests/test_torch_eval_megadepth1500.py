@@ -38,7 +38,7 @@ import torch
 from gluefactory_tpu.eval import megadepth1500 as jax_md
 from gluefactory_tpu.eval import scannet1500 as jax_sn
 from gluefactory_tpu_torch.data.base_dataset import prepare_batch
-from gluefactory_tpu_torch.eval import megadepth1500, scannet1500
+from gluefactory_tpu_torch.eval import eval_pipeline, megadepth1500, scannet1500
 from gluefactory_tpu_torch.geometry.depth import project, sample_depth
 from gluefactory_tpu_torch.utils.export_predictions import PredictionWriter
 from gluefactory_tpu_torch.utils.tensor import rbd
@@ -218,7 +218,7 @@ def test_cli_on_cpu(data_path, bench, monkeypatch):
     def no_model(*a, **k):
         raise AssertionError("the cache was not read")
 
-    monkeypatch.setattr(megadepth1500, "load_model", no_model)
+    monkeypatch.setattr(eval_pipeline, "load_model", no_model)
     s2, _, _ = mod.main(argv + ["--overwrite_eval"])
     assert s2 == s and (out / "predictions.npz").stat().st_mtime_ns == mtime
 

@@ -368,16 +368,21 @@ def test_load_model_from_a_training_run(tmp_path, monkeypatch):
 
 
 def test_benchmark_registry():
+    from gluefactory_tpu_torch import train
     from gluefactory_tpu_torch.eval.hpatches import HPatchesPipeline
+    from gluefactory_tpu_torch.eval.eth3d import ETH3DPipeline
     from gluefactory_tpu_torch.eval.megadepth1500 import MegaDepth1500Pipeline
     from gluefactory_tpu_torch.eval.scannet1500 import ScanNet1500Pipeline
+    from gluefactory_tpu_torch.eval.zeb import ZEBPipeline
 
     assert get_benchmark("hpatches") is HPatchesPipeline
     assert get_benchmark("megadepth1500") is MegaDepth1500Pipeline
     assert get_benchmark("scannet1500") is ScanNet1500Pipeline
-    for name in ("eth3d", "zeb"):
-        with pytest.raises(NotImplementedError, match="queue 5"):
-            get_benchmark(name)
+    assert get_benchmark("eth3d") is ETH3DPipeline
+    assert get_benchmark("zeb") is ZEBPipeline
+    train.check_supported(train.merge(Config(train.default_conf),
+                                      {"train": {"run_benchmarks": ["eth3d", "zeb"]}}),
+                          train.main_args(["x"]))
     with pytest.raises(ValueError):
         get_benchmark("nope")
 
