@@ -177,10 +177,26 @@ Phases, in order; any failure exits non-zero before the last line:
    Sinkhorn kernel at (32, 513, 513) under autograd against the plain
    loop, one `TripletPipeline` forward and loss on a batch of 8 triplets;
    then ms / device ms a step, busy share, samples/s, peak memory and the
-   loader's rate.
+   loader's rate;
+16. path L, points and lines (run after path K, before phase 8):
+   `superpoint+lsd+gluestick` at its widths (2048 keypoints, 512 LSD
+   lines, GlueStick-9 at 256 wide, f32; the LSD is the repo's C++, built
+   in phase 2 by the host compiler), random weights passed through
+   (`gluestick_pass_through`). Two of path F's v_ pairs at 640 x 480 and a
+   1600 x 1200 scene through the pipeline: 36 `fused_attention` launches
+   each, finite outputs, the plain versions within 1e-3 on both log
+   assignments, LSD the same on a second run; wall and device ms, busy
+   share, LSD and clustering ms an image, segments, junctions; the
+   attention kernel at the forward's node layout (1, 4, 3072, 64) with its
+   mask against its plain version (1e-4) and SDPA. Then `eval.hpatches.main`
+   on path F's 20 v_ pairs with `xla_ransac`, and with `homography_est`
+   (the point + line RANSAC) on the cache, and `eval.eth3d.main` on path
+   J's pairs with the line GT in the forward (one pair's line GT equal to
+   the CPU's, as integers; the auction's iterations) and `eval_lines`;
+   finite AUCs, AP and line AP, exact launches, the RANSACs on the card.
 
 Each path resets every launch count just before its timed run and reads
-them just after. Prints the script's seconds, the kernel JSON line, the card
+them just after. Prints each phase's seconds, the script's, the kernel JSON line, the card
 line, and as its last line {"ok": true, "device": {...}}. Full results go to
 chiprun_out/chip_smoke.json.
 """
@@ -307,9 +323,14 @@ def phase_build() -> dict:
     seconds = time.perf_counter() - t0
     for name in _build.SOURCES:
         _build.load(name)
+    t1 = time.perf_counter()
+    _build.load_host("lsd")
+    host_s = time.perf_counter() - t1
     print(f"build: {len(built)} kernels in {seconds:.1f} s "
-          + json.dumps({n: round(b["seconds"], 1) for n, b in built.items()}), flush=True)
-    return {"seconds": seconds, "logs": {n: b["log"] for n, b in built.items()}}
+          + json.dumps({n: round(b["seconds"], 1) for n, b in built.items()})
+          + f"; the host LSD in {host_s:.1f} s", flush=True)
+    return {"seconds": seconds, "host_lsd_seconds": host_s,
+            "logs": {n: b["log"] for n, b in built.items()}}
 
 
 # --------------------------------------------------------------------------
@@ -2079,17 +2100,19 @@ def benchmark_weights(path: Path, device, benchmark: str = "hpatches", view: dic
         if view is None:
             view = ImagePreprocessor({"resize": 480, "side": "short"})(
                 generate_synthetic_image(6999, HPATCHES_SIZE))
-        sp, out = model.extractor, {}
+        sp, out = getattr(model.extractor, "point_extractor", model.extractor), {}
         hook = sp.convDb.register_forward_hook(lambda mod, i, o: out.setdefault("desc", o))
         sp({"image": torch.from_numpy(view["image"][None]).to(device),
             "image_size": torch.from_numpy(view["image_size"][None]).to(device)})
         hook.remove()
         sp.convDb.bias.sub_(out["desc"].mean(dim=(0, 2, 3)))
-        if hasattr(model.matcher, "gnn"):
+        if hasattr(model.matcher, "line_bin_score"):
+            gluestick_pass_through(model.matcher)
+        elif hasattr(model.matcher, "gnn"):
             superglue_pass_through(model.matcher)
     torch.save(model.state_dict(), path)
     return {"seed": 0, "init": "lecun-normal, zero biases, descriptor head centred on one scene",
-            "keypoints": conf.model.extractor.max_num_keypoints}
+            "keypoints": sp.conf.max_num_keypoints}
 
 
 SG_PASS_SCALE, SG_UPDATE_SCALE = 16.0, 0.1
@@ -2113,6 +2136,22 @@ def superglue_pass_through(matcher) -> None:
         matcher.final_proj.bias.zero_()
 
 
+def gluestick_pass_through(matcher) -> None:
+    """`superglue_pass_through` for GlueStick: the last layer of both
+    encoders', each GNN layer's and each line layer's MLP times
+    SG_UPDATE_SCALE, `final_proj` and `final_line_proj` SG_PASS_SCALE x the
+    identity, so that points and lines match by their descriptors."""
+    with torch.no_grad():
+        for mlp in (matcher.kenc.encoder, matcher.lenc.encoder,
+                    *(layer.update.mlp for layer in matcher.gnn.layers),
+                    *(layer.mlp for layer in matcher.gnn.line_layers)):
+            mlp[-1].weight.mul_(SG_UPDATE_SCALE)
+        for proj in (matcher.final_proj, matcher.final_line_proj):
+            proj.weight.copy_(SG_PASS_SCALE * torch.eye(proj.weight.shape[0],
+                                                         device=proj.weight.device)[..., None])
+            proj.bias.zero_()
+
+
 def run_hpatches(argv: list) -> dict:
     """`gluefactory_tpu_torch.eval.hpatches.main(argv)`, as `run_eval_cli`
     runs it."""
@@ -2131,16 +2170,17 @@ def run_eval_cli(main_fn, pipeline_cls, estimator_module, ransac_name: str, argv
     ransac = getattr(estimator_module, ransac_name) if estimator_module is not None else None
     methods = {k: getattr(pipeline_cls, k) for k in ("get_predictions", "run_eval")}
 
-    def recorded(p0, p1, valid, th, **kw):
+    def recorded(*args, **kw):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         t0 = time.perf_counter()
         start.record()
-        out = ransac(p0, p1, valid, th, **kw)
+        out = ransac(*args, **kw)
         end.record()
         torch.cuda.synchronize()
-        calls.append({"devices": sorted({str(t.device) for t in (p0, p1, valid, *out.values())}),
+        tensors = [a for a in (*args, *out.values()) if torch.is_tensor(a)]
+        calls.append({"devices": sorted({str(t.device) for t in tensors}),
                       "ms": start.elapsed_time(end), "host_ms": 1e3 * (time.perf_counter() - t0),
-                      "points": int(valid.shape[0])})
+                      "points": int(args[2].shape[0])})
         return out
 
     def timed(name):
@@ -3573,43 +3613,335 @@ def train_conf(argv: list | None = None, yaml: str = TRAIN_YAML):
     return merge(Config(train.default_conf), from_yaml(str(ROOT / yaml)), from_dotlist(dotlist))
 
 
+# --------------------------------------------------------------------------
+# 16. path L: GlueStick with lines (LSD on the host, the wireframe, the
+#     GlueStick matcher, line GT, ETH3D line AP, the point + line RANSAC)
+# --------------------------------------------------------------------------
+
+L_CONFIG = "superpoint+lsd+gluestick"
+L_ROOT = ROOT / "outputs" / "chip_smoke_path_l"
+L_LAUNCHES = {"fused_attention": 4 * LAYERS}  # a pair: GlueStick-9, 36 launches
+L_SUBSET = "v"  # path F's v_ sequences: 4 x 5 pairs
+L_REDUCED = {
+    "hpatches": f"{5 * sum(s.startswith(L_SUBSET) for s in HPATCHES_SEQUENCES)} pairs of path F's "
+                f"procedural {L_SUBSET}_ sequences (data.subset={L_SUBSET}), for HPatches' 540",
+    "eth3d": f"path J's {ETH3D_PAIRS} procedural ETH3D pairs, for ETH3D's 13 scenes",
+    "weights": "random from seed 0 as path F draws them, the descriptor head centred on one scene, "
+               "GlueStick rescaled to pass the descriptors through (`gluestick_pass_through`): "
+               "no GlueStick checkpoint is on disk",
+}
+L_TOL = 1e-3  # kernels vs plain versions on the log assignments, f32
+
+
+def _l_views():
+    """Path L's pairs: two of path F's v_ pairs at 640 x 480 (480 on the
+    short side) and a 1600 x 1200 procedural scene with a warped view."""
+    from gluefactory_tpu_torch.data.homographies import generate_synthetic_image, warp_patch
+    from gluefactory_tpu_torch.data.preprocess import ImagePreprocessor, read_image
+
+    pre = ImagePreprocessor({"resize": 480, "side": "short"})
+    pairs = []
+    for seq in ("v_chip0", "v_chip1"):
+        d = HPATCHES_ROOT / "hpatches-sequences-release" / seq
+        pairs.append((pre(read_image(d / "1.ppm"))["image"], pre(read_image(d / "2.ppm"))["image"]))
+    base = generate_synthetic_image(7100, (1600, 1200)).astype(np.float32)
+    H = np.array([[1.02, 0.03, -20.0], [-0.02, 0.99, 15.0], [1e-5, -1e-5, 1.0]])
+    pairs.append((base, np.clip(warp_patch(base, H, (1600, 1200)), 0, 1).astype(np.float32)))
+    return pairs
+
+
+def _l_batch(img0, img1, dev) -> dict:
+    def view(img):
+        h, w = img.shape[:2]
+        return {"image": torch.from_numpy(np.ascontiguousarray(img)[None]).to(dev),
+                "image_size": torch.tensor([[float(w), float(h)]], device=dev)}
+    return {"view0": view(img0), "view1": view(img1)}
+
+
+def _l_host_times(img) -> dict:
+    """The LSD and the endpoint clustering of one view on the host, timed
+    alone (ms), and whether a second detection gives the same segments."""
+    from gluefactory_tpu_torch.models.lines import lsd, wireframe
+
+    grey = lsd.rgb_to_grey_u8((img * 255).astype(np.uint8))
+    t0 = time.perf_counter()
+    segs = lsd.lsd_segments(grey)
+    lsd_ms = 1e3 * (time.perf_counter() - t0)
+    again = lsd.lsd_segments(grey)
+    same = all(np.array_equal(a, b) for a, b in zip(segs, again))
+    lines, scores, valid = lsd.detect_lsd_host(img[None], 512, 15.0)
+    t0 = time.perf_counter()
+    wireframe.cluster_endpoints_host(lines[0], valid[0], 3.0, scores[0])
+    return {"lsd_ms": lsd_ms, "cluster_ms": 1e3 * (time.perf_counter() - t0),
+            "segments": int(len(segs[0])), "same_twice": same}
+
+
+def _l_attention(mask: torch.Tensor, dev) -> dict:
+    """The attention kernel at GlueStick's shape, (1, 4, N, 64) f32 with the
+    forward's node mask as the key and query mask: against its plain version
+    and SDPA, by device time. The bound counts the valid queries against the
+    valid keys (a masked query's output is zeros), and the bytes of the valid
+    rows of q, k and v read and of the whole output written."""
+    F = torch.nn.functional
+    gen = torch.Generator(device=dev).manual_seed(6)
+    B, N = mask.shape
+    q, k, v = (torch.randn(B, HEADS, N, HEAD_DIM, generator=gen, device=dev) for _ in range(3))
+    args = (q, k, v, mask, mask)
+    valid = mask.sum(-1).double()  # valid keys a batch item; the valid queries are the same
+    nk, pairs = float(valid.sum()), float((valid * valid).sum())
+    n_ops, n_exps = 4.0 * HEADS * pairs * HEAD_DIM, 1.0 * HEADS * pairs
+    n_bytes = (3 * nk + B * N) * HEADS * HEAD_DIM * 4 + 2 * mask.numel()
+    bound_ms, bound_by = _bound(n_ops, n_bytes, torch.float32, n_exps)
+    with torch.no_grad():
+        got = cuda_attention.fused_attention(*args)
+        err = _err(got, cuda_attention.attention_plain(*args))
+        attn_mask = mask[:, None, None, :]
+        res = {"shape": [B, HEADS, N, HEAD_DIM], "dtype": "float32", "valid_nodes": int(nk),
+               "max_abs_err": err, "tol": KERNEL_TOL[torch.float32],
+               "ms": device_time_ms(lambda: cuda_attention.fused_attention(*args)),
+               "plain_ms": device_time_ms(lambda: cuda_attention.attention_plain(*args), reps=5),
+               "library_ms": device_time_ms(
+                   lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=attn_mask)),
+               "bound_ms": bound_ms, "bound_by": bound_by}
+    if not err <= KERNEL_TOL[torch.float32]:
+        fail(f"path L: fused_attention at GlueStick's shape, max abs err {err}")
+    return res
+
+
+def _l_forwards(model, dev, card) -> dict:
+    """Each pair once through the pipeline's entry point (launches counted
+    around it, then timed again without the profiler, then profiled), the
+    plain versions' forward against it."""
+    gen = torch.Generator(device=dev)
+    out = []
+    for img0, img1 in _l_views():
+        batch = _l_batch(img0, img1, dev)
+        forward = pipeline_forward(model, batch, gen)
+        reset_all_launches()
+        with torch.no_grad():
+            pred = forward()
+            torch.cuda.synchronize()
+        _check_launches(f"path L forward at {img0.shape[1]} x {img0.shape[0]}", all_launches(),
+                        L_LAUNCHES)
+        for k, t in pred.items():
+            if t.is_floating_point() and not torch.isfinite(t).all():
+                fail(f"path L: {k} is not finite")
+        with torch.no_grad():
+            t0 = time.perf_counter()
+            pred = forward()
+            torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+        prof = profile_forward(forward)
+        set_flash(model, False)
+        with torch.no_grad():
+            plain = forward()
+        set_flash(model, True)
+        gaps = {}
+        for key in ("log_assignment", "line_log_assignment"):
+            valid = (plain[key] > -1e6) & (pred[key] > -1e6)
+            if not torch.equal(plain[key] > -1e6, pred[key] > -1e6):
+                fail(f"path L: {key} masked differently by the kernels and the plain versions")
+            gaps[key] = float((plain[key] - pred[key])[valid].abs().max())
+        if not max(gaps.values()) <= L_TOL:
+            fail(f"path L: kernels vs plain versions {gaps}")
+        L = pred["line_mask0"].shape[1]
+        host = [_l_host_times(img) for img in (img0, img1)]
+        if not all(h["same_twice"] for h in host):
+            fail("path L: LSD gave other segments on a second run")
+        res = {"image": list(img0.shape[:2]), "wall_ms": wall_ms, "device_ms": prof["device_ms"],
+               "busy_share": (prof["device_ms"] / wall_ms) if prof["device_ms"] else None,
+               "launches": L_LAUNCHES, "vs_plain": gaps, "tol": L_TOL,
+               "lsd_ms": [h["lsd_ms"] for h in host], "cluster_ms": [h["cluster_ms"] for h in host],
+               "segments": [h["segments"] for h in host],
+               "lines_per_view": [int(pred[f"line_mask{i}"].sum()) for i in "01"],
+               "junctions_per_view": [int(pred[f"keypoint_mask{i}"][:, :2 * L].sum()) for i in "01"],
+               "keypoints_per_view": [int(pred[f"keypoint_mask{i}"][:, 2 * L:].sum()) for i in "01"],
+               "nodes": int(pred["keypoint_mask0"].shape[1]),
+               "matches": int((pred["matches0"] >= 0).sum()),
+               "line_matches": int((pred["line_matches0"] >= 0).sum()),
+               "top_kernels": prof["top"][:8], "card": card}
+        print(f"path L forward {json.dumps({k: v for k, v in res.items() if k != 'top_kernels'})}",
+              flush=True)
+        out.append(res)
+    out_mask = pred["keypoint_mask0"]
+    return {"pairs": out, "mask": out_mask}
+
+
+@contextlib.contextmanager
+def counted_auction(record: list):
+    """`gt_lines.auction_assignment` patched to append each call's count of
+    bidding iterations to `record`."""
+    from gluefactory_tpu_torch.geometry import gt_lines
+
+    assign = gt_lines.auction_assignment
+
+    def wrapped(*args, **kwargs):
+        m0, m1, n = gt_lines.auction_with_count(*args, **kwargs)
+        record.append(n)
+        return m0, m1
+
+    gt_lines.auction_assignment = wrapped
+    try:
+        yield record
+    finally:
+        gt_lines.auction_assignment = assign
+
+
+def _l_gt_record(self, data, out) -> dict:
+    """The line GT of one depth_matcher call on the card; on the first call
+    also the same GT recomputed on the CPU, compared as integers."""
+    from gluefactory_tpu_torch.geometry import gt_lines
+
+    rec = {"devices": sorted({str(v.device) for v in out.values()}),
+           "line_positives": int((out["gt_line_matches0"] >= 0).sum()),
+           "auction_iterations": _l_gt_record.auction_iterations[-1]}
+    if not _l_gt_record.checked:
+        _l_gt_record.checked = True
+        c = self.conf
+        cpu = gt_lines.gt_line_matches_from_pose_depth(
+            data["lines0"].cpu(), data["lines1"].cpu(), data["line_mask0"].cpu(),
+            data["line_mask1"].cpu(), data["view0"]["camera"].to("cpu"),
+            data["view1"]["camera"].to("cpu"), data["T_0to1"].to("cpu"),
+            data["view0"]["depth"].cpu(), data["view1"]["depth"].cpu(),
+            n_samples=c.n_line_sampled_pts, perp_dist_th=c.line_perp_dist_th,
+            overlap_th=c.overlap_th, min_visibility_th=c.min_visibility_th)
+        rec["cpu_equal"] = all(torch.equal(out[f"gt_line_{k}"].cpu(), cpu[k])
+                               for k in ("matches0", "matches1", "assignment"))
+    return rec
+
+
+def phase_lines(device_info: dict) -> dict:
+    """Path L: `superpoint+lsd+gluestick` at its widths (SuperPoint 2048
+    keypoints, 512 LSD lines, GlueStick-9 at 256 wide, 4 heads, f32): three
+    pairs through the pipeline (36 attention launches each, the plain
+    versions within L_TOL, LSD the same twice, the attention kernel at the
+    forward's node layout), then the HPatches CLI with xla_ransac and with
+    the point + line RANSAC (`homography_est`) on the cache, then the ETH3D
+    CLI with the line GT in the forward and `eval_lines`; cut as L_REDUCED
+    says. Needs paths F's and J's layouts."""
+    import gluefactory_tpu_torch.settings as tsettings
+    from gluefactory_tpu_torch.core.config import from_yaml
+    from gluefactory_tpu_torch.eval import eth3d, hpatches
+    from gluefactory_tpu_torch.eval.io import extract_benchmark_conf, load_model
+    from gluefactory_tpu_torch.models.matchers.depth_matcher import DepthMatcher
+    from gluefactory_tpu_torch.robust_estimators.homography import homography_est
+
+    card = device_info["nvidia_smi"]
+    dev = torch.device(DEVICE)
+    t0 = time.perf_counter()
+    print(f"path L reduced: {json.dumps(L_REDUCED)}", flush=True)
+    shutil.rmtree(L_ROOT, ignore_errors=True)
+    L_ROOT.mkdir(parents=True)
+    weights = L_ROOT / "weights.pth"
+    res = {"reduced": L_REDUCED, "weights": benchmark_weights(weights, DEVICE, draw_device="cpu",
+                                                              config=L_CONFIG)}
+    conf = extract_benchmark_conf(from_yaml(str(ROOT / f"gluefactory_tpu_torch/configs/{L_CONFIG}.yaml")),
+                                  "hpatches")
+    model = load_model({**conf.model.to_dict(), "weights_file": str(weights)}, None, dev).eval()
+    fw = _l_forwards(model, dev, card)
+    res["forward"] = fw["pairs"]
+    res["attention_gluestick_shape"] = _l_attention(fw["mask"], dev)
+    print(f"path L fused_attention at GlueStick's shape: {json.dumps(res['attention_gluestick_shape'])} "
+          f"({card})", flush=True)
+    del model, fw
+    torch.cuda.empty_cache()
+
+    data_path = tsettings.DATA_PATH
+    try:
+        tsettings.DATA_PATH = HPATCHES_ROOT
+        argv = ["--conf", L_CONFIG, f"model.weights_file={weights}", f"data.subset={L_SUBSET}",
+                "--tag", "chip_smoke_lines"]
+        n_pairs = 5 * sum(s.startswith(L_SUBSET) for s in HPATCHES_SEQUENCES)
+        h = run_hpatches([*argv, "eval.estimator=xla_ransac", "--overwrite"])
+        _check_launches("path L HPatches", h["launches"],
+                        {k: n_pairs * n for k, n in L_LAUNCHES.items()})
+        hy = run_eval_cli(hpatches.main, hpatches.HPatchesPipeline, homography_est,
+                          "ransac_homography_hybrid",
+                          [*argv, "eval.estimator=homography_est", "--overwrite_eval"])
+        _check_launches("path L HPatches homography_est", hy["launches"], {})
+        for label, r in (("xla_ransac", h), ("homography_est", hy)):
+            calls = r["ransac_calls"]
+            if not calls or any(c["devices"] != [str(torch.empty(0, device=dev).device)]
+                                for c in calls):
+                fail(f"path L HPatches {label}: the RANSAC ran on {[c['devices'] for c in calls][:2]}")
+            aucs = [k for k in r["summaries"] if k.startswith("H_error_ransac@")]
+            res[f"hpatches_{label}"] = {
+                "summaries": _finite_summaries(f"path L HPatches {label}", r["summaries"], aucs),
+                "seconds": r["seconds"], "launches": r["launches"],
+                "ransac_calls": len(calls), "ransac_ms_per_call": float(np.mean([c["ms"] for c in calls])),
+                # the homography_est run reads the xla_ransac run's cache
+                "export_pairs_per_s": n_pairs / r["seconds"]["get_predictions"]
+                if label == "xla_ransac" else None}
+            print(f"path L HPatches {label}: {json.dumps(res[f'hpatches_{label}'])} ({card})", flush=True)
+
+        tsettings.DATA_PATH = J_ROOT
+        gt_calls = []
+        _l_gt_record.checked = False
+        _l_gt_record.auction_iterations = []
+        argv = ["--conf", L_CONFIG, f"model.weights_file={weights}", "--tag", "chip_smoke_lines"]
+        with recorded_forward(DepthMatcher, gt_calls, _l_gt_record), \
+                counted_auction(_l_gt_record.auction_iterations):
+            e = run_eth3d([*argv, "--overwrite"])
+        _check_launches("path L ETH3D", e["launches"],
+                        {k: ETH3D_PAIRS * n for k, n in L_LAUNCHES.items()})
+        card_device = str(torch.empty(0, device=dev).device)
+        if len(gt_calls) != ETH3D_PAIRS or any(c["devices"] != [card_device] for c in gt_calls):
+            fail(f"path L: depth_matcher ran {len(gt_calls)} times on {[c['devices'] for c in gt_calls]}")
+        if not gt_calls[0]["cpu_equal"]:
+            fail("path L: the line GT on the card differs from the CPU's")
+        res["eth3d"] = {
+            "summaries": _finite_summaries("path L ETH3D", e["summaries"], ["AP", "AP_lines"]),
+            "seconds": e["seconds"], "launches": e["launches"],
+            "export_pairs_per_s": ETH3D_PAIRS / e["seconds"]["get_predictions"],
+            "line_gt_cpu_equal": True,
+            "line_positives_per_pair": float(np.mean([c["line_positives"] for c in gt_calls])),
+            "auction_iterations": [c["auction_iterations"] for c in gt_calls]}
+        print(f"path L ETH3D {L_CONFIG}: {json.dumps(res['eth3d'])} ({card})", flush=True)
+    finally:
+        tsettings.DATA_PATH = data_path
+    res["seconds"] = time.perf_counter() - t0
+    res["card"] = card
+    print(f"path L: {res['seconds']:.1f} s", flush=True)
+    return res
+
+
 def main() -> None:
     t0 = time.perf_counter()
+    seconds = {}
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = round(time.perf_counter() - t, 1)
+        torch.cuda.empty_cache()
+        return out
+
     device_info = phase_device()
-    build = phase_build()
+    build = timed("build", phase_build)
     dev = torch.device(DEVICE)
-    kernels = phase_kernels(dev) + phase_new_kernels(dev)
-    gradients = phase_gradients(dev)
-    torch.cuda.empty_cache()
+    kernels = timed("kernels", lambda: phase_kernels(dev) + phase_new_kernels(dev))
+    gradients = timed("gradients", phase_gradients, dev)
     batch = make_batch(dev)
-    main_path, main_model = phase_main_path(device_info, batch)
-    path_b = phase_superglue(device_info, batch)
-    path_c = phase_fused_superpoint(device_info, batch, main_model)
-    path_d = phase_serving(device_info, batch)
+    main_path, main_model = timed("main_path", phase_main_path, device_info, batch)
+    path_b = timed("path_b", phase_superglue, device_info, batch)
+    path_c = timed("path_c", phase_fused_superpoint, device_info, batch, main_model)
+    path_d = timed("path_d", phase_serving, device_info, batch)
     # each kernel's launches from the path that runs it
     from_path = {"fused_attention": main_path, "fused_bidirectional_attention": main_path,
                  "log_sinkhorn": path_b, "fused_nms_tile_reduce": path_c, "fused_vgg_block": path_c}
     for k in kernels:
         k["launches"] = from_path[k["name"]]["launches"][k["name"]]
     del main_model
-    torch.cuda.empty_cache()
-    path_e = phase_training(device_info)
-    torch.cuda.empty_cache()
-    path_e["folder_run"] = phase_folder_run()
-    torch.cuda.empty_cache()
-    path_f = phase_hpatches(device_info)
-    torch.cuda.empty_cache()
-    path_g = phase_megadepth(device_info)
-    torch.cuda.empty_cache()
-    path_h = phase_stage2(device_info)
-    torch.cuda.empty_cache()
-    path_i = phase_cached(device_info, path_h)
-    torch.cuda.empty_cache()
-    path_j = phase_benchmarks(device_info)
-    torch.cuda.empty_cache()
-    path_k = phase_superglue_training(device_info)
-    torch.cuda.empty_cache()
-    kernels += phase_conv_study(device_info)  # launches from the tools' runs
+    path_e = timed("path_e", phase_training, device_info)
+    path_e["folder_run"] = timed("path_e_folder", phase_folder_run)
+    path_f = timed("path_f", phase_hpatches, device_info)
+    path_g = timed("path_g", phase_megadepth, device_info)
+    path_h = timed("path_h", phase_stage2, device_info)
+    path_i = timed("path_i", phase_cached, device_info, path_h)
+    path_j = timed("path_j", phase_benchmarks, device_info)
+    path_k = timed("path_k", phase_superglue_training, device_info)
+    path_l = timed("path_l", phase_lines, device_info)
+    kernels += timed("conv_study", phase_conv_study, device_info)  # launches from the tools' runs
     OUT_DIR.mkdir(exist_ok=True)
     record = {"device": device_info, "build": build, "kernels": kernels, "gradients": gradients,
               "main_path": main_path,
@@ -3617,10 +3949,12 @@ def main() -> None:
               "path_d_serving": path_d, "path_e_training": path_e, "path_f_hpatches": path_f,
               "path_g_megadepth1500": path_g, "path_h_stage2": path_h, "path_i_cached": path_i,
               "path_j_benchmarks": path_j, "path_k_superglue_training": path_k,
+              "path_l_lines": path_l, "seconds_by_phase": seconds,
               "seconds": time.perf_counter() - t0}
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(record, indent=1))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
+    print("chip_smoke seconds by phase: " + json.dumps(seconds), flush=True)
     print(f"chip_smoke: {record['seconds']:.1f} s in all", flush=True)
     print(json.dumps({"kernels": [{k: kern[k] for k in keys} for kern in kernels]}))
     print(device_info["nvidia_smi"])

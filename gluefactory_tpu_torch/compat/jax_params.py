@@ -19,7 +19,8 @@ LightGlue needs every per-layer head (`log_assignment_i` for each layer and
 `model.init(..., method="initialize")`. SuperGlue also needs the
 `batch_stats` collection (BatchNorm running mean and variance); its
 attention heads go back from the JAX package's head-major channels to the
-official head-fastest packing (the inverse of `_head_permutation`).
+official head-fastest packing (the inverse of `_head_permutation`). GlueStick
+likewise, under upstream GlueStick's names (`convert_gluestick`).
 """
 
 from __future__ import annotations
@@ -142,6 +143,26 @@ def _mlp(p: dict, stats: dict, prefix: str, sd: dict) -> None:
             _batch_norm(p[f"bn_{j}"], stats[f"bn_{j}"], f"{prefix}.{3 * j + 1}", sd)
 
 
+def _attn_prop(p: dict, stats: dict, t: str, num_heads: int, sd: dict) -> None:
+    """One AttentionalPropagation at prefix `t` in the official layout: the
+    projections' rows and the merge's columns back to head-fastest."""
+    for j, name in enumerate(("proj_q", "proj_k", "proj_v")):
+        w = _np(p[name]["kernel"]).T  # (out, in), rows head-major
+        perm = head_fastest_permutation(w.shape[0], num_heads)
+        w_off = np.empty_like(w)
+        b_off = np.empty_like(w[:, 0])
+        w_off[perm] = w
+        b_off[perm] = _np(p[name]["bias"])
+        sd[f"{t}.attn.proj.{j}.weight"] = _tensor(w_off[..., None])
+        sd[f"{t}.attn.proj.{j}.bias"] = _tensor(b_off)
+    wm = _np(p["merge"]["kernel"]).T  # (out, in), columns head-major
+    wm_off = np.empty_like(wm)
+    wm_off[:, head_fastest_permutation(wm.shape[1], num_heads)] = wm
+    sd[f"{t}.attn.merge.weight"] = _tensor(wm_off[..., None])
+    sd[f"{t}.attn.merge.bias"] = _tensor(_np(p["merge"]["bias"]))
+    _mlp(p["mlp"], stats["mlp"], f"{t}.mlp", sd)
+
+
 def superglue_state_dict(params: dict, num_heads: int, batch_stats: dict) -> dict:
     """SuperGlue -> the official state dict layout (inverse of
     `convert_superglue`)."""
@@ -149,30 +170,46 @@ def superglue_state_dict(params: dict, num_heads: int, batch_stats: dict) -> dic
     _mlp(params["kenc"], batch_stats["kenc"], "kenc.encoder", sd)
     n_layers = sum(1 for k in params if k.startswith("gnn_"))
     for i in range(n_layers):
-        p = params[f"gnn_{i}"]
-        t = f"gnn.layers.{i}"
-        for j, name in enumerate(("proj_q", "proj_k", "proj_v")):
-            w = _np(p[name]["kernel"]).T  # (out, in), rows head-major
-            perm = head_fastest_permutation(w.shape[0], num_heads)
-            w_off = np.empty_like(w)
-            b_off = np.empty_like(w[:, 0])
-            w_off[perm] = w
-            b_off[perm] = _np(p[name]["bias"])
-            sd[f"{t}.attn.proj.{j}.weight"] = _tensor(w_off[..., None])
-            sd[f"{t}.attn.proj.{j}.bias"] = _tensor(b_off)
-        wm = _np(p["merge"]["kernel"]).T  # (out, in), columns head-major
-        wm_off = np.empty_like(wm)
-        wm_off[:, head_fastest_permutation(wm.shape[1], num_heads)] = wm
-        sd[f"{t}.attn.merge.weight"] = _tensor(wm_off[..., None])
-        sd[f"{t}.attn.merge.bias"] = _tensor(_np(p["merge"]["bias"]))
-        _mlp(p["mlp"], batch_stats[f"gnn_{i}"]["mlp"], f"{t}.mlp", sd)
+        _attn_prop(params[f"gnn_{i}"], batch_stats[f"gnn_{i}"], f"gnn.layers.{i}", num_heads, sd)
     _conv1d(params["final_proj"], "final_proj", sd)
     sd["bin_score"] = _tensor(_np(params["bin_score"]).reshape(()))
     return sd
 
 
+def gluestick_state_dict(params: dict, num_heads: int, batch_stats: dict) -> dict:
+    """GlueStick -> upstream GlueStick's state dict layout (inverse of
+    `convert_gluestick`), with the parameters upstream's checkpoint lacks:
+    `gnn.line_layers.{i}.proj_node` / `proj_neigh` (line attention) and
+    `inter_line_proj.{j}`."""
+    sd: dict = {}
+    _mlp(params["kenc"], batch_stats["kenc"], "kenc.encoder", sd)
+    _mlp(params["lenc"]["encoder"], batch_stats["lenc"]["encoder"], "lenc.encoder", sd)
+    n_gnn = sum(1 for k in params if k.startswith("gnn_"))
+    for i in range(n_gnn):
+        _attn_prop(params[f"gnn_{i}"], batch_stats[f"gnn_{i}"], f"gnn.layers.{i}.update",
+                   num_heads, sd)
+    for i in range(n_gnn // 2):
+        p, t = params[f"line_layer_{i}"], f"gnn.line_layers.{i}"
+        _mlp(p["mlp"], batch_stats[f"line_layer_{i}"]["mlp"], f"{t}.mlp", sd)
+        for name in ("proj_node", "proj_neigh"):
+            if name in p:
+                _conv1d(p[name], f"{t}.{name}", sd)
+    for name in ("final_proj", "final_line_proj", "input_proj"):
+        if name in params:
+            _conv1d(params[name], name, sd)
+    j = 0
+    while f"inter_line_proj_{j}" in params:
+        _conv1d(params[f"inter_line_proj_{j}"], f"inter_line_proj.{j}", sd)
+        j += 1
+    sd["bin_score"] = _tensor(_np(params["bin_score"]).reshape(()))
+    sd["line_bin_score"] = _tensor(_np(params["line_bin_score"]).reshape(()))
+    return sd
+
+
 def _matcher_name(params: dict) -> str:
     """The matcher a pipeline's `matcher_model` params hold, by their keys."""
+    if "line_bin_score" in params:
+        return "gluestick"
     if "bin_score" in params and "kenc" in params:
         return "superglue"
     if any(k.startswith("transformers_") for k in params):
@@ -182,12 +219,13 @@ def _matcher_name(params: dict) -> str:
 
 def from_jax_params(params: dict, model: str, num_heads: int = 4,
                     batch_stats: dict | None = None) -> dict:
-    """JAX `params` of `model` ("superpoint", "lightglue", "superglue" or
-    "two_view_pipeline") -> the port's state dict. `num_heads` is the
+    """JAX `params` of `model` ("superpoint", "lightglue", "superglue",
+    "gluestick" or "two_view_pipeline") -> the port's state dict. `num_heads` is the
     matcher's head count (its conf `num_heads`); `batch_stats` the JAX
-    model's `batch_stats` collection (SuperGlue's BatchNorm statistics). A
-    pipeline's extractor is SuperPoint; its matcher is told apart by its
-    parameters (SuperGlue's `kenc` and `bin_score`, LightGlue's
+    model's `batch_stats` collection (SuperGlue's and GlueStick's BatchNorm
+    statistics). A pipeline's extractor is SuperPoint, or the wireframe
+    around it; its matcher is told apart by its parameters (GlueStick's
+    `line_bin_score`, SuperGlue's `kenc` and `bin_score`, LightGlue's
     `transformers_i`)."""
     if model == "superpoint":
         return superpoint_state_dict(params)
@@ -197,10 +235,16 @@ def from_jax_params(params: dict, model: str, num_heads: int = 4,
         if batch_stats is None:
             raise ValueError("superglue: its BatchNorm statistics (batch_stats) are needed")
         return superglue_state_dict(params, num_heads, batch_stats)
+    if model == "gluestick":
+        if batch_stats is None:
+            raise ValueError("gluestick: its BatchNorm statistics (batch_stats) are needed")
+        return gluestick_state_dict(params, num_heads, batch_stats)
     if model == "two_view_pipeline":
         sd: dict = {}
         for comp, sub in params.items():
-            if comp == "extractor_model":
+            if comp == "extractor_model" and "point_extractor" in sub:  # the wireframe
+                name, conv, sub = "extractor.point_extractor", "superpoint", sub["point_extractor"]
+            elif comp == "extractor_model":
                 name, conv = "extractor", "superpoint"
             elif comp == "matcher_model":
                 name, conv = "matcher", _matcher_name(sub)

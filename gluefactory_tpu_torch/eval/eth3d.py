@@ -5,8 +5,8 @@ The depth ground truth (`depth_matcher`, 3 px positive, 5 px negative)
 runs inside the pipeline's forward (`run_gt_in_forward`), on the device
 the model runs on, so the export caches the predicted and the GT matches
 together; the eval loop turns them into a precision-recall curve and its AP
-over all pairs' points (`eval_dataset` also reads the line keys, for
-`eval.eval_lines`, which raises until the line models are ported).
+over all pairs' points, and with `eval.eval_lines` over all pairs' lines
+too (`superpoint+lsd+gluestick`, whose config turns on the line GT).
 
     python -m gluefactory_tpu_torch.eval.eth3d --conf superpoint+NN \\
         [--device cuda|cpu] [--overwrite] [--overwrite_eval]
@@ -94,10 +94,9 @@ class ETH3DPipeline(EvalPipeline):
         return get_dataset("eth3d")(data_conf).get_data_loader("test")
 
     def run_eval(self, loader, pred_file):
-        if self.conf.eval.eval_lines:
-            raise NotImplementedError("eval.eval_lines: line matching needs the line models "
-                                      "(lines/, matchers/gluestick.py), not ported yet")
         results = eval_dataset(loader, pred_file)
+        if self.conf.eval.eval_lines:
+            results.update(eval_dataset(loader, pred_file, suffix="_lines"))
         summaries = {k: v for k, v in results.items() if not isinstance(v, np.ndarray)}
         return summaries, {}, results
 

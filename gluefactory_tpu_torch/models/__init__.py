@@ -1,7 +1,7 @@
 """Model registry (counterpart of `gluefactory_tpu/models/__init__.py`).
 
 `get_model(name)` resolves a name like "two_view_pipeline",
-"matchers.lightglue", "superpoint" or a full dotted path to the BaseModel
+"matchers.lightglue", "superpoint", "wireframe" or a full dotted path to the BaseModel
 subclass defined in that module.
 """
 
@@ -31,6 +31,7 @@ _SEARCH_PREFIXES = [
     "gluefactory_tpu_torch.models.",
     "gluefactory_tpu_torch.models.extractors.",
     "gluefactory_tpu_torch.models.matchers.",
+    "gluefactory_tpu_torch.models.lines.",
     "",
 ]
 

@@ -4,12 +4,14 @@
 `gt_matches_from_pose_depth` (`th_positive`, `th_negative`, `th_epi`,
 `ccth`, the keypoint masks) and outputs `gt_matches0/1`, `gt_assignment`
 and `gt_visible0/1`. Always in float32: the cameras, poses and depths are
-stored so, and bf16 training never reaches them. Points only: line GT
-(`use_lines`) waits for `geometry/gt_lines.py`."""
+stored so, and bf16 training never reaches them. With `use_lines`, also
+the line GT (`geometry/gt_lines.gt_line_matches_from_pose_depth`):
+`gt_line_matches0/1` and `gt_line_assignment`."""
 
 from __future__ import annotations
 
 from ...geometry.gt_generation import gt_matches_from_pose_depth
+from ...geometry.gt_lines import gt_line_matches_from_pose_depth
 from ..base_model import BaseModel
 
 
@@ -29,9 +31,7 @@ class DepthMatcher(BaseModel):
     required_data_keys = ["view0", "view1", "T_0to1"]
 
     def _init(self, conf):
-        if conf.use_lines:
-            raise NotImplementedError("depth_matcher: use_lines needs geometry/gt_lines.py, "
-                                      "not ported yet")
+        pass
 
     def _forward(self, data: dict, train: bool = False) -> dict:
         result = {}
@@ -47,4 +47,15 @@ class DepthMatcher(BaseModel):
             result["gt_assignment"] = out["assignment"]
             result["gt_visible0"] = out["visible0"]
             result["gt_visible1"] = out["visible1"]
+        if self.conf.use_lines:
+            c = self.conf
+            out = gt_line_matches_from_pose_depth(
+                data["lines0"], data["lines1"], data["line_mask0"], data["line_mask1"],
+                data["view0"]["camera"], data["view1"]["camera"], data["T_0to1"],
+                data["view0"]["depth"], data["view1"]["depth"], n_samples=c.n_line_sampled_pts,
+                perp_dist_th=c.line_perp_dist_th, overlap_th=c.overlap_th,
+                min_visibility_th=c.min_visibility_th)
+            result["gt_line_matches0"] = out["matches0"]
+            result["gt_line_matches1"] = out["matches1"]
+            result["gt_line_assignment"] = out["assignment"]
         return result

@@ -1,12 +1,14 @@
 """GT matcher from a known homography, the pipeline's `ground_truth`
 component (counterpart of
 `gluefactory_tpu/models/matchers/homography_matcher.py`): no parameters,
-outputs `gt_matches0/1` and `gt_assignment`. Points only: line GT waits for
-GlueStick's port."""
+outputs `gt_matches0/1` and `gt_assignment`; with `use_lines`, also
+`gt_line_matches0/1` and `gt_line_assignment`
+(`geometry/gt_lines.gt_line_matches_from_homography`, on the images' (h, w))."""
 
 from __future__ import annotations
 
 from ...geometry.gt_generation import gt_matches_from_homography
+from ...geometry.gt_lines import gt_line_matches_from_homography
 from ..base_model import BaseModel
 
 
@@ -24,8 +26,7 @@ class HomographyMatcher(BaseModel):
     required_data_keys = ["H_0to1"]
 
     def _init(self, conf):
-        if conf.use_lines:
-            raise NotImplementedError("homography_matcher: use_lines needs GlueStick, not ported yet")
+        pass
 
     def _forward(self, data: dict, train: bool = False) -> dict:
         result = {}
@@ -38,4 +39,14 @@ class HomographyMatcher(BaseModel):
             result["gt_matches0"] = out["matches0"]
             result["gt_matches1"] = out["matches1"]
             result["gt_assignment"] = out["assignment"]
+        if self.conf.use_lines:
+            c = self.conf
+            out = gt_line_matches_from_homography(
+                data["lines0"], data["lines1"], data["line_mask0"], data["line_mask1"],
+                tuple(data["view0"]["image"].shape[1:3]), tuple(data["view1"]["image"].shape[1:3]),
+                data["H_0to1"], n_samples=c.n_line_sampled_pts, perp_dist_th=c.line_perp_dist_th,
+                overlap_th=c.overlap_th, min_visibility_th=c.min_visibility_th)
+            result["gt_line_matches0"] = out["matches0"]
+            result["gt_line_matches1"] = out["matches1"]
+            result["gt_line_assignment"] = out["assignment"]
         return result

@@ -28,8 +28,10 @@ import torch
 from . import get_model
 from .base_model import BaseModel
 
-# per-view inputs the extractor may consume, stacked with the images
-_STACKED_KEYS = ("image", "image_size")
+# per-view inputs the extractor may consume, stacked with the images (the
+# wireframe's seven keys where the data pipeline precomputed them)
+_STACKED_KEYS = ("image", "image_size", "lines", "line_scores", "line_mask", "junctions",
+                 "junc_scores", "junc_mask", "lines_junc_idx")
 
 
 class TwoViewPipeline(BaseModel):

@@ -7,11 +7,21 @@ checkout, which `.gitignore` lists. A library's file name carries a hash of
 its sources and flags: an edited source rebuilds, an unchanged one loads the
 library already built. `build_all` starts one nvcc per source, all at once.
 A build that fails raises with nvcc's output; nothing falls back.
+
+Host code (`HOST_SOURCES`: the LSD line detector) is C++17 built by the host
+compiler (`$CXX`, else `c++`) into the same directory under the same
+hash-named scheme (`build_host`, `load_host`). Its flags keep the
+arithmetic as written (`-ffp-contract=off`: no fused multiply-adds the source
+does not ask for, no -ffast-math, no -march=native), so a library gives the
+same results on every host. Several processes may build one library at once
+(pytest-xdist workers): the build runs under a file lock and lands by
+`os.replace` of a private temporary file.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -41,6 +51,8 @@ SOURCES = {
     "stream_conv3x3": "conv3x3_stream.cu",
     "npack_conv3x3": "conv3x3_npack.cu",
 }
+HOST_FLAGS = ["-O2", "-std=c++17", "-shared", "-fPIC", "-ffp-contract=off"]
+HOST_SOURCES = {"lsd": "lsd.cpp"}
 MAX_SHARED_BYTES = 232448  # opt-in shared memory per block on the H100 (227 KiB)
 
 _libs: dict[str, ctypes.CDLL] = {}
@@ -121,3 +133,50 @@ def function(name: str, argtypes: list):
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     return fn
+
+
+def host_compiler() -> str:
+    """The host C++ compiler: $CXX, else `c++` on $PATH."""
+    cxx = os.environ.get("CXX") or shutil.which("c++")
+    if not cxx:
+        raise FileNotFoundError("no host C++ compiler (set CXX or put c++ on PATH)")
+    return cxx
+
+
+def host_library_path(name: str) -> Path:
+    """Where host library `name` is built: hashed on its source, the flags and
+    the compiler."""
+    h = hashlib.sha256(" ".join([host_compiler(), *HOST_FLAGS]).encode())
+    src = CSRC / HOST_SOURCES[name]
+    h.update(src.name.encode())
+    h.update(src.read_bytes())
+    return BUILD_DIR / f"{name}-host-{h.hexdigest()[:16]}.so"
+
+
+def build_host(name: str) -> Path:
+    """Build host library `name` unless it is built; returns its path. Raises
+    with the compiler's output if the build fails."""
+    target = host_library_path(name)
+    if target.exists():
+        return target
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / f"{name}-host.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not target.exists():
+            tmp = target.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [host_compiler(), *HOST_FLAGS, "-o", str(tmp), str(CSRC / HOST_SOURCES[name])]
+            proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            if proc.returncode != 0:
+                tmp.unlink(missing_ok=True)
+                raise RuntimeError(f"host build of {name} failed ({' '.join(cmd)}):\n{proc.stdout}")
+            os.replace(tmp, target)
+    return target
+
+
+def load_host(name: str) -> ctypes.CDLL:
+    """The loaded host library `name`, built first if needed."""
+    key = "host:" + name
+    lib = _libs.get(key)
+    if lib is None:
+        lib = _libs[key] = ctypes.CDLL(str(build_host(name)))
+    return lib

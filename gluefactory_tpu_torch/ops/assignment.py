@@ -1,6 +1,6 @@
 """Assignment heads and match filtering (counterpart of
 `gluefactory_tpu/ops/assignment.py`): LightGlue's
-`sigmoid_log_double_softmax`, SuperGlue's log-domain optimal transport
+`sigmoid_log_double_softmax`, GlueStick's `log_double_softmax`, SuperGlue's log-domain optimal transport
 (`log_sinkhorn_iterations`, `log_optimal_transport`), `filter_matches`, and
 the nearest-neighbour matcher's `find_nn` and `mutual_check`.
 
@@ -47,6 +47,22 @@ def sigmoid_log_double_softmax(sim, z0, z1, mask0=None, mask1=None) -> torch.Ten
     scores[:, :M, :N] = inner
     scores[:, :M, N] = un0
     scores[:, M, :N] = un1
+    return scores
+
+
+def log_double_softmax(sim, bin_score, mask0=None, mask1=None) -> torch.Tensor:
+    """GlueStick's assignment: (B,M,N) similarity and a learned dustbin score
+    -> (B,M+1,N+1). A dustbin column and row are appended, a log-softmax
+    taken along each axis, and the two averaged; scores[M, N] is NEG_INF."""
+    B, M, N = sim.shape
+    sim = _mask_sim(sim, mask0, mask1)
+    bin_ = bin_score.to(sim.dtype).reshape(1, 1, 1)
+    scores0 = torch.cat([sim, bin_.expand(B, M, 1)], dim=2).log_softmax(2)  # (B, M, N+1)
+    scores1 = torch.cat([sim, bin_.expand(B, 1, N)], dim=1).log_softmax(1)  # (B, M+1, N)
+    scores = sim.new_full((B, M + 1, N + 1), NEG_INF)
+    scores[:, :M, :N] = (scores0[:, :, :N] + scores1[:, :M, :]) / 2.0
+    scores[:, :M, N] = scores0[:, :, N]
+    scores[:, M, :N] = scores1[:, M, :]
     return scores
 
 

@@ -1,6 +1,6 @@
-"""Batched homography and essential-matrix RANSAC on the device of their
-inputs (counterpart of `gluefactory_tpu/ops/ransac.py`, its homography and
-essential parts).
+"""Batched homography, point and line homography, and essential-matrix
+RANSAC on the device of their inputs (counterpart of
+`gluefactory_tpu/ops/ransac.py`).
 
 All hypotheses are drawn, fitted and scored at once: `n_iters` minimal sets
 by a Gumbel top-k over the valid points, a minimal fit each, every point's
@@ -78,6 +78,55 @@ def ransac_homography(pts0: torch.Tensor, pts1: torch.Tensor, valid: torch.Tenso
     inliers = (homography_residuals(H, pts0, pts1) < th2) & valid
     num = inliers.sum()
     return {"M_0to1": H, "inliers": inliers, "num_inliers": num, "success": num >= 4}
+
+
+def _line_residuals(H: torch.Tensor, lines0: torch.Tensor, lines1: torch.Tensor) -> torch.Tensor:
+    """Matched segments (L, 2, 2) under each of the (..., 3, 3) homographies:
+    the larger distance of the two warped endpoints to the line through the
+    matched segment, averaged over both directions: (..., L)."""
+
+    def perp_dist(endpoints, target):
+        p0, p1 = target[:, 0], target[:, 1]
+        d = p1 - p0
+        n = torch.stack([-d[:, 1], d[:, 0]], dim=-1)
+        n = n / (torch.linalg.vector_norm(n, dim=-1, keepdim=True) + 1e-8)
+        off = endpoints - p0[:, None, :]
+        return (off * n[:, None, :]).sum(-1).abs().max(-1).values
+
+    L = lines0.shape[0]
+    ep0_w = _warp(lines0.reshape(-1, 2), H).reshape(H.shape[:-2] + (L, 2, 2))
+    ep1_w = _warp(lines1.reshape(-1, 2), torch.linalg.inv_ex(H).inverse)
+    ep1_w = ep1_w.reshape(H.shape[:-2] + (L, 2, 2))
+    return 0.5 * (perp_dist(ep0_w, lines1) + perp_dist(ep1_w, lines0))
+
+
+def ransac_homography_hybrid(pts0, pts1, pt_valid, lines0, lines1, ln_valid, th: float,
+                             seed: int = 0, n_iters: int = 1024) -> dict:
+    """Point and line homography RANSAC: 4-point hypotheses (the same minimal
+    sets as `ransac_homography`), each scored by its point inliers (squared
+    symmetric transfer error under th^2) plus its line inliers (line
+    residual under th), then two weighted DLT refits on the point inliers.
+    pts (N, 2) with pt_valid (N,), lines (L, 2, 2) with ln_valid (L,).
+    Returns M_0to1, inliers, line_inliers, num_inliers and success (at least
+    4 point or 4 line inliers), tensors on the inputs' device."""
+    idx = sample_minimal_sets(seed, n_iters, 4, pt_valid)
+    H_hyp = compute_homography_dlt(pts0[idx], pts1[idx])
+    th2 = th * th
+    p_inl = (homography_residuals(H_hyp, pts0, pts1) < th2) & pt_valid[None, :]
+    l_inl = (_line_residuals(H_hyp, lines0, lines1) < th) & ln_valid[None, :]
+    finite = torch.isfinite(H_hyp).all(dim=-1).all(dim=-1)
+    counts = torch.where(finite, p_inl.sum(-1) + l_inl.sum(-1), -1)
+    H = H_hyp[torch.argmax(counts)]
+    for _ in range(2):
+        w = ((homography_residuals(H, pts0, pts1) < th2) & pt_valid).float()
+        H_new = compute_homography_dlt(pts0[None], pts1[None], w[None])[0]
+        ok = torch.isfinite(H_new).all() & (w.sum() >= 4)
+        H = torch.where(ok, H_new, H)
+    p_inl = (homography_residuals(H, pts0, pts1) < th2) & pt_valid
+    l_inl = (_line_residuals(H, lines0, lines1) < th) & ln_valid
+    return {"M_0to1": H, "inliers": p_inl, "line_inliers": l_inl,
+            "num_inliers": p_inl.sum() + l_inl.sum(),
+            "success": (p_inl.sum() >= 4) | (l_inl.sum() >= 4)}
 
 
 def _squared_threshold(th: float) -> float:

@@ -1,8 +1,9 @@
 """Robust estimator registry (counterpart of
 `gluefactory_tpu/robust_estimators/__init__.py`): `load_estimator(type_,
 name)` imports `robust_estimators.<type_>.<name>` of this package and
-returns its one `BaseEstimator` subclass. Ported: `homography.xla_ransac`
-and `relative_pose.xla_ransac` (the batched RANSACs on the device), and
+returns its one `BaseEstimator` subclass. Ported: `homography.xla_ransac`,
+`homography.homography_est` (points and lines) and `relative_pose.xla_ransac`
+(the batched RANSACs on the device), and
 `homography.opencv` and `relative_pose.opencv` (cv2 on the host)."""
 
 from __future__ import annotations

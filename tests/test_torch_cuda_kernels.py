@@ -1021,3 +1021,55 @@ def test_gt_matches_from_pose_depth_on_the_card_equals_the_cpu(dev):
         for k in ("matches0", "matches1", "visible0", "visible1"):
             assert card[k].device.type == "cuda" and torch.equal(card[k].cpu(), cpu[k]), (k, kw)
         assert (cpu["matches0"] >= 0).sum() > 100
+
+
+def test_fused_attention_at_gluestick_layout(dev):
+    """The f32 kernel at GlueStick's node layout, (1, 4, 3072, 64): 1024
+    junction slots (half empty) then 2048 keypoints, some dropped near
+    junctions; the same mask on queries and keys, against the plain
+    version."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    N = 3072
+    q, k, v = (torch.randn(1, 4, N, 64, generator=gen, device=dev) for _ in range(3))
+    mask = torch.ones(1, N, dtype=torch.bool, device=dev)
+    mask[:, 512:1024] = False
+    mask[:, 1024:] = torch.rand(1, N - 1024, generator=gen, device=dev) > 0.05
+    got = cuda_attention.fused_attention(q, k, v, mask, mask)
+    want = cuda_attention.attention_plain(q, k, v, mask, mask)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max() <= TOL[torch.float32]
+
+
+def test_gluestick_forward_on_the_card_equals_the_cpu(dev):
+    """GlueStick-2 at 64 wide on a random wireframe: the log assignments on
+    the card (attention kernel, index_add_ with atomics) within 1e-4 of the
+    CPU's (plain versions)."""
+    from gluefactory_tpu_torch.models import get_model
+
+    torch.manual_seed(0)
+    conf = {"descriptor_dim": 64, "input_dim": 64, "keypoint_encoder": [8, 16], "n_layers": 2,
+            "num_heads": 2, "line_attention": True}
+    model = get_model("gluestick").from_conf(conf, device="cpu").eval()
+    B, L, K = 1, 40, 200
+    N = 2 * L + K
+    g = torch.Generator().manual_seed(1)
+    data = {}
+    for i in "01":
+        kp = torch.rand(B, N, 2, generator=g) * 320
+        idx = torch.randint(0, 2 * L - 8, (B, L, 2), generator=g)
+        data.update({
+            f"keypoints{i}": kp,
+            f"descriptors{i}": torch.nn.functional.normalize(torch.randn(B, N, 64, generator=g), dim=-1),
+            f"keypoint_scores{i}": torch.rand(B, N, generator=g),
+            f"keypoint_mask{i}": torch.rand(B, N, generator=g) > 0.2,
+            f"lines{i}": torch.gather(kp, 1, idx.reshape(B, 2 * L, 1).expand(-1, -1, 2)).reshape(B, L, 2, 2),
+            f"line_scores{i}": torch.rand(B, L, generator=g), f"line_mask{i}": torch.rand(B, L, generator=g) > 0.2,
+            f"lines_junc_idx{i}": idx, f"image_size{i}": torch.tensor([[320.0, 240.0]])})
+    with torch.no_grad():
+        cpu = model(data)
+        card = model.to(dev)({k: v.to(dev) for k, v in data.items()})
+    for k in ("log_assignment", "line_log_assignment"):
+        a, b = card[k].cpu(), cpu[k]
+        fin = b > -1e6
+        assert torch.equal(a > -1e6, fin)
+        assert (a - b)[fin].abs().max() <= 1e-4, k

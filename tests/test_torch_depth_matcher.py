@@ -3,7 +3,8 @@ the JAX package's on batches of procedural MegaDepth pairs (ray-cast planes,
 `scripts_dev/posed_scenes.write_megadepth_scene`): keypoints projected from
 view 0 with noise, outliers, points off the depth and padding slots, with
 `th_epi` and `ccth` on and off. Matches, assignment and visibility equal;
-the batch holds positives, both kinds of negative and ignored slots."""
+the batch holds positives, both kinds of negative and ignored slots. With
+`use_lines`, the line GT equal too."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -89,6 +90,35 @@ def test_depth_matcher_equals_jax(scene_root, monkeypatch, th_epi, ccth, pad):
         assert (m0[:, N - pad:] == -2).all()
 
 
-def test_lines_raise():
-    with pytest.raises(NotImplementedError, match="gt_lines"):
-        get_model("depth_matcher").from_conf({"use_lines": True}, device="cpu")
+def test_lines_raise(scene_root, monkeypatch):
+    """`use_lines` (which raised before the line GT was ported): the line GT
+    of `gt_line_matches_from_pose_depth` equal to JAX's, with segments of
+    view 0 projected into view 1 with noise, shuffled, some replaced by
+    random segments, and masked lines."""
+    batch, jax_batch = _batches(scene_root, monkeypatch)
+    rng = np.random.default_rng(21)
+    B, L = batch["view0"]["image"].shape[0], 24
+    w, h = (float(x) for x in batch["view0"]["image_size"][0])
+    l0 = torch.from_numpy(rng.uniform([0, 0], [w, h], (B, L, 2, 2)).astype(np.float32))
+    ep = l0.reshape(B, 2 * L, 2)
+    d0, v0 = sample_depth(ep, batch["view0"]["depth"])
+    ep1, _ = project(ep, d0, None, batch["view0"]["camera"], batch["view1"]["camera"],
+                     batch["T_0to1"], v0)
+    l1 = (ep1 + torch.from_numpy(rng.normal(scale=0.7, size=ep1.shape).astype(np.float32)))
+    l1 = l1.reshape(B, L, 2, 2)[:, torch.from_numpy(rng.permutation(L))]
+    l1[:, :4] = torch.from_numpy(rng.uniform([0, 0], [w, h], (B, 4, 2, 2)).astype(np.float32))
+    lm = np.ones((B, L), bool)
+    lm[:, -3:] = False
+    kp0, kp1, mask = _keypoints(batch, seed=1, pad=4)
+    conf = {"use_lines": True, "n_line_sampled_pts": 30}
+    inputs = {"keypoints0": kp0, "keypoints1": kp1, "keypoint_mask0": mask,
+              "keypoint_mask1": mask, "lines0": l0, "lines1": l1,
+              "line_mask0": torch.from_numpy(lm), "line_mask1": torch.from_numpy(lm)}
+    got = get_model("depth_matcher").from_conf(conf, device="cpu")({**batch, **inputs})
+    want = JaxDepthMatcher.from_conf(conf).apply(
+        {}, {**jax_batch, **{k: jnp.asarray(v.numpy()) for k, v in inputs.items()}})
+    assert set(got) == set(want) and "gt_line_assignment" in got
+    for k in got:
+        np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]), err_msg=k)
+    m0 = got["gt_line_matches0"].numpy()
+    assert (m0 >= 0).sum() >= 5 and (m0 == -2).sum() >= 3 * B, np.unique(m0, return_counts=True)

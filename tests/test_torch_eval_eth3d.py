@@ -16,7 +16,9 @@ observations of 1500 points on the planes).
   keypoints, matches and GT matches equal, the scores within 1e-6, the AP
   within 1e-6 relative.
 - `main` by config name (`superpoint+NN`) on the CPU, its files and an
-  `--overwrite_eval` rerun that reads the cache; `eval_lines` raises.
+  `--overwrite_eval` rerun that reads the cache; `superpoint+lsd+gluestick`
+  by name with `eval.eval_lines` (its line AP against JAX's:
+  `test_torch_gluestick_eval.py`).
 """
 
 import json
@@ -167,8 +169,25 @@ def test_cli_by_name_on_cpu(data_path, monkeypatch):
     def no_model(*a, **k):
         raise AssertionError("the cache was not read")
 
+    load_model = eval_pipeline.load_model
+
     monkeypatch.setattr(eval_pipeline, "load_model", no_model)
     s2, _, _ = port_eval.main(argv + ["--overwrite_eval"])
     assert s2 == s and (out / "predictions.npz").stat().st_mtime_ns == mtime
-    with pytest.raises(NotImplementedError, match="line"):
-        port_eval.main(argv + ["eval.eval_lines=true", "--overwrite_eval"])
+    # eval_lines (which raised before the line models were ported): GlueStick's
+    # config by name, its line GT in the forward, the line AP from the cache
+    monkeypatch.setattr(eval_pipeline, "load_model", load_model)
+    argv = ["--conf", "superpoint+lsd+gluestick", "--device", "cpu", "--tag", "g",
+            "data.num_workers=0", "data.downsize_factor=2", "data.min_covisibility=50",
+            "model.extractor.point_extractor.max_num_keypoints=64",
+            "model.extractor.max_num_lines=32", "model.matcher.n_layers=1",
+            "model.matcher.filter_threshold=0.0", "model.extractor.min_length=10"]
+    torch.manual_seed(0)
+    s, _, r = port_eval.main(argv)
+    assert set(s) == {"AP", "AP_lines"} and np.isfinite(s["AP_lines"]), s
+    loader = port_eval.ETH3DPipeline.get_dataloader({**DATA, "name": "eth3d"})
+    pred_file = data_path / "results" / "eth3d" / "g" / "predictions.npz"
+    again = port_eval.eval_dataset(loader, pred_file, suffix="_lines")
+    assert again["AP_lines"] == s["AP_lines"] and len(r["curve_recall_lines"]) > 0
+    with np.load(pred_file) as npz:  # the line GT found correspondences
+        assert sum(int((npz[f] >= 0).sum()) for f in npz.files if f.endswith("/gt_line_matches0"))

@@ -59,7 +59,9 @@ for name in ("train", "optim", "settings", "data.homographies", "data.base_datas
              "scripts_dev.posed_scenes", "utils.hdf5_write", "models.cache_loader",
              "scripts.export_megadepth", "scripts.export_local_features", "data.image_folder",
              "models.matchers.nearest_neighbor_matcher", "models.triplet_pipeline", "utils.misc",
-             "data.eth3d", "data.zeb", "eval.eth3d", "eval.zeb", "models.matchers.adalam"):
+             "data.eth3d", "data.zeb", "eval.eth3d", "eval.zeb", "models.matchers.adalam",
+             "models.lines.lsd", "models.lines.wireframe", "models.matchers.gluestick",
+             "geometry.gt_lines", "robust_estimators.homography.homography_est"):
     assert pkg.__name__ + "." + name in names, name
 """
 
@@ -80,6 +82,18 @@ def test_no_module_imports_h5py_jax_or_the_jax_package_anywhere():
     found = [f"{p.relative_to(ROOT)}: {m.group(0).strip()}" for p in files
              for m in pattern.finditer(p.read_text())]
     assert not found, found
+
+
+def test_lines_and_the_host_build_never_import_cv2():
+    """The LSD path is the port's own C++: no OpenCV in `models/lines/` or
+    `ops/_build.py`, not even inside a function."""
+    import re
+
+    pattern = re.compile(r"^\s*(import|from)\s+cv2\b", re.M)
+    files = sorted((ROOT / "gluefactory_tpu_torch" / "models" / "lines").rglob("*.py"))
+    files.append(ROOT / "gluefactory_tpu_torch" / "ops" / "_build.py")
+    assert len(files) >= 4
+    assert not [str(p) for p in files if pattern.search(p.read_text())]
 
 
 def test_dispatch_rule():

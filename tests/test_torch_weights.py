@@ -158,7 +158,7 @@ def test_superglue_official_layout_round_trip():
 
 
 @pytest.mark.parametrize("params,model", [
-    ({}, "gluestick"),
+    ({}, "loftr"),  # a matcher with no converter
     ({"matcher_model": {"MLP_0": {}}}, "two_view_pipeline"),  # a matcher with no converter
 ])
 def test_unknown_model_raises(params, model):
