@@ -67,13 +67,13 @@ Phases, in order; any failure exits non-zero before the last line:
    train.main` on `superpoint+lightglue_homography.yaml` at full width
    (SuperPoint 512 keypoints frozen, LightGlue-9 d=256 with checkpointed
    layers, 640 x 480, f32, the recipe's `lg` photometry), cut to procedural
-   images, batch 32, 6 workers, 12 steps and 2 validation batches (the cuts
+   images, batch 32, 6 workers, 4 steps and 2 validation batches (the cuts
    are printed); every loss term finite and every update applied, each attention
    kernel exactly 18 launches a step (9 forward, 9 in the recompute) and 9 a
    validation batch, the last checkpoint reloaded bit-equal by `--restore`,
    one train step through the kernels against the plain versions (loss and
    the matcher's gradient norm within 1e-3 relative); then ms a step and
-   samples/s (CUDA events over 10 steps after 2 warm-ups), the device busy
+   samples/s (CUDA events over 5 steps after 2 warm-ups), the device busy
    share and peak memory, each attention kernel at the training shapes in
    f32 (forward, and forward + backward, against SDPA), and whether one step
    at the published batch of 128 fits; the loader's samples/s with `lg` (6
@@ -108,15 +108,15 @@ Phases, in order; any failure exits non-zero before the last line:
 11. path G, the MegaDepth-1500 benchmark (run after path F, before phase
    8): 2 procedural posed scenes (textured planes ray cast,
    `gluefactory_tpu_torch/scripts_dev/posed_scenes.py`; 1920 x 1440 JPEGs
-   and 16-bit PNG depths, one PINHOLE and one SIMPLE_RADIAL scene, 20 pairs
+   and 16-bit PNG depths, one PINHOLE and one SIMPLE_RADIAL scene, 8 pairs
    each) written under `outputs/chip_smoke_megadepth1500/`, then
    `gluefactory_tpu_torch.eval.megadepth1500.main` in process on
    `superpoint+lightglue-official`'s megadepth1500 section at full width
    (SuperPoint 2048 keypoints, nms 3, LightGlue-9 dense, filter 0.1, f32,
    1600 on the long side) with `eval.estimator=xla_ransac`, `ransac_th
    0.5`, `data.depth_format=png` and random weights drawn as path F draws
-   them, but on the CPU and centred on one of the path's views; cut to 40
-   pairs of 1500. Gates: 40 cached items with the export keys, 9 + 9
+   them, but on the CPU and centred on one of the path's views; cut to 16
+   pairs of 1500. Gates: 16 cached items with the export keys, 9 + 9
    attention launches a pair, every RANSAC tensor on the card, finite
    epipolar, reprojection and GT-match metrics and AUC@5/10/20 degrees;
    runs through the plain versions and grouped by 4 against the per-item
@@ -133,7 +133,7 @@ Phases, in order; any failure exits non-zero before the last line:
    layout under `outputs/chip_smoke_stage2/`, then `train.main` on
    `superpoint+lightglue_megadepth.yaml` at its widths (SuperPoint 2048
    keypoints frozen, 1024 square-padded, LightGlue-9 `checkpointed`, f32),
-   warm-started from path E, 2 epochs of 2 steps at batch 32; gates and
+   warm-started from path E, 2 epochs of 1 step at batch 32; gates and
    numbers as `phase_stage2` says;
 13. path I, stage 2 on cached features (run after path H, before phase 8):
    `scripts/export_megadepth.py --method sp --with_depth` in process on
@@ -142,14 +142,14 @@ Phases, in order; any failure exits non-zero before the last line:
    gates: a group for each of a scene's images in every file, every array
    read back by `data/hdf5.py` equal to what went into the writer,
    keypoints finite and inside the image, `valid_depth_keypoints` bool.
-   Then `train.main` on path H's argv with `data.load_features.do=true`;
-   gates: finite losses and applied updates, 18 launches of each attention
+   Then `train.main` on path H's argv with `data.load_features.do=true`
+   for one epoch; gates: finite losses and applied updates, 18 launches of each attention
    kernel a step and 9 a validation batch, SuperPoint never called, the
    dataset's caches equal to the export's arrays as the loader scales and
    pads them, the batch's `keypoint_mask0/1`, a step vs `flash` off,
    `--restore` bit-equal; ms / device ms a step, busy share, samples/s and
    peak memory beside path H's, the loader's rate with `read_image` true
-   and false (over the first 40 training samples), and which sets the pace;
+   and false (over the training split), and which sets the pace;
 14. path J, the last two benchmarks (run after path I, before phase 8):
    2 procedural ETH3D scenes of 4 views at the DSLR size 6048 x 4032
    (`scripts_dev/posed_scenes.write_eth3d_scene`: COLMAP `cameras.txt` and
@@ -193,7 +193,29 @@ Phases, in order; any failure exits non-zero before the last line:
    (the point + line RANSAC) on the cache, and `eval.eth3d.main` on path
    J's pairs with the line GT in the forward (one pair's line GT equal to
    the CPU's, as integers; the auction's iterations) and `eval_lines`;
-   finite AUCs, AP and line AP, exact launches, the RANSACs on the card.
+   finite AUCs, AP and line AP, exact launches, the RANSACs on the card;
+17. path M, GlueStick training (run after path L, before phase 8):
+   `train.main` on `superpoint+lsd+gluestick-homography` by name at its
+   widths (SuperPoint 1000 keypoints at threshold 0, frozen, drawn as path
+   L draws it; 250 LSD lines in the loader's 6 workers; GlueStick-9 256
+   wide, `inter_supervision` [2, 5], checkpointed; f32, `dark`; nodes 2 x
+   250 junction slots + 1000 keypoints), 4 steps at batch 32 and one
+   validation batch; then `superpoint+lsd+gluestick-megadepth` on path H's
+   scenes (1024 square-padded, `depth_matcher` with lines on the card),
+   warm-started from stage 1, 2 steps at batch 16 and one validation
+   batch. Gates: finite losses (point, line and, in stage 1, the
+   inter-layer line NLLs), every update applied, 72 `fused_attention`
+   launches a step and 36 a validation batch, a positive line match in
+   every batch, no LSD in the main process, `--restore` bit-equal with the
+   running statistics, stage 2's first state equal to stage 1's last, a
+   stage-1 step through the kernel against the plain versions (gradients
+   and statistics), the kernel at (32, 4, 1500, 64) with a batch's node
+   mask forward and under autograd; then ms / device ms a step, busy
+   share, samples/s and peak memory of both stages, the loaders with and
+   without lines and the LSD's ms an image in the workers, and the
+   attention's forward and forward + backward against its bound, the
+   plain version and SDPA. Path M alone: `phase_device`, `phase_build`,
+   `write_stage2_data(S2_ROOT)`, `phase_gluestick_training`.
 
 Each path resets every launch count just before its timed run and reads
 them just after. Prints each phase's seconds, the script's, the kernel JSON line, the card
@@ -1479,7 +1501,7 @@ def phase_serving(device_info: dict, batch: dict) -> dict:
 # --------------------------------------------------------------------------
 
 TRAIN_YAML = "gluefactory_tpu_torch/configs/superpoint+lightglue_homography.yaml"
-TRAIN_BATCH, TRAIN_STEPS, VAL_BATCHES, TIMED_STEPS, WARMUP_STEPS = 32, 12, 2, 10, 2
+TRAIN_BATCH, TRAIN_STEPS, VAL_BATCHES, TIMED_STEPS, WARMUP_STEPS = 32, 4, 2, 5, 2
 PUBLISHED_BATCH = 128
 TRAIN_EXPERIMENT = "chip_smoke_path_e"
 # the run's cuts of the published recipe, printed and recorded
@@ -2452,7 +2474,7 @@ def phase_hpatches(device_info: dict) -> dict:
 # DATA_PATH of the run; the posed-images layout is written under it
 MD_ROOT = ROOT / "outputs" / "chip_smoke_megadepth1500"
 MD_SCENES = [("scene0", "PINHOLE", 0), ("scene1", "SIMPLE_RADIAL", 1)]  # (scene, camera, seed)
-MD_VIEWS, MD_PAIRS_PER_SCENE = 7, 20
+MD_VIEWS, MD_PAIRS_PER_SCENE = 7, 8
 MD_SIZE = (1920, 1440)  # (w, h): resized to 1600 on the long side by `area`, depths by `nearest`
 MD_PAIRS = MD_PAIRS_PER_SCENE * len(MD_SCENES)
 MD_REDUCED = {
@@ -2670,7 +2692,10 @@ def phase_megadepth(device_info: dict) -> dict:
 
         grouped = run_megadepth([*argv, f"items_per_dispatch={MD_DISPATCH}", "--tag",
                                  "chip_smoke_grouped", "--overwrite"])
-        forwards = -(-MD_PAIRS // MD_DISPATCH)
+        # a bucket holds one shape signature: the two scenes' cameras
+        # (PINHOLE, SIMPLE_RADIAL) differ in their parameters' shape, so
+        # each scene is grouped alone
+        forwards = len(MD_SCENES) * -(-MD_PAIRS_PER_SCENE // MD_DISPATCH)
         _check_launches("path G grouped", grouped["launches"],
                         {k: forwards * n for k, n in per_pair.items()})
         res["grouped"] = {**compare_caches(cache, _cache("chip_smoke_grouped", "megadepth1500")),
@@ -2698,10 +2723,10 @@ S2_TRAIN_SCENES, S2_VAL_SCENE = ("scene0", "scene1", "scene2"), "scene3"
 # pairs to spare
 S2_SEEDS = {"scene0": 20, "scene1": 21, "scene2": 23, "scene3": 22}
 S2_VIEWS, S2_SIZE = 12, (1600, 1200)  # (w, h): 1024 on the long side by `area`, square-padded
-S2_PER_SCENE = 24  # the config's three overlap bins, 8 pairs each
+S2_PER_SCENE = 12  # the config's three overlap bins, 4 pairs each
 S2_BATCH, S2_ACCUM = 32, 1
 S2_LOADER_BATCH = 4  # the batch of the loader's own rate (all 8 workers busy)
-S2_EPOCHS, S2_WORKERS, S2_VAL_BATCH, S2_TIMED_STEPS = 2, 8, 8, 6
+S2_EPOCHS, S2_WORKERS, S2_VAL_BATCH, S2_TIMED_STEPS = 2, 8, 8, 2
 # training steps an epoch (micro-batches; the loader drops a partial one)
 S2_STEPS = len(S2_TRAIN_SCENES) * S2_PER_SCENE // S2_BATCH
 S2_EXPERIMENT = "chip_smoke_path_h"
@@ -2932,17 +2957,18 @@ def phase_stage2(device_info: dict) -> dict:
 S3_EXPERIMENT = "chip_smoke_path_i"
 S3_SCENE_LIST = "chip_smoke_scenes.txt"  # path H's 4 scenes, under megadepth/scene_lists/
 S3_RESIZE = 1024
-S3_ARGV = [S3_EXPERIMENT, *S2_ARGV[1:], "data.load_features.do=true"]
-# the loader's rates read the first 40 of the 72 training pairs (10 of the
-# loader's batches of 4), its workers' start-up included
-S3_LOADER_SAMPLES = 40
+S3_EPOCHS = 1  # path H's resampling is checked there
+S3_ARGV = [S3_EXPERIMENT, *S2_ARGV[1:], "data.load_features.do=true", f"train.epochs={S3_EPOCHS}"]
+# the loader's rates read the whole training split (its batches of 4), its
+# workers' start-up included
+S3_LOADER_SAMPLES = len(S2_TRAIN_SCENES) * S2_PER_SCENE
 S3_REDUCED = {
     "export": f"path H's {len(S2_TRAIN_SCENES) + 1} procedural scenes ({S2_VIEWS} views each, "
               "1600 x 1200) instead of MegaDepth's 196 training scenes; the extractor is path E's "
-              "best checkpoint's SuperPoint (random weights from a seed, trained 12 steps), since no "
+              f"best checkpoint's SuperPoint (random weights from a seed, trained {TRAIN_STEPS} steps), since no "
               "official weights are on disk",
     "training": "path H's cuts (S2_REDUCED) and its overrides, with data.load_features.do=true",
-    "loader rates": f"the first {S3_LOADER_SAMPLES} samples of the training split, not all of it",
+    "length": f"{S3_EPOCHS} epoch of {S2_STEPS} steps",
 }
 
 
@@ -3088,8 +3114,8 @@ def phase_cached(device_info: dict, path_h: dict) -> dict:
         SuperPoint.forward = counted
         shutil.rmtree(Path(tsettings.TRAINING_PATH, S3_EXPERIMENT), ignore_errors=True)
         records, seconds, launches, model = run_trainer(S3_ARGV)
-        steps = S2_EPOCHS * S2_STEPS
-        _check_launches("path I", launches, {k: steps * n + S2_EPOCHS * VAL_LAUNCHES[k]
+        steps = S3_EPOCHS * S2_STEPS
+        _check_launches("path I", launches, {k: steps * n + S3_EPOCHS * VAL_LAUNCHES[k]
                                              for k, n in STEP_LAUNCHES.items()})
         if len(records) != steps:
             fail(f"path I: {len(records)} train steps, expected {steps}")
@@ -3102,7 +3128,7 @@ def phase_cached(device_info: dict, path_h: dict) -> dict:
         res["run"] = {"seconds": seconds, "launches": launches, "losses": losses,
                       "grad_norms": [float(r[2]["grad_norm"]) for r in records],
                       "extractor_calls": len(extractor_calls)}
-        print(f"path I: {steps} steps and {S2_EPOCHS} validation batches in {seconds:.1f} s, launches "
+        print(f"path I: {steps} steps and {S3_EPOCHS} validation batches in {seconds:.1f} s, launches "
               f"{json.dumps(launches)}, losses finite, every update applied; total "
               f"{losses[0]['total']:.4f} -> {losses[-1]['total']:.4f}; extractor forwards "
               f"{len(extractor_calls)}", flush=True)
@@ -3905,6 +3931,326 @@ def phase_lines(device_info: dict) -> dict:
     return res
 
 
+# --------------------------------------------------------------------------
+# 17. path M: GlueStick training (stage 1 on homographies, stage 2 on
+#     MegaDepth), the wireframes from the loader's workers
+# --------------------------------------------------------------------------
+
+M_CONFIGS = ("superpoint+lsd+gluestick-homography", "superpoint+lsd+gluestick-megadepth")
+M_ROOT = ROOT / "outputs" / "chip_smoke_path_m"
+M_EXPERIMENTS = ("chip_smoke_path_m1", "chip_smoke_path_m2")
+M_BATCH, M_STEPS, M_WORKERS, M_TIMED_STEPS, M_VAL_BATCH = 32, 4, 6, 4, 8
+M2_BATCH, M2_PER_SCENE, M2_VAL_BATCH, M2_TIMED_STEPS = 16, 12, S2_VAL_BATCH, 4
+M2_STEPS = len(S2_TRAIN_SCENES) * M2_PER_SCENE // M2_BATCH
+M_NODES = 2 * 250 + 1000  # the configs' junction slots, then their keypoints
+# a train step: GlueStick-9's 36 attention calls forward and 36 in the
+# checkpoints' recompute; a validation batch: 36
+M_STEP_LAUNCHES = {"fused_attention": 2 * 4 * LAYERS}
+M_VAL_LAUNCHES = {"fused_attention": 4 * LAYERS}
+M_LOSSES = {"total", "matcher_assignment_nll", "matcher_line_assignment_nll"}
+M_INTER_LOSSES = {"matcher_line_2_assignment_nll", "matcher_line_5_assignment_nll"}
+# the loaders' own batches (merged into the steps' batches), so that every
+# worker has batches to make
+M_LOADER_BATCHES = (8, 4)
+M_REDUCED = {
+    "stage 1": f"{M_CONFIGS[0]} at its widths (SuperPoint 1000 keypoints at threshold 0, frozen; "
+               "250 LSD lines, min length 15, nms 4; GlueStick-9 256 wide, 4 heads, inter_supervision "
+               f"[2, 5], checkpointed; f32, dark photometry): procedural images for revisitop1m, batch "
+               f"{M_BATCH} for 160, {M_WORKERS} workers for 15, {M_STEPS} steps and one validation batch "
+               f"of {M_VAL_BATCH}",
+    "stage 2": f"{M_CONFIGS[1]} at its widths (1024 square-padded, batch {M2_BATCH}): path H's "
+               f"procedural scenes ({len(S2_TRAIN_SCENES)} + 1 of {S2_VIEWS} views at 1600 x 1200) for "
+               f"MegaDepth, {M2_PER_SCENE} pairs a scene for 300, {M2_VAL_BATCH} validation pairs, "
+               f"{S2_WORKERS} workers for 14, {M2_STEPS} steps and one validation batch, warm-started "
+               "from stage 1's experiment",
+    "weights": "SuperPoint drawn as path L draws it (random from seed 0, the descriptor head centred "
+               "on one scene); GlueStick as the trainer initialises it: no checkpoint is on disk",
+}
+
+
+def m_argv(stage: int) -> list:
+    common = ["--conf", M_CONFIGS[stage], "--no_tensorboard", "--no_capture", "--max_val_iters", "1",
+              "train.epochs=1", "train.log_every_iter=1", "train.eval_every_iter=1000000"]
+    if stage == 0:
+        return [M_EXPERIMENTS[0], *common, f"data.synthetic_images={M_BATCH * M_STEPS + M_VAL_BATCH}",
+                f"data.train_size={M_BATCH * M_STEPS}", f"data.val_size={M_VAL_BATCH}",
+                f"data.batch_size={M_BATCH}", f"data.val_batch_size={M_VAL_BATCH}",
+                f"data.num_workers={M_WORKERS}"]
+    return [M_EXPERIMENTS[1], *common, "data.data_dir=megadepth",
+            f"data.train_split=[{','.join(S2_TRAIN_SCENES)}]", f"data.val_split=[{S2_VAL_SCENE}]",
+            f"data.train_num_per_scene={M2_PER_SCENE}", f"data.batch_size={M2_BATCH}",
+            f"data.val_batch_size={M2_VAL_BATCH}", f"data.num_workers={S2_WORKERS}",
+            f"train.load_experiment={M_EXPERIMENTS[0]}"]
+
+
+def _m_gt_record(self, data, out) -> dict:
+    """A ground-truth call's devices and its positive point and line
+    matches."""
+    return {"devices": sorted({str(v.device) for v in out.values()}),
+            "positives": int((out["gt_matches0"] >= 0).sum()),
+            "line_positives": int((out["gt_line_matches0"] >= 0).sum())}
+
+
+def run_gluestick_trainer(label: str, argv: list, gt_cls, steps: int, loss_keys: set,
+                          sp_state: dict | None = None, first_state: list | None = None):
+    """`run_trainer(argv)` with, where `sp_state` is given, SuperPoint's
+    weights loaded into the model when its TrainStep is made (before its
+    first step); each ground-truth call recorded (`_m_gt_record`); the
+    LSD's detections in this process counted around the run. Gates:
+    `steps` train steps, every loss term finite and those of `loss_keys`
+    there, every update applied, exact launches, a positive line match in
+    every batch, the GT on the card, and no LSD in this process (the
+    workers gave every wireframe)."""
+    from gluefactory_tpu_torch import train
+    from gluefactory_tpu_torch.models.lines import lsd
+
+    init = train.TrainStep.__init__
+
+    def with_superpoint(self, model, *args, **kwargs):
+        init(self, model, *args, **kwargs)
+        if sp_state is not None:
+            model.extractor.point_extractor.load_state_dict(sp_state)
+
+    gt_calls = []
+    train.TrainStep.__init__ = with_superpoint
+    detections = lsd.detections
+    try:
+        with recorded_forward(gt_cls, gt_calls, _m_gt_record):
+            records, seconds, launches, model = run_trainer(argv, first_state)
+    finally:
+        train.TrainStep.__init__ = init
+    _check_launches(label, launches, {k: steps * n + M_VAL_LAUNCHES[k] for k, n in M_STEP_LAUNCHES.items()})
+    if len(records) != steps:
+        fail(f"{label}: {len(records)} train steps, expected {steps}")
+    losses = [{k: float(v) for k, v in r[0].items()} for r in records]
+    for i, (step_losses, (_, _, info)) in enumerate(zip(losses, records)):
+        if not (loss_keys <= set(step_losses) and all(math.isfinite(v) for v in step_losses.values())):
+            fail(f"{label}: step {i}'s loss terms are not all there and finite: {step_losses}")
+        if not bool(info["ok"]):
+            fail(f"{label}: the update of step {i} was not applied")
+    card = str(torch.empty(0, device=DEVICE).device)
+    if len(gt_calls) != steps + 1 or any(c["devices"] != [card] or c["line_positives"] < 1
+                                         for c in gt_calls):
+        fail(f"{label}: ground truth {gt_calls}")
+    if lsd.detections != detections:
+        fail(f"{label}: the LSD ran {lsd.detections - detections} times in the main process")
+    return {"seconds": seconds, "launches": launches, "losses": losses,
+            "grad_norms": [float(r[2]["grad_norm"]) for r in records], "gt": gt_calls,
+            "main_process_lsd_calls": 0}, model
+
+
+def lsd_in_workers(images: list, workers: int, conf) -> dict:
+    """`precompute_wireframe` on each image in `workers` loader workers (as
+    the datasets run it, all workers busy at once): ms an image, each timed
+    in its worker, and the segments kept."""
+    from gluefactory_tpu_torch.models.lines.wireframe import precompute_wireframe
+
+    class Timed(torch.utils.data.Dataset):
+        def __len__(self):
+            return len(images)
+
+        def __getitem__(self, i):
+            t0 = time.perf_counter()
+            out = precompute_wireframe(images[i], conf.max_num_lines, conf.min_length, conf.nms_radius)
+            return 1e3 * (time.perf_counter() - t0), int(out["line_mask"].sum())
+
+    loader = torch.utils.data.DataLoader(Timed(), batch_size=None, num_workers=workers)
+    timed = list(loader)
+    ms = [t for t, _ in timed]
+    return {"images": len(images), "image": list(images[0].shape), "workers": workers,
+            "ms_mean": float(np.mean(ms)), "ms_min": float(np.min(ms)), "ms_max": float(np.max(ms)),
+            "lines_mean": float(np.mean([n for _, n in timed]))}
+
+
+def m_loader(label: str, conf, dataset: str, batch: int, loader_batch: int) -> tuple[dict, list]:
+    """The training loader's samples/s over the first two steps' samples,
+    in its own batches of `loader_batch`, with `detect_lines` on (those two
+    batches of `batch` kept on the card) and off; the LSD's ms an image in
+    the workers on the first batch's views; the kept batches' wireframe
+    keys with their dtypes on the card."""
+    data = merge(conf.data, {"batch_size": loader_batch})
+    rate, batches = loader_rate(data, keep=2, dataset=dataset, merge=batch // loader_batch,
+                                max_samples=2 * batch)
+    off, _ = loader_rate(merge(data, {"detect_lines": {"do": False}}), dataset=dataset,
+                         max_samples=2 * batch)
+    for b in batches:
+        for v in ("view0", "view1"):
+            view = b[v]
+            if not (view["lines_junc_idx"].dtype == torch.int32 and view["line_mask"].dtype == torch.bool
+                    and view["junc_mask"].dtype == torch.bool
+                    and view["lines"].device.type == torch.device(DEVICE).type):
+                fail(f"{label}: the batch's wireframe keys are {[(k, view[k].dtype) for k in view]}")
+    images = [b[v]["image"][i].cpu().numpy() for b in batches[:1] for v in ("view0", "view1")
+              for i in range(b[v]["image"].shape[0])]
+    lsd_ms = lsd_in_workers(images, conf.data.num_workers, conf.data.detect_lines)
+    res = {"samples_per_s": rate, "samples_per_s_without_lines": off, "lsd_in_workers": lsd_ms,
+           "workers": int(conf.data.num_workers), "loader_batch": loader_batch}
+    print(f"{label} loader: {rate:.2f} samples/s with detect_lines, {off:.2f} without "
+          f"({conf.data.num_workers} workers, {os.cpu_count()} cores); LSD + clustering in the "
+          f"workers {json.dumps(lsd_ms)}", flush=True)
+    return res, batches
+
+
+def m_attention(mask: torch.Tensor, dev) -> dict:
+    """`fused_attention` at GlueStick's training shape, (B, 4, 1500, 64)
+    f32, with a batch's real node mask on queries and keys: the forward
+    against its plain version (1e-4), the gradients (the plain backward
+    through `ops/_autograd.py`) within TRAIN_TOL of the plain gradients'
+    norm; device times of the forward and of forward + backward against
+    the plain version's and SDPA's with the same boolean mask; the bound
+    counts valid queries x valid keys."""
+    F = torch.nn.functional
+    gen = torch.Generator(device=dev).manual_seed(7)
+    B, N = mask.shape
+    xs = [torch.randn(B, HEADS, N, HEAD_DIM, generator=gen, device=dev).requires_grad_() for _ in range(3)]
+    q, k, v = xs
+    cot = torch.randn(B, HEADS, N, HEAD_DIM, generator=gen, device=dev)
+    args = (q, k, v, mask, mask)
+    valid = mask.sum(-1).double()
+    nk, pairs = float(valid.sum()), float((valid * valid).sum())
+    n_ops, n_exps = 4.0 * HEADS * pairs * HEAD_DIM, 1.0 * HEADS * pairs
+    n_bytes = (3 * nk + B * N) * HEADS * HEAD_DIM * 4 + 2 * mask.numel()
+    bound_ms, bound_by = _bound(n_ops, n_bytes, torch.float32, n_exps)
+    attn_mask = mask[:, None, None, :]
+    kernel, plain = cuda_attention.fused_attention, cuda_attention.attention_plain
+
+    def fwd_bwd(fn):
+        return torch.autograd.grad(fn(), xs, cot)
+
+    with torch.no_grad():
+        err = _err(kernel(*args), plain(*args))
+    grads = fwd_bwd(lambda: kernel(*args))
+    grads_plain = fwd_bwd(lambda: plain(*args))
+    grad_err = max(float((a - b).abs().max() / torch.linalg.vector_norm(b)) for a, b in zip(grads, grads_plain))
+    del grads, grads_plain
+    with torch.no_grad():
+        res = {"shape": [B, HEADS, N, HEAD_DIM], "dtype": "float32", "valid_nodes": int(nk),
+               "max_abs_err": err, "tol": KERNEL_TOL[torch.float32], "grad_max_rel_err": grad_err,
+               "grad_tol": TRAIN_TOL,
+               "ms": device_time_ms(lambda: kernel(*args)),
+               "plain_ms": device_time_ms(lambda: plain(*args), reps=3),
+               "library_ms": device_time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=attn_mask)),
+               "bound_ms": bound_ms, "bound_by": bound_by}
+    res["fwd_bwd_ms"] = device_time_ms(lambda: fwd_bwd(lambda: kernel(*args)), reps=3)
+    res["plain_fwd_bwd_ms"] = device_time_ms(lambda: fwd_bwd(lambda: plain(*args)), reps=3)
+    res["library_fwd_bwd_ms"] = device_time_ms(
+        lambda: fwd_bwd(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=attn_mask)), reps=3)
+    if not (err <= KERNEL_TOL[torch.float32] and grad_err <= TRAIN_TOL):
+        fail(f"path M: fused_attention at GlueStick's training shape against its plain version: {res}")
+    return res
+
+
+def _m_timing(label: str, model, batches, device_info, conf, batch: int, timed: int) -> dict:
+    t = time_training(model, batches, device_info, conf=conf, batch=batch, label=label, accum2=False,
+                      timed=timed, step_launches=M_STEP_LAUNCHES)
+    print(f"{label} timing: {t['ms_per_step']:.2f} ms/step, device {t['device_ms_per_step']} ms/step, "
+          f"busy share {t['busy_share']}, {t['samples_per_s']:.2f} samples/s, peak "
+          f"{t['peak_memory_gib']:.2f} GiB at batch {batch} ({device_info['nvidia_smi']})", flush=True)
+    print(f"{label} top device items: {json.dumps(t['profile']['top'][:8])}", flush=True)
+    return t
+
+
+def phase_gluestick_training(device_info: dict) -> dict:
+    """Path M: the trainer on the two GlueStick configs by name, cut as
+    M_REDUCED says. Stage 1 (`run_gluestick_trainer`'s gates), `--restore`
+    bit-equal with the running statistics, the loader with and without
+    lines and the LSD in the workers, a step through the kernel against the
+    plain versions (gradients and statistics), the attention at (32, 4,
+    1500, 64) with the batch's node mask forward and under autograd, then
+    ms a step. Stage 2 on path H's scenes, warm-started from stage 1: its
+    gates, its first state equal to stage 1's last (the inter-layer line
+    projections, which it does not supervise, aside), `--restore`, the
+    loaders and ms a step. Needs path H's scenes."""
+    import gluefactory_tpu_torch.settings as tsettings
+    from gluefactory_tpu_torch.models.matchers.depth_matcher import DepthMatcher
+    from gluefactory_tpu_torch.models.matchers.homography_matcher import HomographyMatcher
+    from gluefactory_tpu_torch.settings import TRAINING_PATH
+
+    card = device_info["nvidia_smi"]
+    dev = torch.device(DEVICE)
+    t0 = time.perf_counter()
+    print(f"path M reduced: {json.dumps(M_REDUCED)}", flush=True)
+    shutil.rmtree(M_ROOT, ignore_errors=True)
+    M_ROOT.mkdir(parents=True)
+    for e in M_EXPERIMENTS:
+        shutil.rmtree(Path(TRAINING_PATH, e), ignore_errors=True)
+    weights = M_ROOT / "weights.pth"
+    res = {"reduced": M_REDUCED, "weights": benchmark_weights(weights, DEVICE, draw_device="cpu",
+                                                              config=L_CONFIG)}
+    prefix = "extractor.point_extractor."
+    sp_state = {k[len(prefix):]: v for k, v in torch.load(weights, map_location=DEVICE).items()
+                if k.startswith(prefix)}
+
+    # stage 1
+    argv = m_argv(0)
+    conf = train_conf(argv, f"gluefactory_tpu_torch/configs/{M_CONFIGS[0]}.yaml")
+    run, model = run_gluestick_trainer("path M stage 1", argv, HomographyMatcher, M_STEPS,
+                                       M_LOSSES | M_INTER_LOSSES, sp_state)
+    stage1_state = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    res["stage1"] = s1 = {"argv": argv, "run": run}
+    print(f"path M stage 1: {M_STEPS} steps and 1 validation batch in {run['seconds']:.1f} s, launches "
+          f"{json.dumps(run['launches'])}, losses finite, every update applied, line positives a batch "
+          f"{[c['line_positives'] for c in run['gt']]}, no LSD in the main process; total "
+          f"{run['losses'][0]['total']:.4f} -> {run['losses'][-1]['total']:.4f}", flush=True)
+    s1["restore"] = check_restore(model, argv, M_EXPERIMENTS[0], M_STEPS, "path M stage 1")
+    s1["loader"], batches = m_loader("path M stage 1", conf, "homographies", M_BATCH, M_LOADER_BATCHES[0])
+    s1["vs_plain"] = train_step_vs_plain(model, batches[0], "path M stage 1", M_STEP_LAUNCHES)
+    n_stats = 2 * (2 * len(conf.model.matcher.get("keypoint_encoder", [32, 64, 128, 256])) + 3 * LAYERS)
+    if not (s1["vs_plain"]["running_stats"] == n_stats and s1["vs_plain"]["running_stats_moved"] > 0):
+        fail(f"path M stage 1: the step did not move every BatchNorm statistic: {s1['vs_plain']}")
+    print(f"path M stage 1 step vs plain: {json.dumps(s1['vs_plain'])}", flush=True)
+    with torch.no_grad():
+        pred = model(batches[0], generator=torch.Generator(device=DEVICE).manual_seed(0))
+    mask = pred["keypoint_mask0"]
+    if list(mask.shape) != [M_BATCH, M_NODES]:
+        fail(f"path M: the node mask is {list(mask.shape)}, expected {[M_BATCH, M_NODES]}")
+    s1["nodes"] = {"valid_mean": float(mask.sum(-1).float().mean()),
+                   "lines_mean": float(pred["line_mask0"].sum(-1).float().mean())}
+    del pred
+    s1["timing"] = _m_timing("path M stage 1", model, batches, device_info, conf, M_BATCH, M_TIMED_STEPS)
+    del model, batches
+    torch.cuda.empty_cache()
+    s1["attention"] = m_attention(mask, dev)
+    print(f"path M fused_attention at {s1['attention']['shape']} with a batch's node mask: "
+          f"{json.dumps(s1['attention'])} ({card})", flush=True)
+
+    # stage 2, on path H's scenes
+    data_path, tsettings.DATA_PATH = tsettings.DATA_PATH, S2_ROOT
+    try:
+        argv = m_argv(1)
+        conf = train_conf(argv, f"gluefactory_tpu_torch/configs/{M_CONFIGS[1]}.yaml")
+        first_state = []
+        run, model = run_gluestick_trainer("path M stage 2", argv, DepthMatcher, M2_STEPS, M_LOSSES,
+                                           first_state=first_state)
+        res["stage2"] = s2 = {"argv": argv, "run": run}
+        state = first_state[0]
+        skipped = sorted(set(stage1_state) - set(state))
+        if set(state) - set(stage1_state) or any(not k.startswith("matcher.inter_line_proj.") for k in skipped) \
+                or any(not torch.equal(v, stage1_state[k]) for k, v in state.items()):
+            fail(f"path M stage 2: the warm-started model differs from stage 1's last (skipped {skipped})")
+        run["warm_start"] = {"experiment": M_EXPERIMENTS[0], "tensors": len(state), "bit_equal": True,
+                             "skipped": skipped}
+        print(f"path M stage 2: {M2_STEPS} steps and 1 validation batch in {run['seconds']:.1f} s, "
+              f"launches {json.dumps(run['launches'])}, losses finite, every update applied, line "
+              f"positives a batch {[c['line_positives'] for c in run['gt']]}; warm start "
+              f"{json.dumps(run['warm_start'])}", flush=True)
+        s2["restore"] = check_restore(model, argv, M_EXPERIMENTS[1], M2_STEPS, "path M stage 2")
+        s2["loader"], batches = m_loader("path M stage 2", conf, "megadepth", M2_BATCH, M_LOADER_BATCHES[1])
+        s2["timing"] = _m_timing("path M stage 2", model, batches, device_info, conf, M2_BATCH,
+                                 M2_TIMED_STEPS)
+        del model, batches
+        torch.cuda.empty_cache()
+    finally:
+        tsettings.DATA_PATH = data_path
+    for s, batch in ((s1, M_BATCH), (s2, M2_BATCH)):
+        s["pace"] = "loader" if s["loader"]["samples_per_s"] < s["timing"]["samples_per_s"] else "step"
+    print(f"path M pace: stage 1 the {s1['pace']}, stage 2 the {s2['pace']}", flush=True)
+    res["seconds"] = time.perf_counter() - t0
+    res["card"] = card
+    print(f"path M: {res['seconds']:.1f} s", flush=True)
+    return res
+
+
 def main() -> None:
     t0 = time.perf_counter()
     seconds = {}
@@ -3941,6 +4287,7 @@ def main() -> None:
     path_j = timed("path_j", phase_benchmarks, device_info)
     path_k = timed("path_k", phase_superglue_training, device_info)
     path_l = timed("path_l", phase_lines, device_info)
+    path_m = timed("path_m", phase_gluestick_training, device_info)
     kernels += timed("conv_study", phase_conv_study, device_info)  # launches from the tools' runs
     OUT_DIR.mkdir(exist_ok=True)
     record = {"device": device_info, "build": build, "kernels": kernels, "gradients": gradients,
@@ -3949,7 +4296,8 @@ def main() -> None:
               "path_d_serving": path_d, "path_e_training": path_e, "path_f_hpatches": path_f,
               "path_g_megadepth1500": path_g, "path_h_stage2": path_h, "path_i_cached": path_i,
               "path_j_benchmarks": path_j, "path_k_superglue_training": path_k,
-              "path_l_lines": path_l, "seconds_by_phase": seconds,
+              "path_l_lines": path_l, "path_m_gluestick_training": path_m,
+              "seconds_by_phase": seconds,
               "seconds": time.perf_counter() - t0}
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(record, indent=1))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",

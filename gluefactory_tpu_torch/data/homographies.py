@@ -26,7 +26,14 @@ filters only the keypoints), thresholded on `thresh`, cut to the
 that count with a mask: `view["cache"]`. Divergence from the JAX package,
 which looks a file up by its absolute path: the group of a file is its
 path relative to the image folder, the name the export writes (a
-procedural image's is its index). `detect_lines` and `emit_source` raise
+procedural image's is its index).
+
+Lines (`detect_lines.do`): each view's LSD segments and wireframe junctions
+(`models/lines/wireframe.precompute_wireframe`, the repo's C++ LSD) after
+the photometric augmentation and the grey conversion, under the seven
+`WIREFRAME_KEYS`; they draw nothing from the item's generator. A one-channel
+view goes to the LSD as `(img[..., 0] * 255).astype(uint8)`, as in the JAX
+package. A failed detection raises in the worker. `emit_source` raises
 `NotImplementedError` for now.
 """
 
@@ -40,6 +47,7 @@ import torch
 from ..core.config import merge
 from ..geometry.homography import sample_homography_corners
 from ..models.cache_loader import CacheLoader, pad_local_features
+from ..models.lines.wireframe import precompute_wireframe
 from ..settings import DATA_PATH
 from .augmentations import IdentityAugmentation, augmentations
 from .base_dataset import BaseDataset
@@ -87,6 +95,17 @@ def _fma32(a, b, c) -> np.ndarray:
     """a * b + c rounded once to float32 (the product of two float32 is
     exact in float64)."""
     return (np.multiply(a, b, dtype=np.float64) + c).astype(np.float32)
+
+
+def rgb_to_grey(img: np.ndarray) -> np.ndarray:
+    """float32 (H, W, 3) RGB -> (H, W) grey, as cv2's COLOR_RGB2GRAY rounds
+    it in its vector loop: g * 0.587, then + r * 0.299 and + b * 0.114 each
+    by a fused multiply-add. The scalar tail of a row (the last `W % 16`
+    columns or fewer on AVX2) may round some sums otherwise, by an ulp. The
+    LSD reads the grey view truncated to uint8, so an ulp can move a pixel
+    by one level there."""
+    r, g, b = (img[..., i] for i in range(3))
+    return _fma32(b, GRAY[2], _fma32(r, GRAY[0], g * GRAY[1]))
 
 
 def warp_patch(img: np.ndarray, H: np.ndarray, patch_shape) -> np.ndarray:
@@ -212,12 +231,16 @@ class _HomographySplit(torch.utils.data.Dataset):
         )
         patch = aug(warp_patch(img, H, patch_shape), rng)
         if self.conf.grayscale:
-            patch = (patch @ GRAY)[..., None]
+            patch = rgb_to_grey(patch)[..., None]
         view = {
             "image": patch.astype(np.float32),
             "image_size": np.array(patch_shape, dtype=np.float32),
             "H_": H.astype(np.float32),
         }
+        dl = self.conf.detect_lines
+        if dl.do:
+            view.update(precompute_wireframe(view["image"], dl.max_num_lines, dl.min_length,
+                                             dl.nms_radius))
         if features is not None:
             view["cache"] = self._transform_features(features, H, patch_shape)
         return view
@@ -286,12 +309,13 @@ class HomographyDataset(BaseDataset):
         # features from a cache, warped into each view
         "load_features": {"do": False, **CacheLoader.default_conf, "thresh": 0.0,
                           "max_num_keypoints": -1, "force_num_keypoints": False},
-        "detect_lines": {"do": False},
+        # each view's LSD lines and wireframe junctions, computed in the
+        # loader's workers (GlueStick training); mirrors the wireframe
+        # extractor's conf
+        "detect_lines": {"do": False, "max_num_lines": 250, "min_length": 15.0, "nms_radius": 3.0},
     }
 
     def _init(self, conf):
-        if conf.detect_lines.do:
-            raise NotImplementedError("homographies: detect_lines is not ported yet")
         if conf.emit_source:
             raise NotImplementedError("homographies: emit_source (on-device augmentation) is not ported yet")
         names = list(range(conf.synthetic_images)) if conf.synthetic_images > 0 else self._list(conf)

@@ -27,9 +27,12 @@ Scene lists: a file of `data_dir/scene_lists/` first, else this package's
 copy of upstream's lists (`megadepth_scene_lists/`, written by
 `scripts/make_scene_lists.py` for other corpora).
 
-Not ported yet, raising `NotImplementedError`: `detect_lines.do`
-(`models/lines/wireframe.py`). The dataset visualizer waits with
-`visualization/`.
+Lines (`detect_lines.do`, with `read_image`): the processed view's LSD
+segments and wireframe junctions (`models/lines/wireframe.
+precompute_wireframe`) under the seven `WIREFRAME_KEYS`, computed in the
+loader's workers; a failed detection raises there.
+
+The dataset visualizer waits with `visualization/`.
 """
 
 from __future__ import annotations
@@ -40,6 +43,7 @@ import numpy as np
 
 from .. import logger, settings
 from ..models.cache_loader import CacheLoader
+from ..models.lines.wireframe import precompute_wireframe
 from ..utils.tools import fork_rng
 from .base_dataset import BaseDataset
 from .geometry_io import camera_dict_from_K, compose_pose, invert_pose
@@ -98,9 +102,6 @@ class MegaDepth(BaseDataset):
     }
 
     def _init(self, conf):
-        if conf.detect_lines.do:
-            raise NotImplementedError("megadepth detect_lines: needs models/lines/wireframe.py, "
-                                      "not ported yet")
         self.root = settings.DATA_PATH / conf.data_dir
         if not self.root.exists():
             raise FileNotFoundError(f"MegaDepth not found at {self.root}")
@@ -303,6 +304,12 @@ class _MegaDepthItems:
         data["scene"] = scene
         data["T_w2cam"] = T
         data["camera"] = camera_dict_from_K(K, data["image_size"][0], data["image_size"][1])
+
+        dl = conf.detect_lines
+        if dl.do and conf.read_image:
+            # the processed (H, W, C) image: resized, square-padded, rotated
+            data.update(precompute_wireframe(data["image"], dl.max_num_lines, dl.min_length,
+                                             dl.nms_radius))
 
         if self.feature_loader is not None:
             features = self.feature_loader({**data, "scene": scene, "name": path.name})

@@ -99,10 +99,18 @@ def _detect_one(img: np.ndarray, max_lines: int, min_length: float):
     return lines, scores, valid
 
 
+# images detected by `detect_lsd_host` in this process (a loader worker
+# counts its own): a training run on precomputed wireframes leaves the main
+# process's count alone
+detections = 0
+
+
 def detect_lsd_host(images: np.ndarray, max_lines: int, min_length: float):
     """images (B, H, W, C) float [0, 1] -> (lines (B, L, 2, 2) xy, scores
     (B, L), valid (B, L)), one image a thread."""
+    global detections
     B = images.shape[0]
+    detections += B
     with ThreadPoolExecutor(max_workers=max(1, min(B, 8))) as pool:
         outs = list(pool.map(lambda b: _detect_one(images[b], max_lines, min_length), range(B)))
     return tuple(np.stack([o[i] for o in outs]) for i in range(3))

@@ -18,11 +18,21 @@ JAX package reads: `kenc.encoder.*`, `lenc.encoder.*`,
 `final_line_proj`, `input_proj`, `bin_score`, `line_bin_score`; also
 `gnn.line_layers.{i}.proj_node` / `proj_neigh` (`line_attention`) and
 `inter_line_proj.{j}` (`inter_supervision`). BatchNorm follows SuperGlue's
-port: by the running statistics unless `train`.
+port: by the running statistics unless `train`; with `train`, by the batch,
+each BatchNorm's running statistics updated once a call of its MLP (the
+encoders on view 0, then view 1; each layer on its view-0 call, then its
+view-1 one), as flax updates `batch_stats`.
+
+With `checkpointed` (and grad enabled), each attention layer call runs under
+`torch.utils.checkpoint`, as the JAX model wraps `AttentionalPropagation` in
+`nn.remat`; the line layers and the encoders are not checkpointed. The
+inter-layer line assignments (`inter_supervision`) are taken from the
+forward's activations.
 
 The attention goes through `ops/attention.mha`, so the CUDA
 `fused_attention` kernel on the card: 4 x `n_layers` launches a forward
-(36 at 9 layer pairs). The wireframe scatter is `index_add_` over the nodes.
+(36 at 9 layer pairs), and as many again in a checkpointed backward's
+recompute. The wireframe scatter is `index_add_` over the nodes.
 """
 
 from __future__ import annotations
@@ -35,7 +45,7 @@ from ..base_model import BaseModel
 from ..losses import masked_row_norm, nll_components
 from ..metrics import matcher_metrics
 from .superglue import (AttentionalPropagation, _pointwise, batch_norms, make_mlp,
-                        normalize_keypoints_sg, run_mlp, update_running_stats)
+                        normalize_keypoints_sg, propagate, run_mlp, update_running_stats)
 
 
 def _run(mlp: nn.Sequential, x: torch.Tensor, train: bool) -> torch.Tensor:
@@ -181,11 +191,7 @@ class GlueStick(BaseModel):
         self.line_bin_score = nn.Parameter(torch.tensor(1.0))
 
     def _attn(self, layer, x, source, mask_q, mask_k, train: bool):
-        stats = [] if train else None
-        out = layer.update(x, source, mask_q, mask_k, stats)
-        if train:
-            update_running_stats(batch_norms(layer.update.mlp), stats)
-        return out
+        return propagate(layer.update, x, source, mask_q, mask_k, train, self.conf.checkpointed)
 
     def _forward(self, data: dict, train: bool = False) -> dict:
         c = self.conf

@@ -187,6 +187,23 @@ class AttentionalPropagation(nn.Module):
         return x + run_mlp(self.mlp, torch.cat([x, message], dim=-1), stats)
 
 
+def propagate(layer: AttentionalPropagation, x, source, mask_q, mask_k, train: bool,
+              checkpointed: bool) -> torch.Tensor:
+    """One attention layer call; with `checkpointed` (and grad enabled)
+    under `torch.utils.checkpoint`, its activations recomputed in the
+    backward. With `train`, its BatchNorm by the batch and its running
+    statistics updated after the call, outside the checkpoint, so that the
+    recompute leaves them alone."""
+    stats = [] if train else None
+    if checkpointed and torch.is_grad_enabled():
+        out = checkpoint(layer, x, source, mask_q, mask_k, stats, use_reentrant=False)
+    else:
+        out = layer(x, source, mask_q, mask_k, stats)
+    if train:
+        update_running_stats(batch_norms(layer.mlp), stats)
+    return out
+
+
 class KeypointEncoder(nn.Module):
     def __init__(self, feature_dim: int, layers: list):
         super().__init__()
@@ -230,17 +247,7 @@ class SuperGlue(BaseModel):
         self.bin_score = nn.Parameter(torch.tensor(1.0))
 
     def _layer(self, layer, x, source, mask_q, mask_k, train: bool):
-        """One GNN layer call; with `train`, its BatchNorm by the batch and
-        its running statistics updated after the call (outside a
-        checkpoint, so that the recompute leaves them alone)."""
-        stats = [] if train else None
-        if self.conf.checkpointed and torch.is_grad_enabled():
-            out = checkpoint(layer, x, source, mask_q, mask_k, stats, use_reentrant=False)
-        else:
-            out = layer(x, source, mask_q, mask_k, stats)
-        if train:
-            update_running_stats(batch_norms(layer.mlp), stats)
-        return out
+        return propagate(layer, x, source, mask_q, mask_k, train, self.conf.checkpointed)
 
     def _forward(self, data: dict, train: bool = False) -> dict:
         """`train`: BatchNorm by the batch, the running statistics updated."""

@@ -66,6 +66,7 @@ from . import logger
 from .core.config import Config, from_dotlist, from_yaml, merge
 from .data import get_dataset
 from .data.base_dataset import prepare_batch
+from .eval.io import parse_config_path
 from .models import get_model
 from .optim import OPTIMIZERS
 from .settings import TRAINING_PATH
@@ -496,7 +497,16 @@ def training(conf: Config, output_dir: Path, args):
         logger.info("Restored from %s at epoch %d", ckpt_path, epoch0)
     elif conf.train.load_experiment:
         payload = load_checkpoint(get_best_checkpoint(conf.train.load_experiment), map_location=device)
-        model.load_state_dict(payload["model"])
+        # every tensor of the model from the checkpoint; a tensor the model
+        # lacks is skipped (stage 1's inter-layer line projections of
+        # GlueStick, which stage 2 does not supervise), as flax's
+        # `from_state_dict` skips it
+        missing, unexpected = model.load_state_dict(payload["model"], strict=False)
+        if missing:
+            raise KeyError(f"load_experiment {conf.train.load_experiment}: the checkpoint lacks {missing}")
+        if unexpected:
+            logger.info("Warm start: skipped %d tensors the model lacks: %s", len(unexpected),
+                        ", ".join(unexpected))
         logger.info("Warm-started from experiment %s", conf.train.load_experiment)
     (output_dir / "config.yaml").write_text(conf.to_yaml())
 
@@ -621,7 +631,8 @@ def main(argv=None):
     args = main_args(argv)
     conf = Config(default_conf)
     if args.conf:
-        conf = merge(conf, from_yaml(args.conf))
+        # a path, or the name of one of the package's configs
+        conf = merge(conf, from_yaml(str(parse_config_path(args.conf))))
     if args.dotlist:
         conf = merge(conf, from_dotlist(args.dotlist))
     output_dir = Path(TRAINING_PATH, args.experiment)

@@ -1073,3 +1073,90 @@ def test_gluestick_forward_on_the_card_equals_the_cpu(dev):
         fin = b > -1e6
         assert torch.equal(a > -1e6, fin)
         assert (a - b)[fin].abs().max() <= 1e-4, k
+
+
+def _gluestick_key_mask(gen, B, dev, L=250, K=1000):
+    """A GlueStick training batch's node mask, (B, 2L + K): of the 2L
+    junction slots a random share filled at the front of each item, then K
+    keypoints, about 5% dropped near junctions."""
+    mask = torch.zeros(B, 2 * L + K, dtype=torch.bool, device=dev)
+    filled = torch.randint(L // 2, 2 * L, (B,), generator=gen, device=dev)
+    mask[:, :2 * L] = torch.arange(2 * L, device=dev)[None] < filled[:, None]
+    mask[:, 2 * L:] = torch.rand(B, K, generator=gen, device=dev) > 0.05
+    return mask
+
+
+def test_fused_attention_at_gluestick_training_layout(dev):
+    """The f32 kernel at GlueStick's stage-1 training shape, (32, 4, 1500,
+    64), with a batch's scattered node mask on queries and keys: the
+    forward within 1e-4 of the plain version, and the gradients of q, k and
+    v (through `ops/_autograd.py`) within 1e-3 of the plain gradients'
+    norm."""
+    gen = torch.Generator(device=dev).manual_seed(4)
+    B, N = 32, 1500
+    q, k, v = (torch.randn(B, 4, N, 64, generator=gen, device=dev).requires_grad_() for _ in range(3))
+    mask = _gluestick_key_mask(gen, B, dev)
+    cot = torch.randn(B, 4, N, 64, generator=gen, device=dev)
+    got = cuda_attention.fused_attention(q, k, v, mask, mask)
+    want = cuda_attention.attention_plain(q, k, v, mask, mask)
+    assert got.grad_fn is not None
+    assert (got - want).abs().max() <= TOL[torch.float32]
+    g = torch.autograd.grad(got, (q, k, v), cot)
+    g_plain = torch.autograd.grad(want, (q, k, v), cot)
+    for a, b in zip(g, g_plain):
+        assert (a - b).abs().max() <= 1e-3 * torch.linalg.vector_norm(b)
+
+
+def test_gluestick_train_step_on_the_card_equals_the_cpu(dev):
+    """One train-mode forward, loss and backward of a small checkpointed
+    GlueStick (2 layer pairs, 64 wide, inter-layer supervision) on the card
+    (attention kernel, `index_add_` with atomics) against the CPU (plain
+    versions): the loss within 1e-4 relative, every gradient within 1e-3 of
+    the CPU gradients' norm, the running statistics within 1e-4."""
+    from gluefactory_tpu_torch.models import get_model
+
+    torch.manual_seed(0)
+    conf = {"descriptor_dim": 64, "input_dim": 64, "keypoint_encoder": [8, 16], "n_layers": 2,
+            "num_heads": 2, "inter_supervision": [0, 1], "checkpointed": True}
+    cpu_model = get_model("gluestick").from_conf(conf, device="cpu")
+    card_model = get_model("gluestick").from_conf(conf, device="cpu")
+    card_model.load_state_dict(cpu_model.state_dict())
+    card_model.to(dev)
+    B, L, K = 2, 30, 120
+    N = 2 * L + K
+    g = torch.Generator().manual_seed(2)
+    data = {}
+    for i in "01":
+        kp = torch.rand(B, N, 2, generator=g) * 320
+        idx = torch.randint(0, 2 * L - 8, (B, L, 2), generator=g)
+        data.update({
+            f"keypoints{i}": kp,
+            f"descriptors{i}": torch.nn.functional.normalize(torch.randn(B, N, 64, generator=g), dim=-1),
+            f"keypoint_scores{i}": torch.rand(B, N, generator=g),
+            f"keypoint_mask{i}": torch.rand(B, N, generator=g) > 0.2,
+            f"lines{i}": torch.gather(kp, 1, idx.reshape(B, 2 * L, 1).expand(-1, -1, 2)).reshape(B, L, 2, 2),
+            f"line_scores{i}": torch.rand(B, L, generator=g), f"line_mask{i}": torch.rand(B, L, generator=g) > 0.2,
+            f"lines_junc_idx{i}": idx, f"image_size{i}": torch.tensor([[320.0, 240.0]] * B)})
+    for prefix, n in (("", N), ("line_", L)):
+        m0 = torch.full((B, n), -1, dtype=torch.long)
+        m0[:, : n // 3] = torch.arange(n // 3)
+        m1 = torch.full((B, n), -1, dtype=torch.long)
+        m1[:, : n // 3] = torch.arange(n // 3)
+        ass = torch.zeros(B, n, n, dtype=torch.bool)
+        ass[:, torch.arange(n // 3), torch.arange(n // 3)] = True
+        data.update({f"gt_{prefix}matches0": m0, f"gt_{prefix}matches1": m1, f"gt_{prefix}assignment": ass})
+    out = {}
+    for name, model, d in (("cpu", cpu_model, data),
+                           ("card", card_model, {k: v.to(dev) for k, v in data.items()})):
+        _, losses, _ = model.forward_with_loss(d, train=True)
+        losses["total"].mean().backward()
+        out[name] = (float(losses["total"].mean().detach()),
+                     {n: p.grad.cpu() for n, p in model.named_parameters()},
+                     {n: b.cpu() for n, b in model.named_buffers() if "running" in n})
+    loss, grads, stats = out["cpu"]
+    assert abs(out["card"][0] - loss) <= 1e-4 * abs(loss)
+    norm = torch.linalg.vector_norm(torch.stack([t.norm() for t in grads.values()]))
+    for n, t in grads.items():
+        assert (out["card"][1][n] - t).abs().max() <= 1e-3 * norm, n
+    for n, t in stats.items():
+        assert torch.allclose(out["card"][2][n], t, rtol=1e-4, atol=1e-4), n

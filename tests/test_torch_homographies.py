@@ -14,7 +14,8 @@
   against cv2's drawing);
 - `collate` and the loader's item order (shuffled from `conf.seed`);
 - the options that are not ported raise `NotImplementedError`; `lg`,
-  `dark` and `load_features` keep `H_0to1` bit-equal to JAX's.
+  `dark`, `load_features` and `detect_lines` keep `H_0to1` bit-equal to
+  JAX's, and `detect_lines` gives each view the JAX package's wireframe.
 """
 
 import numpy as np
@@ -146,17 +147,18 @@ def test_view_options(options):
 @pytest.mark.parametrize("override,error", [
     ({"photometric": {"name": "lg"}}, None), ({"photometric": {"name": "dark"}}, None),
     ({"synthetic_images": 0}, FileNotFoundError), ({"load_features": {"do": True}}, None),
-    ({"detect_lines": {"do": True}}, NotImplementedError), ({"emit_source": True}, NotImplementedError),
+    ({"detect_lines": {"do": True}}, None), ({"emit_source": True}, NotImplementedError),
 ], ids=["lg", "dark", "folders", "load_features", "detect_lines", "emit_source"])
 def test_not_ported_options_raise(override, error, monkeypatch, tmp_path):
-    """`detect_lines` and `emit_source` raise NotImplementedError. The
-    photometric families `lg` and `dark` are ported: they draw from the
-    item's generator as JAX's do, so the next view's homography and
-    `H_0to1` stay bit-equal to JAX's. `load_features` is ported (a cache
-    of every procedural image, keyed by its index in both packages), and
-    draws nothing. Image folders are ported: without `synthetic_images`
-    the dataset lists DATA_PATH/revisitop1m/jpg, absent here, and raises
-    FileNotFoundError as JAX's does."""
+    """`emit_source` raises NotImplementedError; every other option here is
+    ported. The photometric families `lg` and `dark` draw from the item's
+    generator as JAX's do, so the next view's homography and `H_0to1` stay
+    bit-equal to JAX's. `load_features` (a cache of every procedural image,
+    keyed by its index in both packages) and `detect_lines` draw nothing;
+    `detect_lines` adds each view's seven wireframe keys, equal to JAX's
+    (`assert_wireframes_equal`). Image folders are ported: without
+    `synthetic_images` the dataset lists DATA_PATH/revisitop1m/jpg, absent
+    here, and raises FileNotFoundError as JAX's does."""
     from gluefactory_tpu_torch.data import homographies
     from gluefactory_tpu_torch.utils.hdf5_write import H5Writer
 
@@ -177,6 +179,50 @@ def test_not_ported_options_raise(override, error, monkeypatch, tmp_path):
     theirs = JaxHomographyDataset({**CONF, **override}).get_dataset("train")
     for i in (0, 5):
         np.testing.assert_array_equal(ours[i]["H_0to1"], theirs[i]["H_0to1"])
+        if "detect_lines" in override:
+            for v in ("view0", "view1"):
+                assert_wireframes_equal(ours[i][v], theirs[i][v])
+
+
+WIREFRAME_KEYS = ("lines", "line_scores", "line_mask", "junctions", "junc_scores", "junc_mask",
+                  "lines_junc_idx")
+
+
+def assert_wireframes_equal(ours: dict, theirs: dict, min_lines: int = 3):
+    """A view's seven wireframe keys against the JAX package's (each runs
+    its own LSD: the port's C++, cv2 in JAX): masks and junction indices
+    exactly, with their dtypes; lines and junctions within 1e-3 px, scores
+    within 1e-5; at least `min_lines` lines."""
+    for k in WIREFRAME_KEYS:
+        assert ours[k].dtype == theirs[k].dtype and ours[k].shape == theirs[k].shape, k
+        if ours[k].dtype.kind in "biu":
+            np.testing.assert_array_equal(ours[k], theirs[k], err_msg=k)
+        else:
+            atol = 1e-3 if k in ("lines", "junctions") else 1e-5
+            np.testing.assert_allclose(ours[k], theirs[k], atol=atol, rtol=0, err_msg=k)
+    assert ours["line_mask"].sum() >= min_lines
+
+
+@pytest.mark.parametrize("grayscale", [False, True], ids=["rgb", "grayscale"])
+def test_detect_lines_equal_jax(grayscale):
+    """`detect_lines` at the training configs' settings (250 lines, min
+    length 15, nms radius 4) on 320 x 240 patches with `dark` photometry,
+    in colour and in grey (a one-channel view goes to the LSD as
+    `(img[..., 0] * 255).astype(uint8)` in both packages): each view's
+    wireframe equal to JAX's, the images within the photometry's bound and
+    `H_0to1` bit-equal (the precompute draws nothing)."""
+    conf = {**CONF, "source_size": [400, 300], "grayscale": grayscale,
+            "homography": {**CONF["homography"], "patch_shape": [320, 240]},
+            "photometric": {"name": "dark"},
+            "detect_lines": {"do": True, "max_num_lines": 250, "min_length": 15, "nms_radius": 4}}
+    ours = HomographyDataset(conf).get_dataset("train")
+    theirs = JaxHomographyDataset(conf).get_dataset("train")
+    for i in (1, 4):
+        a, b = ours[i], theirs[i]
+        np.testing.assert_array_equal(a["H_0to1"], b["H_0to1"])
+        for v in ("view0", "view1"):
+            assert a[v]["image"].shape == (240, 320, 1 if grayscale else 3)
+            assert_wireframes_equal(a[v], b[v], min_lines=10)
 
 
 def test_raster_against_cv2():
@@ -214,3 +260,56 @@ def test_raster_against_cv2():
             bad[kind] += int((a != b).sum())
     assert bad["rect"] == 0 and bad["circle"] == 0, bad
     assert bad["poly"] <= 1e-5 * filled, (bad, filled)
+
+
+# run in a process of its own that imports no JAX (the loader's workers are
+# forked, as in training)
+LOADER = """
+import json, sys
+import torch
+from gluefactory_tpu_torch.data import base_dataset
+from gluefactory_tpu_torch.data.homographies import HomographyDataset
+from gluefactory_tpu_torch.models.lines import lsd
+
+conf, keys = json.loads(sys.argv[1]), json.loads(sys.argv[2])
+batches, detections = {}, {}
+for workers in (0, 2):
+    before = lsd.detections
+    loader = HomographyDataset({**conf, "num_workers": workers}).get_data_loader("train")
+    batches[workers] = [base_dataset.prepare_batch(b, "cpu") for b in loader]
+    detections[workers] = lsd.detections - before
+out = {"detections": detections, "batches": [len(batches[0]), len(batches[2])], "dtypes": {},
+       "unequal": [], "lines": sum(int(b["view0"]["line_mask"].sum()) for b in batches[2])}
+for a, b in zip(batches[0], batches[2]):
+    for v in ("view0", "view1"):
+        out["dtypes"] = {k: str(b[v][k].dtype) for k in keys}
+        out["shape"] = list(b[v]["lines"].shape)
+        out["unequal"] += [(v, k) for k in keys + ["image"] if not torch.equal(a[v][k], b[v][k])]
+    if not torch.equal(a["H_0to1"], b["H_0to1"]):
+        out["unequal"].append("H_0to1")
+print("RESULT " + json.dumps(out))
+"""
+
+
+def test_wireframes_through_the_loader():
+    """`detect_lines` in 2 loader workers: the wireframe keys batched with
+    their dtypes (junction indices int32, masks bool, floats float32) by
+    `prepare_batch`, equal to the batches of `num_workers=0`; the workers
+    run the LSD, the main process none."""
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    conf = {**CONF, "batch_size": 2, "detect_lines": {"do": True, "min_length": 10}}
+    res = subprocess.run([sys.executable, "-c", LOADER, json.dumps(conf), json.dumps(list(WIREFRAME_KEYS))],
+                         cwd=Path(__file__).resolve().parents[1], capture_output=True, text=True,
+                         timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+    out = json.loads(res.stdout.split("RESULT ", 1)[1])
+    assert out["detections"] == {"0": 16, "2": 0} and out["batches"] == [4, 4]
+    assert out["dtypes"] == {"lines": "torch.float32", "line_scores": "torch.float32",
+                             "line_mask": "torch.bool", "junctions": "torch.float32",
+                             "junc_scores": "torch.float32", "junc_mask": "torch.bool",
+                             "lines_junc_idx": "torch.int32"}
+    assert out["shape"] == [2, 250, 2, 2] and out["unequal"] == [] and out["lines"] > 10

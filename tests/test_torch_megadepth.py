@@ -32,6 +32,7 @@ from gluefactory_tpu_torch.data.hdf5 import read_dataset
 from gluefactory_tpu_torch.scripts import make_scene_lists as tscript
 from gluefactory_tpu_torch.scripts_dev.posed_scenes import write_megadepth_scene
 from gluefactory_tpu_torch.utils import tools
+from test_torch_homographies import assert_wireframes_equal
 
 SCENES = ["0001", "0002", "0003", "0004"]
 N_VIEWS = 8
@@ -210,14 +211,31 @@ def test_batches_through_the_loader(both, md_root):
 
 
 def test_not_ported_options_raise(both):
-    """`detect_lines` raises; `load_features` is ported: both packages
-    build their cache loader from it (`tests/test_torch_cached_features.py`
-    holds the items)."""
+    """`load_features` and `detect_lines` are ported. Both packages build
+    their cache loader from `load_features`
+    (`tests/test_torch_cached_features.py` holds the items). `detect_lines`
+    gives each view the JAX package's seven wireframe keys, computed on the
+    processed image (resized, square-padded, rotated), each package with
+    its own LSD (`assert_wireframes_equal`); without `read_image` there are
+    none, as in JAX."""
     jax_items, items = both({"train_split": ["0001"], "train_num_per_scene": 2,
                              "load_features": {"do": True, "path": "c/{scene}.h5"}})
     assert items.feature_loader.conf.path == jax_items.feature_loader.conf.path == "c/{scene}.h5"
-    with pytest.raises(NotImplementedError, match="wireframe"):
-        get_dataset("megadepth")({"detect_lines": {"do": True}})
+    conf = {"train_split": ["0001", "0002"], "train_num_per_scene": 3, "p_rotate": 0.5,
+            "preprocessing": {"resize": 60, "side": "long", "square_pad": True},
+            "detect_lines": {"do": True, "max_num_lines": 40, "min_length": 8, "nms_radius": 3}}
+    jax_items, items = both(conf)
+    assert items.items == jax_items.items
+    n_lines = 0
+    for i in range(len(items.items)):
+        ours, theirs = items.getitem(i), jax_items.getitem(i)
+        for v in ("view0", "view1"):
+            assert ours[v]["image"].shape == (60, 60, 3)
+            assert_wireframes_equal(ours[v], theirs[v], min_lines=1)
+            n_lines += int(ours[v]["line_mask"].sum())
+    assert n_lines >= 50
+    _, no_images = both({**conf, "read_image": False})
+    assert "lines" not in no_images.getitem(0)["view0"]
 
 
 def test_scene_lists_are_upstreams():
