@@ -73,7 +73,7 @@ Phases, in order; any failure exits non-zero before the last line:
    validation batch, the last checkpoint reloaded bit-equal by `--restore`,
    one train step through the kernels against the plain versions (loss and
    the matcher's gradient norm within 1e-3 relative); then ms a step and
-   samples/s (CUDA events over 5 steps after 2 warm-ups), the device busy
+   samples/s (CUDA events over 3 steps after 2 warm-ups), the device busy
    share and peak memory, each attention kernel at the training shapes in
    f32 (forward, and forward + backward, against SDPA), and whether one step
    at the published batch of 128 fits; the loader's samples/s with `lg` (6
@@ -108,15 +108,15 @@ Phases, in order; any failure exits non-zero before the last line:
 11. path G, the MegaDepth-1500 benchmark (run after path F, before phase
    8): 2 procedural posed scenes (textured planes ray cast,
    `gluefactory_tpu_torch/scripts_dev/posed_scenes.py`; 1920 x 1440 JPEGs
-   and 16-bit PNG depths, one PINHOLE and one SIMPLE_RADIAL scene, 8 pairs
+   and 16-bit PNG depths, one PINHOLE and one SIMPLE_RADIAL scene, 4 pairs
    each) written under `outputs/chip_smoke_megadepth1500/`, then
    `gluefactory_tpu_torch.eval.megadepth1500.main` in process on
    `superpoint+lightglue-official`'s megadepth1500 section at full width
    (SuperPoint 2048 keypoints, nms 3, LightGlue-9 dense, filter 0.1, f32,
    1600 on the long side) with `eval.estimator=xla_ransac`, `ransac_th
    0.5`, `data.depth_format=png` and random weights drawn as path F draws
-   them, but on the CPU and centred on one of the path's views; cut to 16
-   pairs of 1500. Gates: 16 cached items with the export keys, 9 + 9
+   them, but on the CPU and centred on one of the path's views; cut to 8
+   pairs of 1500. Gates: 8 cached items with the export keys, 9 + 9
    attention launches a pair, every RANSAC tensor on the card, finite
    epipolar, reprojection and GT-match metrics and AUC@5/10/20 degrees;
    runs through the plain versions and grouped by 4 against the per-item
@@ -199,7 +199,7 @@ Phases, in order; any failure exits non-zero before the last line:
    widths (SuperPoint 1000 keypoints at threshold 0, frozen, drawn as path
    L draws it; 250 LSD lines in the loader's 6 workers; GlueStick-9 256
    wide, `inter_supervision` [2, 5], checkpointed; f32, `dark`; nodes 2 x
-   250 junction slots + 1000 keypoints), 4 steps at batch 32 and one
+   250 junction slots + 1000 keypoints), 2 steps at batch 32 and one
    validation batch; then `superpoint+lsd+gluestick-megadepth` on path H's
    scenes (1024 square-padded, `depth_matcher` with lines on the card),
    warm-started from stage 1, 2 steps at batch 16 and one validation
@@ -215,7 +215,29 @@ Phases, in order; any failure exits non-zero before the last line:
    without lines and the LSD's ms an image in the workers, and the
    attention's forward and forward + backward against its bound, the
    plain version and SDPA. Path M alone: `phase_device`, `phase_build`,
-   `write_stage2_data(S2_ROOT)`, `phase_gluestick_training`.
+   `write_stage2_data(S2_ROOT)`, `phase_gluestick_training`;
+18. path N, the learned-extractor zoo (run after path M, before phase 8),
+   each config by name with random weights drawn as path F's (the
+   descriptor head centred on one scene by `centre_descriptors`): N1
+   `aliked+lightglue-official` and N2 `disk+lightglue-official` at their
+   megadepth1500 widths (ALIKED-n16 / DISK, 2048 keypoints, LightGlue-9
+   with input_dim 128, f32) on one procedural 1600 x 1200 pair: 9 + 9
+   attention launches a forward, wall and device ms, the extractor alone,
+   the plain versions' forward within 1e-3 on the log assignment, both
+   attention kernels at the forward's layout against their bound and SDPA;
+   N3 the HPatches CLI on `aliked+lightglue-official` (1024 keypoints,
+   `xla_ransac`) on path F's v_ pairs: launches, the RANSAC on the card,
+   finite AUCs; N4 `train.main` on `aliked+lightglue_homography` and
+   `superpoint-open+lightglue_homography` (batch 32, 2 steps, one
+   validation batch): finite losses, applied updates, 18 + 18 launches a
+   step and 9 + 9 a validation batch, and the frozen extractor's running
+   statistics moving at every step where flax normalises by the batch
+   (all of ALIKED's; the open SuperPoint's but its 1x1 heads'), unmoved by
+   the validation batch and held by the checkpoint; ms a step (each step
+   synchronised, host clock) and peak memory. On every call of the
+   extractor: outputs finite, descriptors unit-norm, keypoints inside
+   `image_size`. Path N alone: `phase_device`, `phase_build`,
+   `write_hpatches(HPATCHES_ROOT)`, `phase_zoo`.
 
 Each path resets every launch count just before its timed run and reads
 them just after. Prints each phase's seconds, the script's, the kernel JSON line, the card
@@ -1501,7 +1523,7 @@ def phase_serving(device_info: dict, batch: dict) -> dict:
 # --------------------------------------------------------------------------
 
 TRAIN_YAML = "gluefactory_tpu_torch/configs/superpoint+lightglue_homography.yaml"
-TRAIN_BATCH, TRAIN_STEPS, VAL_BATCHES, TIMED_STEPS, WARMUP_STEPS = 32, 4, 2, 5, 2
+TRAIN_BATCH, TRAIN_STEPS, VAL_BATCHES, TIMED_STEPS, WARMUP_STEPS = 32, 4, 2, 3, 2
 PUBLISHED_BATCH = 128
 TRAIN_EXPERIMENT = "chip_smoke_path_e"
 # the run's cuts of the published recipe, printed and recorded
@@ -2122,12 +2144,8 @@ def benchmark_weights(path: Path, device, benchmark: str = "hpatches", view: dic
         if view is None:
             view = ImagePreprocessor({"resize": 480, "side": "short"})(
                 generate_synthetic_image(6999, HPATCHES_SIZE))
-        sp, out = getattr(model.extractor, "point_extractor", model.extractor), {}
-        hook = sp.convDb.register_forward_hook(lambda mod, i, o: out.setdefault("desc", o))
-        sp({"image": torch.from_numpy(view["image"][None]).to(device),
-            "image_size": torch.from_numpy(view["image_size"][None]).to(device)})
-        hook.remove()
-        sp.convDb.bias.sub_(out["desc"].mean(dim=(0, 2, 3)))
+        sp = getattr(model.extractor, "point_extractor", model.extractor)
+        centre_descriptors(sp, view, device)
         if hasattr(model.matcher, "line_bin_score"):
             gluestick_pass_through(model.matcher)
         elif hasattr(model.matcher, "gnn"):
@@ -2135,6 +2153,42 @@ def benchmark_weights(path: Path, device, benchmark: str = "hpatches", view: dic
     torch.save(model.state_dict(), path)
     return {"seed": 0, "init": "lecun-normal, zero biases, descriptor head centred on one scene",
             "keypoints": sp.conf.max_num_keypoints}
+
+
+def centre_descriptors(extractor, view: dict, device) -> None:
+    """Shift the extractor's descriptor head by minus its mean response on
+    `view` (a processed view: image, image_size), so that random weights do
+    not give every descriptor one direction: the vanilla SuperPoint's
+    `convDb` bias; the open SuperPoint's last descriptor BatchNorm's bias
+    (that head normalises by its running statistics in both modes); DISK's
+    last conv's descriptor biases; ALIKED's head has no bias, so each
+    `agg_weights[m]` loses the direction of the mean of the features it
+    aggregates, which makes the mean descriptor (before its norm) zero."""
+    data = {"image": torch.from_numpy(view["image"][None]).to(device),
+            "image_size": torch.from_numpy(view["image_size"][None]).to(device)}
+    out = {}
+    if hasattr(extractor, "desc_head"):  # ALIKED
+        head = extractor.desc_head
+        hook = head.register_forward_pre_hook(lambda mod, args: out.setdefault("inputs", args))
+        extractor(data)
+        hook.remove()
+        mu = head.sample_features(*out["inputs"]).mean(dim=(0, 1))  # (M, C)
+        proj = torch.einsum("mc,mcd->md", mu, head.agg_weights)
+        head.agg_weights.sub_(mu[:, :, None] * proj[:, None, :] / (mu * mu).sum(-1)[:, None, None])
+        return
+    if hasattr(extractor, "unet"):  # DISK
+        D = extractor.conf.desc_dim
+        hook = extractor.unet.register_forward_hook(lambda mod, i, o: out.setdefault("desc", o[:, :D]))
+        bias = extractor.unet.path_up[-1].conv[-1].bias[:D]
+    elif hasattr(extractor, "descriptor"):  # SuperPoint, open
+        hook = extractor.descriptor[1].register_forward_hook(lambda mod, i, o: out.setdefault("desc", o))
+        bias = extractor.descriptor[1].bn.bias
+    else:
+        hook = extractor.convDb.register_forward_hook(lambda mod, i, o: out.setdefault("desc", o))
+        bias = extractor.convDb.bias
+    extractor(data)
+    hook.remove()
+    bias.sub_(out["desc"].mean(dim=(0, 2, 3)))
 
 
 SG_PASS_SCALE, SG_UPDATE_SCALE = 16.0, 0.1
@@ -2474,7 +2528,7 @@ def phase_hpatches(device_info: dict) -> dict:
 # DATA_PATH of the run; the posed-images layout is written under it
 MD_ROOT = ROOT / "outputs" / "chip_smoke_megadepth1500"
 MD_SCENES = [("scene0", "PINHOLE", 0), ("scene1", "SIMPLE_RADIAL", 1)]  # (scene, camera, seed)
-MD_VIEWS, MD_PAIRS_PER_SCENE = 7, 8
+MD_VIEWS, MD_PAIRS_PER_SCENE = 5, 4
 MD_SIZE = (1920, 1440)  # (w, h): resized to 1600 on the long side by `area`, depths by `nearest`
 MD_PAIRS = MD_PAIRS_PER_SCENE * len(MD_SCENES)
 MD_REDUCED = {
@@ -3447,7 +3501,7 @@ K_EXPERIMENT = "chip_smoke_path_k"
 K_MATCHER = {"name": "superglue", "descriptor_dim": DIM, "keypoint_encoder": [32, 64, 128, 256],
              "n_layers": LAYERS, "num_heads": HEADS, "sinkhorn_iterations": SINKHORN_ITERS,
              "filter_threshold": 0.2, "checkpointed": True}
-K_STEPS, K_VAL_BATCHES, K_TIMED_STEPS, K_TRIPLET_BATCH = 4, 1, 4, 8
+K_STEPS, K_VAL_BATCHES, K_TIMED_STEPS, K_TRIPLET_BATCH = 4, 1, 2, 8
 # a train step: 36 attention calls forward and 36 in the checkpoints'
 # recompute, one Sinkhorn (its backward is the plain loop's gradient); a
 # validation batch: 36 and one
@@ -3939,8 +3993,8 @@ def phase_lines(device_info: dict) -> dict:
 M_CONFIGS = ("superpoint+lsd+gluestick-homography", "superpoint+lsd+gluestick-megadepth")
 M_ROOT = ROOT / "outputs" / "chip_smoke_path_m"
 M_EXPERIMENTS = ("chip_smoke_path_m1", "chip_smoke_path_m2")
-M_BATCH, M_STEPS, M_WORKERS, M_TIMED_STEPS, M_VAL_BATCH = 32, 4, 6, 4, 8
-M2_BATCH, M2_PER_SCENE, M2_VAL_BATCH, M2_TIMED_STEPS = 16, 12, S2_VAL_BATCH, 4
+M_BATCH, M_STEPS, M_WORKERS, M_TIMED_STEPS, M_VAL_BATCH = 32, 2, 6, 2, 8
+M2_BATCH, M2_PER_SCENE, M2_VAL_BATCH, M2_TIMED_STEPS = 16, 12, S2_VAL_BATCH, 2
 M2_STEPS = len(S2_TRAIN_SCENES) * M2_PER_SCENE // M2_BATCH
 M_NODES = 2 * 250 + 1000  # the configs' junction slots, then their keypoints
 # a train step: GlueStick-9's 36 attention calls forward and 36 in the
@@ -4251,6 +4305,292 @@ def phase_gluestick_training(device_info: dict) -> dict:
     return res
 
 
+# --------------------------------------------------------------------------
+# 18. path N: the learned-extractor zoo (ALIKED, DISK, SuperPoint-open)
+#     with LightGlue, by config name
+# --------------------------------------------------------------------------
+
+N_ROOT = ROOT / "outputs" / "chip_smoke_path_n"
+N_FORWARD = (("N1", "aliked+lightglue-official"), ("N2", "disk+lightglue-official"))
+N_HPATCHES = "aliked+lightglue-official"
+N_TRAIN = (("N4a", "aliked+lightglue_homography", "chip_smoke_path_n4a"),
+           ("N4b", "superpoint-open+lightglue_homography", "chip_smoke_path_n4b"))
+N_SIZE = (1600, 1200)  # (w, h): MegaDepth-1500's resize, 1600 on the long side
+N_TIMED = 5  # timed forwards of N1 / N2, after one warm-up
+N_STEPS, N_WORKERS = 2, 6
+N_TOL = 1e-3  # kernels vs plain versions on the log assignment, f32
+N_REDUCED = {
+    "N1 / N2": f"the configs' megadepth1500 sections at their widths (2048 keypoints at threshold 0, "
+               f"LightGlue-9 256 wide, 4 heads, input_dim 128, f32) on one procedural {N_SIZE[0]} x "
+               f"{N_SIZE[1]} pair (a scene and its warp) for MegaDepth-1500's 1500",
+    "N3": f"{N_HPATCHES}'s hpatches section (1024 keypoints, xla_ransac) on path F's "
+          f"{5 * sum(s.startswith('v') for s in HPATCHES_SEQUENCES)} procedural v_ pairs for 540",
+    "N4": f"{N_TRAIN[0][1]} and {N_TRAIN[1][1]} at their widths (512 keypoints, frozen extractor, "
+          f"LightGlue-9 checkpointed, f32, lg photometry): procedural images for revisitop1m, batch "
+          f"{TRAIN_BATCH} for 128, {N_WORKERS} workers for 14, {N_STEPS} steps and one validation batch",
+    "weights": "random from seed 0 as path F draws them (lecun-normal, zero biases, the descriptor head "
+               "centred on one scene: `centre_descriptors`); no official checkpoint is on disk",
+}
+
+
+def _n_views():
+    """A procedural 1600 x 1200 scene and its view through a homography."""
+    from gluefactory_tpu_torch.data.homographies import generate_synthetic_image, warp_patch
+
+    base = generate_synthetic_image(7200, N_SIZE).astype(np.float32)
+    H = np.array([[0.98, 0.04, 25.0], [-0.03, 1.01, -18.0], [2e-5, -1e-5, 1.0]])
+    return base, np.clip(warp_patch(base, H, N_SIZE), 0, 1).astype(np.float32)
+
+
+def _zoo_record(self, data, out) -> dict:
+    """One extractor call's gates: outputs finite, descriptors unit-norm,
+    keypoints inside `image_size` (the image's size without it)."""
+    kp, desc = out["keypoints"], out["descriptors"]
+    size = data.get("image_size")
+    if size is None:
+        h, w = data["image"].shape[1:3]
+        size = torch.tensor([[w, h]], dtype=torch.float32, device=kp.device).expand(kp.shape[0], 2)
+    finite = all(bool(torch.isfinite(t).all()) for t in (kp, desc, out["keypoint_scores"]))
+    return {"finite": finite, "norm_err": float((desc.float().norm(dim=-1) - 1).abs().max()),
+            "inside": bool(((kp >= 0) & (kp <= size.to(kp.dtype)[:, None, :])).all()),
+            "valid": int(out["keypoint_mask"].sum()), "keypoints": list(kp.shape)}
+
+
+def _check_zoo_records(label: str, records: list) -> None:
+    if not records or not all(r["finite"] and r["inside"] and r["norm_err"] <= 1e-3 for r in records):
+        fail(f"{label}: extractor outputs not finite, not unit-norm or outside the image: {records[:4]}")
+
+
+def _n_forward(label: str, config: str, views, device_info: dict) -> dict:
+    """N1 / N2: the config's megadepth1500 model (by name, random weights)
+    on one pair through the pipeline's entry point: launches counted around
+    one forward, wall ms (CUDA events over N_TIMED forwards) and device ms
+    (profile), the extractor alone, the plain versions' forward against the
+    kernels' (N_TOL on the log assignment, the matches' agreement), and
+    both attention kernels at the forward's layout against their bound and
+    SDPA."""
+    from gluefactory_tpu_torch.core.config import from_yaml
+    from gluefactory_tpu_torch.eval.io import extract_benchmark_conf, load_model
+
+    card = device_info["nvidia_smi"]
+    dev = torch.device(DEVICE)
+    img0, img1 = views
+    view = {"image": img0, "image_size": np.array(N_SIZE, np.float32)}
+    weights = N_ROOT / f"{label}.pth"
+    res = {"config": config, "weights": benchmark_weights(weights, DEVICE, "megadepth1500", view=view,
+                                                          draw_device="cpu", config=config)}
+    conf = extract_benchmark_conf(from_yaml(str(ROOT / f"gluefactory_tpu_torch/configs/{config}.yaml")),
+                                  "megadepth1500")
+    model = load_model(merge(conf.model, {"weights_file": str(weights)}), None, dev)
+    batch = _l_batch(img0, img1, dev)
+    forward = pipeline_forward(model, batch, torch.Generator(device=dev))
+    records = []
+    ext_cls = type(model.extractor)
+    with recorded_forward(ext_cls, records, _zoo_record):
+        reset_all_launches()
+        with torch.no_grad():
+            pred = forward()
+            torch.cuda.synchronize()
+        _check_launches(f"path N {label}", all_launches(), MAIN_LAUNCHES)
+    _check_zoo_records(f"path N {label}", records)
+    for k, t in pred.items():
+        if t.is_floating_point() and not torch.isfinite(t).all():
+            fail(f"path N {label}: {k} is not finite")
+    K = int(conf.model.extractor.max_num_keypoints)
+    if list(pred["keypoints0"].shape) != [1, K, 2] or pred["descriptors0"].shape[-1] != 128:
+        fail(f"path N {label}: keypoints {list(pred['keypoints0'].shape)}, descriptors "
+             f"{list(pred['descriptors0'].shape)}")
+    with torch.no_grad():
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(N_TIMED):
+            forward()
+        end.record()
+        torch.cuda.synchronize()
+        wall_ms = start.elapsed_time(end) / N_TIMED
+        stacked = {k: torch.cat([batch["view0"][k], batch["view1"][k]]) for k in ("image", "image_size")}
+        ext_ms = cuda_time_ms(lambda: model.extractor(stacked), reps=3)
+    prof = profile_forward(forward)
+    set_flash(model, False)
+    reset_all_launches()
+    with torch.no_grad():
+        plain = forward()
+    set_flash(model, True)
+    _check_launches(f"path N {label} plain", all_launches(), {})
+    valid = (plain["log_assignment"] > -1e6) & (pred["log_assignment"] > -1e6)
+    gap = float((plain["log_assignment"] - pred["log_assignment"])[valid].abs().max())
+    agreement = float((plain["matches0"] == pred["matches0"]).float().mean())
+    if not gap <= N_TOL:
+        fail(f"path N {label}: kernels vs plain versions {gap} > {N_TOL}")
+    res.update({
+        "image": [N_SIZE[1], N_SIZE[0]], "keypoints": K, "launches": MAIN_LAUNCHES,
+        "wall_ms": wall_ms, "device_ms": prof["device_ms"],
+        "busy_share": prof["device_ms"] / wall_ms if prof["device_ms"] else None,
+        "extractor_ms_two_views": ext_ms, "attention_kernel_ms": prof["attention_kernel_ms"],
+        "vs_plain": {"log_assignment_max_abs_err": gap, "tol": N_TOL, "matches0_agreement": agreement},
+        "matches": int((pred["matches0"] >= 0).sum()),
+        "valid_keypoints": [int(pred[f"keypoint_mask{i}"].sum()) for i in "01"],
+        "extractor_gates": records[0], "top_kernels": prof["top"][:8], "card": card})
+    print(f"path N {label} {config}: {json.dumps({k: v for k, v in res.items() if k != 'top_kernels'})}",
+          flush=True)
+    del model, pred, plain
+    torch.cuda.empty_cache()
+    res["attention"] = attention_at_shapes(dev, torch.float32, K, 1, f"path N {label}", backward=False)
+    return res
+
+
+def _n_hpatches(device_info: dict) -> dict:
+    """N3: the HPatches CLI on `aliked+lightglue-official` by name with
+    `xla_ransac` on path F's v_ sequences: 9 + 9 launches a pair, the
+    RANSAC on the card, the extractor's gates on every call, finite AUCs."""
+    import gluefactory_tpu_torch.settings as tsettings
+
+    weights = N_ROOT / "N3.pth"
+    res = {"weights": benchmark_weights(weights, DEVICE, draw_device="cpu", config=N_HPATCHES)}
+    n_pairs = 5 * sum(s.startswith("v") for s in HPATCHES_SEQUENCES)
+    records = []
+    data_path, tsettings.DATA_PATH = tsettings.DATA_PATH, HPATCHES_ROOT
+    try:
+        with recorded_forward(get_model("aliked"), records, _zoo_record):
+            h = run_hpatches(["--conf", N_HPATCHES, "eval.estimator=xla_ransac", "data.subset=v",
+                              f"model.weights_file={weights}", "--tag", "chip_smoke_zoo", "--overwrite"])
+    finally:
+        tsettings.DATA_PATH = data_path
+    _check_launches("path N3", h["launches"], {k: n_pairs * n for k, n in MAIN_LAUNCHES.items()})
+    _check_zoo_records("path N3", records)
+    if {r["keypoints"][1] for r in records} != {1024}:
+        fail(f"path N3: the extractor gave {[r['keypoints'] for r in records][:2]} keypoints, expected 1024")
+    calls = h["ransac_calls"]
+    if not calls or any(c["devices"] != [str(torch.empty(0, device=DEVICE).device)] for c in calls):
+        fail(f"path N3: the RANSAC ran on {[c['devices'] for c in calls][:2]}, expected the card")
+    aucs = [f"H_error_{k}@{t}px" for k in ("dlt", "ransac") for t in (1, 3, 5)]
+    res.update({"summaries": _finite_summaries("path N3", h["summaries"], aucs), "pairs": n_pairs,
+                "launches": h["launches"], "seconds": h["seconds"],
+                "export_pairs_per_s": n_pairs / h["seconds"]["get_predictions"],
+                "ransac_ms_per_call": float(np.mean([c["ms"] for c in calls])),
+                "matches_per_pair": float(np.mean(h["results"]["num_matches"])),
+                "extractor_calls": len(records), "card": device_info["nvidia_smi"]})
+    print(f"path N3 HPatches {N_HPATCHES}: {json.dumps(res)}", flush=True)
+    return res
+
+
+def n_argv(config: str, experiment: str) -> list:
+    return [experiment, "--conf", config, "--no_tensorboard", "--no_capture", "--max_val_iters", "1",
+            f"data.synthetic_images={TRAIN_BATCH * (N_STEPS + 1)}", f"data.train_size={TRAIN_BATCH * N_STEPS}",
+            f"data.val_size={TRAIN_BATCH}", f"data.batch_size={TRAIN_BATCH}",
+            f"data.num_workers={N_WORKERS}", "train.epochs=1", "train.log_every_iter=1",
+            "train.eval_every_iter=1000000"]
+
+
+def _running_stats(module) -> dict:
+    return {n: b.detach().clone() for n, b in module.named_buffers() if "running" in n}
+
+
+def _n_training(label: str, config: str, experiment: str, device_info: dict) -> dict:
+    """N4: `train.main` on a stage-1 config by name, the extractor's drawn
+    weights loaded when its TrainStep is made; the extractor's outputs
+    gated on every call and its running statistics read after each step.
+    Gates: the steps' losses finite, every update applied, 18 + 18 launches
+    and 9 + 9 for the validation batch; the frozen extractor's BatchNorm as
+    in the JAX trainer (`make_train_step` keeps the mutated batch_stats):
+    every statistic of a BatchNorm that normalises by the batch in training
+    moves at every step (all of ALIKED's; the open SuperPoint's but its two
+    1x1 heads', which keep their running statistics), the validation batch
+    moves none, and the last checkpoint holds them. Also ms a step (each
+    step synchronised) and the run's peak memory."""
+    from gluefactory_tpu_torch import train
+    from gluefactory_tpu_torch.settings import TRAINING_PATH
+    from gluefactory_tpu_torch.utils.experiments import get_last_checkpoint, load_checkpoint
+
+    shutil.rmtree(Path(TRAINING_PATH, experiment), ignore_errors=True)
+    weights = N_ROOT / f"{label}.pth"
+    res = {"config": config, "weights": benchmark_weights(weights, DEVICE, draw_device="cpu", config=config)}
+    ext_state = {k[len("extractor."):]: v for k, v in torch.load(weights, map_location=DEVICE).items()
+                 if k.startswith("extractor.")}
+    init, call = train.TrainStep.__init__, train.TrainStep.__call__
+    stats, step_ms = [], []
+
+    def with_extractor(self, model, *args, **kwargs):
+        init(self, model, *args, **kwargs)
+        model.extractor.load_state_dict(ext_state)
+        stats.append(_running_stats(model.extractor))
+
+    def recorded(self, batch, generator=None):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = call(self, batch, generator)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        stats.append(_running_stats(self.model.extractor))
+        return out
+
+    records, argv = [], n_argv(config, experiment)
+    torch.cuda.reset_peak_memory_stats()
+    train.TrainStep.__init__, train.TrainStep.__call__ = with_extractor, recorded
+    try:
+        ext_cls = get_model(config.split("+")[0].replace("-", "_"))
+        with recorded_forward(ext_cls, records, _zoo_record):
+            steps, seconds, launches, model = run_trainer(argv)
+    finally:
+        train.TrainStep.__init__, train.TrainStep.__call__ = init, call
+    _check_launches(f"path {label}", launches, {k: N_STEPS * n + VAL_LAUNCHES[k]
+                                                for k, n in STEP_LAUNCHES.items()})
+    _check_zoo_records(f"path {label}", records)
+    if len(steps) != N_STEPS or len(records) != N_STEPS + 1:
+        fail(f"path {label}: {len(steps)} steps and {len(records)} extractor calls")
+    losses = [{k: float(v) for k, v in r[0].items()} for r in steps]
+    for i, (step_losses, (_, _, info)) in enumerate(zip(losses, steps)):
+        if not all(math.isfinite(v) for v in step_losses.values()) or not bool(info["ok"]):
+            fail(f"path {label}: step {i}: losses {step_losses}, update applied {bool(info['ok'])}")
+    by_batch = {n for n in stats[0] if not n.startswith(("detector.1.", "descriptor.1."))}
+    moved = [sorted(n for n in stats[0] if not torch.equal(stats[i][n], stats[i + 1][n]))
+             for i in range(N_STEPS)]
+    final = _running_stats(model.extractor)
+    saved = load_checkpoint(get_last_checkpoint(experiment), map_location=DEVICE)["model"]
+    kept = all(torch.equal(final[n], stats[-1][n]) and torch.equal(saved[f"extractor.{n}"], final[n])
+               for n in final)
+    if not stats[0] or any(set(m) != by_batch for m in moved) or not kept:
+        fail(f"path {label}: the frozen extractor's statistics moved {[len(m) for m in moved]} of "
+             f"{len(by_batch)} a step; kept through validation and in the checkpoint: {kept}")
+    res.update({"argv": argv, "seconds": seconds, "step_ms": step_ms,
+                "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+                "launches": launches, "losses": losses,
+                "grad_norms": [float(r[2]["grad_norm"]) for r in steps],
+                "running_stats": len(stats[0]), "moved_each_step": len(by_batch),
+                "kept_running": sorted(set(stats[0]) - by_batch),
+                "max_move": [max(float((stats[i + 1][n] - stats[i][n]).abs().max()) for n in by_batch)
+                             for i in range(N_STEPS)],
+                "extractor_gates": records[-1], "card": device_info["nvidia_smi"]})
+    print(f"path {label} {config}: {json.dumps(res)}", flush=True)
+    del model
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_zoo(device_info: dict) -> dict:
+    """Path N: the learned-extractor zoo with LightGlue by config name, cut
+    as N_REDUCED says: N1 and N2 forwards at 1600 x 1200, N3 the HPatches
+    CLI, N4 two stage-1 trainings. Needs path F's HPatches layout (written
+    here where it is missing)."""
+    t0 = time.perf_counter()
+    print(f"path N reduced: {json.dumps(N_REDUCED)}", flush=True)
+    shutil.rmtree(N_ROOT, ignore_errors=True)
+    N_ROOT.mkdir(parents=True)
+    if not (HPATCHES_ROOT / "hpatches-sequences-release").exists():
+        write_hpatches(HPATCHES_ROOT)
+    views = _n_views()
+    res = {"reduced": N_REDUCED}
+    for label, config in N_FORWARD:
+        res[label] = _n_forward(label, config, views, device_info)
+    res["N3"] = _n_hpatches(device_info)
+    for label, config, experiment in N_TRAIN:
+        res[label] = _n_training(label, config, experiment, device_info)
+    res["seconds"] = time.perf_counter() - t0
+    res["card"] = device_info["nvidia_smi"]
+    print(f"path N: {res['seconds']:.1f} s", flush=True)
+    return res
+
+
 def main() -> None:
     t0 = time.perf_counter()
     seconds = {}
@@ -4288,6 +4628,7 @@ def main() -> None:
     path_k = timed("path_k", phase_superglue_training, device_info)
     path_l = timed("path_l", phase_lines, device_info)
     path_m = timed("path_m", phase_gluestick_training, device_info)
+    path_n = timed("path_n", phase_zoo, device_info)
     kernels += timed("conv_study", phase_conv_study, device_info)  # launches from the tools' runs
     OUT_DIR.mkdir(exist_ok=True)
     record = {"device": device_info, "build": build, "kernels": kernels, "gradients": gradients,
@@ -4296,7 +4637,7 @@ def main() -> None:
               "path_d_serving": path_d, "path_e_training": path_e, "path_f_hpatches": path_f,
               "path_g_megadepth1500": path_g, "path_h_stage2": path_h, "path_i_cached": path_i,
               "path_j_benchmarks": path_j, "path_k_superglue_training": path_k,
-              "path_l_lines": path_l, "path_m_gluestick_training": path_m,
+              "path_l_lines": path_l, "path_m_gluestick_training": path_m, "path_n_zoo": path_n,
               "seconds_by_phase": seconds,
               "seconds": time.perf_counter() - t0}
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(record, indent=1))

@@ -16,8 +16,12 @@ is the inverse of `gluefactory_tpu/compat/torch_conversion.py`:
 
 LightGlue needs every per-layer head (`log_assignment_i` for each layer and
 `token_confidence_i` for all but the last), which the JAX model creates with
-`model.init(..., method="initialize")`. SuperGlue also needs the
-`batch_stats` collection (BatchNorm running mean and variance); its
+`model.init(..., method="initialize")`. SuperGlue, the open SuperPoint
+and ALIKED also need the `batch_stats` collection (BatchNorm running mean
+and variance); ALIKED, DISK and the open SuperPoint go to the official
+layouts (`aliked-n16.pth`, kornia's DISK, `superpoint_v6_from_tf.pth`),
+the inverses of `convert_aliked`, `convert_disk` and
+`convert_superpoint_open`. SuperGlue's
 attention heads go back from the JAX package's head-major channels to the
 official head-fastest packing (the inverse of `_head_permutation`). GlueStick
 likewise, under upstream GlueStick's names (`convert_gluestick`).
@@ -45,7 +49,8 @@ def _dense(p: dict, prefix: str, sd: dict) -> None:
 
 def _conv(p: dict, prefix: str, sd: dict) -> None:
     sd[f"{prefix}.weight"] = _tensor(_np(p["kernel"]).transpose(3, 2, 0, 1))
-    sd[f"{prefix}.bias"] = _tensor(_np(p["bias"]))
+    if "bias" in p:
+        sd[f"{prefix}.bias"] = _tensor(_np(p["bias"]))
 
 
 def _layer_norm(p: dict, prefix: str, sd: dict) -> None:
@@ -68,6 +73,79 @@ def superpoint_state_dict(params: dict) -> dict:
     for name, block in params.items():
         _conv(block["Conv_0"], name, sd)
     return sd
+
+
+def superpoint_open_state_dict(params: dict, batch_stats: dict) -> dict:
+    """SuperPoint (open): `conv1a` ... `convDb`, each a VGGBlock holding
+    `Conv_0` and `BatchNorm_0`, -> rpautrat's `backbone.{i}.{0,1}`,
+    `detector.{0,1}`, `descriptor.{0,1}`, each `conv` and `bn` (inverse of
+    `convert_superpoint_open`)."""
+    sd: dict = {}
+    heads = {"convPa": "detector.0", "convPb": "detector.1", "convDa": "descriptor.0",
+             "convDb": "descriptor.1"}
+    for name, block in params.items():  # conv{i}{a|b} -> backbone.{i-1}.{0|1}
+        prefix = heads.get(name) or f"backbone.{int(name[4:-1]) - 1}.{'ab'.index(name[-1])}"
+        _conv(block["Conv_0"], f"{prefix}.conv", sd)
+        _batch_norm(block["BatchNorm_0"], batch_stats[name]["BatchNorm_0"], f"{prefix}.bn", sd)
+    return sd
+
+
+def aliked_state_dict(params: dict, batch_stats: dict) -> dict:
+    """ALIKED -> the official layout (inverse of `convert_aliked`): the
+    deformable convs' `kernel` to `regular_conv`, the score convs to
+    `score_head.{0,2,4,6}`, SDDH's convs to `offset_conv.{0,2}`, its Dense
+    `sf_conv` to a 1x1 conv; `agg_weights` as it is."""
+    sd: dict = {}
+    for b in ("block1", "block2", "block3", "block4"):
+        p, stats = params[b], batch_stats[b]
+        for i in (1, 2):
+            conv = p[f"conv{i}"]
+            if "offset_conv" in conv:
+                _conv(conv["offset_conv"], f"{b}.conv{i}.offset_conv", sd)
+                _conv({"kernel": conv["kernel"]}, f"{b}.conv{i}.regular_conv", sd)
+            else:
+                _conv(conv, f"{b}.conv{i}", sd)
+            _batch_norm(p[f"bn{i}"], stats[f"bn{i}"], f"{b}.bn{i}", sd)
+        if "downsample" in p:
+            _conv(p["downsample"], f"{b}.downsample", sd)
+    for i in (1, 2, 3, 4):
+        _conv(params[f"conv{i}"], f"conv{i}", sd)
+        _conv(params[f"score_conv{i}"], f"score_head.{2 * (i - 1)}", sd)
+    head = params["desc_head"]
+    _conv(head["offset_conv1"], "desc_head.offset_conv.0", sd)
+    _conv(head["offset_conv2"], "desc_head.offset_conv.2", sd)
+    sd["desc_head.sf_conv.weight"] = _tensor(_np(head["sf_conv"]["kernel"]).T[:, :, None, None])
+    sd["desc_head.agg_weights"] = _tensor(_np(head["agg_weights"]))
+    return sd
+
+
+def disk_state_dict(params: dict) -> dict:
+    """DISK -> kornia's layout (inverse of `convert_disk`): `unet.down_i` /
+    `up_i` to `unet.path_down.{i}.conv` / `unet.path_up.{i}.conv`, the conv
+    at index 2 (0 in the first block), the PReLU `gate` at 1."""
+    sd: dict = {}
+    for name, block in params["unet"].items():
+        path, i = name.split("_")
+        prefix = f"unet.path_{path}.{i}.conv"
+        if "gate" in block:
+            sd[f"{prefix}.1.weight"] = _tensor(_np(block["gate"]))
+            _conv(block["conv"], f"{prefix}.2", sd)
+        else:
+            _conv(block["conv"], f"{prefix}.0", sd)
+    return sd
+
+
+def _extractor_name(params: dict) -> str:
+    """The extractor a pipeline's `extractor_model` params hold, by their
+    keys: ALIKED's `desc_head`, DISK's `unet`, the open SuperPoint's
+    `BatchNorm_0`, else the vanilla SuperPoint."""
+    if "desc_head" in params:
+        return "aliked"
+    if "unet" in params:
+        return "disk"
+    if "BatchNorm_0" in params.get("conv1a", {}):
+        return "superpoint_open"
+    return "superpoint"
 
 
 def lightglue_state_dict(params: dict, num_heads: int) -> dict:
@@ -219,16 +297,25 @@ def _matcher_name(params: dict) -> str:
 
 def from_jax_params(params: dict, model: str, num_heads: int = 4,
                     batch_stats: dict | None = None) -> dict:
-    """JAX `params` of `model` ("superpoint", "lightglue", "superglue",
-    "gluestick" or "two_view_pipeline") -> the port's state dict. `num_heads` is the
-    matcher's head count (its conf `num_heads`); `batch_stats` the JAX
-    model's `batch_stats` collection (SuperGlue's and GlueStick's BatchNorm
-    statistics). A pipeline's extractor is SuperPoint, or the wireframe
-    around it; its matcher is told apart by its parameters (GlueStick's
-    `line_bin_score`, SuperGlue's `kenc` and `bin_score`, LightGlue's
-    `transformers_i`)."""
+    """JAX `params` of `model` ("superpoint", "superpoint_open", "aliked",
+    "disk", "lightglue", "superglue", "gluestick" or "two_view_pipeline")
+    -> the port's state dict. `num_heads` is the matcher's head count (its
+    conf `num_heads`); `batch_stats` the JAX model's `batch_stats`
+    collection (the BatchNorm statistics of SuperPoint-open, ALIKED,
+    SuperGlue and GlueStick). A pipeline's extractor is told apart by its
+    parameters (`_extractor_name`), or is the wireframe around SuperPoint;
+    its matcher likewise (GlueStick's `line_bin_score`, SuperGlue's `kenc`
+    and `bin_score`, LightGlue's `transformers_i`)."""
     if model == "superpoint":
         return superpoint_state_dict(params)
+    if model == "disk":
+        return disk_state_dict(params)
+    if model in ("superpoint_open", "aliked"):
+        if batch_stats is None:
+            raise ValueError(f"{model}: its BatchNorm statistics (batch_stats) are needed")
+        if model == "aliked":
+            return aliked_state_dict(params, batch_stats)
+        return superpoint_open_state_dict(params, batch_stats)
     if model == "lightglue":
         return lightglue_state_dict(params, num_heads)
     if model == "superglue":
@@ -245,7 +332,7 @@ def from_jax_params(params: dict, model: str, num_heads: int = 4,
             if comp == "extractor_model" and "point_extractor" in sub:  # the wireframe
                 name, conv, sub = "extractor.point_extractor", "superpoint", sub["point_extractor"]
             elif comp == "extractor_model":
-                name, conv = "extractor", "superpoint"
+                name, conv = "extractor", _extractor_name(sub)
             elif comp == "matcher_model":
                 name, conv = "matcher", _matcher_name(sub)
             else:

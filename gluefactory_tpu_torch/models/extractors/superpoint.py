@@ -1,8 +1,21 @@
-"""SuperPoint keypoint detector and descriptor, vanilla variant
-(counterpart of `gluefactory_tpu/models/extractors/superpoint.py`).
+"""SuperPoint keypoint detector and descriptor (counterpart of
+`gluefactory_tpu/models/extractors/superpoint.py`), in both variants:
 
-Parameters carry the official MagicLeap names (`conv1a` ... `convDb`, each
-an `nn.Conv2d`), so `superpoint_v1.pth` loads as it is. The network runs
+  - `vanilla`: parameters carry the official MagicLeap names (`conv1a` ...
+    `convDb`, each an `nn.Conv2d`), so `superpoint_v1.pth` loads as it is;
+  - `open` (the MIT re-training, `superpoint_open.py`): each conv is
+    followed by ReLU (not in the 1x1 heads) and then BatchNorm (eps 1e-3,
+    flax's momentum 0.9), under rpautrat's names `backbone.{i}.{0,1}`,
+    `detector.{0,1}` and `descriptor.{0,1}`, each a block of `conv` and
+    `bn`, so `superpoint_v6_from_tf.pth` loads as it is. As in the JAX
+    package, the backbone and the 3x3 heads normalise by the batch under
+    `train` unless `freeze_batch_normalization`, and the 1x1 heads
+    always by their running statistics; descriptors are sampled at the
+    cell's geometric centre. `fused_backbone` raises with `open` (the
+    kernel has no BatchNorm; the JAX package quietly runs the plain path
+    there); `fused_detect` routes as with `vanilla`.
+
+The network runs
 channels-first; the data contract stays that of the JAX package: images
 (B, H, W, C) in [0, 1], keypoints in the COLMAP convention (+0.5), exactly
 `max_num_keypoints` keypoints per image with a `keypoint_mask`
@@ -11,8 +24,8 @@ channels-first; the data contract stays that of the JAX package: images
 mean position of their window of the dense score map (`ops/nms.py`), after
 either decode. With `randomize_keypoints_training`, training samples its
 keypoints by score (the Gumbel top-k) from the caller's generator.
-`freeze_batch_normalization` changes nothing: the vanilla network has no
-BatchNorm (the `open` variant, which has, is not ported).
+`freeze_batch_normalization` changes nothing in the vanilla network,
+which has no BatchNorm.
 
 Two opt-ins, off by default as in the JAX package, route through the
 hand-written CUDA kernels on the card:
@@ -35,6 +48,7 @@ import torch
 from torch import nn
 
 from ...ops import cuda_detect
+from ...ops.batch_norm import batch_norm
 from ...ops.cuda_conv import fused_vgg_block, vgg_kernel_available
 from ...ops.cuda_detect import detect_keypoints, fused_detect_available
 from ...ops.grid_sample import sample_descriptors
@@ -97,6 +111,26 @@ def sample_k_keypoints(nmsed: torch.Tensor, k: int, threshold: float, generator:
     return kpts, kpt_scores, torch.isfinite(top)
 
 
+OPEN_BN_MOMENTUM = 0.9  # flax's, as the JAX package's open variant sets it
+
+
+class OpenVGGBlock(nn.Module):
+    """rpautrat's VGG block: `conv`, ReLU unless `relu` is False, then `bn`
+    (BatchNorm after the activation, eps 1e-3)."""
+
+    def __init__(self, c_in: int, c_out: int, kernel: int = 3, relu: bool = True):
+        super().__init__()
+        self.conv = nn.Conv2d(c_in, c_out, kernel, padding=kernel // 2)
+        self.bn = nn.BatchNorm2d(c_out, eps=1e-3)
+        self.relu = relu
+
+    def forward(self, x: torch.Tensor, by_batch: bool = False) -> torch.Tensor:
+        x = self.conv(x)
+        if self.relu:
+            x = torch.relu(x)
+        return batch_norm(self.bn, x, by_batch, OPEN_BN_MOMENTUM)
+
+
 class SuperPoint(BaseModel):
     default_conf = {
         "variant": "vanilla",
@@ -118,8 +152,11 @@ class SuperPoint(BaseModel):
     required_data_keys = ["image"]
 
     def _init(self, conf):
+        if conf.variant == "open":
+            self._init_open(conf)
+            return
         if conf.variant != "vanilla":
-            raise NotImplementedError(f"SuperPoint variant {conf.variant!r} is not ported yet")
+            raise ValueError(f"unknown SuperPoint variant {conf.variant!r}")
         chans = [1, *conf.channels]
         for i in range(len(conf.channels)):
             setattr(self, f"conv{i+1}a", nn.Conv2d(chans[i], chans[i + 1], 3, padding=1))
@@ -131,6 +168,36 @@ class SuperPoint(BaseModel):
         self.convDb = nn.Conv2d(conf.head_channels, conf.descriptor_dim, 1)
         self._kernel_weights: dict = {}  # `_hwio`'s copies, by conv name
 
+    def _init_open(self, conf):
+        if conf.fused_backbone:
+            raise ValueError("fused_backbone takes the vanilla variant only: the VGG block kernel "
+                             "has no BatchNorm")
+        chans = [1, *conf.channels]
+        self.backbone = nn.ModuleList(
+            nn.ModuleList([OpenVGGBlock(chans[i], chans[i + 1]), OpenVGGBlock(chans[i + 1], chans[i + 1])])
+            for i in range(len(conf.channels)))
+        c = conf.channels[-1]
+        self.detector = nn.ModuleList([OpenVGGBlock(c, conf.head_channels),
+                                       OpenVGGBlock(conf.head_channels, 65, 1, relu=False)])
+        self.descriptor = nn.ModuleList([OpenVGGBlock(c, conf.head_channels),
+                                         OpenVGGBlock(conf.head_channels, conf.descriptor_dim, 1,
+                                                      relu=False)])
+
+    def _open_dense(self, x: torch.Tensor, train: bool):
+        """The open variant's network on x (B, 1, H, W): (logits (B, 65, Hc,
+        Wc), dense descriptors (B, D, Hc, Wc)). The backbone and the 3x3
+        heads by the batch under `train` unless `freeze_batch_normalization`,
+        the 1x1 heads by their running statistics (the JAX model calls them
+        without `train`)."""
+        by_batch = train and not self.conf.freeze_batch_normalization
+        for i, (block_a, block_b) in enumerate(self.backbone):
+            x = block_b(block_a(x, by_batch), by_batch)
+            if i < len(self.backbone) - 1:
+                x = nn.functional.max_pool2d(x, 2, 2)
+        logits = self.detector[1](self.detector[0](x, by_batch))
+        dense_desc = self.descriptor[1](self.descriptor[0](x, by_batch))
+        return logits, dense_desc
+
     def _forward(self, data: dict, generator: torch.Generator | None = None,
                  train: bool = False) -> dict:
         """`generator` draws the random keypoints that fill invalid slots
@@ -138,6 +205,9 @@ class SuperPoint(BaseModel):
         `randomize_keypoints_training` (a fresh one seeded with 0 if None)."""
         image = rgb_to_grayscale(data["image"])
         x = image.permute(0, 3, 1, 2)
+        if self.conf.variant == "open":
+            logits, dense_desc = self._open_dense(x, train)
+            return self._decode(data, image, logits, dense_desc, generator, train)
         relu = torch.relu
         if self.conf.fused_backbone:
             x = self._fused_backbone(x)
@@ -245,7 +315,9 @@ class SuperPoint(BaseModel):
             kpt_scores = torch.where(valid, kpt_scores, torch.zeros_like(kpt_scores))
             valid = torch.ones_like(valid)
 
-        desc = sample_descriptors(kpts, dense_desc.permute(0, 2, 3, 1), stride=8)
+        # vanilla: glue-factory's legacy sampling offset; open: the cell's centre
+        desc = sample_descriptors(kpts, dense_desc.permute(0, 2, 3, 1), stride=8,
+                                  legacy_offset=c.variant == "vanilla")
         pred = {
             "keypoints": kpts,
             "keypoint_scores": kpt_scores,

@@ -61,7 +61,7 @@ METHODS = {
     },
 }
 # the extractors of METHODS that this package has
-PORTED = {"superpoint"}
+PORTED = {"superpoint", "superpoint_open", "disk", "aliked"}
 
 
 def build_extractor(model_conf: dict, weights_file=None, device="cuda"):

@@ -344,8 +344,16 @@ def test_export_local_features_cli(tmp_path):
     loader = cache_loader.CacheLoader({"path": str(out), "padding_length": 32})
     item = loader({"name": names[-1]})
     assert item["keypoints"].shape == (32, 2) and item["keypoint_mask"].any()
+    # DISK is ported: its 128-D descriptors; SIFT is not yet, and raises
     res = subprocess.run([sys.executable, "-m", "gluefactory_tpu_torch.scripts.export_local_features",
                           "--image_dir", str(tmp_path / "imgs"), "--output", str(tmp_path / "x.h5"),
-                          "--method", "disk", "--device", "cpu"],
+                          "--method", "disk", "--num_keypoints", "32", "--resize", "96", "--device", "cpu"],
+                         cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+    with h5py.File(tmp_path / "x.h5", "r") as f:
+        assert f[names[0]]["descriptors"].shape[1] == 128
+    res = subprocess.run([sys.executable, "-m", "gluefactory_tpu_torch.scripts.export_local_features",
+                          "--image_dir", str(tmp_path / "imgs"), "--output", str(tmp_path / "y.h5"),
+                          "--method", "sift", "--device", "cpu"],
                          cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
     assert res.returncode != 0 and "queue 1 item 5" in res.stderr

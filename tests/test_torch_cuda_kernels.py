@@ -1160,3 +1160,72 @@ def test_gluestick_train_step_on_the_card_equals_the_cpu(dev):
         assert (out["card"][1][n] - t).abs().max() <= 1e-3 * norm, n
     for n, t in stats.items():
         assert torch.allclose(out["card"][2][n], t, rtol=1e-4, atol=1e-4), n
+
+
+def _zoo_pair(seed, H=240, W=320):
+    g = torch.Generator().manual_seed(seed)
+    img0 = torch.rand(1, H, W, 3, generator=g)
+    img1 = (img0 + 1e-3 * torch.randn(img0.shape, generator=g)).clamp(0, 1)
+    size = torch.tensor([[float(W), float(H)]])
+    return {"view0": {"image": img0, "image_size": size}, "view1": {"image": img1, "image_size": size}}
+
+
+@pytest.mark.parametrize("extractor", [{"name": "aliked", "model_name": "aliked-n16"},
+                                       {"name": "disk", "desc_dim": 128}])
+def test_zoo_lightglue_forward_kernels_against_plain(dev, extractor):
+    """ALIKED-n16 / DISK + LightGlue-3 (input_dim 128) at 320 x 240 on the
+    card: the forward through both attention kernels (3 + 3 launches)
+    against the plain versions (`flash` off) on the same card: keypoints
+    and descriptors equal (the extractor runs the same ops), log
+    assignments within 1e-4; and the extractor on the card against the
+    CPU's within 1e-4 (keypoints) and 1e-3 (descriptors)."""
+    from gluefactory_tpu_torch.models import get_model
+
+    torch.manual_seed(0)
+    conf = {"extractor": {**extractor, "max_num_keypoints": 256, "detection_threshold": 0.0},
+            "matcher": {"name": "lightglue", "input_dim": 128, "n_layers": 3, "num_heads": 4,
+                        "filter_threshold": 0.0}}
+    model = get_model("two_view_pipeline").from_conf(conf, device="cpu").eval()
+    data = _zoo_pair(1)
+    with torch.no_grad():
+        cpu = model.extractor(data["view0"])
+        model.to(dev)
+        card_data = {v: {k: t.to(dev) for k, t in d.items()} for v, d in data.items()}
+        cuda_attention.reset_launches()
+        kern = model(card_data)
+        launches = dict(cuda_attention.launches)
+        for m in model.modules():
+            if hasattr(m, "flash"):
+                m.flash = False
+        plain = model(card_data)
+    assert launches == {"fused_attention": 3, "fused_bidirectional_attention": 3}
+    for k in ("keypoints0", "descriptors0", "keypoints1"):
+        assert torch.equal(kern[k], plain[k]), k
+    fin = plain["log_assignment"] > -1e6
+    assert torch.equal(kern["log_assignment"] > -1e6, fin)
+    assert (kern["log_assignment"] - plain["log_assignment"])[fin].abs().max() <= 1e-4
+    assert (kern["keypoints0"].cpu() - cpu["keypoints"]).abs().max() <= 1e-4
+    assert (kern["descriptors0"].cpu() - cpu["descriptors"]).abs().max() <= 1e-3
+
+
+def test_superpoint_open_fused_detect_against_plain_decode(dev):
+    """The open SuperPoint with `fused_detect` on the card takes the decode
+    kernel (one launch) and gives the plain decode's keypoints (no two
+    equal survivors in a 4x4 tile on random images), scores and
+    descriptors."""
+    from gluefactory_tpu_torch.models import get_model
+
+    torch.manual_seed(0)
+    conf = {"max_num_keypoints": 512, "detection_threshold": 0.0, "nms_radius": 3}
+    plain = get_model("superpoint_open").from_conf(conf, device=dev).eval()
+    fused = get_model("superpoint_open").from_conf({**conf, "fused_detect": True}, device=dev).eval()
+    fused.load_state_dict(plain.state_dict())
+    data = {k: t.to(dev) for k, t in _zoo_pair(2, 480, 640)["view0"].items()}
+    cuda_detect.reset_launches()
+    with torch.no_grad():
+        a, b = plain(data), fused(data)
+    assert cuda_detect.launches["fused_nms_tile_reduce"] == 1
+    assert torch.equal(a["keypoint_mask"], b["keypoint_mask"])
+    assert torch.equal(a["keypoints"], b["keypoints"])
+    assert (a["keypoint_scores"] - b["keypoint_scores"]).abs().max() <= 1e-6
+    assert (a["descriptors"] - b["descriptors"]).abs().max() <= 1e-5

@@ -1,0 +1,57 @@
+"""The eleven shipped configs of the learned-extractor zoo (ALIKED, DISK
+and SuperPoint-open, with the NN matcher or LightGlue) in the port: each
+resolves by name as the train and eval CLIs resolve `--conf`, holds the
+JAX package's YAML data, and builds and runs in every section."""
+
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import gluefactory_tpu
+from gluefactory_tpu.core.config import from_yaml as jax_from_yaml
+from gluefactory_tpu.models import get_model as jax_get_model
+from gluefactory_tpu_torch.core.config import from_yaml, merge
+from gluefactory_tpu_torch.eval.io import extract_benchmark_conf, parse_config_path
+from gluefactory_tpu_torch.models import get_model
+
+CONFIGS = [f"{e}+{m}" for e in ("aliked", "disk")
+           for m in ("NN", "lightglue-official", "lightglue_homography", "lightglue_megadepth")]
+CONFIGS += [f"superpoint-open+{m}" for m in ("NN", "lightglue_homography", "lightglue_megadepth")]
+# the JAX SuperPoint's int8 / space-to-depth serving options, not ported
+NOT_PORTED = ("quantize", "s2d_block1")
+DESC_DIM = {"aliked": 128, "disk": 128, "superpoint_open": 256}
+
+
+@pytest.mark.parametrize("name", CONFIGS)
+def test_config_resolves_by_name_and_runs(name):
+    """`parse_config_path` (the train and eval CLIs' `--conf`) finds the
+    port's copy, which holds the JAX package's YAML data key for key; the
+    extractor's conf merged with its defaults equals the JAX model's; the
+    model of each section builds, and a forward at 64 x 96 (64 keypoints)
+    gives descriptors of the width the matcher takes."""
+    path = parse_config_path(name)
+    assert path.parent.name == "configs" and path.parent.parent.name == "gluefactory_tpu_torch"
+    jax_conf = jax_from_yaml(str(Path(gluefactory_tpu.__file__).parent / "configs" / f"{name}.yaml"))
+    conf = from_yaml(str(path))
+    assert conf.to_dict() == jax_conf.to_dict()
+    ext = conf.model.extractor
+    sub = {k: v for k, v in ext.to_dict().items() if k != "name"}
+    want = {k: v for k, v in jax_get_model(ext.name).from_conf(sub).conf.to_dict().items()
+            if k not in NOT_PORTED}
+    assert get_model(ext.name).resolve_conf(sub).to_dict() == want
+    sections = [conf] + [extract_benchmark_conf(conf, b) for b in conf.get("benchmarks", {})]
+    for section in sections:
+        mconf = merge(section.model, {"extractor": {"max_num_keypoints": 64}}).to_dict()
+        torch.manual_seed(0)
+        model = get_model("two_view_pipeline").from_conf(
+            {k: v for k, v in mconf.items() if k != "name"}, device="cpu").eval()
+        assert model.extractor.conf.max_num_keypoints == 64
+        rng = np.random.default_rng(0)
+        views = {f"view{i}": {"image": torch.from_numpy(rng.uniform(0, 1, (1, 64, 96, 3)).astype(np.float32)),
+                              "image_size": torch.tensor([[96.0, 64.0]])} for i in "01"}
+        with torch.no_grad():
+            pred = model(views)
+        assert pred["descriptors0"].shape == (1, 64, DESC_DIM[ext.name])
+        assert torch.isfinite(pred["descriptors0"]).all() and "matches0" in pred
