@@ -67,7 +67,7 @@ Phases, in order; any failure exits non-zero before the last line:
    train.main` on `superpoint+lightglue_homography.yaml` at full width
    (SuperPoint 512 keypoints frozen, LightGlue-9 d=256 with checkpointed
    layers, 640 x 480, f32, the recipe's `lg` photometry), cut to procedural
-   images, batch 32, 6 workers, 4 steps and 2 validation batches (the cuts
+   images, batch 32, 6 workers, 4 steps and 2 validation batches of 8 (the cuts
    are printed); every loss term finite and every update applied, each attention
    kernel exactly 18 launches a step (9 forward, 9 in the recompute) and 9 a
    validation batch, the last checkpoint reloaded bit-equal by `--restore`,
@@ -86,7 +86,7 @@ Phases, in order; any failure exits non-zero before the last line:
    f32), 18 launches of each attention kernel a step; ms a step, device ms
    a step, busy share, peak memory and samples/s; each attention kernel at
    the training shapes in bf16 against its bound and SDPA;
-9c. folder run: 64 procedural images written to a folder (JPEG through
+9c. folder run: 48 procedural images written to a folder (JPEG through
    Pillow where it is importable, else binary PPM), the loader's samples/s
    from the files, and 2 training steps of path E's recipe on them
    (`data.image_dir`, `data.synthetic_images=0`, batch 16);
@@ -108,15 +108,15 @@ Phases, in order; any failure exits non-zero before the last line:
 11. path G, the MegaDepth-1500 benchmark (run after path F, before phase
    8): 2 procedural posed scenes (textured planes ray cast,
    `gluefactory_tpu_torch/scripts_dev/posed_scenes.py`; 1920 x 1440 JPEGs
-   and 16-bit PNG depths, one PINHOLE and one SIMPLE_RADIAL scene, 4 pairs
+   and 16-bit PNG depths, one PINHOLE and one SIMPLE_RADIAL scene, 3 pairs
    each) written under `outputs/chip_smoke_megadepth1500/`, then
    `gluefactory_tpu_torch.eval.megadepth1500.main` in process on
    `superpoint+lightglue-official`'s megadepth1500 section at full width
    (SuperPoint 2048 keypoints, nms 3, LightGlue-9 dense, filter 0.1, f32,
    1600 on the long side) with `eval.estimator=xla_ransac`, `ransac_th
    0.5`, `data.depth_format=png` and random weights drawn as path F draws
-   them, but on the CPU and centred on one of the path's views; cut to 8
-   pairs of 1500. Gates: 8 cached items with the export keys, 9 + 9
+   them, but on the CPU and centred on one of the path's views; cut to 6
+   pairs of 1500. Gates: 6 cached items with the export keys, 9 + 9
    attention launches a pair, every RANSAC tensor on the card, finite
    epipolar, reprojection and GT-match metrics and AUC@5/10/20 degrees;
    runs through the plain versions and grouped by 4 against the per-item
@@ -154,7 +154,7 @@ Phases, in order; any failure exits non-zero before the last line:
    2 procedural ETH3D scenes of 4 views at the DSLR size 6048 x 4032
    (`scripts_dev/posed_scenes.write_eth3d_scene`: COLMAP `cameras.txt` and
    both `images.txt` with 15000 points' observations, 16-bit PNG depths at
-   756 x 504) and 2 ZEB scenes of 10 pair files at 1600 x 1200
+   756 x 504) and 2 ZEB scenes of 6 pair files at 1600 x 1200
    (`write_zeb_scene`) written under `outputs/chip_smoke_path_j/`; then
    `eval.eth3d.main` with `--conf superpoint+lightglue-official` (9 + 9
    attention launches a pair) and with `--conf superpoint+NN` (none), and
@@ -168,8 +168,8 @@ Phases, in order; any failure exits non-zero before the last line:
 15. path K, SuperGlue stage-1 training (run after path J, before phase
    8): `train.main` on path E's config with SuperGlue at the official
    widths (9 layer pairs, 4 heads, 50 Sinkhorn iterations, checkpointed)
-   as its matcher, written to a temporary directory; 4 steps at batch 32
-   and one validation batch. Gates: finite losses, every update applied,
+   as its matcher, written to a temporary directory; 2 steps at batch 32
+   and one validation batch of 8. Gates: finite losses, every update applied,
    72 `fused_attention` and 1 `log_sinkhorn` launches a step (36 and 1 a
    validation batch), `--restore` bit-equal with the BatchNorm statistics,
    a step through the kernels against the plain versions (every gradient
@@ -229,7 +229,7 @@ Phases, in order; any failure exits non-zero before the last line:
    `xla_ransac`) on path F's v_ pairs: launches, the RANSAC on the card,
    finite AUCs; N4 `train.main` on `aliked+lightglue_homography` and
    `superpoint-open+lightglue_homography` (batch 32, 2 steps, one
-   validation batch): finite losses, applied updates, 18 + 18 launches a
+   validation batch of 8): finite losses, applied updates, 18 + 18 launches a
    step and 9 + 9 a validation batch, and the frozen extractor's running
    statistics moving at every step where flax normalises by the batch
    (all of ALIKED's; the open SuperPoint's but its 1x1 heads'), unmoved by
@@ -237,7 +237,33 @@ Phases, in order; any failure exits non-zero before the last line:
    synchronised, host clock) and peak memory. On every call of the
    extractor: outputs finite, descriptors unit-norm, keypoints inside
    `image_size`. Path N alone: `phase_device`, `phase_build`,
-   `write_hpatches(HPATCHES_ROOT)`, `phase_zoo`.
+   `write_hpatches(HPATCHES_ROOT)`, `phase_zoo`;
+19. path O, SIFT on the card (run after path N, before phase 8), each
+   config by name with `model.extractor.backend=jax` (the configs ship the
+   opencv backend; the card's machine has no cv2): O1
+   `sift+lightglue-official` (LightGlue-9 with `add_scale_ori`, input_dim
+   128, random weights drawn as path F's) and O2 `sift+NN` at their
+   megadepth1500 widths (2048 keypoints, f32) on path N's 1600 x 1200
+   pair, as N1 / N2 (O2 launches no kernel); SIFT alone on one image: ms,
+   device kernels launched, peak memory; O3 `train.main` on
+   `sift+lightglue_homography` (SIFT 512 keypoints frozen, batch 32, 2
+   steps, one validation batch of 8): finite losses, applied updates, 18 + 18
+   launches a step and 9 + 9 a validation batch, ms a step, peak memory;
+   O4 the opencv backend raises an ImportError naming cv2 where cv2 is
+   absent (blocked where it is installed). On every SIFT call, on its
+   valid slots: outputs finite, RootSIFT descriptors unit-norm, keypoints
+   inside `image_size`, scales > 0;
+20. path P, LoFTR (run after path O, before phase 8), `loftr` by name with
+   random weights drawn as path F's and made to match by
+   `loftr_pass_through`: P1 its megadepth1500 section on one procedural
+   832 x 624 pair (8112 coarse cells, 2048 match slots, f32): no port
+   kernel, wall and device ms, peak memory, valid matches and their error
+   under the pair's homography, keypoints finite and inside the image; P2
+   the HPatches CLI (480 on the short side, `xla_ransac`) on path F's v_
+   pairs: finite AUCs, the RANSAC on the card, the cache written as
+   `predictions.h5` with every pair and read back by an `--overwrite_eval`
+   rerun. Paths O and P alone: `phase_device`, `phase_build`,
+   `write_hpatches(HPATCHES_ROOT)`, `phase_sift`, `phase_loftr`.
 
 Each path resets every launch count just before its timed run and reads
 them just after. Prints each phase's seconds, the script's, the kernel JSON line, the card
@@ -1524,6 +1550,9 @@ def phase_serving(device_info: dict, batch: dict) -> dict:
 
 TRAIN_YAML = "gluefactory_tpu_torch/configs/superpoint+lightglue_homography.yaml"
 TRAIN_BATCH, TRAIN_STEPS, VAL_BATCHES, TIMED_STEPS, WARMUP_STEPS = 32, 4, 2, 3, 2
+# the stage-1 runs' validation batch: a loader worker builds a whole batch,
+# so the one batch of 32 after the steps took ~13 s alone on the card's host
+VAL_BATCH = 8
 PUBLISHED_BATCH = 128
 TRAIN_EXPERIMENT = "chip_smoke_path_e"
 # the run's cuts of the published recipe, printed and recorded
@@ -1531,15 +1560,16 @@ TRAIN_REDUCED = {
     "data.synthetic_images": "procedural images instead of revisitop1m, which is not on disk",
     "data.batch_size": f"{TRAIN_BATCH} instead of {PUBLISHED_BATCH}, for the smoke's time",
     "data.num_workers": "6 instead of 14 (the card's machine has 8 cores)",
-    "length": f"{TRAIN_STEPS} training steps (one epoch) and {VAL_BATCHES} validation batches",
+    "length": f"{TRAIN_STEPS} training steps (one epoch) and {VAL_BATCHES} validation batches of "
+              f"{VAL_BATCH} (the config's batch for validation too)",
     "--no_tensorboard --no_capture": "no writer, no log capture",
 }
 TRAIN_ARGV = [
     TRAIN_EXPERIMENT, "--conf", str(ROOT / TRAIN_YAML), "--no_tensorboard", "--no_capture",
     "--max_val_iters", str(VAL_BATCHES),
-    f"data.synthetic_images={TRAIN_BATCH * (TRAIN_STEPS + VAL_BATCHES)}",
-    f"data.train_size={TRAIN_BATCH * TRAIN_STEPS}", f"data.val_size={TRAIN_BATCH * VAL_BATCHES}",
-    f"data.batch_size={TRAIN_BATCH}", "data.num_workers=6",
+    f"data.synthetic_images={TRAIN_BATCH * TRAIN_STEPS + VAL_BATCH * VAL_BATCHES}",
+    f"data.train_size={TRAIN_BATCH * TRAIN_STEPS}", f"data.val_size={VAL_BATCH * VAL_BATCHES}",
+    f"data.batch_size={TRAIN_BATCH}", f"data.val_batch_size={VAL_BATCH}", "data.num_workers=6",
     "train.epochs=1", "train.log_every_iter=1", "train.eval_every_iter=1000000",
 ]
 # launches of each attention kernel: a train step runs every layer forward
@@ -1907,7 +1937,7 @@ def bf16_step_vs_plain(model, batch) -> dict:
     return res
 
 
-FOLDER_IMAGES, FOLDER_BATCH = 64, 16
+FOLDER_IMAGES, FOLDER_BATCH = 48, 16
 FOLDER_EXPERIMENT = "chip_smoke_folder"
 
 
@@ -2145,14 +2175,23 @@ def benchmark_weights(path: Path, device, benchmark: str = "hpatches", view: dic
             view = ImagePreprocessor({"resize": 480, "side": "short"})(
                 generate_synthetic_image(6999, HPATCHES_SIZE))
         sp = getattr(model.extractor, "point_extractor", model.extractor)
-        centre_descriptors(sp, view, device)
+        if sp is not None and any(True for _ in sp.parameters()):  # SIFT has none
+            centre_descriptors(sp, view, device)
         if hasattr(model.matcher, "line_bin_score"):
             gluestick_pass_through(model.matcher)
         elif hasattr(model.matcher, "gnn"):
             superglue_pass_through(model.matcher)
+        elif hasattr(model.matcher, "loftr_coarse"):
+            loftr_pass_through(model.matcher, view, device)
     torch.save(model.state_dict(), path)
-    return {"seed": 0, "init": "lecun-normal, zero biases, descriptor head centred on one scene",
-            "keypoints": sp.conf.max_num_keypoints}
+    if sp is None:
+        made = "loftr_pass_through on one scene"
+    elif any(True for _ in sp.parameters()):
+        made = "the descriptor head centred on one scene"
+    else:
+        made = "no extractor weights"
+    return {"seed": 0, "init": f"lecun-normal, zero biases, {made}",
+            "keypoints": sp.conf.max_num_keypoints if sp is not None else None}
 
 
 def centre_descriptors(extractor, view: dict, device) -> None:
@@ -2228,6 +2267,37 @@ def gluestick_pass_through(matcher) -> None:
             proj.bias.zero_()
 
 
+LOFTR_COARSE_NORM2 = 1000.0  # mean squared norm of the centred coarse features
+
+
+def loftr_pass_through(matcher, view: dict, device) -> None:
+    """Random LoFTR weights made to match, as `superglue_pass_through` does
+    for SuperGlue: with every weight random, the post-ReLU stage-3 features
+    share one direction and no dual-softmax score reaches the 0.2 threshold
+    (0 matches on a 416 x 320 procedural pair on the CPU). Each encoder
+    layer's `norm2` scale times SG_UPDATE_SCALE (its update stays small
+    beside the residual), and the 1x1 coarse projection loses the mean
+    direction of its inputs on `view` (a processed view) and is scaled so
+    that the coarse features' mean squared norm is LOFTR_COARSE_NORM2: the
+    similarity, over 256 x the temperature 0.1, then separates the cells."""
+    for layer in (*matcher.loftr_coarse.layers, *matcher.loftr_fine.layers):
+        layer.norm2.weight.mul_(SG_UPDATE_SCALE)
+    image = torch.from_numpy(view["image"][None]).to(device)
+    if image.shape[-1] == 3:
+        image = (image * torch.tensor([0.299, 0.587, 0.114], device=device)).sum(-1, keepdim=True)
+    conv = matcher.backbone.layer3_outconv
+    seen = {}
+    hook = conv.register_forward_pre_hook(lambda mod, args: seen.setdefault("x3", args[0]))
+    matcher.backbone(image.permute(0, 3, 1, 2))
+    hook.remove()
+    x3 = seen["x3"]
+    mu = x3.mean(dim=(0, 2, 3))
+    w = conv.weight[:, :, 0, 0]
+    w.sub_((w @ mu)[:, None] * mu[None] / (mu @ mu))
+    norm2 = torch.nn.functional.conv2d(x3, conv.weight).pow(2).sum(1).mean()
+    w.mul_((LOFTR_COARSE_NORM2 / norm2).sqrt())
+
+
 def run_hpatches(argv: list) -> dict:
     """`gluefactory_tpu_torch.eval.hpatches.main(argv)`, as `run_eval_cli`
     runs it."""
@@ -2287,11 +2357,9 @@ def run_eval_cli(main_fn, pipeline_cls, estimator_module, ransac_name: str, argv
 
 def _cache(tag: str, benchmark: str = "hpatches") -> dict:
     from gluefactory_tpu_torch.settings import EVAL_PATH
-    from gluefactory_tpu_torch.utils.export_predictions import load_prediction, prediction_keys
+    from gluefactory_tpu_torch.utils.export_predictions import load_predictions
 
-    with np.load(Path(EVAL_PATH, benchmark, tag, "predictions.npz")) as npz:
-        keys = prediction_keys(npz)
-        return {name: load_prediction(npz, keys, name) for name in keys}
+    return load_predictions(Path(EVAL_PATH, benchmark, tag, "predictions.h5"))
 
 
 def _detections(pred: dict, i: str) -> dict:
@@ -2493,10 +2561,10 @@ def phase_hpatches(device_info: dict) -> dict:
         print(f"path F kernels vs plain versions: {json.dumps(res['vs_plain'])}", flush=True)
         _check_agreement("kernels vs plain", res["vs_plain"])
 
-        mtime = (Path(tsettings.EVAL_PATH, "hpatches", "chip_smoke", "predictions.npz")).stat().st_mtime_ns
+        mtime = (Path(tsettings.EVAL_PATH, "hpatches", "chip_smoke", "predictions.h5")).stat().st_mtime_ns
         again = run_hpatches([*argv, "--tag", "chip_smoke", "--overwrite_eval"])
         _check_launches("path F --overwrite_eval", again["launches"], {})
-        now = (Path(tsettings.EVAL_PATH, "hpatches", "chip_smoke", "predictions.npz")).stat().st_mtime_ns
+        now = (Path(tsettings.EVAL_PATH, "hpatches", "chip_smoke", "predictions.h5")).stat().st_mtime_ns
         if now != mtime or again["summaries"] != s:
             fail("path F: the --overwrite_eval rerun did not reuse the cache or changed the summaries")
         res["overwrite_eval"] = {"seconds": again["seconds"], "summaries_equal": True}
@@ -2528,7 +2596,7 @@ def phase_hpatches(device_info: dict) -> dict:
 # DATA_PATH of the run; the posed-images layout is written under it
 MD_ROOT = ROOT / "outputs" / "chip_smoke_megadepth1500"
 MD_SCENES = [("scene0", "PINHOLE", 0), ("scene1", "SIMPLE_RADIAL", 1)]  # (scene, camera, seed)
-MD_VIEWS, MD_PAIRS_PER_SCENE = 5, 4
+MD_VIEWS, MD_PAIRS_PER_SCENE = 5, 3
 MD_SIZE = (1920, 1440)  # (w, h): resized to 1600 on the long side by `area`, depths by `nearest`
 MD_PAIRS = MD_PAIRS_PER_SCENE * len(MD_SCENES)
 MD_REDUCED = {
@@ -2555,7 +2623,7 @@ def write_megadepth(root: Path) -> None:
     shutil.rmtree(root, ignore_errors=True)
     for scene, model, seed in MD_SCENES:
         write_posed_images(root / "megadepth1500", scene, n_views=MD_VIEWS, n_pairs=MD_PAIRS_PER_SCENE,
-                           size=MD_SIZE, model=model, seed=seed)
+                           size=MD_SIZE, model=model, seed=seed, workers=MD_VIEWS)
 
 
 def run_megadepth(argv: list) -> dict:
@@ -2734,7 +2802,7 @@ def phase_megadepth(device_info: dict) -> dict:
         print(f"path G kernels vs plain versions: {json.dumps(res['vs_plain'])}", flush=True)
         _check_agreement("kernels vs plain", res["vs_plain"], MD_PAIRS, "path G")
 
-        cache_file = Path(tsettings.EVAL_PATH, "megadepth1500", "chip_smoke", "predictions.npz")
+        cache_file = Path(tsettings.EVAL_PATH, "megadepth1500", "chip_smoke", "predictions.h5")
         mtime = cache_file.stat().st_mtime_ns
         again = run_megadepth([*argv, "--tag", "chip_smoke", "--overwrite_eval"])
         _check_launches("path G --overwrite_eval", again["launches"], {})
@@ -2780,7 +2848,7 @@ S2_VIEWS, S2_SIZE = 12, (1600, 1200)  # (w, h): 1024 on the long side by `area`,
 S2_PER_SCENE = 12  # the config's three overlap bins, 4 pairs each
 S2_BATCH, S2_ACCUM = 32, 1
 S2_LOADER_BATCH = 4  # the batch of the loader's own rate (all 8 workers busy)
-S2_EPOCHS, S2_WORKERS, S2_VAL_BATCH, S2_TIMED_STEPS = 2, 8, 8, 2
+S2_EPOCHS, S2_WORKERS, S2_VAL_BATCH, S2_TIMED_STEPS = 2, 8, 4, 2
 # training steps an epoch (micro-batches; the loader drops a partial one)
 S2_STEPS = len(S2_TRAIN_SCENES) * S2_PER_SCENE // S2_BATCH
 S2_EXPERIMENT = "chip_smoke_path_h"
@@ -3047,7 +3115,7 @@ def export_path_e_features(root: Path) -> dict:
     scenes = (*S2_TRAIN_SCENES, S2_VAL_SCENE)
     (root / "megadepth" / "scene_lists" / S3_SCENE_LIST).write_text("".join(f"{s}\n" for s in scenes))
     shutil.rmtree(export_megadepth.export_root("sp"), ignore_errors=True)
-    written, write = {}, export_predictions.H5PredictionWriter.write
+    written, write = {}, export_predictions.PredictionWriter.write
 
     def recorded(self, name, arrays):
         before = set(self.names)
@@ -3056,14 +3124,14 @@ def export_path_e_features(root: Path) -> dict:
         written[(Path(self.file.fh.name).stem, group)] = {
             k: _array_digest(v) for k, v in arrays.items() if isinstance(v, np.ndarray)}
 
-    export_predictions.H5PredictionWriter.write = recorded
+    export_predictions.PredictionWriter.write = recorded
     t0 = time.perf_counter()
     try:
         files = export_megadepth.main(["--method", "sp", "--scenes", S3_SCENE_LIST, "--num_workers",
                                        str(S2_WORKERS), "--resize", str(S3_RESIZE), "--with_depth",
                                        "--weights_file", str(weights), "--device", DEVICE])
     finally:
-        export_predictions.H5PredictionWriter.write = write
+        export_predictions.PredictionWriter.write = write
     seconds = time.perf_counter() - t0
     return {"files": files, "written": written, "seconds": seconds, "scenes": scenes,
             "bytes": sum(f.stat().st_size for f in files)}
@@ -3241,7 +3309,7 @@ ETH3D_VIEWS, ETH3D_SIZE, ETH3D_DOWNSIZE = 4, (6048, 4032), 8
 ETH3D_POINTS = 15000  # 3D points on the planes: > 500 covisible a pair
 ETH3D_PAIRS = len(ETH3D_SCENES) * ETH3D_VIEWS * (ETH3D_VIEWS - 1) // 2
 ZEB_SCENES = (("gl3d", 10), ("kitti", 11))
-ZEB_VIEWS, ZEB_PAIRS_PER_SCENE, ZEB_SIZE = 5, 10, (1600, 1200)
+ZEB_VIEWS, ZEB_PAIRS_PER_SCENE, ZEB_SIZE = 5, 6, (1600, 1200)
 ZEB_PAIRS = len(ZEB_SCENES) * ZEB_PAIRS_PER_SCENE
 J_REDUCED = {
     "eth3d": f"{ETH3D_PAIRS} pairs of {len(ETH3D_SCENES)} procedural scenes of {ETH3D_VIEWS} views "
@@ -3275,7 +3343,7 @@ def write_path_j(root: Path) -> dict:
         covisible[scene] = min(out["covisible"].values())
     for scene, seed in ZEB_SCENES:
         write_zeb_scene(root / "zeb", scene, n_views=ZEB_VIEWS, n_pairs=ZEB_PAIRS_PER_SCENE,
-                        size=ZEB_SIZE, seed=seed)
+                        size=ZEB_SIZE, seed=seed, workers=ZEB_VIEWS)
     return {"eth3d_min_covisible": covisible}
 
 
@@ -3348,7 +3416,7 @@ def check_cache_rerun(label: str, run_fn, argv: list, benchmark: str, tag: str, 
     kernel launched) and gives the same summaries."""
     import gluefactory_tpu_torch.settings as tsettings
 
-    cache_file = Path(tsettings.EVAL_PATH, benchmark, tag, "predictions.npz")
+    cache_file = Path(tsettings.EVAL_PATH, benchmark, tag, "predictions.h5")
     mtime = cache_file.stat().st_mtime_ns
     again = run_fn([*argv, "--tag", tag, "--overwrite_eval"])
     _check_launches(f"{label} --overwrite_eval", again["launches"], {})
@@ -3501,7 +3569,7 @@ K_EXPERIMENT = "chip_smoke_path_k"
 K_MATCHER = {"name": "superglue", "descriptor_dim": DIM, "keypoint_encoder": [32, 64, 128, 256],
              "n_layers": LAYERS, "num_heads": HEADS, "sinkhorn_iterations": SINKHORN_ITERS,
              "filter_threshold": 0.2, "checkpointed": True}
-K_STEPS, K_VAL_BATCHES, K_TIMED_STEPS, K_TRIPLET_BATCH = 4, 1, 2, 8
+K_STEPS, K_VAL_BATCHES, K_TIMED_STEPS, K_TRIPLET_BATCH = 2, 1, 2, 8
 # a train step: 36 attention calls forward and 36 in the checkpoints'
 # recompute, one Sinkhorn (its backward is the plain loop's gradient); a
 # validation batch: 36 and one
@@ -3513,7 +3581,7 @@ K_REDUCED = {
               "50 Sinkhorn iterations, checkpointed), written to a temporary directory: the JAX package "
               "ships no SuperGlue training config",
     "data": "path E's cuts: procedural images, batch 32 for 128, 6 workers for 14",
-    "length": f"{K_STEPS} training steps (one epoch) and {K_VAL_BATCHES} validation batch",
+    "length": f"{K_STEPS} training steps (one epoch) and {K_VAL_BATCHES} validation batch of {VAL_BATCH}",
     "triplet": f"one TripletPipeline forward and loss (train, backward) on a batch of {K_TRIPLET_BATCH} "
                "triplets of the homography dataset (`triplet: true`)",
 }
@@ -3522,9 +3590,10 @@ K_REDUCED = {
 def k_argv(conf_path: Path) -> list:
     return [K_EXPERIMENT, "--conf", str(conf_path), "--no_tensorboard", "--no_capture",
             "--max_val_iters", str(K_VAL_BATCHES),
-            f"data.synthetic_images={TRAIN_BATCH * (K_STEPS + K_VAL_BATCHES)}",
-            f"data.train_size={TRAIN_BATCH * K_STEPS}", f"data.val_size={TRAIN_BATCH * K_VAL_BATCHES}",
-            f"data.batch_size={TRAIN_BATCH}", "data.num_workers=6", "train.epochs=1",
+            f"data.synthetic_images={TRAIN_BATCH * K_STEPS + VAL_BATCH * K_VAL_BATCHES}",
+            f"data.train_size={TRAIN_BATCH * K_STEPS}", f"data.val_size={VAL_BATCH * K_VAL_BATCHES}",
+            f"data.batch_size={TRAIN_BATCH}", f"data.val_batch_size={VAL_BATCH}", "data.num_workers=6",
+            "train.epochs=1",
             "train.log_every_iter=1", "train.eval_every_iter=1000000"]
 
 
@@ -4119,14 +4188,15 @@ def lsd_in_workers(images: list, workers: int, conf) -> dict:
 def m_loader(label: str, conf, dataset: str, batch: int, loader_batch: int) -> tuple[dict, list]:
     """The training loader's samples/s over the first two steps' samples,
     in its own batches of `loader_batch`, with `detect_lines` on (those two
-    batches of `batch` kept on the card) and off; the LSD's ms an image in
+    batches of `batch` kept on the card), and off over one step's samples;
+    the LSD's ms an image in
     the workers on the first batch's views; the kept batches' wireframe
     keys with their dtypes on the card."""
     data = merge(conf.data, {"batch_size": loader_batch})
     rate, batches = loader_rate(data, keep=2, dataset=dataset, merge=batch // loader_batch,
                                 max_samples=2 * batch)
     off, _ = loader_rate(merge(data, {"detect_lines": {"do": False}}), dataset=dataset,
-                         max_samples=2 * batch)
+                         max_samples=batch)
     for b in batches:
         for v in ("view0", "view1"):
             view = b[v]
@@ -4327,7 +4397,8 @@ N_REDUCED = {
           f"{5 * sum(s.startswith('v') for s in HPATCHES_SEQUENCES)} procedural v_ pairs for 540",
     "N4": f"{N_TRAIN[0][1]} and {N_TRAIN[1][1]} at their widths (512 keypoints, frozen extractor, "
           f"LightGlue-9 checkpointed, f32, lg photometry): procedural images for revisitop1m, batch "
-          f"{TRAIN_BATCH} for 128, {N_WORKERS} workers for 14, {N_STEPS} steps and one validation batch",
+          f"{TRAIN_BATCH} for 128, {N_WORKERS} workers for 14, {N_STEPS} steps and one validation batch "
+          f"of {VAL_BATCH}",
     "weights": "random from seed 0 as path F draws them (lecun-normal, zero biases, the descriptor head "
                "centred on one scene: `centre_descriptors`); no official checkpoint is on disk",
 }
@@ -4361,14 +4432,17 @@ def _check_zoo_records(label: str, records: list) -> None:
         fail(f"{label}: extractor outputs not finite, not unit-norm or outside the image: {records[:4]}")
 
 
-def _n_forward(label: str, config: str, views, device_info: dict) -> dict:
-    """N1 / N2: the config's megadepth1500 model (by name, random weights)
-    on one pair through the pipeline's entry point: launches counted around
-    one forward, wall ms (CUDA events over N_TIMED forwards) and device ms
+def _n_forward(label: str, config: str, views, device_info: dict, root: Path = N_ROOT,
+               overrides: dict | None = None, record=_zoo_record, launches: dict = MAIN_LAUNCHES) -> dict:
+    """N1 / N2 (and O1 / O2): the config's megadepth1500 model (by name,
+    random weights saved under `root`, the model conf merged with
+    `overrides`) on one pair through the pipeline's entry point: `launches`
+    counted around one forward, the extractor's outputs gated by `record`
+    on every call, wall ms (CUDA events over N_TIMED forwards) and device ms
     (profile), the extractor alone, the plain versions' forward against the
-    kernels' (N_TOL on the log assignment, the matches' agreement), and
-    both attention kernels at the forward's layout against their bound and
-    SDPA."""
+    kernels' (N_TOL on the log assignment, the matches' agreement), and,
+    where the forward launches them, both attention kernels at its layout
+    against their bound and SDPA."""
     from gluefactory_tpu_torch.core.config import from_yaml
     from gluefactory_tpu_torch.eval.io import extract_benchmark_conf, load_model
 
@@ -4376,29 +4450,29 @@ def _n_forward(label: str, config: str, views, device_info: dict) -> dict:
     dev = torch.device(DEVICE)
     img0, img1 = views
     view = {"image": img0, "image_size": np.array(N_SIZE, np.float32)}
-    weights = N_ROOT / f"{label}.pth"
+    weights = root / f"{label}.pth"
     res = {"config": config, "weights": benchmark_weights(weights, DEVICE, "megadepth1500", view=view,
                                                           draw_device="cpu", config=config)}
     conf = extract_benchmark_conf(from_yaml(str(ROOT / f"gluefactory_tpu_torch/configs/{config}.yaml")),
                                   "megadepth1500")
-    model = load_model(merge(conf.model, {"weights_file": str(weights)}), None, dev)
+    model = load_model(merge(conf.model, {**(overrides or {}), "weights_file": str(weights)}), None, dev)
     batch = _l_batch(img0, img1, dev)
     forward = pipeline_forward(model, batch, torch.Generator(device=dev))
     records = []
     ext_cls = type(model.extractor)
-    with recorded_forward(ext_cls, records, _zoo_record):
+    with recorded_forward(ext_cls, records, record):
         reset_all_launches()
         with torch.no_grad():
             pred = forward()
             torch.cuda.synchronize()
-        _check_launches(f"path N {label}", all_launches(), MAIN_LAUNCHES)
-    _check_zoo_records(f"path N {label}", records)
+        _check_launches(f"path {label}", all_launches(), launches)
+    _check_zoo_records(f"path {label}", records)
     for k, t in pred.items():
         if t.is_floating_point() and not torch.isfinite(t).all():
-            fail(f"path N {label}: {k} is not finite")
+            fail(f"path {label}: {k} is not finite")
     K = int(conf.model.extractor.max_num_keypoints)
     if list(pred["keypoints0"].shape) != [1, K, 2] or pred["descriptors0"].shape[-1] != 128:
-        fail(f"path N {label}: keypoints {list(pred['keypoints0'].shape)}, descriptors "
+        fail(f"path {label}: keypoints {list(pred['keypoints0'].shape)}, descriptors "
              f"{list(pred['descriptors0'].shape)}")
     with torch.no_grad():
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -4416,14 +4490,14 @@ def _n_forward(label: str, config: str, views, device_info: dict) -> dict:
     with torch.no_grad():
         plain = forward()
     set_flash(model, True)
-    _check_launches(f"path N {label} plain", all_launches(), {})
+    _check_launches(f"path {label} plain", all_launches(), {})
     valid = (plain["log_assignment"] > -1e6) & (pred["log_assignment"] > -1e6)
     gap = float((plain["log_assignment"] - pred["log_assignment"])[valid].abs().max())
     agreement = float((plain["matches0"] == pred["matches0"]).float().mean())
     if not gap <= N_TOL:
-        fail(f"path N {label}: kernels vs plain versions {gap} > {N_TOL}")
+        fail(f"path {label}: kernels vs plain versions {gap} > {N_TOL}")
     res.update({
-        "image": [N_SIZE[1], N_SIZE[0]], "keypoints": K, "launches": MAIN_LAUNCHES,
+        "image": [N_SIZE[1], N_SIZE[0]], "keypoints": K, "launches": launches,
         "wall_ms": wall_ms, "device_ms": prof["device_ms"],
         "busy_share": prof["device_ms"] / wall_ms if prof["device_ms"] else None,
         "extractor_ms_two_views": ext_ms, "attention_kernel_ms": prof["attention_kernel_ms"],
@@ -4431,11 +4505,12 @@ def _n_forward(label: str, config: str, views, device_info: dict) -> dict:
         "matches": int((pred["matches0"] >= 0).sum()),
         "valid_keypoints": [int(pred[f"keypoint_mask{i}"].sum()) for i in "01"],
         "extractor_gates": records[0], "top_kernels": prof["top"][:8], "card": card})
-    print(f"path N {label} {config}: {json.dumps({k: v for k, v in res.items() if k != 'top_kernels'})}",
+    print(f"path {label} {config}: {json.dumps({k: v for k, v in res.items() if k != 'top_kernels'})}",
           flush=True)
     del model, pred, plain
     torch.cuda.empty_cache()
-    res["attention"] = attention_at_shapes(dev, torch.float32, K, 1, f"path N {label}", backward=False)
+    if launches:
+        res["attention"] = attention_at_shapes(dev, torch.float32, K, 1, f"path {label}", backward=False)
     return res
 
 
@@ -4476,8 +4551,9 @@ def _n_hpatches(device_info: dict) -> dict:
 
 def n_argv(config: str, experiment: str) -> list:
     return [experiment, "--conf", config, "--no_tensorboard", "--no_capture", "--max_val_iters", "1",
-            f"data.synthetic_images={TRAIN_BATCH * (N_STEPS + 1)}", f"data.train_size={TRAIN_BATCH * N_STEPS}",
-            f"data.val_size={TRAIN_BATCH}", f"data.batch_size={TRAIN_BATCH}",
+            f"data.synthetic_images={TRAIN_BATCH * N_STEPS + VAL_BATCH}",
+            f"data.train_size={TRAIN_BATCH * N_STEPS}", f"data.val_size={VAL_BATCH}",
+            f"data.batch_size={TRAIN_BATCH}", f"data.val_batch_size={VAL_BATCH}",
             f"data.num_workers={N_WORKERS}", "train.epochs=1", "train.log_every_iter=1",
             "train.eval_every_iter=1000000"]
 
@@ -4591,6 +4667,301 @@ def phase_zoo(device_info: dict) -> dict:
     return res
 
 
+# --------------------------------------------------------------------------
+# 19. path O: SIFT on the card (`ops/sift.py`, `extractor.backend=jax`)
+#     with LightGlue's add_scale_ori and with the NN matcher, by config name
+# --------------------------------------------------------------------------
+
+O_ROOT = ROOT / "outputs" / "chip_smoke_path_o"
+O_FORWARD = (("O1", "sift+lightglue-official", MAIN_LAUNCHES), ("O2", "sift+NN", {}))
+O_TRAIN, O_EXPERIMENT = "sift+lightglue_homography", "chip_smoke_path_o3"
+O_DEVICE = {"extractor": {"backend": "jax"}}  # the configs ship the opencv backend; the card has no cv2
+O_REDUCED = {
+    "O1 / O2": f"the configs' megadepth1500 sections at their widths (SIFT on the card, 2048 keypoints; "
+               f"LightGlue-9 256 wide, 4 heads, input_dim 128, add_scale_ori, f32; or the NN matcher) on "
+               f"path N's procedural {N_SIZE[0]} x {N_SIZE[1]} pair for MegaDepth-1500's 1500",
+    "O3": f"{O_TRAIN} at its widths (SIFT 512 keypoints on the card, frozen; LightGlue-9 checkpointed, "
+          f"add_scale_ori, f32, lg photometry): procedural images for revisitop1m, batch {TRAIN_BATCH} for "
+          f"128, {N_WORKERS} workers for 14, {N_STEPS} steps and one validation batch of {VAL_BATCH}",
+    "weights": "LightGlue random from seed 0 as path F draws them (lecun-normal, zero biases); SIFT has none",
+}
+
+
+def _sift_record(self, data, out) -> dict:
+    """One SIFT call's gates, on its valid slots: outputs finite, keypoints
+    inside `image_size`, descriptors unit-norm (RootSIFT), scales > 0."""
+    valid = out["keypoint_mask"]
+    kp, desc = out["keypoints"][valid], out["descriptors"][valid]
+    size = data["image_size"].to(kp.dtype)[:, None, :].expand_as(out["keypoints"])[valid]
+    finite = all(bool(torch.isfinite(out[k]).all()) for k in ("keypoints", "descriptors", "keypoint_scores",
+                                                               "scales", "oris"))
+    return {"finite": finite, "norm_err": float((desc.norm(dim=-1) - 1).abs().max()) if len(desc) else 1.0,
+            "inside": bool(((kp >= 0) & (kp <= size)).all()),
+            "scales_positive": bool((out["scales"][valid] > 0).all()),
+            "valid": int(valid.sum()), "keypoints": list(out["keypoints"].shape)}
+
+
+def _check_sift_records(label: str, records: list) -> None:
+    _check_zoo_records(label, records)
+    if not all(r["scales_positive"] and r["valid"] > 0 for r in records):
+        fail(f"{label}: SIFT gave no valid keypoint or a scale <= 0: {records[:4]}")
+
+
+def _sift_alone(view: np.ndarray, device_info: dict) -> dict:
+    """SIFT on the card (the config's extractor, `ops/sift.py`) on one
+    image: ms (CUDA events), device kernels launched (profile) and the
+    peak memory above what was allocated before the call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gluefactory_tpu_torch.core.config import from_yaml
+
+    dev = torch.device(DEVICE)
+    conf = from_yaml(str(ROOT / "gluefactory_tpu_torch/configs/sift+lightglue-official.yaml")).model.extractor
+    sift = get_model("sift").from_conf({**conf.to_dict(), **O_DEVICE["extractor"]}, device=dev)
+    data = {"image": torch.from_numpy(view[None]).to(dev),
+            "image_size": torch.tensor([[float(N_SIZE[0]), float(N_SIZE[1])]], device=dev)}
+    with torch.no_grad():
+        sift(data)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = sift(data)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - before
+        ms = cuda_time_ms(lambda: sift(data), reps=5)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            sift(data)
+            torch.cuda.synchronize()
+    rows = [ev for ev in prof.key_averages() if ev.device_type == torch.autograd.DeviceType.CUDA
+            and ev.self_device_time_total > 0]
+    res = {"ms_an_image": ms, "device_kernels_an_image": sum(ev.count for ev in rows) or None,
+           "device_ms_an_image": sum(ev.self_device_time_total for ev in rows) / 1e3 or None,
+           "peak_memory_gib_an_image": peak / 2**30, "valid_keypoints": int(out["keypoint_mask"].sum()),
+           "top": sorted(({"kernel": ev.key[:100], "ms": ev.self_device_time_total / 1e3, "calls": ev.count}
+                          for ev in rows), key=lambda r: -r["ms"])[:8],
+           "card": device_info["nvidia_smi"]}
+    print(f"path O SIFT alone: {json.dumps(res)}", flush=True)
+    return res
+
+
+def _opencv_backend_raises() -> dict:
+    """O4: the opencv backend where cv2 is absent (the card's machine; where
+    it is importable, the check blocks it) raises an ImportError naming cv2
+    and the device backend, with no fallback."""
+    import importlib.util
+
+    present = importlib.util.find_spec("cv2") is not None
+    saved = sys.modules.get("cv2")
+    if present:
+        sys.modules["cv2"] = None
+    try:
+        sift = get_model("sift").from_conf({"max_num_keypoints": 16}, device=DEVICE)
+        sift({"image": torch.rand(1, 32, 48, 1, device=DEVICE)})
+    except ImportError as e:
+        message = str(e)
+    else:
+        fail("path O4: the opencv SIFT backend ran without cv2")
+    finally:
+        if present:
+            sys.modules["cv2"] = saved
+    if "cv2" not in message or "extractor.backend=jax" not in message:
+        fail(f"path O4: the error does not name cv2 and the device backend: {message}")
+    return {"cv2_installed": present, "error": message}
+
+
+def _o_training(device_info: dict) -> dict:
+    """O3: `train.main` on the stage-1 SIFT config by name with the device
+    backend: finite losses, every update applied, 18 + 18 launches a step
+    and 9 + 9 for the validation batch, ms a step (each step synchronised)
+    and the run's peak memory."""
+    from gluefactory_tpu_torch import train
+    from gluefactory_tpu_torch.settings import TRAINING_PATH
+
+    shutil.rmtree(Path(TRAINING_PATH, O_EXPERIMENT), ignore_errors=True)
+    weights = O_ROOT / "O3.pth"
+    res = {"config": O_TRAIN, "weights": benchmark_weights(weights, DEVICE, draw_device="cpu", config=O_TRAIN)}
+    argv = [*n_argv(O_TRAIN, O_EXPERIMENT), "model.extractor.backend=jax"]
+    call, step_ms, records = train.TrainStep.__call__, [], []
+
+    def timed(self, batch, generator=None):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = call(self, batch, generator)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        return out
+
+    torch.cuda.reset_peak_memory_stats()
+    train.TrainStep.__call__ = timed
+    try:
+        with recorded_forward(get_model("sift"), records, _sift_record):
+            steps, seconds, launches, model = run_trainer(argv)
+    finally:
+        train.TrainStep.__call__ = call
+    _check_launches("path O3", launches, {k: N_STEPS * n + VAL_LAUNCHES[k] for k, n in STEP_LAUNCHES.items()})
+    _check_sift_records("path O3", records)
+    if len(steps) != N_STEPS or len(records) != N_STEPS + 1:
+        fail(f"path O3: {len(steps)} steps and {len(records)} extractor calls")
+    losses = [{k: float(v) for k, v in r[0].items()} for r in steps]
+    for i, (step_losses, (_, _, info)) in enumerate(zip(losses, steps)):
+        if not all(math.isfinite(v) for v in step_losses.values()) or not bool(info["ok"]):
+            fail(f"path O3: step {i}: losses {step_losses}, update applied {bool(info['ok'])}")
+    res.update({"argv": argv, "seconds": seconds, "step_ms": step_ms,
+                "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30, "launches": launches,
+                "losses": losses, "grad_norms": [float(r[2]["grad_norm"]) for r in steps],
+                "extractor_gates": records[-1], "card": device_info["nvidia_smi"]})
+    print(f"path O3 {O_TRAIN}: {json.dumps(res)}", flush=True)
+    del model
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_sift(device_info: dict) -> dict:
+    """Path O: SIFT on the card, cut as O_REDUCED says: O1 / O2 forwards at
+    1600 x 1200 (with SIFT alone on one image), O3 a stage-1 training, O4
+    the opencv backend without cv2."""
+    t0 = time.perf_counter()
+    print(f"path O reduced: {json.dumps(O_REDUCED)}", flush=True)
+    shutil.rmtree(O_ROOT, ignore_errors=True)
+    O_ROOT.mkdir(parents=True)
+    views = _n_views()
+    res = {"reduced": O_REDUCED}
+    for label, config, launches in O_FORWARD:
+        res[label] = _n_forward(label, config, views, device_info, root=O_ROOT, overrides=O_DEVICE,
+                                record=_sift_record, launches=launches)
+    res["sift_alone"] = _sift_alone(views[0], device_info)
+    res["O3"] = _o_training(device_info)
+    res["O4"] = _opencv_backend_raises()
+    res["seconds"] = time.perf_counter() - t0
+    res["card"] = device_info["nvidia_smi"]
+    print(f"path O: {res['seconds']:.1f} s", flush=True)
+    return res
+
+
+# --------------------------------------------------------------------------
+# 20. path P: LoFTR (`loftr.yaml`) on the card, a forward and the HPatches CLI
+# --------------------------------------------------------------------------
+
+P_ROOT = ROOT / "outputs" / "chip_smoke_path_p"
+P_CONFIG = "loftr"
+P_SIZE = (832, 624)  # (w, h): MegaDepth-1500's resize for LoFTR, 832 on the long side, divisible by 8
+P_REDUCED = {
+    "P1": f"{P_CONFIG}'s megadepth1500 section at its widths (ResNet-FPN 8/2, 4 coarse layer pairs 256 "
+          f"wide, 8 heads, 2048 match slots, f32) on one procedural {P_SIZE[0]} x {P_SIZE[1]} pair (a "
+          f"scene and its warp) for MegaDepth-1500's 1500",
+    "P2": f"{P_CONFIG}'s hpatches section (480 on the short side, divisible by 8, xla_ransac) on path "
+          f"F's {5 * sum(s.startswith('v') for s in HPATCHES_SEQUENCES)} procedural v_ pairs for 540",
+    "weights": "random from seed 0 as path F draws them (lecun-normal, zero biases), made to match by "
+               "`loftr_pass_through` on one scene; no official checkpoint is on disk",
+}
+
+
+def _p_forward(weights: Path, device_info: dict) -> dict:
+    """P1: the LoFTR pipeline on one pair: no port kernel launched, wall ms
+    (CUDA events) and device ms (profile), peak memory, valid matches, and
+    every keypoint finite and inside its image."""
+    from gluefactory_tpu_torch.core.config import from_yaml
+    from gluefactory_tpu_torch.data.homographies import generate_synthetic_image, warp_patch
+    from gluefactory_tpu_torch.eval.io import extract_benchmark_conf, load_model
+
+    dev = torch.device(DEVICE)
+    base = generate_synthetic_image(7200, P_SIZE).astype(np.float32)
+    H = np.array([[0.98, 0.04, 12.0], [-0.03, 1.01, -9.0], [2e-5, -1e-5, 1.0]])
+    img1 = np.clip(warp_patch(base, H, P_SIZE), 0, 1).astype(np.float32)
+    view = {"image": base, "image_size": np.array(P_SIZE, np.float32)}
+    res = {"config": P_CONFIG, "weights": benchmark_weights(weights, DEVICE, "megadepth1500", view=view,
+                                                            draw_device="cpu", config=P_CONFIG)}
+    conf = extract_benchmark_conf(from_yaml(str(ROOT / f"gluefactory_tpu_torch/configs/{P_CONFIG}.yaml")),
+                                  "megadepth1500")
+    model = load_model(merge(conf.model, {"weights_file": str(weights)}), None, dev)
+    batch = _l_batch(base, img1, dev)
+    forward = pipeline_forward(model, batch, torch.Generator(device=dev))
+    with torch.no_grad():
+        forward()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        reset_all_launches()
+        pred = forward()
+        torch.cuda.synchronize()
+        _check_launches("path P1", all_launches(), {})
+        peak = torch.cuda.max_memory_allocated() - before
+        wall_ms = cuda_time_ms(forward, reps=N_TIMED, warmup=0)
+    prof = profile_forward(forward)
+    valid = pred["keypoint_mask0"][0]
+    K = int(conf.model.matcher.max_num_matches)
+    size = torch.tensor(P_SIZE, dtype=torch.float32, device=dev)
+    kp = torch.cat([pred["keypoints0"][0][valid], pred["keypoints1"][0][valid]])
+    if list(pred["keypoints0"].shape) != [1, K, 2] or not all(
+            torch.isfinite(t).all() for t in (pred["keypoints0"], pred["keypoints1"], pred["matching_scores0"])):
+        fail(f"path P1: keypoints {list(pred['keypoints0'].shape)} or not finite")
+    if not int(valid.sum()) or not bool(((kp >= 0) & (kp <= size)).all()):
+        fail(f"path P1: {int(valid.sum())} valid matches, keypoints inside the image: "
+             f"{bool(((kp >= 0) & (kp <= size)).all())}")
+    p0 = pred["keypoints0"][0][valid].double().cpu().numpy()
+    w = np.c_[p0, np.ones(len(p0))] @ H.T
+    err = np.linalg.norm(w[:, :2] / w[:, 2:] - pred["keypoints1"][0][valid].double().cpu().numpy(), axis=1)
+    res.update({"image": [P_SIZE[1], P_SIZE[0]], "coarse_cells": (P_SIZE[0] // 8) * (P_SIZE[1] // 8),
+                "match_slots": K, "valid_matches": int(valid.sum()),
+                "median_error_px": float(np.median(err)), "wall_ms": wall_ms, "device_ms": prof["device_ms"],
+                "busy_share": prof["device_ms"] / wall_ms if prof["device_ms"] else None,
+                "peak_memory_gib": peak / 2**30, "top_kernels": prof["top"][:8],
+                "card": device_info["nvidia_smi"]})
+    print(f"path P1 {P_CONFIG}: {json.dumps(res)}", flush=True)
+    del model, pred
+    torch.cuda.empty_cache()
+    return res
+
+
+def _p_hpatches(weights: Path, device_info: dict) -> dict:
+    """P2: the HPatches CLI on `loftr` by name with `xla_ransac` on path F's
+    v_ sequences: no port kernel, the RANSAC on the card, finite AUCs, the
+    cache written as `predictions.h5` and read back by an `--overwrite_eval`
+    rerun."""
+    import gluefactory_tpu_torch.settings as tsettings
+
+    n_pairs = 5 * sum(s.startswith("v") for s in HPATCHES_SEQUENCES)
+    argv = ["--conf", P_CONFIG, "eval.estimator=xla_ransac", "data.subset=v", f"model.weights_file={weights}"]
+    data_path, tsettings.DATA_PATH = tsettings.DATA_PATH, HPATCHES_ROOT
+    try:
+        h = run_hpatches([*argv, "--tag", "chip_smoke_loftr", "--overwrite"])
+        cache = _cache("chip_smoke_loftr")
+        rerun = check_cache_rerun("path P2", run_hpatches, argv, "hpatches", "chip_smoke_loftr", h["summaries"])
+    finally:
+        tsettings.DATA_PATH = data_path
+    _check_launches("path P2", h["launches"], {})
+    if len(cache) != n_pairs:
+        fail(f"path P2: {len(cache)} cached items in predictions.h5, expected {n_pairs}")
+    calls = h["ransac_calls"]
+    if not calls or any(c["devices"] != [str(torch.empty(0, device=DEVICE).device)] for c in calls):
+        fail(f"path P2: the RANSAC ran on {[c['devices'] for c in calls][:2]}, expected the card")
+    aucs = [f"H_error_{k}@{t}px" for k in ("dlt", "ransac") for t in (1, 3, 5)]
+    res = {"summaries": _finite_summaries("path P2", h["summaries"], aucs), "pairs": n_pairs,
+           "seconds": h["seconds"], "export_pairs_per_s": n_pairs / h["seconds"]["get_predictions"],
+           "ransac_ms_per_call": float(np.mean([c["ms"] for c in calls])),
+           "matches_per_pair": float(np.mean(h["results"]["num_matches"])), "rerun": rerun,
+           "cache_items": len(cache), "card": device_info["nvidia_smi"]}
+    print(f"path P2 HPatches {P_CONFIG}: {json.dumps(res)}", flush=True)
+    return res
+
+
+def phase_loftr(device_info: dict) -> dict:
+    """Path P: LoFTR by config name, cut as P_REDUCED says. Needs path F's
+    HPatches layout (written here where it is missing)."""
+    t0 = time.perf_counter()
+    print(f"path P reduced: {json.dumps(P_REDUCED)}", flush=True)
+    shutil.rmtree(P_ROOT, ignore_errors=True)
+    P_ROOT.mkdir(parents=True)
+    if not (HPATCHES_ROOT / "hpatches-sequences-release").exists():
+        write_hpatches(HPATCHES_ROOT)
+    weights = P_ROOT / "P.pth"
+    res = {"reduced": P_REDUCED, "P1": _p_forward(weights, device_info), "P2": _p_hpatches(weights, device_info)}
+    res["seconds"] = time.perf_counter() - t0
+    res["card"] = device_info["nvidia_smi"]
+    print(f"path P: {res['seconds']:.1f} s", flush=True)
+    return res
+
+
 def main() -> None:
     t0 = time.perf_counter()
     seconds = {}
@@ -4629,6 +5000,8 @@ def main() -> None:
     path_l = timed("path_l", phase_lines, device_info)
     path_m = timed("path_m", phase_gluestick_training, device_info)
     path_n = timed("path_n", phase_zoo, device_info)
+    path_o = timed("path_o", phase_sift, device_info)
+    path_p = timed("path_p", phase_loftr, device_info)
     kernels += timed("conv_study", phase_conv_study, device_info)  # launches from the tools' runs
     OUT_DIR.mkdir(exist_ok=True)
     record = {"device": device_info, "build": build, "kernels": kernels, "gradients": gradients,
@@ -4638,6 +5011,7 @@ def main() -> None:
               "path_g_megadepth1500": path_g, "path_h_stage2": path_h, "path_i_cached": path_i,
               "path_j_benchmarks": path_j, "path_k_superglue_training": path_k,
               "path_l_lines": path_l, "path_m_gluestick_training": path_m, "path_n_zoo": path_n,
+              "path_o_sift": path_o, "path_p_loftr": path_p,
               "seconds_by_phase": seconds,
               "seconds": time.perf_counter() - t0}
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(record, indent=1))

@@ -24,7 +24,8 @@ the inverses of `convert_aliked`, `convert_disk` and
 `convert_superpoint_open`. SuperGlue's
 attention heads go back from the JAX package's head-major channels to the
 official head-fastest packing (the inverse of `_head_permutation`). GlueStick
-likewise, under upstream GlueStick's names (`convert_gluestick`).
+likewise, under upstream GlueStick's names (`convert_gluestick`), and LoFTR
+under the official names (`convert_loftr`).
 """
 
 from __future__ import annotations
@@ -284,6 +285,45 @@ def gluestick_state_dict(params: dict, num_heads: int, batch_stats: dict) -> dic
     return sd
 
 
+def loftr_state_dict(params: dict, batch_stats: dict) -> dict:
+    """LoFTR -> the official state dict layout (inverse of `convert_loftr`)."""
+    sd: dict = {}
+    bb, bs = params["backbone"], batch_stats["backbone"]
+
+    def conv_bn(p, st, conv, bn):
+        _conv(p["conv"], conv, sd)
+        _batch_norm(p["bn"], st["bn"], bn, sd)
+
+    conv_bn(bb["stem"], bs["stem"], "backbone.conv1", "backbone.bn1")
+    for li in ("layer1", "layer2", "layer3"):
+        for bi in range(2):
+            p, st, base = bb[f"{li}_{bi}"], bs[f"{li}_{bi}"], f"backbone.{li}.{bi}"
+            conv_bn(p["conv1"], st["conv1"], f"{base}.conv1", f"{base}.bn1")
+            conv_bn(p["conv2"], st["conv2"], f"{base}.conv2", f"{base}.bn2")
+            if "downsample" in p:
+                conv_bn(p["downsample"], st["downsample"], f"{base}.downsample.0", f"{base}.downsample.1")
+    for name in ("layer3_outconv", "layer2_outconv", "layer1_outconv"):
+        _conv(bb[name], f"backbone.{name}", sd)
+    for pre in ("layer2_outconv2", "layer1_outconv2"):
+        conv_bn(bb[f"{pre}_0"], bs[f"{pre}_0"], f"backbone.{pre}.0", f"backbone.{pre}.1")
+        _conv(bb[f"{pre}_1"], f"backbone.{pre}.3", sd)
+    for stage in ("coarse", "fine"):
+        i = 0
+        while f"{stage}_{i}" in params:
+            p, t = params[f"{stage}_{i}"], f"loftr_{stage}.layers.{i}"
+            for name in ("q_proj", "k_proj", "v_proj", "merge"):
+                _dense(p[name], f"{t}.{name}", sd)
+            _dense(p["mlp_0"], f"{t}.mlp.0", sd)
+            _dense(p["mlp_1"], f"{t}.mlp.2", sd)
+            _layer_norm(p["norm1"], f"{t}.norm1", sd)
+            _layer_norm(p["norm2"], f"{t}.norm2", sd)
+            i += 1
+    for name in ("down_proj", "merge_feat"):
+        if name in params:
+            _dense(params[name], f"fine_preprocess.{name}", sd)
+    return sd
+
+
 def _matcher_name(params: dict) -> str:
     """The matcher a pipeline's `matcher_model` params hold, by their keys."""
     if "line_bin_score" in params:
@@ -292,20 +332,24 @@ def _matcher_name(params: dict) -> str:
         return "superglue"
     if any(k.startswith("transformers_") for k in params):
         return "lightglue"
+    if "backbone" in params and "coarse_0" in params:
+        return "loftr"
     raise ValueError(f"no conversion for a matcher with parameters {sorted(params)}")
 
 
 def from_jax_params(params: dict, model: str, num_heads: int = 4,
                     batch_stats: dict | None = None) -> dict:
     """JAX `params` of `model` ("superpoint", "superpoint_open", "aliked",
-    "disk", "lightglue", "superglue", "gluestick" or "two_view_pipeline")
-    -> the port's state dict. `num_heads` is the matcher's head count (its
-    conf `num_heads`); `batch_stats` the JAX model's `batch_stats`
-    collection (the BatchNorm statistics of SuperPoint-open, ALIKED,
-    SuperGlue and GlueStick). A pipeline's extractor is told apart by its
-    parameters (`_extractor_name`), or is the wireframe around SuperPoint;
-    its matcher likewise (GlueStick's `line_bin_score`, SuperGlue's `kenc`
-    and `bin_score`, LightGlue's `transformers_i`)."""
+    "disk", "lightglue", "superglue", "gluestick", "loftr" or
+    "two_view_pipeline") -> the port's state dict. `num_heads` is the
+    matcher's head count (its conf `num_heads`); `batch_stats` the JAX
+    model's `batch_stats` collection (the BatchNorm statistics of
+    SuperPoint-open, ALIKED, SuperGlue, GlueStick and LoFTR's backbone). A
+    pipeline's extractor is told apart by its parameters
+    (`_extractor_name`), or is the wireframe around SuperPoint; its matcher
+    likewise (GlueStick's `line_bin_score`, SuperGlue's `kenc` and
+    `bin_score`, LightGlue's `transformers_i`, LoFTR's `backbone` and
+    `coarse_0`)."""
     if model == "superpoint":
         return superpoint_state_dict(params)
     if model == "disk":
@@ -326,6 +370,10 @@ def from_jax_params(params: dict, model: str, num_heads: int = 4,
         if batch_stats is None:
             raise ValueError("gluestick: its BatchNorm statistics (batch_stats) are needed")
         return gluestick_state_dict(params, num_heads, batch_stats)
+    if model == "loftr":
+        if batch_stats is None:
+            raise ValueError("loftr: its BatchNorm statistics (batch_stats) are needed")
+        return loftr_state_dict(params, batch_stats)
     if model == "two_view_pipeline":
         sd: dict = {}
         for comp, sub in params.items():

@@ -12,7 +12,7 @@ too (`superpoint+lsd+gluestick`, whose config turns on the line GT).
         [--device cuda|cpu] [--overwrite] [--overwrite_eval]
 
 reads `DATA_PATH/ETH3D_undistorted/` (`data/eth3d.py`) and writes under
-`EVAL_PATH/eth3d/<tag>/` (`predictions.npz`, `results.npz`,
+`EVAL_PATH/eth3d/<tag>/` (`predictions.h5`, `results.npz`,
 `summaries.json`, `conf.yaml`). The line keys are exported where the model
 gives them.
 """
@@ -24,7 +24,8 @@ from collections import defaultdict
 import numpy as np
 
 from ..data import get_dataset
-from ..utils.export_predictions import load_prediction, prediction_keys
+from ..data.hdf5 import H5File
+from ..utils.export_predictions import load_prediction
 from .eval_pipeline import EvalPipeline
 from .megadepth1500 import main as _main
 from .utils import aggregate_pr_results, get_tp_fp_pts
@@ -37,10 +38,9 @@ def eval_dataset(loader, pred_file, suffix: str = "") -> dict:
     results = defaultdict(list)
     results["num_pos" + suffix] = 0
     prefix = "" if suffix == "" else "line_"
-    with np.load(pred_file, allow_pickle=False) as npz:
-        keys = prediction_keys(npz)
+    with H5File(pred_file) as h5:
         for batch in loader:
-            pred = load_prediction(npz, keys, batch["name"][0])
+            pred = load_prediction(h5, batch["name"][0])
             scores = pred[f"{prefix}matching_scores0"]
             order = np.argsort(scores)[::-1]
             tp, fp, scores, num_pos = get_tp_fp_pts(pred[f"{prefix}matches0"][order],

@@ -1,8 +1,9 @@
 """The two-loop evaluation protocol (counterpart of
 `gluefactory_tpu/eval/eval_pipeline.py`).
 
-Loop 1, `get_predictions`: export the model's outputs to `predictions.npz`
-(`export_keys` and, where the model gives them, `optional_export_keys`).
+Loop 1, `get_predictions`: export the model's outputs to `predictions.h5`,
+one HDF5 group an item as the JAX package writes it (`export_keys` and,
+where the model gives them, `optional_export_keys`).
 Loop 2, `run_eval`: read the cache and compute the metrics into
 `results.npz` (the per-pair results) and `summaries.json`, with the figures
 as PNG files. A conf whose `model` changed since the last run needs
@@ -70,10 +71,10 @@ class EvalPipeline:
         raise NotImplementedError
 
     def get_predictions(self, experiment_dir, model=None, overwrite=False):
-        """`predictions.npz` of `experiment_dir`, exported first (the export
+        """`predictions.h5` of `experiment_dir`, exported first (the export
         and optional keys, masked entries trimmed) unless it exists and is
         not to be overwritten; `model` in memory, else the conf's."""
-        pred_file = Path(experiment_dir) / "predictions.npz"
+        pred_file = Path(experiment_dir) / "predictions.h5"
         if not pred_file.exists() or overwrite:
             if model is None:
                 model = load_model(self.conf.model, self.conf.get("checkpoint"), self.device)

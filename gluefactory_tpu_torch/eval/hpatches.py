@@ -24,7 +24,8 @@ import numpy as np
 
 from ..data import get_dataset
 from ..settings import EVAL_PATH
-from ..utils.export_predictions import load_prediction, prediction_keys
+from ..data.hdf5 import H5File
+from ..utils.export_predictions import load_prediction
 from ..utils.tensor import map_tensor
 from ..utils.tools import AUCMetric
 from ..visualization.viz2d import plot_cumulative
@@ -33,10 +34,11 @@ from .io import check_device, get_eval_parser, parse_eval_args
 from .utils import eval_homography_dlt, eval_homography_robust, eval_matches_homography, eval_poses
 
 
-def load_cached_prediction(npz, keys: dict, name: str, data_i: dict) -> dict:
-    """A cached prediction with its keypoints and lines rescaled into the
-    processed images' coordinates by each view's `scales`."""
-    pred = load_prediction(npz, keys, name)
+def load_cached_prediction(h5: H5File, name: str, data_i: dict) -> dict:
+    """A cached prediction (`predictions.h5` open as an `H5File`) with its
+    keypoints and lines rescaled into the processed images' coordinates by
+    each view's `scales`."""
+    pred = load_prediction(h5, name)
     for i in ("0", "1"):
         scales = data_i.get(f"view{i}", {}).get("scales")
         if scales is None:
@@ -90,12 +92,11 @@ class HPatchesPipeline(EvalPipeline):
             test_thresholds = list(conf.ransac_th)
         results = defaultdict(list)
         pose_results = defaultdict(lambda: defaultdict(list))
-        with np.load(pred_file, allow_pickle=False) as npz:
-            keys = prediction_keys(npz)
+        with H5File(pred_file) as h5:
             for batch in loader:
                 data_i = map_tensor(batch, lambda t: np.asarray(t)[0])
                 name = batch["name"][0]
-                pred = load_cached_prediction(npz, keys, name, data_i)
+                pred = load_cached_prediction(h5, name, data_i)
                 if "keypoints0" in pred:
                     results_i = {**eval_matches_homography(data_i, pred),
                                  **eval_homography_dlt(data_i, pred)}

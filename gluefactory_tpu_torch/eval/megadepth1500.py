@@ -30,7 +30,7 @@ import numpy as np
 from ..data import get_dataset
 from ..data.base_dataset import prepare_batch
 from ..settings import EVAL_PATH
-from ..utils.export_predictions import prediction_keys
+from ..data.hdf5 import H5File
 from ..utils.tensor import map_tensor, rbd
 from ..visualization.viz2d import plot_cumulative
 from .eval_pipeline import EvalPipeline
@@ -92,13 +92,11 @@ class MegaDepth1500Pipeline(EvalPipeline):
             test_thresholds = list(conf.ransac_th)
         results = defaultdict(list)
         pose_results = defaultdict(lambda: defaultdict(list))
-        with np.load(pred_file, allow_pickle=False) as npz:
-            keys = prediction_keys(npz)
+        with H5File(pred_file) as h5:
             for batch in loader:
                 data_i = rbd(prepare_batch(batch, "cpu"))
                 name = batch["name"][0]
-                pred = load_cached_prediction(npz, keys, name,
-                                              map_tensor(batch, lambda t: np.asarray(t)[0]))
+                pred = load_cached_prediction(h5, name, map_tensor(batch, lambda t: np.asarray(t)[0]))
                 results_i = eval_matches_epipolar(data_i, pred)
                 if "depth" in batch.get("view0", {}):
                     results_i.update(eval_matches_depth(data_i, pred))

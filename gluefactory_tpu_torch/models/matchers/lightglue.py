@@ -247,11 +247,11 @@ class LightGlue(BaseModel):
     required_data_keys = ["keypoints0", "keypoints1", "descriptors0", "descriptors1"]
 
     def _init(self, conf):
-        if conf.add_scale_ori or conf.int8_similarity:
-            raise NotImplementedError("add_scale_ori and int8_similarity are not ported yet")
+        if conf.int8_similarity:
+            raise NotImplementedError("int8_similarity is not ported yet")
         d = conf.descriptor_dim
         self.input_proj = nn.Linear(conf.input_dim, d)
-        self.posenc = LearnableFourierPosEnc(2, d // conf.num_heads)
+        self.posenc = LearnableFourierPosEnc(2 + 2 * bool(conf.add_scale_ori), d // conf.num_heads)
         self.transformers = nn.ModuleList(
             [TransformerLayer(d, conf.num_heads, bool(conf.flash)) for _ in range(conf.n_layers)]
         )
@@ -261,11 +261,17 @@ class LightGlue(BaseModel):
 
     def _encode(self, data: dict):
         """(desc0, desc1, enc0, enc1, mask0, mask1): projected descriptors,
-        rotary encodings of the normalized keypoints, keypoint masks."""
-        size0 = data["view0"]["image_size"] if "view0" in data else data["image_size0"]
-        size1 = data["view1"]["image_size"] if "view1" in data else data["image_size1"]
-        enc0 = self.posenc(normalize_keypoints(data["keypoints0"], size0))
-        enc1 = self.posenc(normalize_keypoints(data["keypoints1"], size1))
+        rotary encodings of the normalized keypoints (with `add_scale_ori`,
+        each keypoint's scale and orientation beside them), keypoint masks."""
+        encs = []
+        for i in "01":
+            size = data[f"view{i}"]["image_size"] if f"view{i}" in data else data[f"image_size{i}"]
+            p = normalize_keypoints(data[f"keypoints{i}"], size)
+            if self.conf.add_scale_ori:
+                p = torch.cat([p, data[f"scales{i}"][..., None].to(p.dtype),
+                               data[f"oris{i}"][..., None].to(p.dtype)], dim=-1)
+            encs.append(self.posenc(p))
+        enc0, enc1 = encs
         desc0 = self.input_proj(data["descriptors0"])
         desc1 = self.input_proj(data["descriptors1"])
         return desc0, desc1, enc0, enc1, data.get("keypoint_mask0"), data.get("keypoint_mask1")

@@ -1,7 +1,6 @@
 """Export an extractor's features for every image of a folder
 (counterpart of `gluefactory_tpu/scripts/export_local_features.py`) into
-one HDF5 file (`.h5`; any other suffix writes the zip of `.npy` files),
-one group per image under its path relative to the folder.
+one HDF5 file, one group per image under its path relative to the folder.
 
     python -m gluefactory_tpu_torch.scripts.export_local_features \\
         --image_dir /path/to/images --method superpoint \\

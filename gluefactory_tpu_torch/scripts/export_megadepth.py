@@ -61,15 +61,14 @@ METHODS = {
     },
 }
 # the extractors of METHODS that this package has
-PORTED = {"superpoint", "superpoint_open", "disk", "aliked"}
+PORTED = {"superpoint", "superpoint_open", "sift", "disk", "aliked"}
 
 
 def build_extractor(model_conf: dict, weights_file=None, device="cuda"):
     """The extractor of a METHODS entry, in eval mode on `device`, with
     `weights_file` loaded where given."""
     if model_conf["name"] not in PORTED:
-        raise NotImplementedError(f"extractor {model_conf['name']!r} is not ported yet "
-                                  "(ROADMAP.md, queue 1 item 5)")
+        raise NotImplementedError(f"extractor {model_conf['name']!r} is not ported")
     return load_model({**model_conf, "weights_file": weights_file}, None, device)
 
 

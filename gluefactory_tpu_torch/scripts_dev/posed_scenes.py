@@ -163,13 +163,28 @@ def _save_depth_png(path: Path, depth: np.ndarray) -> None:
     Image.fromarray(np.clip(np.round(depth * 256), 0, 65535).astype(np.uint16)).save(path)
 
 
-def _render_views(scene: str, seed: int, n_views: int, size, model: str):
-    """(name, camera dict, R, t, image, depth) of each view; names carry the
-    scene, so that pair names are unique across scenes."""
-    planes = make_planes(seed)
-    for i, (cam, R, t) in enumerate(make_cameras(seed + 1, n_views, size, model)):
-        image, depth = render(planes, Camera.from_colmap(cam).to(torch.float64), R, t)
-        yield f"{scene}_im{i:02d}", cam, R, t, image, depth
+def _render_view(args) -> tuple:
+    """(image, depth) of one view of the planes of `seed`."""
+    seed, cam, R, t = args
+    return render(make_planes(seed), Camera.from_colmap(cam).to(torch.float64), R, t)
+
+
+def _render_views(scene: str, seed: int, n_views: int, size, model: str, workers: int = 1) -> list:
+    """(name, camera dict, R, t, image, depth) of each view, rendered by
+    `workers` processes; names carry the scene, so that pair names are
+    unique across scenes."""
+    cameras = make_cameras(seed + 1, n_views, size, model)
+    jobs = [(seed, cam, R, t) for cam, R, t in cameras]
+    if workers > 1:
+        # one torch thread a child, as write_megadepth_scene's
+        fork = multiprocessing.get_context("fork")
+        with ProcessPoolExecutor(min(workers, n_views), mp_context=fork,
+                                 initializer=torch.set_num_threads, initargs=(1,)) as pool:
+            rendered = list(pool.map(_render_view, jobs))
+    else:
+        rendered = [_render_view(job) for job in jobs]
+    return [(f"{scene}_im{i:02d}", cam, R, t, image, depth)
+            for i, ((cam, R, t), (image, depth)) in enumerate(zip(cameras, rendered))]
 
 
 def _pairs(n_views: int, n_pairs: int) -> list:
@@ -180,13 +195,15 @@ def _pairs(n_views: int, n_pairs: int) -> list:
 
 
 def write_posed_images(root: Path, scene: str, n_views: int = 7, n_pairs: int = 20,
-                       size=(1920, 1440), model: str = "PINHOLE", seed: int = 0) -> int:
-    """One scene in the posed-images layout; returns the number of pairs."""
+                       size=(1920, 1440), model: str = "PINHOLE", seed: int = 0,
+                       workers: int = 1) -> int:
+    """One scene in the posed-images layout, its views rendered by `workers`
+    processes; returns the number of pairs."""
     d = Path(root) / scene
     (d / "images").mkdir(parents=True, exist_ok=True)
     (d / "depths").mkdir(exist_ok=True)
     lines, names = [], []
-    for name, cam, R, t, image, depth in _render_views(scene, seed, n_views, size, model):
+    for name, cam, R, t, image, depth in _render_views(scene, seed, n_views, size, model, workers):
         names.append(f"{name}.jpg")
         _save_jpeg(d / "images" / f"{name}.jpg", image)
         _save_depth_png(d / "depths" / f"{name}.png", depth)
@@ -480,18 +497,19 @@ def write_eth3d_scene(root: Path, scene: str, n_views: int = 4, size=(6048, 4032
 
 
 def write_zeb_scene(root: Path, scene: str, n_views: int = 5, n_pairs: int = 10,
-                    size=(1600, 1200), seed: int = 0) -> list:
+                    size=(1600, 1200), seed: int = 0, workers: int = 1) -> list:
     """One ZEB scene under `root/scene`: PINHOLE views with IMAGE_NOISE as
     `s0-NNNN.jpg` (one subscene, `s0`) and a pair file `s0-<i>-<j>.txt`
     for each of the first `n_pairs` pairs, its line `NNNN.jpg MMMM.jpg
     overlap0 overlap1 K0(9) K1(9) T_0to1(12)` (the overlaps are the views'
-    shares of co-visible pixels, `overlap_shares`). Returns the pair
-    files' paths."""
+    shares of co-visible pixels, `overlap_shares`). Views are rendered by
+    `workers` processes. Returns the pair files' paths."""
     d = Path(root) / scene
     d.mkdir(parents=True, exist_ok=True)
     rng = np.random.default_rng(seed + 2)
     views, depths = [], []
-    for k, (_, cam, R, t, image, depth) in enumerate(_render_views(scene, seed, n_views, size, "PINHOLE")):
+    for k, (_, cam, R, t, image, depth) in enumerate(_render_views(scene, seed, n_views, size, "PINHOLE",
+                                                                   workers)):
         _save_jpeg(d / f"s0-{k:04d}.jpg", _noisy(image, rng))
         views.append((cam, R, t))
         depths.append(depth)

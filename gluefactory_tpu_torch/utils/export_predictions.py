@@ -6,25 +6,24 @@ and lines back to the original resolution, and write one group per item.
 Masked (padded) keypoints and lines are trimmed before writing, with the
 match indices remapped, so the cache holds exactly the valid sets.
 
-An output file ending in `.h5` is an HDF5 file as the JAX package writes
-it, one group per item (the feature caches that `models/cache_loader.py`
-reads), written by `utils/hdf5_write.py` (no h5py). Any other is one zip
-that `np.load` reads (the eval caches, `predictions.npz`): a member
-`<name>/<key>.npy` per array, through `zipfile` and
-`np.lib.format.write_array`. Both stream item by item, so nothing
-accumulates in memory. A name written before gets the suffix `_<n>`, n the
-number of items written so far, as the JAX package's HDF5 groups do.
+The output is an HDF5 file as the JAX package writes it, one group per
+item (a name with "/" as nested groups), written by `utils/hdf5_write.py`
+(no h5py) and read back by `data/hdf5.py`: the eval caches
+(`predictions.h5`) and the feature caches that `models/cache_loader.py`
+reads. It streams item by item, so nothing accumulates in memory. A name
+written before gets the suffix `_<n>`, n the number of items written so
+far, as the JAX package's HDF5 groups do.
 """
 
 from __future__ import annotations
 
-import zipfile
 from pathlib import Path
 
 import numpy as np
 import torch
 
 from .. import logger
+from ..data.hdf5 import H5File, H5Group
 from .hdf5_write import H5Writer
 from .tensor import map_tensor
 
@@ -150,26 +149,6 @@ def _shape_signature(item) -> tuple:
 
 
 class PredictionWriter:
-    """Items written one by one as `<name>/<key>.npy` members of one zip."""
-
-    def __init__(self, path: Path):
-        self.zip = zipfile.ZipFile(path, "w")
-        self.names: set = set()
-
-    def write(self, name: str, arrays: dict) -> None:
-        if name in self.names:
-            name = f"{name}_{len(self.names)}"
-        self.names.add(name)
-        for k, v in arrays.items():
-            if isinstance(v, np.ndarray):
-                with self.zip.open(f"{name}/{k}.npy", "w", force_zip64=True) as f:
-                    np.lib.format.write_array(f, v, allow_pickle=False)
-
-    def close(self) -> None:
-        self.zip.close()
-
-
-class H5PredictionWriter:
     """Items written one by one as groups `<name>` of one HDF5 file (a name
     with "/" as nested groups), each array a dataset."""
 
@@ -192,19 +171,31 @@ class H5PredictionWriter:
         self.file.close()
 
 
-def prediction_keys(npz) -> dict:
-    """{name: [keys]} of a cache opened with `np.load`."""
+def load_prediction(h5: H5File, name: str) -> dict:
+    """One item's arrays (the datasets of its group `name`) from a cache
+    open as an `H5File`, read from disk now."""
+    group = h5[name]
+    return {k: group[k] for k in group.keys()}
+
+
+def load_predictions(path) -> dict:
+    """Every item of the cache at `path`: {name: arrays}, each group that
+    holds datasets an item (a name with "/" for nested groups)."""
     out: dict = {}
-    for member in npz.files:
-        name, key = member.rsplit("/", 1)
-        out.setdefault(name, []).append(key)
+    with H5File(path) as h5:
+        stack = [("", h5["/"])]
+        while stack:
+            name, group = stack.pop()
+            arrays = {}
+            for k in group.keys():
+                member = group[k]
+                if isinstance(member, H5Group):
+                    stack.append((f"{name}/{k}".lstrip("/"), member))
+                else:
+                    arrays[k] = member
+            if arrays:
+                out[name] = arrays
     return out
-
-
-def load_prediction(npz, keys: dict, name: str) -> dict:
-    """One item's arrays from a cache opened with `np.load`, read from disk
-    now; `keys` is `prediction_keys(npz)`."""
-    return {k: npz[f"{name}/{k}"] for k in keys[name]}
 
 
 def export_predictions(loader, apply_fn, output_file: Path, as_half: bool = False,
@@ -220,13 +211,11 @@ def export_predictions(loader, apply_fn, output_file: Path, as_half: bool = Fals
     comes. Each item's outputs are unbatched, filtered to `keys`, passed to
     `callback_fn(pred, item)` (its keys added under the model's), trimmed,
     un-scaled, and with `as_half` their float32 arrays stored as float16.
-    An `output_file` ending in `.h5` is written as HDF5, any other as a zip
-    of `.npy` files.
     """
     output_file = Path(output_file)
     output_file.parent.mkdir(exist_ok=True, parents=True)
     buckets: dict = {}
-    writer = (H5PredictionWriter if output_file.suffix == ".h5" else PredictionWriter)(output_file)
+    writer = PredictionWriter(output_file)
 
     def flush(group):
         n_real = len(group)

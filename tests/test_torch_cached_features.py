@@ -344,7 +344,8 @@ def test_export_local_features_cli(tmp_path):
     loader = cache_loader.CacheLoader({"path": str(out), "padding_length": 32})
     item = loader({"name": names[-1]})
     assert item["keypoints"].shape == (32, 2) and item["keypoint_mask"].any()
-    # DISK is ported: its 128-D descriptors; SIFT is not yet, and raises
+    # DISK and SIFT (the opencv backend, on the host) are ported: 128-D
+    # descriptors, and SIFT's scales and orientations beside them
     res = subprocess.run([sys.executable, "-m", "gluefactory_tpu_torch.scripts.export_local_features",
                           "--image_dir", str(tmp_path / "imgs"), "--output", str(tmp_path / "x.h5"),
                           "--method", "disk", "--num_keypoints", "32", "--resize", "96", "--device", "cpu"],
@@ -354,6 +355,10 @@ def test_export_local_features_cli(tmp_path):
         assert f[names[0]]["descriptors"].shape[1] == 128
     res = subprocess.run([sys.executable, "-m", "gluefactory_tpu_torch.scripts.export_local_features",
                           "--image_dir", str(tmp_path / "imgs"), "--output", str(tmp_path / "y.h5"),
-                          "--method", "sift", "--device", "cpu"],
+                          "--method", "sift", "--num_keypoints", "32", "--device", "cpu"],
                          cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
-    assert res.returncode != 0 and "queue 1 item 5" in res.stderr
+    assert res.returncode == 0, res.stdout + res.stderr
+    with h5py.File(tmp_path / "y.h5", "r") as f:
+        n = len(f[names[0]]["keypoints"])
+        assert 0 < n <= 32 and f[names[0]]["descriptors"].shape == (n, 128)
+        assert f[names[0]]["scales"].shape == f[names[0]]["oris"].shape == (n,)

@@ -51,12 +51,14 @@ def test_eval_loop_on_planted_cache_equals_jax(fake_hpatches, capsys):
     tmp, Hs = fake_hpatches
     preds = _planted(Hs)
     names = [f"i_fake/{q}.ppm" for q in range(2, 2 + PAIRS)]
-    with h5py.File(tmp / "predictions.h5", "w") as hfile:
+    # h5py writes one cache and the port another: each package's eval reads
+    # the other's file, so the equal results below hold both writers and readers
+    with h5py.File(tmp / "h5py_predictions.h5", "w") as hfile:
         for name, pred in zip(names, preds):
             grp = hfile.create_group(name)
             for k, v in pred.items():
                 grp.create_dataset(k, data=v)
-    writer = PredictionWriter(tmp / "predictions.npz")
+    writer = PredictionWriter(tmp / "predictions.h5")
     for name, pred in zip(names, preds):
         writer.write(name, pred)
     writer.close()
@@ -65,7 +67,7 @@ def test_eval_loop_on_planted_cache_equals_jax(fake_hpatches, capsys):
     sj, _, rj = jp.run_eval(jp.get_dataloader(jp.conf.data), tmp / "predictions.h5")
     th_jax = _best_threshold(capsys.readouterr().out)
     tp = hpatches.HPatchesPipeline(conf, device="cpu")
-    st, _, rt = tp.run_eval(tp.get_dataloader(tp.conf.data), tmp / "predictions.npz")
+    st, _, rt = tp.run_eval(tp.get_dataloader(tp.conf.data), tmp / "h5py_predictions.h5")
     assert _best_threshold(capsys.readouterr().out) == th_jax
     assert sj["H_error_ransac@5px"] > 0.5 and sj["H_error_dlt@5px"] > 0.5  # far from 0
     _assert_summaries_close(st, sj, rtol=1e-6)
@@ -85,19 +87,19 @@ def test_cli_on_cpu(fake_hpatches, monkeypatch):
     torch.manual_seed(0)
     s, _, r = hpatches.main(argv)
     out = tmp / "results" / "hpatches" / "t"
-    for f in ("predictions.npz", "results.npz", "summaries.json", "conf.yaml"):
+    for f in ("predictions.h5", "results.npz", "summaries.json", "conf.yaml"):
         assert (out / f).exists(), f
     assert json.loads((out / "summaries.json").read_text()) == s
     assert set(s) >= {"H_error_ransac@1px", "H_error_dlt@5px", "mnum_matches", "H_error_ransac_mAA"}
     assert len(r["H_error_dlt"]) == PAIRS
-    mtime = (out / "predictions.npz").stat().st_mtime_ns
+    mtime = (out / "predictions.h5").stat().st_mtime_ns
 
     def no_model(*a, **k):
         raise AssertionError("the cache was not read")
 
     monkeypatch.setattr(eval_pipeline, "load_model", no_model)
     s2, _, _ = hpatches.main(argv + ["--overwrite_eval"])
-    assert s2 == s and (out / "predictions.npz").stat().st_mtime_ns == mtime
+    assert s2 == s and (out / "predictions.h5").stat().st_mtime_ns == mtime
     with pytest.raises(ValueError, match="overwrite_eval"):
         hpatches.main(argv + ["eval.ransac_th=1.0"])
     with pytest.raises(ValueError, match="overwrite"):

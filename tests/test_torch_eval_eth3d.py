@@ -36,6 +36,7 @@ from gluefactory_tpu_torch.eval import eth3d as port_eval
 from gluefactory_tpu_torch.eval import eval_pipeline
 from gluefactory_tpu_torch.models import get_model
 from gluefactory_tpu_torch.scripts_dev.posed_scenes import rotmat2qvec, write_eth3d_scene
+from gluefactory_tpu_torch.utils.export_predictions import load_predictions
 from test_torch_eval_hpatches import MODEL, random_models
 
 SCENES = ("courtyard", "pipes")
@@ -129,21 +130,20 @@ def test_pipeline_equals_jax(data_path, matcher):
                                                   overwrite_eval=True)
     st, _, rt = port_eval.ETH3DPipeline(conf, device="cpu").run(
         data_path / "port" / matcher, model=pt, overwrite=True, overwrite_eval=True)
-    with h5py.File(data_path / "jax" / matcher / "predictions.h5") as hfile, \
-            np.load(data_path / "port" / matcher / "predictions.npz") as npz:
-        names = {m.rsplit("/", 1)[0] for m in npz.files}
+    cache = load_predictions(data_path / "port" / matcher / "predictions.h5")
+    with h5py.File(data_path / "jax" / matcher / "predictions.h5") as hfile:
+        names = set(cache)
         assert names == set(hfile.keys()) and len(names) == 6
         positives = 0
         for name in names:
-            assert {m.rsplit("/", 1)[1] for m in npz.files if m.startswith(name + "/")} == \
-                set(port_eval.ETH3DPipeline.export_keys)
+            assert set(cache[name]) == set(port_eval.ETH3DPipeline.export_keys)
             for k in port_eval.ETH3DPipeline.export_keys:
-                got, want = npz[f"{name}/{k}.npy"], hfile[name][k][()]
+                got, want = cache[name][k], hfile[name][k][()]
                 if k.startswith(("keypoints", "matches", "gt_")):
                     np.testing.assert_array_equal(got, want, err_msg=k)
                 else:
                     np.testing.assert_allclose(got, want, atol=1e-6, rtol=0, err_msg=k)
-            positives += int((npz[f"{name}/gt_matches0.npy"] >= 0).sum())
+            positives += int((cache[name]["gt_matches0"] >= 0).sum())
         assert positives >= 20  # the depth GT finds correspondences
     assert set(st) == set(sj) == {"AP"}
     np.testing.assert_allclose(st["AP"], sj["AP"], rtol=1e-6)
@@ -161,10 +161,10 @@ def test_cli_by_name_on_cpu(data_path, monkeypatch):
     torch.manual_seed(0)
     s, _, r = port_eval.main(argv)
     out = data_path / "results" / "eth3d" / "t"
-    for f in ("predictions.npz", "results.npz", "summaries.json", "conf.yaml"):
+    for f in ("predictions.h5", "results.npz", "summaries.json", "conf.yaml"):
         assert (out / f).exists(), f
     assert json.loads((out / "summaries.json").read_text()) == s and np.isfinite(s["AP"])
-    mtime = (out / "predictions.npz").stat().st_mtime_ns
+    mtime = (out / "predictions.h5").stat().st_mtime_ns
 
     def no_model(*a, **k):
         raise AssertionError("the cache was not read")
@@ -173,7 +173,7 @@ def test_cli_by_name_on_cpu(data_path, monkeypatch):
 
     monkeypatch.setattr(eval_pipeline, "load_model", no_model)
     s2, _, _ = port_eval.main(argv + ["--overwrite_eval"])
-    assert s2 == s and (out / "predictions.npz").stat().st_mtime_ns == mtime
+    assert s2 == s and (out / "predictions.h5").stat().st_mtime_ns == mtime
     # eval_lines (which raised before the line models were ported): GlueStick's
     # config by name, its line GT in the forward, the line AP from the cache
     monkeypatch.setattr(eval_pipeline, "load_model", load_model)
@@ -186,8 +186,8 @@ def test_cli_by_name_on_cpu(data_path, monkeypatch):
     s, _, r = port_eval.main(argv)
     assert set(s) == {"AP", "AP_lines"} and np.isfinite(s["AP_lines"]), s
     loader = port_eval.ETH3DPipeline.get_dataloader({**DATA, "name": "eth3d"})
-    pred_file = data_path / "results" / "eth3d" / "g" / "predictions.npz"
+    pred_file = data_path / "results" / "eth3d" / "g" / "predictions.h5"
     again = port_eval.eval_dataset(loader, pred_file, suffix="_lines")
     assert again["AP_lines"] == s["AP_lines"] and len(r["curve_recall_lines"]) > 0
-    with np.load(pred_file) as npz:  # the line GT found correspondences
-        assert sum(int((npz[f] >= 0).sum()) for f in npz.files if f.endswith("/gt_line_matches0"))
+    # the line GT found correspondences
+    assert sum(int((item["gt_line_matches0"] >= 0).sum()) for item in load_predictions(pred_file).values())

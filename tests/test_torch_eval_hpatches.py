@@ -35,6 +35,7 @@ from gluefactory_tpu.models import get_model as jax_get_model
 from gluefactory_tpu_torch.compat.jax_params import from_jax_params
 from gluefactory_tpu_torch.eval import hpatches
 from gluefactory_tpu_torch.models import get_model
+from gluefactory_tpu_torch.utils.export_predictions import load_predictions
 
 W, H, K, PAIRS = 160, 120, 64, 5
 MODEL = {"name": "two_view_pipeline",
@@ -135,13 +136,11 @@ def test_pipeline_equals_jax(fake_hpatches, capsys):
             la = pt({"view0": batch["view0"], "view1": batch["view1"]})["log_assignment"][0, :-1, :-1]
             rows, cols = la.topk(2, dim=1).values, la.topk(2, dim=0).values
             assert min((rows[:, 0] - rows[:, 1]).min(), (cols[0] - cols[1]).min()) >= 1e-4
-    with np.load(tmp / "port" / "predictions.npz") as npz:
-        names = {m.rsplit("/", 1)[0] for m in npz.files}
-        assert names == {f"i_fake/{q}.ppm" for q in range(2, 2 + PAIRS)}
-        assert {m.rsplit("/", 1)[1] for m in npz.files} == set(hpatches.HPatchesPipeline.export_keys)
-    with h5py.File(tmp / "jax" / "predictions.h5") as hfile, \
-            np.load(tmp / "port" / "predictions.npz") as npz:
+    cache = load_predictions(tmp / "port" / "predictions.h5")
+    assert set(cache) == {f"i_fake/{q}.ppm" for q in range(2, 2 + PAIRS)}
+    assert {k for item in cache.values() for k in item} == set(hpatches.HPatchesPipeline.export_keys)
+    with h5py.File(tmp / "jax" / "predictions.h5") as hfile:
         for q in range(2, 2 + PAIRS):
             grp = hfile[f"i_fake/{q}.ppm"]
             for k in ("keypoints0", "keypoints1", "matches0", "matches1"):
-                np.testing.assert_array_equal(npz[f"i_fake/{q}.ppm/{k}.npy"], grp[k][()], err_msg=k)
+                np.testing.assert_array_equal(cache[f"i_fake/{q}.ppm"][k], grp[k][()], err_msg=k)

@@ -40,7 +40,7 @@ from gluefactory_tpu.eval import scannet1500 as jax_sn
 from gluefactory_tpu_torch.data.base_dataset import prepare_batch
 from gluefactory_tpu_torch.eval import eval_pipeline, megadepth1500, scannet1500
 from gluefactory_tpu_torch.geometry.depth import project, sample_depth
-from gluefactory_tpu_torch.utils.export_predictions import PredictionWriter
+from gluefactory_tpu_torch.utils.export_predictions import PredictionWriter, load_predictions
 from gluefactory_tpu_torch.utils.tensor import rbd
 from test_torch_eval_hpatches import MODEL, _assert_summaries_close, _best_threshold, random_models
 from test_torch_eval_posed import MD_CONF, PAIRS_CONF, write_layouts
@@ -89,13 +89,12 @@ def test_pipeline_equals_jax(data_path, bench, capsys):
     th_jax = _best_threshold(capsys.readouterr().out)
     st, _, rt = tpipe(conf, device="cpu").run(data_path / "port" / bench, model=pt, overwrite=True,
                                               overwrite_eval=True)
-    with h5py.File(data_path / "jax" / bench / "predictions.h5") as hfile, \
-            np.load(data_path / "port" / bench / "predictions.npz") as npz:
-        names = {m.rsplit("/", 1)[0] for m in npz.files}
-        assert len(names) == n_pairs
-        for name in names:
+    cache = load_predictions(data_path / "port" / bench / "predictions.h5")
+    with h5py.File(data_path / "jax" / bench / "predictions.h5") as hfile:
+        assert len(cache) == n_pairs
+        for name in cache:
             for k in tpipe.export_keys:
-                got, want = npz[f"{name}/{k}.npy"], hfile[name][k][()]
+                got, want = cache[name][k], hfile[name][k][()]
                 if k.startswith(("keypoints", "matches")):
                     np.testing.assert_array_equal(got, want, err_msg=k)
                 else:  # scores: float32 rounding of the two forwards
@@ -159,12 +158,14 @@ def test_eval_loop_on_planted_cache_equals_jax(data_path, bench, estimator, tmp_
     tpipe, jpipe, data, n_pairs = BENCH[bench]
     preds = _planted(tpipe, data)
     assert len(preds) == n_pairs
-    with h5py.File(tmp_path / "predictions.h5", "w") as hfile:
+    # h5py writes one cache and the port another: each package's eval reads
+    # the other's file, so the equal results below hold both writers and readers
+    with h5py.File(tmp_path / "h5py_predictions.h5", "w") as hfile:
         for name, pred in preds.items():
             grp = hfile.create_group(name)
             for k, v in pred.items():
                 grp.create_dataset(k, data=v)
-    writer = PredictionWriter(tmp_path / "predictions.npz")
+    writer = PredictionWriter(tmp_path / "predictions.h5")
     for name, pred in preds.items():
         writer.write(name, pred)
     writer.close()
@@ -176,7 +177,7 @@ def test_eval_loop_on_planted_cache_equals_jax(data_path, bench, estimator, tmp_
     sj, _, rj = jp.run_eval(jp.get_dataloader(jp.conf.data), tmp_path / "predictions.h5")
     out_jax = capsys.readouterr().out
     tp = tpipe(conf, device="cpu")
-    st, _, rt = tp.run_eval(tp.get_dataloader(tp.conf.data), tmp_path / "predictions.npz")
+    st, _, rt = tp.run_eval(tp.get_dataloader(tp.conf.data), tmp_path / "h5py_predictions.h5")
     if len(ths) > 1:
         assert _best_threshold(capsys.readouterr().out) == _best_threshold(out_jax)
     assert sj["rel_pose_error@20°"] > 0.5  # far from random poses
@@ -205,7 +206,7 @@ def test_cli_on_cpu(data_path, bench, monkeypatch):
     torch.manual_seed(0)
     s, _, r = mod.main(argv)
     out = data_path / "results" / bench / "t"
-    for f in ("predictions.npz", "results.npz", "summaries.json", "conf.yaml"):
+    for f in ("predictions.h5", "results.npz", "summaries.json", "conf.yaml"):
         assert (out / f).exists(), f
     assert json.loads((out / "summaries.json").read_text()) == s
     assert set(s) >= {"rel_pose_error@5°", "rel_pose_error@20°", "rel_pose_error_mAA",
@@ -213,14 +214,14 @@ def test_cli_on_cpu(data_path, bench, monkeypatch):
     assert len(r["rel_pose_error"]) == BENCH[bench][3]
     if bench == "megadepth1500":
         assert {"mreproj_prec@3px", "mgt_match_recall@3px", "mcovisible"} <= set(s)
-    mtime = (out / "predictions.npz").stat().st_mtime_ns
+    mtime = (out / "predictions.h5").stat().st_mtime_ns
 
     def no_model(*a, **k):
         raise AssertionError("the cache was not read")
 
     monkeypatch.setattr(eval_pipeline, "load_model", no_model)
     s2, _, _ = mod.main(argv + ["--overwrite_eval"])
-    assert s2 == s and (out / "predictions.npz").stat().st_mtime_ns == mtime
+    assert s2 == s and (out / "predictions.h5").stat().st_mtime_ns == mtime
 
 
 @pytest.mark.parametrize("bench", list(BENCH))

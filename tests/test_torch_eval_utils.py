@@ -182,10 +182,8 @@ def _apply(batch):
             "matching_scores0": img0[:, :6, 2, 0], "descriptors0": img0[:, :6, :3, 0]}
 
 
-def _npz_items(path):
-    with np.load(path) as npz:
-        keys = pexport.prediction_keys(npz)
-        return {name: pexport.load_prediction(npz, keys, name) for name in keys}
+def _cache_items(path):
+    return pexport.load_predictions(path)
 
 
 @pytest.mark.parametrize("ipd", [None, 1, 2, 3])
@@ -199,11 +197,11 @@ def test_export_equals_jax_and_per_item(tmp_path, ipd):
         calls.append(np.asarray(batch["idx"]).tolist())
         return _apply(batch)
 
-    pexport.export_predictions(_Loader(_batches(items)), apply, tmp_path / "p.npz", keys=keys,
+    pexport.export_predictions(_Loader(_batches(items)), apply, tmp_path / "p.h5", keys=keys,
                                items_per_dispatch=ipd)
     jexport.export_predictions(_Loader(_batches(items, to=np.asarray)), _apply, tmp_path / "j.h5", keys=keys,
                                items_per_dispatch=ipd)
-    got = _npz_items(tmp_path / "p.npz")
+    got = _cache_items(tmp_path / "p.h5")
     with h5py.File(tmp_path / "j.h5") as hfile:
         names = []
         hfile.visititems(lambda n, o: names.append(n) if isinstance(o, h5py.Group) and
@@ -214,10 +212,10 @@ def test_export_equals_jax_and_per_item(tmp_path, ipd):
         assert got[name].keys() == want[name].keys()
         for k in want[name]:
             np.testing.assert_array_equal(got[name][k], want[name][k], err_msg=f"{name}/{k}")
-    per_item = tmp_path / "one.npz"
+    per_item = tmp_path / "one.h5"
     pexport.export_predictions(_Loader(_batches(items, (1,) * 7)), _apply, per_item, keys=keys,
                                items_per_dispatch=None)
-    ref = _npz_items(per_item)
+    ref = _cache_items(per_item)
     for name in ref:
         if name.startswith("seq/5.ppm"):  # the repeated name: its suffix follows the write order
             continue
@@ -237,9 +235,9 @@ def test_export_options(tmp_path):
         calls.append(item["name"])
         return {"extra": np.array([len(calls)]), "keypoints0": np.zeros(1)}
 
-    pexport.export_predictions(_Loader(_batches(items, (1, 2))), _apply, tmp_path / "p.npz",
+    pexport.export_predictions(_Loader(_batches(items, (1, 2))), _apply, tmp_path / "p.h5",
                                as_half=True, callback_fn=cb, trim_masks=False)
-    got = _npz_items(tmp_path / "p.npz")
+    got = _cache_items(tmp_path / "p.h5")
     assert calls == [it["name"] for it in items]
     first = got["seq/0.ppm"]
     assert first["keypoints0"].dtype == np.float16 and first["keypoints0"].shape == (6, 2)  # model wins
@@ -459,7 +457,7 @@ def test_trainer_benchmark_hook(tmp_path, monkeypatch):
     train.run_benchmark_hook("hpatches", conf, model, tmp_path / "out", "cpu", writer, 7)
     out = tmp_path / "out" / "benchmarks" / "hpatches"
     s = json.loads((out / "summaries.json").read_text())
-    assert (out / "predictions.npz").exists()
+    assert (out / "predictions.h5").exists()
     assert writer.scalars["benchmark/hpatches/mnum_matches"] == (s["mnum_matches"], 7)
     s2, _, _ = run_benchmark("hpatches", conf.train.benchmark_conf.hpatches, tmp_path / "direct",
                              model=model, device="cpu")

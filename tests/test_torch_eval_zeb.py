@@ -30,6 +30,7 @@ from gluefactory_tpu.eval import zeb as jax_zeb
 from gluefactory_tpu_torch.data import zeb as zeb_data
 from gluefactory_tpu_torch.eval import eval_pipeline, megadepth1500, zeb
 from gluefactory_tpu_torch.scripts_dev.posed_scenes import write_zeb_scene
+from gluefactory_tpu_torch.utils.export_predictions import load_predictions
 from test_torch_eval_hpatches import MODEL, _assert_summaries_close, random_models
 from test_torch_eval_megadepth1500 import _assert_results_close
 from test_torch_eval_posed import assert_items_equal
@@ -113,13 +114,12 @@ def test_pipeline_equals_jax(data_path, capsys):
     st, _, rt = zeb.ZEBPipeline(conf, device="cpu").run(data_path / "port", model=pt,
                                                         overwrite=True, overwrite_eval=True)
     assert _best_threshold(capsys.readouterr().out) == th_jax
-    with h5py.File(data_path / "jax" / "predictions.h5") as hfile, \
-            np.load(data_path / "port" / "predictions.npz") as npz:
-        names = {m.rsplit("/", 1)[0] for m in npz.files}
-        assert len(names) == len(SCENES) * PAIRS_PER_SCENE
-        for name in names:
+    cache = load_predictions(data_path / "port" / "predictions.h5")
+    with h5py.File(data_path / "jax" / "predictions.h5") as hfile:
+        assert len(cache) == len(SCENES) * PAIRS_PER_SCENE
+        for name in cache:
             for k in zeb.ZEBPipeline.export_keys:
-                got, want = npz[f"{name}/{k}.npy"], hfile[name][k][()]
+                got, want = cache[name][k], hfile[name][k][()]
                 if k.startswith(("keypoints", "matches")):
                     np.testing.assert_array_equal(got, want, err_msg=k)
                 else:
@@ -139,17 +139,17 @@ def test_cli_by_name_on_cpu(data_path, monkeypatch):
     torch.manual_seed(0)
     s, _, r = zeb.main(argv)
     out = data_path / "results" / "zeb" / "t"
-    for f in ("predictions.npz", "results.npz", "summaries.json", "conf.yaml"):
+    for f in ("predictions.h5", "results.npz", "summaries.json", "conf.yaml"):
         assert (out / f).exists(), f
     assert json.loads((out / "summaries.json").read_text()) == s
     assert all(np.isfinite(s[k]) for k in ("rel_pose_error@5°", "rel_pose_error@20°",
                                            "rel_pose_error_mAA"))
     assert len(r["rel_pose_error"]) == PAIRS_PER_SCENE
-    mtime = (out / "predictions.npz").stat().st_mtime_ns
+    mtime = (out / "predictions.h5").stat().st_mtime_ns
 
     def no_model(*a, **k):
         raise AssertionError("the cache was not read")
 
     monkeypatch.setattr(eval_pipeline, "load_model", no_model)
     s2, _, _ = zeb.main(argv + ["--overwrite_eval"])
-    assert s2 == s and (out / "predictions.npz").stat().st_mtime_ns == mtime
+    assert s2 == s and (out / "predictions.h5").stat().st_mtime_ns == mtime

@@ -29,6 +29,7 @@ from gluefactory_tpu_torch.compat.jax_params import from_jax_params
 from gluefactory_tpu_torch.eval import eth3d as port_eth3d
 from gluefactory_tpu_torch.eval import hpatches
 from gluefactory_tpu_torch.models import get_model
+from gluefactory_tpu_torch.utils.export_predictions import load_predictions
 from test_torch_eval_eth3d import DATA as ETH3D_DATA
 from test_torch_eval_eth3d import data_path, layout  # noqa: F401 (fixtures)
 from test_torch_lsd import polygons
@@ -154,12 +155,11 @@ def test_eth3d_lines_equal_jax(data_path):  # noqa: F811
     for k in sj:
         np.testing.assert_allclose(st[k], sj[k], rtol=1e-6, err_msg=k)
     assert np.isfinite(st["AP_lines"])
-    with h5py.File(data_path / "jax" / "predictions.h5") as hfile, \
-            np.load(data_path / "port" / "predictions.npz") as npz:
+    cache = load_predictions(data_path / "port" / "predictions.h5")
+    with h5py.File(data_path / "jax" / "predictions.h5") as hfile:
         n_gt = 0
         for name in hfile:
             for k in ("gt_line_matches0", "line_matches0", "lines0"):
-                np.testing.assert_array_equal(npz[f"{name}/{k}.npy"], hfile[name][k][()],
-                                              err_msg=k)
-            n_gt += int((npz[f"{name}/gt_line_matches0.npy"] >= 0).sum())
+                np.testing.assert_array_equal(cache[name][k], hfile[name][k][()], err_msg=k)
+            n_gt += int((cache[name]["gt_line_matches0"] >= 0).sum())
     assert n_gt >= 1  # the line GT found correspondences

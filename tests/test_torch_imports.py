@@ -36,7 +36,7 @@ for name in names:
 leaked = sorted(m for m in sys.modules if m == "gluefactory_tpu" or m.startswith("gluefactory_tpu."))
 print(len(names), leaked)
 assert not leaked, leaked
-assert len(names) >= 106, names
+assert len(names) >= 112, names
 for name in ("train", "optim", "settings", "data.homographies", "data.base_dataset", "data.augmentations",
              "data.raster", "data.colour", "data.jpeg", "data.preprocess", "geometry.homography", "geometry.gt_generation", "models.losses",
              "models.metrics", "models.matchers.homography_matcher", "utils.experiments",
@@ -63,7 +63,8 @@ for name in ("train", "optim", "settings", "data.homographies", "data.base_datas
              "models.lines.lsd", "models.lines.wireframe", "models.matchers.gluestick",
              "geometry.gt_lines", "robust_estimators.homography.homography_est",
              "models.extractors.aliked", "models.extractors.disk", "models.extractors.superpoint_open",
-             "ops.batch_norm"):
+             "ops.batch_norm", "ops.sift", "models.extractors.sift", "models.extractors.sift_kornia",
+             "models.backbones", "models.backbones.resnet_fpn", "models.matchers.loftr"):
     assert pkg.__name__ + "." + name in names, name
 """
 
