@@ -99,10 +99,10 @@ Phases, in order; any failure exits non-zero before the last line:
    side) with `eval.estimator=xla_ransac` and random weights from seed 0
    (`model.weights_file`); cut to 40 pairs of 540. Gates: 40 cached items
    with the export keys, 9 + 9 attention launches a pair, every RANSAC
-   tensor on the card, finite DLT and RANSAC AUC@1/3/5 px; a run through the
-   plain versions (`model.matcher.flash=False`) and a grouped export
-   (`items_per_dispatch=4`, 9 + 9 launches a forward) each against the
-   kernels' per-item run within 1e-3 on the scores; an `--overwrite_eval`
+   tensor on the card, finite DLT and RANSAC AUC@1/3/5 px; an export through
+   the plain versions (`model.matcher.flash=False`) and a grouped export
+   (`items_per_dispatch=4`, 9 + 9 launches a forward), without their eval
+   loops, each against the kernels' per-item run within 1e-3 on the scores; an `--overwrite_eval`
    rerun that reads the cache. Export pairs/s, the eval loop's seconds,
    RANSAC ms a pair (CUDA events) and the busy share of one forward;
 11. path G, the MegaDepth-1500 benchmark (run after path F, before phase
@@ -119,8 +119,8 @@ Phases, in order; any failure exits non-zero before the last line:
    pairs of 1500. Gates: 6 cached items with the export keys, 9 + 9
    attention launches a pair, every RANSAC tensor on the card, finite
    epipolar, reprojection and GT-match metrics and AUC@5/10/20 degrees;
-   runs through the plain versions and grouped by 4 against the per-item
-   cache within 1e-3; the `--overwrite_eval` rerun on the cache;
+   exports (no eval loop) through the plain versions and grouped by 4
+   against the per-item cache within 1e-3; the `--overwrite_eval` rerun on the cache;
    `ransac_essential` on the card on 1024 synthetic correspondences from a
    known pose (30% outliers) within 1 degree of the truth and 0.5 of the
    CPU's run; `gt_matches_from_pose_depth` on the card equal to the CPU's at
@@ -133,7 +133,8 @@ Phases, in order; any failure exits non-zero before the last line:
    layout under `outputs/chip_smoke_stage2/`, then `train.main` on
    `superpoint+lightglue_megadepth.yaml` at its widths (SuperPoint 2048
    keypoints frozen, 1024 square-padded, LightGlue-9 `checkpointed`, f32),
-   warm-started from path E, 2 epochs of 1 step at batch 32; gates and
+   warm-started from path E, 2 epochs of one update (2 micro-batches of
+   16, grad_accumulation 2; the timed steps at batch 32); gates and
    numbers as `phase_stage2` says;
 13. path I, stage 2 on cached features (run after path H, before phase 8):
    `scripts/export_megadepth.py --method sp --with_depth` in process on
@@ -151,7 +152,7 @@ Phases, in order; any failure exits non-zero before the last line:
    peak memory beside path H's, the loader's rate with `read_image` true
    and false (over the training split), and which sets the pace;
 14. path J, the last two benchmarks (run after path I, before phase 8):
-   2 procedural ETH3D scenes of 4 views at the DSLR size 6048 x 4032
+   1 procedural ETH3D scene of 4 views at the DSLR size 6048 x 4032
    (`scripts_dev/posed_scenes.write_eth3d_scene`: COLMAP `cameras.txt` and
    both `images.txt` with 15000 points' observations, 16-bit PNG depths at
    756 x 504) and 2 ZEB scenes of 6 pair files at 1600 x 1200
@@ -263,7 +264,27 @@ Phases, in order; any failure exits non-zero before the last line:
    pairs: finite AUCs, the RANSAC on the card, the cache written as
    `predictions.h5` with every pair and read back by an `--overwrite_eval`
    rerun. Paths O and P alone: `phase_device`, `phase_build`,
-   `write_hpatches(HPATCHES_ROOT)`, `phase_sift`, `phase_loftr`.
+   `write_hpatches(HPATCHES_ROOT)`, `phase_sift`, `phase_loftr`;
+21. path Q, RoMa (run after path P, before phase 8), `roma` by name with
+   torch's random init from seed 0: Q1 its megadepth1500 section at its
+   widths (DINOv2-L 24 blocks 1024 wide, VGG19-BN, the GP, the anchor
+   decoder, the ConvRefiners; internal 630^2, output 1344^2, 5000 sampled
+   matches, f32 on bf16-rounded images), the weights drawn on the card, on
+   path G's first pair at 1024 on the long side: no port kernel, warps
+   finite in [-1, 1], certainties in [0, 1], 5000 matches inside both
+   images; wall and device ms, busy share, peak memory, the top device
+   items; Q2 the MegaDepth-1500 CLI on `roma` (`xla_ransac`, png depths)
+   on 2 of path G's pairs: finite metrics, the RANSAC on the card,
+   `predictions.h5` and `results.h5` written, an `--overwrite_eval` rerun
+   reading the cache and the `names` back; Q3 `grid_extractor` (cell 14)
+   with RoMa's keypoint snapping on Q1's pair: matches in range, one to
+   one, above `filter_threshold`; Q4 RoMa at the CPU tests' widths, the
+   card against the host's CPU on the same weights and pair, warp and
+   certainty within 1e-3; Q5 `lightglue_pretrained` (superpoint) equal to
+   `lightglue` on its resolved conf and weights, through the attention
+   kernels, and `mixed` (grid_extractor + SuperPoint's dense descriptors)
+   giving the grid's keypoints, on the main path's batch. Path Q alone:
+   `phase_device`, `phase_build`, `write_megadepth(MD_ROOT)`, `phase_roma`.
 
 Each path resets every launch count just before its timed run and reads
 them just after. Prints each phase's seconds, the script's, the kernel JSON line, the card
@@ -2298,23 +2319,30 @@ def loftr_pass_through(matcher, view: dict, device) -> None:
     w.mul_((LOFTR_COARSE_NORM2 / norm2).sqrt())
 
 
-def run_hpatches(argv: list) -> dict:
+def run_hpatches(argv: list, export_only: bool = False) -> dict:
     """`gluefactory_tpu_torch.eval.hpatches.main(argv)`, as `run_eval_cli`
     runs it."""
     from gluefactory_tpu_torch.eval import hpatches
     from gluefactory_tpu_torch.robust_estimators.homography import xla_ransac
 
-    return run_eval_cli(hpatches.main, hpatches.HPatchesPipeline, xla_ransac, "ransac_homography", argv)
+    return run_eval_cli(hpatches.main, hpatches.HPatchesPipeline, xla_ransac, "ransac_homography", argv,
+                        export_only)
 
 
-def run_eval_cli(main_fn, pipeline_cls, estimator_module, ransac_name: str, argv: list) -> dict:
+def run_eval_cli(main_fn, pipeline_cls, estimator_module, ransac_name: str, argv: list,
+                 export_only: bool = False) -> dict:
     """A benchmark CLI's `main(argv)` with every launch count reset just
     before and read just after; the export's and the eval loop's seconds,
     and each call of the estimator module's RANSAC (`ransac_name`; none
-    without an `estimator_module`): its devices and time (CUDA events)."""
+    without an `estimator_module`): its devices and time (CUDA events).
+    `export_only`: the eval loop returns nothing (a run whose cache alone is
+    compared)."""
     calls, seconds = [], {}
     ransac = getattr(estimator_module, ransac_name) if estimator_module is not None else None
-    methods = {k: getattr(pipeline_cls, k) for k in ("get_predictions", "run_eval")}
+    original = {k: getattr(pipeline_cls, k) for k in ("get_predictions", "run_eval")}
+    methods = dict(original)
+    if export_only:
+        methods["run_eval"] = lambda self, loader, pred_file: ({}, {}, {})
 
     def recorded(*args, **kw):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -2349,7 +2377,7 @@ def run_eval_cli(main_fn, pipeline_cls, estimator_module, ransac_name: str, argv
     finally:
         if estimator_module is not None:
             setattr(estimator_module, ransac_name, ransac)
-        for name, m in methods.items():
+        for name, m in original.items():
             setattr(pipeline_cls, name, m)
     return {"summaries": s, "results": {k: np.asarray(v).tolist() for k, v in r.items()},
             "launches": launches, "seconds": seconds, "ransac_calls": calls}
@@ -2555,7 +2583,7 @@ def phase_hpatches(device_info: dict) -> dict:
               flush=True)
 
         plain = run_hpatches([*argv, "model.matcher.flash=False", "--tag", "chip_smoke_plain",
-                              "--overwrite"])
+                              "--overwrite"], export_only=True)
         _check_launches("path F plain", plain["launches"], {})
         res["vs_plain"] = compare_caches(cache, _cache("chip_smoke_plain"))
         print(f"path F kernels vs plain versions: {json.dumps(res['vs_plain'])}", flush=True)
@@ -2572,7 +2600,7 @@ def phase_hpatches(device_info: dict) -> dict:
               f"{again['seconds']['run_eval']:.2f} s", flush=True)
 
         grouped = run_hpatches([*argv, f"items_per_dispatch={HPATCHES_DISPATCH}", "--tag",
-                                "chip_smoke_grouped", "--overwrite"])
+                                "chip_smoke_grouped", "--overwrite"], export_only=True)
         forwards = -(-HPATCHES_PAIRS // HPATCHES_DISPATCH)
         _check_launches("path F grouped", grouped["launches"],
                         {k: forwards * n for k, n in per_pair.items()})
@@ -2626,12 +2654,12 @@ def write_megadepth(root: Path) -> None:
                            size=MD_SIZE, model=model, seed=seed, workers=MD_VIEWS)
 
 
-def run_megadepth(argv: list) -> dict:
+def run_megadepth(argv: list, export_only: bool = False) -> dict:
     from gluefactory_tpu_torch.eval import megadepth1500
     from gluefactory_tpu_torch.robust_estimators.relative_pose import xla_ransac
 
     return run_eval_cli(megadepth1500.main, megadepth1500.MegaDepth1500Pipeline, xla_ransac,
-                        "ransac_essential", argv)
+                        "ransac_essential", argv, export_only)
 
 
 def essential_on_the_card() -> dict:
@@ -2796,7 +2824,7 @@ def phase_megadepth(device_info: dict) -> dict:
               flush=True)
 
         plain = run_megadepth([*argv, "model.matcher.flash=False", "--tag", "chip_smoke_plain",
-                               "--overwrite"])
+                               "--overwrite"], export_only=True)
         _check_launches("path G plain", plain["launches"], {})
         res["vs_plain"] = compare_caches(cache, _cache("chip_smoke_plain", "megadepth1500"))
         print(f"path G kernels vs plain versions: {json.dumps(res['vs_plain'])}", flush=True)
@@ -2813,7 +2841,7 @@ def phase_megadepth(device_info: dict) -> dict:
               f"{again['seconds']['run_eval']:.2f} s", flush=True)
 
         grouped = run_megadepth([*argv, f"items_per_dispatch={MD_DISPATCH}", "--tag",
-                                 "chip_smoke_grouped", "--overwrite"])
+                                 "chip_smoke_grouped", "--overwrite"], export_only=True)
         # a bucket holds one shape signature: the two scenes' cameras
         # (PINHOLE, SIMPLE_RADIAL) differ in their parameters' shape, so
         # each scene is grouped alone
@@ -2846,7 +2874,10 @@ S2_TRAIN_SCENES, S2_VAL_SCENE = ("scene0", "scene1", "scene2"), "scene3"
 S2_SEEDS = {"scene0": 20, "scene1": 21, "scene2": 23, "scene3": 22}
 S2_VIEWS, S2_SIZE = 12, (1600, 1200)  # (w, h): 1024 on the long side by `area`, square-padded
 S2_PER_SCENE = 12  # the config's three overlap bins, 4 pairs each
-S2_BATCH, S2_ACCUM = 32, 1
+# the trainer runs' micro-batches: a loader worker builds a whole batch,
+# so two micro-batches of 16 load in parallel where one of 32 loads alone
+S2_BATCH, S2_ACCUM = 16, 2
+S2_TIMED_BATCH = 32  # the config's batch, of the timed steps and the attention's shapes
 S2_LOADER_BATCH = 4  # the batch of the loader's own rate (all 8 workers busy)
 S2_EPOCHS, S2_WORKERS, S2_VAL_BATCH, S2_TIMED_STEPS = 2, 8, 4, 2
 # training steps an epoch (micro-batches; the loader drops a partial one)
@@ -2862,8 +2893,11 @@ S2_REDUCED = {
     "data.val_pairs": f"{S2_VAL_BATCH} pairs of the validation scene (overlap 0.1-0.7) for "
                       f"valid_pairs.txt, one validation batch of {S2_VAL_BATCH} an epoch",
     "data.num_workers": f"{S2_WORKERS} instead of 14 (the card's machine has 8 cores)",
-    "data.batch_size": f"{S2_BATCH} with grad_accumulation {S2_ACCUM}: the config's 32, which fits",
-    "length": f"{S2_EPOCHS} epochs of {S2_STEPS} steps instead of 50 epochs",
+    "data.batch_size": f"{S2_BATCH} with grad_accumulation {S2_ACCUM} in the trainer's runs: the "
+                       f"config's {S2_TIMED_BATCH}, loaded by two workers at once; the timed steps at "
+                       f"{S2_TIMED_BATCH}",
+    "length": f"{S2_EPOCHS} epochs of {S2_STEPS // S2_ACCUM} update ({S2_STEPS} micro-batches) instead "
+              "of 50 epochs",
     "train.load_experiment": f"path E's experiment ({TRAIN_EXPERIMENT}) for sp+lg_homography",
     "--no_tensorboard --no_capture": "no writer, no log capture",
 }
@@ -3040,10 +3074,10 @@ def phase_stage2(device_info: dict) -> dict:
         # a worker makes whole batches: at batch 32 the split's 2 batches
         # would keep 2 of the 8 workers busy, where a real epoch keeps all 8
         # busy; so the loader runs the split in batches of S2_LOADER_BATCH,
-        # merged into 2 batches of S2_BATCH for the timed steps
+        # merged into 2 batches of S2_TIMED_BATCH for the timed steps
         res["loader_samples_per_s"], batches = loader_rate(
             merge(conf.data, {"batch_size": S2_LOADER_BATCH}), keep=2, dataset="megadepth",
-            merge=S2_BATCH // S2_LOADER_BATCH)
+            merge=S2_TIMED_BATCH // S2_LOADER_BATCH)
         print(f"path H loader: {res['loader_samples_per_s']:.2f} samples/s ({S2_WORKERS} workers, "
               f"{os.cpu_count()} cores, batches of {S2_LOADER_BATCH}, the split's "
               f"{len(S2_TRAIN_SCENES) * S2_PER_SCENE} pairs from the loader's start)", flush=True)
@@ -3051,19 +3085,19 @@ def phase_stage2(device_info: dict) -> dict:
         print(f"path H depth_matcher, card vs CPU: {json.dumps(res['gt_on_card'])}", flush=True)
         res["vs_plain"] = train_step_vs_plain(model, batches[0], "path H")
         print(f"path H step vs plain: {json.dumps(res['vs_plain'])}", flush=True)
-        res["timing"] = time_training(model, batches, device_info, conf=conf, batch=S2_BATCH,
+        res["timing"] = time_training(model, batches, device_info, conf=conf, batch=S2_TIMED_BATCH,
                                       label="path H", accum2=False, timed=S2_TIMED_STEPS)
         t = res["timing"]
         print(f"path H timing: {t['ms_per_step']:.2f} ms/step, device {t['device_ms_per_step']} ms/step, "
               f"busy share {t['busy_share']}, {t['samples_per_s']:.2f} samples/s, peak "
-              f"{t['peak_memory_gib']:.2f} GiB at batch {S2_BATCH} ({card})", flush=True)
+              f"{t['peak_memory_gib']:.2f} GiB at batch {S2_TIMED_BATCH} ({card})", flush=True)
         print(f"path H top device items: {json.dumps(t['profile']['top'][:8])}", flush=True)
         res["pace"] = "loader" if res["loader_samples_per_s"] < t["samples_per_s"] else "step"
         print(f"path H pace: the {res['pace']} sets it (loader {res['loader_samples_per_s']:.2f} "
               f"samples/s, step {t['samples_per_s']:.2f} samples/s)", flush=True)
         del model, batches
         torch.cuda.empty_cache()
-        res["attention"] = attention_at_shapes(torch.device(DEVICE), torch.float32, KEYPOINTS, S2_BATCH,
+        res["attention"] = attention_at_shapes(torch.device(DEVICE), torch.float32, KEYPOINTS, S2_TIMED_BATCH,
                                                "path H")
     finally:
         tsettings.DATA_PATH = data_path
@@ -3090,7 +3124,8 @@ S3_REDUCED = {
               f"best checkpoint's SuperPoint (random weights from a seed, trained {TRAIN_STEPS} steps), since no "
               "official weights are on disk",
     "training": "path H's cuts (S2_REDUCED) and its overrides, with data.load_features.do=true",
-    "length": f"{S3_EPOCHS} epoch of {S2_STEPS} steps",
+    "length": f"{S3_EPOCHS} epoch of {S2_STEPS // S2_ACCUM} update ({S2_STEPS} micro-batches of "
+              f"{S2_BATCH}, grad_accumulation {S2_ACCUM})",
 }
 
 
@@ -3257,7 +3292,7 @@ def phase_cached(device_info: dict, path_h: dict) -> dict:
         res["restore"] = check_restore(model, S3_ARGV, S3_EXPERIMENT, steps // S2_ACCUM, "path I")
         res["loader_samples_per_s"], batches = loader_rate(
             merge(conf.data, {"batch_size": S2_LOADER_BATCH}), keep=2, dataset="megadepth",
-            merge=S2_BATCH // S2_LOADER_BATCH, max_samples=S3_LOADER_SAMPLES)
+            merge=S2_TIMED_BATCH // S2_LOADER_BATCH, max_samples=S3_LOADER_SAMPLES)
         res["loader_no_image_samples_per_s"], _ = loader_rate(
             merge(conf.data, {"batch_size": S2_LOADER_BATCH, "read_image": False}), dataset="megadepth",
             max_samples=S3_LOADER_SAMPLES)
@@ -3267,12 +3302,12 @@ def phase_cached(device_info: dict, path_h: dict) -> dict:
         masks = [batches[0][v]["cache"]["keypoint_mask"] for v in ("view0", "view1")]
         res["batch_masks"] = {"shape": list(masks[0].shape),
                               "padded_slots": [int((~m).sum()) for m in masks]}
-        if any(m.dtype != torch.bool or m.shape != (S2_BATCH, KEYPOINTS) for m in masks):
+        if any(m.dtype != torch.bool or m.shape != (S2_TIMED_BATCH, KEYPOINTS) for m in masks):
             fail(f"path I: the batch's keypoint masks are {[(m.dtype, m.shape) for m in masks]}")
         print(f"path I batch keypoint_mask0/1: {json.dumps(res['batch_masks'])}", flush=True)
         res["vs_plain"] = train_step_vs_plain(model, batches[0], "path I")
         print(f"path I step vs plain: {json.dumps(res['vs_plain'])}", flush=True)
-        res["timing"] = time_training(model, batches, device_info, conf=conf, batch=S2_BATCH,
+        res["timing"] = time_training(model, batches, device_info, conf=conf, batch=S2_TIMED_BATCH,
                                       label="path I", accum2=False, timed=S2_TIMED_STEPS)
         res["extractor_calls"] = len(extractor_calls)
         if extractor_calls:
@@ -3282,7 +3317,7 @@ def phase_cached(device_info: dict, path_h: dict) -> dict:
               f"{t['device_ms_per_step']} ms/step (path H {th['device_ms_per_step']}), busy share "
               f"{t['busy_share']} (path H {th['busy_share']}), {t['samples_per_s']:.2f} samples/s (path H "
               f"{th['samples_per_s']:.2f}), peak {t['peak_memory_gib']:.2f} GiB (path H "
-              f"{th['peak_memory_gib']:.2f}) at batch {S2_BATCH} ({card})", flush=True)
+              f"{th['peak_memory_gib']:.2f}) at batch {S2_TIMED_BATCH} ({card})", flush=True)
         print(f"path I top device items: {json.dumps(t['profile']['top'][:8])}", flush=True)
         res["pace"] = "loader" if res["loader_samples_per_s"] < t["samples_per_s"] else "step"
         print(f"path I pace: the {res['pace']} sets it (loader {res['loader_samples_per_s']:.2f} "
@@ -3303,7 +3338,7 @@ def phase_cached(device_info: dict, path_h: dict) -> dict:
 
 # DATA_PATH of the run: ETH3D_undistorted/ and zeb/ are written under it
 J_ROOT = ROOT / "outputs" / "chip_smoke_path_j"
-ETH3D_SCENES = (("courtyard", 0), ("pipes", 1))  # (scene, seed)
+ETH3D_SCENES = (("courtyard", 0),)  # (scene, seed)
 # the DSLR size; the loader resizes each image to max(h, w) // 8 = 756
 ETH3D_VIEWS, ETH3D_SIZE, ETH3D_DOWNSIZE = 4, (6048, 4032), 8
 ETH3D_POINTS = 15000  # 3D points on the planes: > 500 covisible a pair
@@ -4962,6 +4997,307 @@ def phase_loftr(device_info: dict) -> dict:
     return res
 
 
+Q_CONFIG = "roma"
+Q_TIMED = 3  # timed forwards of Q1, after one warm-up
+Q_PAIRS = 2  # of path G's pairs, for Q2
+Q_TOL = 1e-3  # the card's RoMa against the CPU's at the tests' widths (warp and certainty)
+# the widths of tests/test_torch_roma.py
+Q_NARROW = {
+    "net": {"dinov2": {"weights": "dinov2_vits14", "embed_dim": 32, "depth": 1, "num_heads": 2},
+            "vgg_blocks": [[8, 2], [16, 2], [16, 2], [16, 2]], "gp_dim": 16, "decoder_blocks": 1,
+            "decoder_heads": 2, "anchor_res": 4,
+            "proj_dims": {"16": 16, "8": 16, "4": 16, "2": 8, "1": 9},
+            "disp_emb_dims": {"16": 8, "8": 8, "4": 4, "2": 4, "1": 2},
+            "corr_radius": {"16": 2, "8": 1, "4": 1, "2": None, "1": None}, "hidden_blocks": 2},
+    "internal_hw": [56, 56], "output_hw": [112, 112],
+}
+Q_REDUCED = {
+    "Q1": f"{Q_CONFIG}'s megadepth1500 section at its widths (DINOv2-L 24 blocks 1024 wide, VGG19-BN, GP 512, "
+          "5 decoder blocks, 64 x 64 anchors, internal 630^2, output 1344^2, 5000 sampled matches, f32 on "
+          "bf16-rounded images) on one of path G's procedural pairs at 1024 on the long side for "
+          "MegaDepth-1500's 1500",
+    "Q2": f"the megadepth1500 CLI on {Q_CONFIG} (xla_ransac, png depths) on {Q_PAIRS} of path G's pairs "
+          "for 1500",
+    "Q3": "grid_extractor (cell 14) with RoMa's keypoint snapping on Q1's pair",
+    "Q4": "RoMa at the CPU tests' widths (tests/test_torch_roma.py) on Q1's pair, the card against the CPU",
+    "Q5": "lightglue_pretrained (superpoint) and mixed (grid_extractor + superpoint) on the main path's "
+          "batch and weights",
+    "weights": "random: torch's init from seed 0 (Q1, Q3 on the card; Q2 in the CLI's process on the "
+               "CPU); no RoMa or DINOv2 checkpoint is on disk",
+}
+
+
+def _q_conf():
+    from gluefactory_tpu_torch.core.config import from_yaml
+    from gluefactory_tpu_torch.eval.io import extract_benchmark_conf
+
+    return extract_benchmark_conf(from_yaml(str(ROOT / f"gluefactory_tpu_torch/configs/{Q_CONFIG}.yaml")),
+                                  "megadepth1500")
+
+
+def _q_pair(dev) -> tuple[dict, dict]:
+    """Path G's first pair as the megadepth1500 section reads it (1024 on
+    the long side): the batch on `dev`, and the item."""
+    from gluefactory_tpu_torch.data import get_dataset
+    from gluefactory_tpu_torch.eval.megadepth1500 import MegaDepth1500Pipeline
+
+    data = MegaDepth1500Pipeline({"data": {**_q_conf().data.to_dict(), "depth_format": "png"}}).conf.data
+    item = get_dataset("posed_images")(data).get_dataset("test")[0]
+    return _l_batch(item["view0"]["image"], item["view1"]["image"], dev), item
+
+
+def _q_check_dense(label: str, pred: dict, batch: dict, num: int) -> dict:
+    """Warps finite in [-1, 1], certainties in [0, 1], `num` sampled matches
+    finite and inside both images."""
+    for i in ("0", "1"):
+        w, c = pred[f"warp{i}"], pred[f"certainty{i}"]
+        if not (torch.isfinite(w).all() and w.abs().max() <= 1 and torch.isfinite(c).all()
+                and c.min() >= 0 and c.max() <= 1):
+            fail(f"{label}: warp{i} / certainty{i} not finite or out of range")
+        kp = pred[f"keypoints{i}"]
+        size = batch[f"view{i}"]["image_size"][0]
+        if list(kp.shape) != [1, num, 2] or not torch.isfinite(kp).all() or \
+                not bool(((kp >= 0) & (kp <= size)).all()):
+            fail(f"{label}: keypoints{i} {list(kp.shape)} not {num} finite matches inside the image")
+    return {"valid_matches": int(pred["keypoint_mask0"].sum()),
+            "certainty_mean": [float(pred[f"certainty{i}"].mean()) for i in "01"],
+            "warp_hw": list(pred["warp0"].shape[1:3])}
+
+
+def _q_forward(device_info: dict) -> tuple[dict, torch.nn.Module, dict]:
+    """Q1: RoMa by name on one pair: no port kernel, gates as
+    `_q_check_dense`, wall ms (CUDA events), device ms and the top device
+    items (profile), busy share, peak memory."""
+    dev = torch.device(DEVICE)
+    conf = _q_conf()
+    mconf = {k: v for k, v in conf.model.matcher.to_dict().items() if k != "name"}
+    torch.manual_seed(0)
+    t0 = time.perf_counter()
+    with torch.device(dev):  # the weights drawn on the card
+        model = get_model(Q_CONFIG).from_conf(mconf, device=dev).eval()
+    init_s = time.perf_counter() - t0
+    batch, item = _q_pair(dev)
+    gen = torch.Generator(device=dev)
+    forward = lambda: model(batch, generator=gen.manual_seed(0))  # noqa: E731
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        forward()
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        reset_all_launches()
+        pred = forward()
+        torch.cuda.synchronize()
+        _check_launches("path Q1", all_launches(), {})
+        peak, extra = torch.cuda.max_memory_allocated(), torch.cuda.max_memory_allocated() - before
+        wall_ms = cuda_time_ms(forward, reps=Q_TIMED, warmup=0)
+    prof = profile_forward(forward)
+    res = {"config": Q_CONFIG, "pair": item["name"], "image": list(batch["view0"]["image"].shape[1:3]),
+           **_q_check_dense("path Q1", pred, batch, int(mconf["sample_num_matches"])),
+           "parameters": sum(p.numel() for p in model.parameters()), "init_s": init_s,
+           "first_forward_s": first_s, "wall_ms": wall_ms, "device_ms": prof["device_ms"],
+           "busy_share": prof["device_ms"] / wall_ms if prof["device_ms"] else None,
+           "peak_memory_gib": peak / 2**30, "forward_memory_gib": extra / 2**30,
+           "top_device_items": prof["top"][:10], "card": device_info["nvidia_smi"]}
+    print(f"path Q1 {Q_CONFIG}: {json.dumps(res)}", flush=True)
+    return res, model, batch
+
+
+def _q_cli(device_info: dict) -> dict:
+    """Q2: the megadepth1500 CLI on `roma` by name on Q_PAIRS of path G's
+    pairs: no port kernel, the RANSAC on the card, finite metrics,
+    `predictions.h5` and `results.h5` written; an --overwrite_eval rerun
+    reads the cache and the results back (`names` as strings)."""
+    import gluefactory_tpu_torch.settings as tsettings
+
+    scene = MD_SCENES[0][0]
+    pairs = (MD_ROOT / "megadepth1500" / scene / "pairs.txt").read_text().splitlines()[:Q_PAIRS]
+    (MD_ROOT / "megadepth1500" / scene / "pairs_q.txt").write_text("\n".join(pairs) + "\n")
+    names = ["/".join(n.replace("/", "-") for n in line.split()) for line in pairs]
+    argv = ["--conf", Q_CONFIG, "eval.estimator=xla_ransac", "data.depth_format=png",
+            f"data.scene_list=[{scene}]", "data.view_groups='{scene}/pairs_q.txt'"]
+    from gluefactory_tpu_torch.eval import eval_pipeline
+
+    load_model, load_s = eval_pipeline.load_model, []
+
+    def timed_load(*a, **k):
+        t0 = time.perf_counter()
+        model = load_model(*a, **k)
+        torch.cuda.synchronize()
+        load_s.append(time.perf_counter() - t0)
+        return model
+
+    torch.manual_seed(0)  # the CLI's model: torch's init on the CPU
+    eval_pipeline.load_model = timed_load
+    try:
+        run = run_megadepth([*argv, "--tag", "chip_smoke_roma", "--overwrite"])
+    finally:
+        eval_pipeline.load_model = load_model
+    exp = Path(tsettings.EVAL_PATH, "megadepth1500", "chip_smoke_roma")
+    cache = _cache("chip_smoke_roma", "megadepth1500")
+    mtime = (exp / "predictions.h5").stat().st_mtime_ns
+    again = run_megadepth([*argv, "--tag", "chip_smoke_roma", "--overwrite_eval"])
+    _check_launches("path Q2", run["launches"], {})
+    _check_launches("path Q2 --overwrite_eval", again["launches"], {})
+    if len(cache) != Q_PAIRS or not (exp / "results.h5").exists():
+        fail(f"path Q2: {len(cache)} cached items, expected {Q_PAIRS}; results.h5 "
+             f"{(exp / 'results.h5').exists()}")
+    if (exp / "predictions.h5").stat().st_mtime_ns != mtime or again["summaries"] != run["summaries"]:
+        fail("path Q2: the --overwrite_eval rerun did not reuse the cache or changed the summaries")
+    if again["results"]["names"] != names or run["results"]["names"] != names:
+        fail(f"path Q2: names read back {again['results']['names']}, expected {names}")
+    calls = run["ransac_calls"]
+    if not calls or any(c["devices"] != [str(torch.empty(0, device=DEVICE).device)] for c in calls):
+        fail(f"path Q2: the RANSAC ran on {[c['devices'] for c in calls]}, expected the card")
+    keys = ("mepi_prec@1e-4", "mepi_prec@5e-4", "mepi_prec@1e-3", "mreproj_prec@1px", "mreproj_prec@3px",
+            "mgt_match_recall@3px", "mgt_match_precision@3px", "rel_pose_error@5°", "rel_pose_error@10°",
+            "rel_pose_error@20°")
+    res = {"summaries": _finite_summaries("path Q2", run["summaries"], keys), "pairs": Q_PAIRS,
+           "names": names, "seconds": run["seconds"], "model_load_s": load_s, "rerun_seconds": again["seconds"],
+           "export_pairs_per_s": Q_PAIRS / run["seconds"]["get_predictions"],
+           "ransac_ms_per_call": float(np.mean([c["ms"] for c in calls])),
+           "matches_per_pair": run["results"]["num_matches"], "card": device_info["nvidia_smi"]}
+    print(f"path Q2 megadepth1500 {Q_CONFIG}: {json.dumps(res)}", flush=True)
+    return res
+
+
+def _q_sparse(model, batch: dict, device_info: dict) -> dict:
+    """Q3: `grid_extractor` (cell 14) and RoMa's keypoint snapping (Q1's
+    weights, no sampling) through the pipeline on Q1's pair: matches in
+    range, one to one in each direction (the mutual check's nearest
+    neighbours), scores above `filter_threshold`."""
+    dev = torch.device(DEVICE)
+    mconf = {k: v for k, v in model.conf.to_dict().items() if k != "name"}
+    with torch.device(dev):
+        pipe = get_model("two_view_pipeline").from_conf(
+            {"extractor": {"name": "grid_extractor", "cell_size": 14},
+             "matcher": {"name": Q_CONFIG, **mconf, "sample_num_matches": 0}}, device=dev).eval()
+    pipe.matcher.load_state_dict(model.state_dict())
+    with torch.no_grad():
+        reset_all_launches()
+        t0 = time.perf_counter()
+        pred = pipe(batch, generator=torch.Generator(device=dev).manual_seed(0))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    _check_launches("path Q3", all_launches(), {})
+    m0, m1 = pred["matches0"][0].long(), pred["matches1"][0].long()
+    n0, n1 = pred["keypoints0"].shape[1], pred["keypoints1"].shape[1]
+    v0, v1 = m0 >= 0, m1 >= 0
+    thr = float(mconf["filter_threshold"])
+    ok = (bool(((m0 >= -1) & (m0 < n1)).all()) and bool(((m1 >= -1) & (m1 < n0)).all())
+          and len(set(m0[v0].tolist())) == int(v0.sum()) and len(set(m1[v1].tolist())) == int(v1.sum())
+          and bool((pred["matching_scores0"][0][v0] > thr).all())
+          and bool((pred["matching_scores1"][0][v1] > thr).all()))
+    if not ok:
+        fail("path Q3: matches out of range, not mutual or scored below the threshold")
+    res = {"keypoints": [n0, n1], "matches": [int(v0.sum()), int(v1.sum())], "seconds": seconds,
+           "card": device_info["nvidia_smi"]}
+    print(f"path Q3 grid_extractor + {Q_CONFIG}: {json.dumps(res)}", flush=True)
+    del pipe
+    return res
+
+
+def _q_card_vs_cpu(batch: dict, device_info: dict) -> dict:
+    """Q4: RoMa at the CPU tests' widths, the same weights and pair on the
+    card and on the host's CPU: warp and certainty within Q_TOL."""
+    torch.manual_seed(0)
+    cpu = get_model(Q_CONFIG).from_conf(Q_NARROW, device="cpu").eval()
+    card = copy.deepcopy(cpu).to(DEVICE)
+    batch_cpu = {v: {k: t.cpu() for k, t in batch[v].items()} for v in ("view0", "view1")}
+    with torch.no_grad():
+        want = cpu(batch_cpu)
+        got = card(batch)
+    errs = {k: float((got[k].cpu() - want[k]).abs().max()) for k in ("warp0", "warp1", "certainty0", "certainty1")}
+    if not all(e <= Q_TOL for e in errs.values()):
+        fail(f"path Q4: the card's RoMa against the CPU's: {errs} (tolerance {Q_TOL})")
+    res = {"max_abs_err": errs, "tolerance": Q_TOL, "certainty_std": float(want["certainty0"].std()),
+           "card": device_info["nvidia_smi"]}
+    print(f"path Q4 card vs CPU: {json.dumps(res)}", flush=True)
+    return res
+
+
+def _q_small_modules(device_info: dict) -> dict:
+    """Q5: `lightglue_pretrained` (features superpoint) equals `lightglue`
+    built from its resolved conf with the same weights, and `mixed`
+    (grid_extractor detector, superpoint descriptor sampled from its dense
+    map) gives the grid's keypoints, on the main path's batch (bf16)."""
+    dev = torch.device(DEVICE)
+    batch = make_batch(dev)
+    gen = torch.Generator(device=dev)
+    res = {}
+    pre = build_pipeline(dev, {"extractor": MAIN_CONF["extractor"],
+                               "matcher": {"name": "lightglue_pretrained", "features": "superpoint",
+                                           "checkpointed": False}})
+    resolved = {k: v for k, v in pre.matcher.conf.to_dict().items() if k not in ("features", "name")}
+    plain = build_pipeline(dev, {"extractor": MAIN_CONF["extractor"], "matcher": {"name": "lightglue", **resolved}})
+    plain.load_state_dict(pre.state_dict())
+    with torch.no_grad():
+        reset_all_launches()
+        a = pre(batch, generator=gen.manual_seed(0))
+        launches = all_launches()
+        b = plain(batch, generator=gen.manual_seed(0))
+    if sorted(a) != sorted(b) or not all(torch.equal(a[k], b[k]) for k in a):
+        fail("path Q5: lightglue_pretrained differs from lightglue on its resolved conf")
+    if not launches["fused_attention"] or not launches["fused_bidirectional_attention"]:
+        fail(f"path Q5: lightglue_pretrained launched {launches}: not through the attention kernels")
+    res["lightglue_pretrained"] = {"launches": launches, "depth_confidence": resolved["depth_confidence"],
+                                   "width_confidence": resolved["width_confidence"],
+                                   "matches_per_pair": float((a["matches0"] >= 0).sum()) / PAIRS}
+    del pre, plain, a, b
+    sp = {**MAIN_CONF["extractor"], "dense_outputs": True}
+    mixed = build_pipeline(dev, {"extractor": {"name": "mixed", "detector": {"name": "grid_extractor",
+                                                                             "cell_size": 14},
+                                               "descriptor": sp,
+                                               "interpolate_descriptors_from": "dense_descriptors"},
+                                 "matcher": MAIN_CONF["matcher"]})
+    with torch.no_grad():
+        reset_all_launches()
+        pred = mixed(batch, generator=gen.manual_seed(0))
+        launches = all_launches()
+        grid = get_model("grid_extractor").from_conf({"cell_size": 14}, device=dev)(batch["view0"])["keypoints"]
+    _check_launches("path Q5 mixed", launches, MAIN_LAUNCHES)
+    if not torch.equal(pred["keypoints0"], grid) or not torch.equal(pred["keypoints1"], grid):
+        fail("path Q5: mixed's keypoints are not the grid's")
+    if list(pred["descriptors0"].shape) != [PAIRS, grid.shape[1], DIM] or not torch.isfinite(
+            pred["descriptors0"].float()).all():
+        fail(f"path Q5: mixed's descriptors {list(pred['descriptors0'].shape)}")
+    res["mixed"] = {"keypoints": grid.shape[1], "launches": launches,
+                    "matches_per_pair": float((pred["matches0"] >= 0).sum()) / PAIRS}
+    res["card"] = device_info["nvidia_smi"]
+    print(f"path Q5: {json.dumps(res)}", flush=True)
+    return res
+
+
+def phase_roma(device_info: dict) -> dict:
+    """Path Q: RoMa by config name, cut as Q_REDUCED says, and the small
+    zoo modules. Needs path G's MegaDepth-1500 layout (written here where it
+    is missing)."""
+    import gluefactory_tpu_torch.settings as tsettings
+
+    t0 = time.perf_counter()
+    print(f"path Q reduced: {json.dumps(Q_REDUCED)}", flush=True)
+    if not (MD_ROOT / "megadepth1500").exists():
+        write_megadepth(MD_ROOT)
+    res = {"reduced": Q_REDUCED}
+    data_path, tsettings.DATA_PATH = tsettings.DATA_PATH, MD_ROOT
+    try:
+        res["Q1"], model, batch = _q_forward(device_info)
+        res["Q3"] = _q_sparse(model, batch, device_info)
+        del model
+        torch.cuda.empty_cache()
+        res["Q4"] = _q_card_vs_cpu(batch, device_info)
+        res["Q2"] = _q_cli(device_info)
+    finally:
+        tsettings.DATA_PATH = data_path
+    torch.cuda.empty_cache()
+    res["Q5"] = _q_small_modules(device_info)
+    res["seconds"] = time.perf_counter() - t0
+    res["card"] = device_info["nvidia_smi"]
+    print(f"path Q: {res['seconds']:.1f} s", flush=True)
+    return res
+
+
 def main() -> None:
     t0 = time.perf_counter()
     seconds = {}
@@ -5002,6 +5338,7 @@ def main() -> None:
     path_n = timed("path_n", phase_zoo, device_info)
     path_o = timed("path_o", phase_sift, device_info)
     path_p = timed("path_p", phase_loftr, device_info)
+    path_q = timed("path_q", phase_roma, device_info)
     kernels += timed("conv_study", phase_conv_study, device_info)  # launches from the tools' runs
     OUT_DIR.mkdir(exist_ok=True)
     record = {"device": device_info, "build": build, "kernels": kernels, "gradients": gradients,
@@ -5011,7 +5348,7 @@ def main() -> None:
               "path_g_megadepth1500": path_g, "path_h_stage2": path_h, "path_i_cached": path_i,
               "path_j_benchmarks": path_j, "path_k_superglue_training": path_k,
               "path_l_lines": path_l, "path_m_gluestick_training": path_m, "path_n_zoo": path_n,
-              "path_o_sift": path_o, "path_p_loftr": path_p,
+              "path_o_sift": path_o, "path_p_loftr": path_p, "path_q_roma": path_q,
               "seconds_by_phase": seconds,
               "seconds": time.perf_counter() - t0}
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(record, indent=1))

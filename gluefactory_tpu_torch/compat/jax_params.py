@@ -24,8 +24,10 @@ the inverses of `convert_aliked`, `convert_disk` and
 `convert_superpoint_open`. SuperGlue's
 attention heads go back from the JAX package's head-major channels to the
 official head-fastest packing (the inverse of `_head_permutation`). GlueStick
-likewise, under upstream GlueStick's names (`convert_gluestick`), and LoFTR
-under the official names (`convert_loftr`).
+likewise, under upstream GlueStick's names (`convert_gluestick`), LoFTR
+under the official names (`convert_loftr`), DINOv2 under the torch-hub
+names (`convert_dinov2`) and RoMa under romatch's (`convert_roma`, the
+anchor decoder's flax attention fused back into `attn.qkv`).
 """
 
 from __future__ import annotations
@@ -324,6 +326,81 @@ def loftr_state_dict(params: dict, batch_stats: dict) -> dict:
     return sd
 
 
+def dinov2_state_dict(params: dict) -> dict:
+    """DINOv2 -> the official torch-hub layout (inverse of `convert_dinov2`)."""
+    sd: dict = {}
+    for name in ("cls_token", "pos_embed", "register_tokens"):
+        if name in params:
+            sd[name] = _tensor(_np(params[name]))
+    _conv(params["patch_embed"], "patch_embed.proj", sd)
+    i = 0
+    while f"block_{i}" in params:
+        p, b = params[f"block_{i}"], f"blocks.{i}"
+        _layer_norm(p["norm1"], f"{b}.norm1", sd)
+        _dense(p["qkv"], f"{b}.attn.qkv", sd)
+        _dense(p["proj"], f"{b}.attn.proj", sd)
+        sd[f"{b}.ls1.gamma"] = _tensor(_np(p["ls1"]))
+        _layer_norm(p["norm2"], f"{b}.norm2", sd)
+        _dense(p["fc1"], f"{b}.mlp.fc1", sd)
+        _dense(p["fc2"], f"{b}.mlp.fc2", sd)
+        sd[f"{b}.ls2.gamma"] = _tensor(_np(p["ls2"]))
+        i += 1
+    _layer_norm(params["norm"], "norm", sd)
+    return sd
+
+
+def roma_state_dict(params: dict, batch_stats: dict) -> dict:
+    """RoMa (`{"net": ...}` or the net's own tree) -> romatch's layout at
+    the top of the port's RoMa (inverse of `convert_roma` and
+    `roma_fold_attention_heads`): the VGG at torchvision's indices, DINOv2
+    under `encoder.dinov2`, the anchor decoder's flax attention (query, key,
+    value (D, heads, head_dim), out (heads, head_dim, D), or flat (D, D))
+    fused into `attn.qkv` rows [q; k; v] and `attn.proj`."""
+    params, batch_stats = params.get("net", params), batch_stats.get("net", batch_stats)
+    sd: dict = {}
+    vgg, vgg_stats = params["vgg"], batch_stats["vgg"]
+    for name in vgg:
+        if name.startswith("conv"):
+            i = int(name[4:])
+            _conv(vgg[name], f"encoder.cnn.layers.{i}", sd)
+            _batch_norm(vgg[f"bn{i}"], vgg_stats[f"bn{i}"], f"encoder.cnn.layers.{i + 1}", sd)
+    for k, v in dinov2_state_dict(params["dinov2"]).items():
+        sd[f"encoder.dinov2.{k}"] = v
+    dec, dec_stats = params["decoder"], batch_stats["decoder"]
+    _conv(dec["gp"]["pos_conv"], "decoder.gps.16.pos_conv", sd)
+    for s in ("16", "8", "4", "2", "1"):
+        _conv(dec[f"proj{s}_conv"], f"decoder.proj.{s}.0", sd)
+        _batch_norm(dec[f"proj{s}_bn"], dec_stats[f"proj{s}_bn"], f"decoder.proj.{s}.1", sd)
+        ref, ref_stats, r = dec[f"refiner{s}"], dec_stats[f"refiner{s}"], f"decoder.conv_refiner.{s}"
+        blocks = ["block1"] + [f"hidden{j}" for j in range(sum(k.endswith("_dw") for k in ref) - 1)]
+        for name in blocks:
+            prefix = f"{r}.block1" if name == "block1" else f"{r}.hidden_blocks.{name[6:]}"
+            _conv(ref[f"{name}_dw"], f"{prefix}.0", sd)
+            _batch_norm(ref[f"{name}_bn"], ref_stats[f"{name}_bn"], f"{prefix}.1", sd)
+            _conv(ref[f"{name}_pw"], f"{prefix}.3", sd)
+        _conv(ref["out_conv"], f"{r}.out_conv", sd)
+        _conv(ref["disp_emb"], f"{r}.disp_emb", sd)
+    emdec, ed = dec["embedding_decoder"], "decoder.embedding_decoder"
+    i = 0
+    while f"block{i}" in emdec:
+        p, b = emdec[f"block{i}"], f"{ed}.blocks.{i}"
+        attn = p["attn"]
+        D = _np(attn["query"]["kernel"]).shape[0]
+        w = [_np(attn[k]["kernel"]).reshape(D, D).T for k in ("query", "key", "value")]
+        sd[f"{b}.attn.qkv.weight"] = _tensor(np.concatenate(w, axis=0))
+        sd[f"{b}.attn.qkv.bias"] = _tensor(np.concatenate(
+            [_np(attn[k]["bias"]).reshape(D) for k in ("query", "key", "value")]))
+        sd[f"{b}.attn.proj.weight"] = _tensor(_np(attn["out"]["kernel"]).reshape(D, D).T)
+        sd[f"{b}.attn.proj.bias"] = _tensor(_np(attn["out"]["bias"]))
+        _layer_norm(p["norm1"], f"{b}.norm1", sd)
+        _layer_norm(p["norm2"], f"{b}.norm2", sd)
+        _dense(p["fc1"], f"{b}.mlp.fc1", sd)
+        _dense(p["fc2"], f"{b}.mlp.fc2", sd)
+        i += 1
+    _dense(emdec["to_out"], f"{ed}.to_out", sd)
+    return sd
+
+
 def _matcher_name(params: dict) -> str:
     """The matcher a pipeline's `matcher_model` params hold, by their keys."""
     if "line_bin_score" in params:
@@ -334,22 +411,25 @@ def _matcher_name(params: dict) -> str:
         return "lightglue"
     if "backbone" in params and "coarse_0" in params:
         return "loftr"
+    if "net" in params:
+        return "roma"
     raise ValueError(f"no conversion for a matcher with parameters {sorted(params)}")
 
 
 def from_jax_params(params: dict, model: str, num_heads: int = 4,
                     batch_stats: dict | None = None) -> dict:
     """JAX `params` of `model` ("superpoint", "superpoint_open", "aliked",
-    "disk", "lightglue", "superglue", "gluestick", "loftr" or
-    "two_view_pipeline") -> the port's state dict. `num_heads` is the
+    "disk", "lightglue", "superglue", "gluestick", "loftr", "dinov2", "roma"
+    or "two_view_pipeline") -> the port's state dict. `num_heads` is the
     matcher's head count (its conf `num_heads`); `batch_stats` the JAX
     model's `batch_stats` collection (the BatchNorm statistics of
-    SuperPoint-open, ALIKED, SuperGlue, GlueStick and LoFTR's backbone). A
+    SuperPoint-open, ALIKED, SuperGlue, GlueStick, LoFTR's backbone and
+    RoMa). A
     pipeline's extractor is told apart by its parameters
     (`_extractor_name`), or is the wireframe around SuperPoint; its matcher
     likewise (GlueStick's `line_bin_score`, SuperGlue's `kenc` and
     `bin_score`, LightGlue's `transformers_i`, LoFTR's `backbone` and
-    `coarse_0`)."""
+    `coarse_0`, RoMa's `net`)."""
     if model == "superpoint":
         return superpoint_state_dict(params)
     if model == "disk":
@@ -374,6 +454,12 @@ def from_jax_params(params: dict, model: str, num_heads: int = 4,
         if batch_stats is None:
             raise ValueError("loftr: its BatchNorm statistics (batch_stats) are needed")
         return loftr_state_dict(params, batch_stats)
+    if model == "dinov2":
+        return dinov2_state_dict(params)
+    if model == "roma":
+        if batch_stats is None:
+            raise ValueError("roma: its BatchNorm statistics (batch_stats) are needed")
+        return roma_state_dict(params, batch_stats)
     if model == "two_view_pipeline":
         sd: dict = {}
         for comp, sub in params.items():

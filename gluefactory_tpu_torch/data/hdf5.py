@@ -20,15 +20,17 @@ symbol nodes, local heap for the names) at any depth of the path, and a
 dataset's dataspace, datatype, fill value, layout (version 1-3: compact,
 contiguous, or chunked through a v1 B-tree of chunks) and filter pipeline
 (deflate, shuffle). Integers of 1-8 bytes and IEEE floats of 2, 4 or 8 bytes,
-in either byte order, and h5py's `bool` (an enum of base int8 with members
-FALSE = 0 and TRUE = 1) as `np.bool_`. Storage never allocated, and chunks
-never written, read as the fill value.
+in either byte order, h5py's `bool` (an enum of base int8 with members
+FALSE = 0 and TRUE = 1) as `np.bool_`, and variable-length strings (ASCII
+or UTF-8, as h5py's `special_dtype(vlen=str)` and the eval results write
+them; the bytes in global heap collections) as a numpy `str` array.
+Storage never allocated, and chunks never written, read as the fill value.
 
 Anything else raises `NotImplementedError` naming what it met (a superblock
 v2 or v3, as `libver='latest'` writes, a version-2 object header, a
 new-style group, a layout message v4, the szip, nbit, scale-offset or
-fletcher32 filter, a string or compound type, any other enum, a shared
-message): the reader
+fletcher32 filter, a fixed-length string, a variable-length sequence, a
+compound type, any other enum, a shared message): the reader
 never returns an array it could not read whole. A file that is not HDF5
 raises `ValueError`.
 """
@@ -227,6 +229,9 @@ def _datatype(data: bytes) -> np.dtype:
         return np.dtype(f"{order}f{size}")
     if cls == 8 and version in (1, 2) and _is_h5py_bool(data, size):
         return np.dtype(bool)
+    if cls == 9 and bits & 0x0F == 1 and (bits >> 8) & 0x0F in (0, 1):
+        # a variable-length string: each element (length, global heap id)
+        return np.dtype(object, metadata={"vlen_str": size})
     names = {2: "time", 3: "string", 4: "bitfield", 5: "opaque", 6: "compound", 7: "reference",
              8: "enum", 9: "variable-length", 10: "array"}
     raise NotImplementedError(f"HDF5 {names.get(cls, f'class {cls}')} datatype (version {version})")
@@ -400,15 +405,65 @@ def _dataset_meta(f: _File, messages: list) -> dict:
             raise IsADirectoryError("an HDF5 group, not a dataset")
     if meta["shape"] is None or meta["dtype"] is None or meta["layout"] is None:
         raise ValueError("HDF5 object is not a dataset (no dataspace, datatype or layout)")
+    if _vlen_size(meta["dtype"]):
+        meta["fill"] = None  # an empty string: no heap object
     if meta["fill"] is not None and len(meta["fill"]) != meta["dtype"].itemsize:
         raise ValueError(f"HDF5 fill value of {len(meta['fill'])} bytes for {meta['dtype']}")
     return meta
 
 
+def _vlen_size(dtype: np.dtype) -> int:
+    """The element size of a variable-length string type, else 0."""
+    return (dtype.metadata or {}).get("vlen_str", 0)
+
+
+def _global_heap(f: _File, addr: int) -> dict:
+    """{index: bytes} of the objects of the global heap collection at `addr`."""
+    head = f.read(addr, 8 + f.sl)
+    if head[:4] != b"GCOL":
+        raise ValueError(f"HDF5 global heap collection expected at {addr}")
+    size = _uint(head, 8, f.sl)
+    buf = f.read(addr, size)
+    objects, pos = {}, 8 + f.sl
+    while pos + 8 + f.sl <= size:
+        index = struct.unpack_from("<H", buf, pos)[0]
+        n = _uint(buf, pos + 8, f.sl)
+        if index == 0:  # the free space: the rest of the collection
+            break
+        start = pos + 8 + f.sl
+        objects[index] = buf[start:start + n]
+        pos = start + (n + 7) // 8 * 8
+    return objects
+
+
+def _read_strings(f: _File, raw: np.ndarray) -> np.ndarray:
+    """The strings of variable-length elements (void items of length,
+    collection address, object index), as a numpy `str` array."""
+    heaps: dict = {}
+    out = []
+    for item in raw.reshape(-1):
+        b = item.tobytes()
+        n, addr, index = _uint(b, 0, 4), _uint(b, 4, f.so), _uint(b, 4 + f.so, 4)
+        if not n:
+            out.append("")
+            continue
+        if addr not in heaps:
+            heaps[addr] = _global_heap(f, addr)
+        data = heaps[addr].get(index)
+        if data is None or len(data) < n:
+            raise ValueError(f"HDF5 global heap object {index} at {addr} missing or short")
+        out.append(data[:n].decode("utf-8"))
+    return np.array(out, dtype=str).reshape(raw.shape)
+
+
 def _read_data(f: _File, meta: dict) -> np.ndarray:
     shape, dtype, layout, fill = meta["shape"], meta["dtype"], meta["layout"], meta["fill"]
+    vlen = _vlen_size(dtype)
+    if vlen:
+        return _read_strings(f, _read_data(f, {**meta, "dtype": np.dtype(f"V{vlen}")}))
     n = int(np.prod(shape))
-    out = np.full(shape, np.frombuffer(fill, dtype)[0] if fill is not None else 0, dtype)
+    out = np.full(shape, np.frombuffer(fill, dtype)[0] if fill is not None else 0, dtype) \
+        if dtype.kind != "V" else np.zeros(shape, dtype)
     if layout["class"] == 0:
         out[...] = np.frombuffer(layout["raw"], dtype, n).reshape(shape)
     elif layout["class"] == 1:
@@ -418,7 +473,7 @@ def _read_data(f: _File, meta: dict) -> np.ndarray:
             out[...] = np.frombuffer(f.read(layout["address"], n * dtype.itemsize), dtype).reshape(shape)
     else:
         _read_chunked(f, layout, shape, dtype, meta["filters"], out)
-    return out.astype(dtype.newbyteorder("="), copy=False)
+    return out if dtype.kind == "V" else out.astype(dtype.newbyteorder("="), copy=False)
 
 
 def _read_dataset(f: _File, header: int) -> np.ndarray:

@@ -12,7 +12,7 @@ too (`superpoint+lsd+gluestick`, whose config turns on the line GT).
         [--device cuda|cpu] [--overwrite] [--overwrite_eval]
 
 reads `DATA_PATH/ETH3D_undistorted/` (`data/eth3d.py`) and writes under
-`EVAL_PATH/eth3d/<tag>/` (`predictions.h5`, `results.npz`,
+`EVAL_PATH/eth3d/<tag>/` (`predictions.h5`, `results.h5`,
 `summaries.json`, `conf.yaml`). The line keys are exported where the model
 gives them.
 """

@@ -5,8 +5,10 @@ Loop 1, `get_predictions`: export the model's outputs to `predictions.h5`,
 one HDF5 group an item as the JAX package writes it (`export_keys` and,
 where the model gives them, `optional_export_keys`).
 Loop 2, `run_eval`: read the cache and compute the metrics into
-`results.npz` (the per-pair results) and `summaries.json`, with the figures
-as PNG files. A conf whose `model` changed since the last run needs
+`results.h5` (the per-pair results, one dataset a key, as the JAX package
+writes it: numbers in their dtype, text such as `names` and `scenes` as
+variable-length UTF-8 strings) and `summaries.json`, with the figures as
+PNG files. A conf whose `model` changed since the last run needs
 `overwrite`, one whose `eval` changed `overwrite` or `overwrite_eval`.
 
 The pipelines run on `device` (`cuda` unless the caller asks for the CPU):
@@ -22,15 +24,18 @@ import numpy as np
 
 from .. import logger
 from ..core.config import Config, from_yaml, merge
+from ..data.hdf5 import H5File
 from ..utils.export_predictions import export_predictions
+from ..utils.hdf5_write import H5Writer
 from .io import load_model, make_apply_fn
 
 
 def load_eval(dir_: Path):
-    """(summaries, results) of an eval directory."""
+    """(summaries, results) of an eval directory: the results' arrays of
+    fewer than 3 dims, text as numpy `str` arrays."""
     dir_ = Path(dir_)
-    with np.load(dir_ / "results.npz", allow_pickle=False) as npz:
-        results = {k: npz[k] for k in npz.files if npz[k].ndim < 3}
+    with H5File(dir_ / "results.h5") as f:
+        results = {k: r for k in f.keys() if (r := f[k]).ndim < 3}
     with open(dir_ / "summaries.json") as f:
         summaries = json.load(f)
     return summaries, results
@@ -38,7 +43,13 @@ def load_eval(dir_: Path):
 
 def save_eval(dir_: Path, summaries: dict, figures: dict, results: dict) -> None:
     dir_ = Path(dir_)
-    np.savez(dir_ / "results.npz", **{k: np.asarray(v) for k, v in results.items()})
+    with H5Writer(dir_ / "results.h5") as f:
+        for k, v in results.items():
+            a = np.asarray(v)
+            if not (np.issubdtype(a.dtype, np.number) or a.dtype == bool):
+                a = np.array([x if isinstance(x, (str, bytes)) else str(x) for x in a.flat],
+                             dtype=object).reshape(a.shape)
+            f.create_dataset(k, a)
     s = {k: float(v) if np.isscalar(v) and not isinstance(v, str) else v
          for k, v in summaries.items()}
     with open(dir_ / "summaries.json", "w") as f:
@@ -49,7 +60,7 @@ def save_eval(dir_: Path, summaries: dict, figures: dict, results: dict) -> None
 
 def exists_eval(dir_: Path) -> bool:
     dir_ = Path(dir_)
-    return (dir_ / "results.npz").exists() and (dir_ / "summaries.json").exists()
+    return (dir_ / "results.h5").exists() and (dir_ / "summaries.json").exists()
 
 
 class EvalPipeline:

@@ -90,7 +90,8 @@ class TwoViewPipeline(BaseModel):
     def _forward(self, data: dict, generator: torch.Generator | None = None,
                  train: bool = False) -> dict:
         """`generator` goes to the extractor (SuperPoint's keypoint fill and
-        sampling)."""
+        sampling) and to a matcher that draws (`uses_generator`: RoMa's
+        match sampling)."""
         if self._can_batch_extraction(data):
             pred0, pred1 = self._extract_stacked(data, generator, train)
         else:
@@ -100,7 +101,8 @@ class TwoViewPipeline(BaseModel):
         for comp in ("matcher", "filter", "solver"):
             model = getattr(self, comp)
             if model is not None:
-                pred = {**pred, **model({**data, **pred}, train=train)}
+                kwargs = {"generator": generator} if getattr(model, "uses_generator", False) else {}
+                pred = {**pred, **model({**data, **pred}, train=train, **kwargs)}
         if self.conf.run_gt_in_forward and self.ground_truth is not None:
             pred = {**pred, **self.ground_truth({**data, **pred}, train=train)}
         return pred

@@ -17,9 +17,13 @@ more than 2 * GROUP_INTERNAL_K symbol nodes; then the superblock (v0,
 8-byte addresses and lengths) with the end of file and the root's entry.
 
 Datasets are contiguous, in C order: little-endian integers of 1-8 bytes,
-float16/32/64, and `bool` as h5py stores it (an enum of base int8, FALSE = 0
-and TRUE = 1); an empty dataset has no storage. Object headers are version
-1 (dataspace v1, datatype v1, fill value v2, layout v3).
+float16/32/64, `bool` as h5py stores it (an enum of base int8, FALSE = 0
+and TRUE = 1), and text (numpy `str`, `bytes` or an object array of
+either) as h5py's `special_dtype(vlen=str)`: a variable-length UTF-8 string
+(datatype class 9) whose elements are (length, global heap id), the bytes
+in a global heap collection written just before the dataset, one object a
+string. An empty dataset has no storage. Object headers are version 1
+(dataspace v1, datatype v1, fill value v2, layout v3).
 """
 
 from __future__ import annotations
@@ -35,6 +39,8 @@ GROUP_LEAF_K, GROUP_INTERNAL_K = 4, 16  # h5py's defaults
 ENTRY = 40  # symbol-table entry: name offset, header, cache type, reserved, scratch
 BTREE = 24 + (2 * GROUP_INTERNAL_K + 1) * 8 + 2 * GROUP_INTERNAL_K * 8
 SNOD = 8 + 2 * GROUP_LEAF_K * ENTRY
+GCOL_MIN = 4096  # the least size of a global heap collection, as the HDF5 library writes it
+GCOL_OBJECTS = 0xFFFF  # object indices are 16 bits, 0 the free space
 
 
 def _pad8(b: bytes) -> bytes:
@@ -55,7 +61,13 @@ def _integer(size: int, signed: bool) -> bytes:
     return struct.pack("<BBBBIHH", 0x10, 0x08 if signed else 0, 0, 0, size, 0, 8 * size)
 
 
+def _is_text(dtype: np.dtype) -> bool:
+    return dtype.kind in "USO"
+
+
 def _datatype(dtype: np.dtype) -> bytes:
+    if _is_text(dtype):  # variable-length string (class 9, version 1), UTF-8, of unsigned bytes
+        return struct.pack("<BBBBI", 0x19, 0x01, 0x01, 0, 16) + _integer(1, False)
     size = dtype.itemsize
     if dtype.kind == "b":  # h5py's bool: enum (class 8, version 1) of 2 members over int8
         names = _pad8(b"FALSE\0") + _pad8(b"TRUE\0")
@@ -83,8 +95,25 @@ def _check_array(name: str, a: np.ndarray) -> None:
     if not name or "/" in name:
         raise ValueError(f"dataset name {name!r}")
     kind, size, order = a.dtype.kind, a.dtype.itemsize, a.dtype.byteorder
-    if kind not in "iufb" or order == ">" or (kind == "f" and size not in (2, 4, 8)):
-        raise ValueError(f"dataset {name}: {a.dtype} is not bool or a little-endian integer or float")
+    if kind == "O" and not all(isinstance(x, (str, bytes)) for x in a.flat):
+        raise ValueError(f"dataset {name}: an object array that is not all str or bytes")
+    if kind not in "iufbUSO" or order == ">" or (kind == "f" and size not in (2, 4, 8)):
+        raise ValueError(f"dataset {name}: {a.dtype} is not bool, text or a little-endian integer "
+                         "or float")
+
+
+def _utf8(x) -> bytes:
+    return x if isinstance(x, bytes) else str(x).encode("utf-8")
+
+
+def _global_heap(objects: list) -> bytes:
+    """A global heap collection of `objects` (bytes each, object i + 1 the
+    i-th), at least GCOL_MIN bytes, the rest one free-space object (index 0)."""
+    body = b"".join(struct.pack("<HH4xQ", i + 1, 0, len(o)) + _pad8(o) for i, o in enumerate(objects))
+    size = max(GCOL_MIN, 16 + len(body) + 16)
+    free = size - 16 - len(body)
+    return b"GCOL" + struct.pack("<B3xQ", 1, size) + body + struct.pack("<HH4xQ", 0, 0, free) + \
+        b"\0" * (free - 16)
 
 
 class H5Group:
@@ -126,8 +155,9 @@ class H5Group:
         if name in self.members:
             raise ValueError(f"unable to create dataset {name!r}: it exists")
         w = self.writer
-        addr = w.append(a.tobytes()) if a.nbytes else None
-        self.members[name] = ("dataset", w.append(_dataset_header(a.shape, a.dtype, addr, a.nbytes)))
+        raw = w.vlen_elements(a) if _is_text(a.dtype) else a.tobytes()
+        addr = w.append(raw) if raw else None
+        self.members[name] = ("dataset", w.append(_dataset_header(a.shape, a.dtype, addr, len(raw))))
 
 
 class H5Writer(H5Group):
@@ -146,6 +176,17 @@ class H5Writer(H5Group):
         self.fh.write(_pad8(data))
         self.eof += len(_pad8(data))
         return addr
+
+    def vlen_elements(self, a: np.ndarray) -> bytes:
+        """The strings of `a` written into global heap collections; the
+        dataset's elements: (length, collection address, object index)."""
+        texts = [_utf8(x) for x in a.flat]
+        out = []
+        for i in range(0, len(texts), GCOL_OBJECTS):
+            chunk = texts[i:i + GCOL_OBJECTS]
+            heap = self.append(_global_heap(chunk))
+            out += [struct.pack("<IQI", len(t), heap, j + 1) for j, t in enumerate(chunk)]
+        return b"".join(out)
 
     def _write_group(self, group: H5Group) -> bytes:
         """The group's heap, symbol nodes, B-tree and object header, its

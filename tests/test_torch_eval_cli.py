@@ -87,7 +87,7 @@ def test_cli_on_cpu(fake_hpatches, monkeypatch):
     torch.manual_seed(0)
     s, _, r = hpatches.main(argv)
     out = tmp / "results" / "hpatches" / "t"
-    for f in ("predictions.h5", "results.npz", "summaries.json", "conf.yaml"):
+    for f in ("predictions.h5", "results.h5", "summaries.json", "conf.yaml"):
         assert (out / f).exists(), f
     assert json.loads((out / "summaries.json").read_text()) == s
     assert set(s) >= {"H_error_ransac@1px", "H_error_dlt@5px", "mnum_matches", "H_error_ransac_mAA"}

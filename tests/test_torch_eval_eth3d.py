@@ -161,7 +161,7 @@ def test_cli_by_name_on_cpu(data_path, monkeypatch):
     torch.manual_seed(0)
     s, _, r = port_eval.main(argv)
     out = data_path / "results" / "eth3d" / "t"
-    for f in ("predictions.h5", "results.npz", "summaries.json", "conf.yaml"):
+    for f in ("predictions.h5", "results.h5", "summaries.json", "conf.yaml"):
         assert (out / f).exists(), f
     assert json.loads((out / "summaries.json").read_text()) == s and np.isfinite(s["AP"])
     mtime = (out / "predictions.h5").stat().st_mtime_ns

@@ -206,7 +206,7 @@ def test_cli_on_cpu(data_path, bench, monkeypatch):
     torch.manual_seed(0)
     s, _, r = mod.main(argv)
     out = data_path / "results" / bench / "t"
-    for f in ("predictions.h5", "results.npz", "summaries.json", "conf.yaml"):
+    for f in ("predictions.h5", "results.h5", "summaries.json", "conf.yaml"):
         assert (out / f).exists(), f
     assert json.loads((out / "summaries.json").read_text()) == s
     assert set(s) >= {"rel_pose_error@5°", "rel_pose_error@20°", "rel_pose_error_mAA",

@@ -139,7 +139,7 @@ def test_cli_by_name_on_cpu(data_path, monkeypatch):
     torch.manual_seed(0)
     s, _, r = zeb.main(argv)
     out = data_path / "results" / "zeb" / "t"
-    for f in ("predictions.h5", "results.npz", "summaries.json", "conf.yaml"):
+    for f in ("predictions.h5", "results.h5", "summaries.json", "conf.yaml"):
         assert (out / f).exists(), f
     assert json.loads((out / "summaries.json").read_text()) == s
     assert all(np.isfinite(s[k]) for k in ("rel_pose_error@5°", "rel_pose_error@20°",

@@ -200,14 +200,19 @@ def test_other_refusals(tmp_path):
         f.create_dataset("lzf", data=np.ones((30, 30)), compression="lzf")
         f.create_dataset("fl32", data=np.ones((30, 30)), fletcher32=True)
         f.create_dataset("text", data="abc")
+        f.create_dataset("fixed", data=np.array([b"abc", b"de"]))
+        f.create_dataset("seqs", (2,), dtype=h5py.vlen_dtype(np.int32))
         f.create_dataset("pairs", data=np.zeros(3, [("a", "<f4"), ("b", "<i4")]))
         f.create_group("grp")
     with pytest.raises(NotImplementedError, match="32000"):
         read_dataset(path, "lzf")
     with pytest.raises(NotImplementedError, match="fletcher32"):
         read_dataset(path, "fl32")
-    with pytest.raises(NotImplementedError, match="variable-length|string"):
-        read_dataset(path, "text")
+    assert read_dataset(path, "text") == "abc"  # a variable-length string is read
+    with pytest.raises(NotImplementedError, match="string"):
+        read_dataset(path, "fixed")
+    with pytest.raises(NotImplementedError, match="variable-length"):
+        read_dataset(path, "seqs")
     with pytest.raises(NotImplementedError, match="compound"):
         read_dataset(path, "pairs")
     with pytest.raises(IsADirectoryError):
@@ -250,7 +255,9 @@ def test_writer_refuses_what_it_does_not_write(tmp_path):
     with pytest.raises(ValueError):
         write_datasets(tmp_path / "x.h5", {"a": np.ones(2, ">f4")})
     with pytest.raises(ValueError):
-        write_datasets(tmp_path / "x.h5", {"a": np.array(["text"])})
+        write_datasets(tmp_path / "x.h5", {"a": np.array(["text", None], dtype=object)})
+    with pytest.raises(ValueError):
+        write_datasets(tmp_path / "x.h5", {"a": np.ones(2, np.complex64)})
     with pytest.raises(ValueError):
         write_datasets(tmp_path / "x.h5", {})
     with H5Writer(tmp_path / "y.h5") as f:
@@ -262,3 +269,56 @@ def test_writer_refuses_what_it_does_not_write(tmp_path):
             f.create_group("g/d")
         with pytest.raises(ValueError):  # a dataset twice
             g.create_dataset("d", data=np.ones(2))
+
+
+TEXTS = ["scene0/a.jpg", "", "Zürich/ünï😀", "x" * 5000, "i_chip0/1_2"]
+
+
+@pytest.mark.parametrize("writer", ["h5py", "port"])
+def test_variable_length_strings(tmp_path, writer):
+    """Variable-length UTF-8 strings (h5py's `special_dtype(vlen=str)`):
+    h5py's read by the port and the port's by h5py, empty strings, one
+    longer than a heap collection's 4096 bytes, a 2-D and a scalar dataset,
+    beside a number."""
+    path = tmp_path / "s.h5"
+    arrays = {"names": np.array(TEXTS), "grid": np.array([["a", "bc"], ["", "d"]]),
+              "one": np.array("scalar"), "x": np.arange(4.0)}
+    if writer == "h5py":
+        with h5py.File(path, "w") as f:
+            for k, a in arrays.items():
+                dt = h5py.special_dtype(vlen=str) if a.dtype.kind == "U" else None
+                f.create_dataset(k, data=a.astype(object) if dt else a, dtype=dt)
+    else:
+        write_datasets(path, arrays)
+    with H5File(path) as f:
+        for k, a in arrays.items():
+            assert f[k].dtype.kind == a.dtype.kind and f[k].shape == a.shape
+            np.testing.assert_array_equal(f[k], a)
+    with h5py.File(path, "r") as f:
+        for k, a in arrays.items():
+            got = f[k].asstr()[()] if a.dtype.kind == "U" else f[k][()]
+            np.testing.assert_array_equal(np.asarray(got, dtype=a.dtype), a)
+
+
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_eval_results_cross_package(tmp_path, writer):
+    """Each package's `load_eval` reads the other's `results.h5`: the
+    numbers in their dtype, `names` and `scenes` equal as strings."""
+    from gluefactory_tpu.eval import eval_pipeline as jax_eval
+    from gluefactory_tpu_torch.eval import eval_pipeline as port_eval
+
+    results = {"names": ["i_chip0/1_2", "v_chip1/1_3", "scène/ä"], "scenes": ["i_chip0", "v_chip1", "s"],
+               "H_error_ransac": np.array([0.5, np.inf, 2.0], np.float32),
+               "num_matches": np.array([10, 0, 7], np.int64)}
+    summaries = {"mH_error_ransac": 1.25, "n": 3}
+    save, load = (jax_eval.save_eval, port_eval.load_eval) if writer == "jax" else \
+        (port_eval.save_eval, jax_eval.load_eval)
+    save(tmp_path, summaries, {}, results)
+    assert port_eval.exists_eval(tmp_path) and jax_eval.exists_eval(tmp_path)
+    got_s, got = load(tmp_path)
+    assert got_s == summaries and sorted(got) == sorted(results)
+    for k in ("names", "scenes"):
+        assert [x.decode() if isinstance(x, bytes) else str(x) for x in got[k]] == results[k]
+    for k in ("H_error_ransac", "num_matches"):
+        assert got[k].dtype == results[k].dtype
+        np.testing.assert_array_equal(got[k], results[k])
