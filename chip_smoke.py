@@ -67,7 +67,7 @@ Phases, in order; any failure exits non-zero before the last line:
    train.main` on `superpoint+lightglue_homography.yaml` at full width
    (SuperPoint 512 keypoints frozen, LightGlue-9 d=256 with checkpointed
    layers, 640 x 480, f32, the recipe's `lg` photometry), cut to procedural
-   images, batch 32, 6 workers, 4 steps and 2 validation batches of 8 (the cuts
+   images, batch 32, 6 workers, 2 steps and 2 validation batches of 8 (the cuts
    are printed); every loss term finite and every update applied, each attention
    kernel exactly 18 launches a step (9 forward, 9 in the recompute) and 9 a
    validation batch, the last checkpoint reloaded bit-equal by `--restore`,
@@ -200,13 +200,14 @@ Phases, in order; any failure exits non-zero before the last line:
    widths (SuperPoint 1000 keypoints at threshold 0, frozen, drawn as path
    L draws it; 250 LSD lines in the loader's 6 workers; GlueStick-9 256
    wide, `inter_supervision` [2, 5], checkpointed; f32, `dark`; nodes 2 x
-   250 junction slots + 1000 keypoints), 2 steps at batch 32 and one
-   validation batch; then `superpoint+lsd+gluestick-megadepth` on path H's
-   scenes (1024 square-padded, `depth_matcher` with lines on the card),
-   warm-started from stage 1, 2 steps at batch 16 and one validation
-   batch. Gates: finite losses (point, line and, in stage 1, the
-   inter-layer line NLLs), every update applied, 72 `fused_attention`
-   launches a step and 36 a validation batch, a positive line match in
+   250 junction slots + 1000 keypoints), 2 updates at batch 32 (each 2
+   micro-batches of 16 under grad_accumulation 2) and one validation
+   batch; then `superpoint+lsd+gluestick-megadepth` on path H's scenes
+   (1024 square-padded, `depth_matcher` with lines on the card),
+   warm-started from stage 1, 2 updates at batch 16 (2 micro-batches of 8
+   each) and one validation batch. Gates: finite losses (point, line and,
+   in stage 1, the inter-layer line NLLs), every update applied, 72
+   `fused_attention` launches a micro-batch and 36 a validation batch, a positive line match in
    every batch, no LSD in the main process, `--restore` bit-equal with the
    running statistics, stage 2's first state equal to stage 1's last, a
    stage-1 step through the kernel against the plain versions (gradients
@@ -284,7 +285,33 @@ Phases, in order; any failure exits non-zero before the last line:
    `lightglue` on its resolved conf and weights, through the attention
    kernels, and `mixed` (grid_extractor + SuperPoint's dense descriptors)
    giving the grid's keypoints, on the main path's batch. Path Q alone:
-   `phase_device`, `phase_build`, `write_megadepth(MD_ROOT)`, `phase_roma`.
+   `phase_device`, `phase_build`, `write_megadepth(MD_ROOT)`, `phase_roma`;
+22. path R, stage 1 with on-device augmentation (run after path Q, before
+   phase 8): `train.main` on path E's config at its widths (SuperPoint 512
+   keypoints frozen, LightGlue-9 checkpointed, f32, batch 32) with
+   `data.emit_source=true` (procedural 640 x 480 sources, 6 workers) and
+   `train.device_augment` at the recipe's homography settings (patch 640 x
+   480, difficulty 0.7, max_angle 45): 4 steps and one validation batch of
+   8, then `steps_per_dispatch=2` for 2 dispatches. Gates: the workers ship
+   `source_image` alone; every augmented tensor on the card; losses finite,
+   updates applied; each attention kernel 18 launches a step, 36 a
+   dispatch of 2 and 9 a validation batch; `generate_homography_pairs` on
+   the card against the host's CPU on one key and 4 sources (the same
+   lambda for every item, `H_0to1` within 1e-4 relative, images within
+   1e-3); cross-view photoconsistency (median below 0.05); a step through
+   the kernels against the plain versions (1e-3). Records ms a step,
+   samples/s, busy share and peak memory, the augmentation's device ms for
+   a batch of 32, and the `emit_source` loader's samples/s beside path
+   E's `lg` loader's;
+23. path S, KeyNet + HardNet (after path R): `keynet_affnet_hardnet`
+   (2048 keypoints, defaults) with the NN matcher through
+   `two_view_pipeline` on path N's 1600 x 1200 pair, random weights from
+   seed 0: no port kernel, outputs finite, keypoints inside the image,
+   descriptors unit-norm, orientations in [-pi, pi]; the card against the
+   host's CPU on a 320 x 240 pair (responses within 1e-3, keypoints equal
+   where the top-k's margin exceeds 1e-5); wall and device ms a pair,
+   KeyNet's ms alone and the busy share. Paths R and S alone:
+   `phase_device`, `phase_build`, `phase_device_augment`, `phase_keynet`.
 
 Each path resets every launch count just before its timed run and reads
 them just after. Prints each phase's seconds, the script's, the kernel JSON line, the card
@@ -1570,7 +1597,7 @@ def phase_serving(device_info: dict, batch: dict) -> dict:
 # --------------------------------------------------------------------------
 
 TRAIN_YAML = "gluefactory_tpu_torch/configs/superpoint+lightglue_homography.yaml"
-TRAIN_BATCH, TRAIN_STEPS, VAL_BATCHES, TIMED_STEPS, WARMUP_STEPS = 32, 4, 2, 3, 2
+TRAIN_BATCH, TRAIN_STEPS, VAL_BATCHES, TIMED_STEPS, WARMUP_STEPS = 32, 2, 2, 3, 2
 # the stage-1 runs' validation batch: a loader worker builds a whole batch,
 # so the one batch of 32 after the steps took ~13 s alone on the card's host
 VAL_BATCH = 8
@@ -1616,10 +1643,10 @@ def run_trainer(argv: list, first_state: list | None = None) -> tuple[list, floa
     records = []
     call = train.TrainStep.__call__
 
-    def recorded(self, batch, generator=None):
+    def recorded(self, batch, *args):
         if first_state is not None and not records:
             first_state.append({k: v.clone() for k, v in self.model.state_dict().items()})
-        out = call(self, batch, generator)
+        out = call(self, batch, *args)
         records.append(out)
         return out
 
@@ -2075,9 +2102,9 @@ def phase_training(device_info: dict) -> dict:
     res = {"reduced": TRAIN_REDUCED, "argv": TRAIN_ARGV, "run": run, "restore": check_restore(model),
            "cpu_count": os.cpu_count()}
     # the loader alone on the host's cores (6 workers): the whole training
-    # split from the loader's start (worker start-up included); the first
-    # 4 batches are kept for the timed steps
-    res["loader_samples_per_s"], batches = loader_rate(train_conf().data, keep=4)
+    # split from the loader's start (worker start-up included); its 2
+    # batches are kept for the timed steps
+    res["loader_samples_per_s"], batches = loader_rate(train_conf().data, keep=TRAIN_STEPS)
     print(f"path E loader: {res['loader_samples_per_s']:.1f} samples/s with lg photometry "
           f"(6 workers, {os.cpu_count()} cores)", flush=True)
     res["vs_plain"] = train_step_vs_plain(model, batches[0])
@@ -4100,6 +4127,10 @@ M_EXPERIMENTS = ("chip_smoke_path_m1", "chip_smoke_path_m2")
 M_BATCH, M_STEPS, M_WORKERS, M_TIMED_STEPS, M_VAL_BATCH = 32, 2, 6, 2, 8
 M2_BATCH, M2_PER_SCENE, M2_VAL_BATCH, M2_TIMED_STEPS = 16, 12, S2_VAL_BATCH, 2
 M2_STEPS = len(S2_TRAIN_SCENES) * M2_PER_SCENE // M2_BATCH
+# the trainer runs take each step as M_MICRO micro-batches under
+# grad_accumulation (a worker builds a whole batch, so halves load in half
+# the time); the timed steps stay at the full batch
+M_MICRO = 2
 M_NODES = 2 * 250 + 1000  # the configs' junction slots, then their keypoints
 # a train step: GlueStick-9's 36 attention calls forward and 36 in the
 # checkpoints' recompute; a validation batch: 36
@@ -4114,12 +4145,14 @@ M_REDUCED = {
     "stage 1": f"{M_CONFIGS[0]} at its widths (SuperPoint 1000 keypoints at threshold 0, frozen; "
                "250 LSD lines, min length 15, nms 4; GlueStick-9 256 wide, 4 heads, inter_supervision "
                f"[2, 5], checkpointed; f32, dark photometry): procedural images for revisitop1m, batch "
-               f"{M_BATCH} for 160, {M_WORKERS} workers for 15, {M_STEPS} steps and one validation batch "
-               f"of {M_VAL_BATCH}",
+               f"{M_BATCH} for 160 ({M_MICRO} micro-batches of {M_BATCH // M_MICRO} under grad_accumulation "
+               f"{M_MICRO} in the trainer's run; the timed steps at {M_BATCH}), {M_WORKERS} workers for 15, "
+               f"{M_STEPS} updates and one validation batch of {M_VAL_BATCH}",
     "stage 2": f"{M_CONFIGS[1]} at its widths (1024 square-padded, batch {M2_BATCH}): path H's "
                f"procedural scenes ({len(S2_TRAIN_SCENES)} + 1 of {S2_VIEWS} views at 1600 x 1200) for "
                f"MegaDepth, {M2_PER_SCENE} pairs a scene for 300, {M2_VAL_BATCH} validation pairs, "
-               f"{S2_WORKERS} workers for 14, {M2_STEPS} steps and one validation batch, warm-started "
+               f"{S2_WORKERS} workers for 14, {M2_STEPS} updates ({M_MICRO} micro-batches of "
+               f"{M2_BATCH // M_MICRO} each in the trainer's run) and one validation batch, warm-started "
                "from stage 1's experiment",
     "weights": "SuperPoint drawn as path L draws it (random from seed 0, the descriptor head centred "
                "on one scene); GlueStick as the trainer initialises it: no checkpoint is on disk",
@@ -4132,11 +4165,12 @@ def m_argv(stage: int) -> list:
     if stage == 0:
         return [M_EXPERIMENTS[0], *common, f"data.synthetic_images={M_BATCH * M_STEPS + M_VAL_BATCH}",
                 f"data.train_size={M_BATCH * M_STEPS}", f"data.val_size={M_VAL_BATCH}",
-                f"data.batch_size={M_BATCH}", f"data.val_batch_size={M_VAL_BATCH}",
-                f"data.num_workers={M_WORKERS}"]
+                f"data.batch_size={M_BATCH // M_MICRO}", f"train.grad_accumulation={M_MICRO}",
+                f"data.val_batch_size={M_VAL_BATCH}", f"data.num_workers={M_WORKERS}"]
     return [M_EXPERIMENTS[1], *common, "data.data_dir=megadepth",
             f"data.train_split=[{','.join(S2_TRAIN_SCENES)}]", f"data.val_split=[{S2_VAL_SCENE}]",
-            f"data.train_num_per_scene={M2_PER_SCENE}", f"data.batch_size={M2_BATCH}",
+            f"data.train_num_per_scene={M2_PER_SCENE}", f"data.batch_size={M2_BATCH // M_MICRO}",
+            f"train.grad_accumulation={M_MICRO}",
             f"data.val_batch_size={M2_VAL_BATCH}", f"data.num_workers={S2_WORKERS}",
             f"train.load_experiment={M_EXPERIMENTS[0]}"]
 
@@ -4343,11 +4377,12 @@ def phase_gluestick_training(device_info: dict) -> dict:
     # stage 1
     argv = m_argv(0)
     conf = train_conf(argv, f"gluefactory_tpu_torch/configs/{M_CONFIGS[0]}.yaml")
-    run, model = run_gluestick_trainer("path M stage 1", argv, HomographyMatcher, M_STEPS,
+    run, model = run_gluestick_trainer("path M stage 1", argv, HomographyMatcher, M_STEPS * M_MICRO,
                                        M_LOSSES | M_INTER_LOSSES, sp_state)
     stage1_state = {k: v.detach().clone() for k, v in model.state_dict().items()}
     res["stage1"] = s1 = {"argv": argv, "run": run}
-    print(f"path M stage 1: {M_STEPS} steps and 1 validation batch in {run['seconds']:.1f} s, launches "
+    print(f"path M stage 1: {M_STEPS} updates of {M_MICRO} micro-batches and 1 validation batch in "
+          f"{run['seconds']:.1f} s, launches "
           f"{json.dumps(run['launches'])}, losses finite, every update applied, line positives a batch "
           f"{[c['line_positives'] for c in run['gt']]}, no LSD in the main process; total "
           f"{run['losses'][0]['total']:.4f} -> {run['losses'][-1]['total']:.4f}", flush=True)
@@ -4379,7 +4414,7 @@ def phase_gluestick_training(device_info: dict) -> dict:
         argv = m_argv(1)
         conf = train_conf(argv, f"gluefactory_tpu_torch/configs/{M_CONFIGS[1]}.yaml")
         first_state = []
-        run, model = run_gluestick_trainer("path M stage 2", argv, DepthMatcher, M2_STEPS, M_LOSSES,
+        run, model = run_gluestick_trainer("path M stage 2", argv, DepthMatcher, M2_STEPS * M_MICRO, M_LOSSES,
                                            first_state=first_state)
         res["stage2"] = s2 = {"argv": argv, "run": run}
         state = first_state[0]
@@ -4389,7 +4424,8 @@ def phase_gluestick_training(device_info: dict) -> dict:
             fail(f"path M stage 2: the warm-started model differs from stage 1's last (skipped {skipped})")
         run["warm_start"] = {"experiment": M_EXPERIMENTS[0], "tensors": len(state), "bit_equal": True,
                              "skipped": skipped}
-        print(f"path M stage 2: {M2_STEPS} steps and 1 validation batch in {run['seconds']:.1f} s, "
+        print(f"path M stage 2: {M2_STEPS} updates of {M_MICRO} micro-batches and 1 validation batch in "
+              f"{run['seconds']:.1f} s, "
               f"launches {json.dumps(run['launches'])}, losses finite, every update applied, line "
               f"positives a batch {[c['line_positives'] for c in run['gt']]}; warm start "
               f"{json.dumps(run['warm_start'])}", flush=True)
@@ -5298,6 +5334,379 @@ def phase_roma(device_info: dict) -> dict:
     return res
 
 
+# --------------------------------------------------------------------------
+# 22. path R: stage 1 with on-device augmentation (emit_source +
+#     device_augment) and steps_per_dispatch
+# --------------------------------------------------------------------------
+
+R_EXPERIMENTS = ("chip_smoke_path_r", "chip_smoke_path_r2")
+R_STEPS, R_K = 4, 2  # the first run's steps; the second's steps a dispatch (R_STEPS / R_K dispatches)
+R_AUGMENT = {"name": "homography", "patch_size": [640, 480], "difficulty": 0.7, "max_angle": 45}
+R_SOURCES = 4  # sources of the card-against-CPU check
+R_TOL = {"H_0to1": 1e-4, "image": 1e-3}
+R_REDUCED = {
+    "run": f"path E's config at its widths with data.emit_source and train.device_augment "
+           f"{json.dumps(R_AUGMENT)}: procedural 640 x 480 sources for revisitop1m, batch {TRAIN_BATCH} for "
+           f"{PUBLISHED_BATCH}, 6 workers for 14, {R_STEPS} steps and one validation batch of {VAL_BATCH}; "
+           f"then steps_per_dispatch={R_K} for {R_STEPS // R_K} dispatches",
+}
+
+
+def r_argv(experiment: str, k: int = 1) -> list:
+    return [experiment, "--conf", str(ROOT / TRAIN_YAML), "--no_tensorboard", "--no_capture",
+            "--max_val_iters", "1", f"data.synthetic_images={TRAIN_BATCH * R_STEPS + VAL_BATCH}",
+            f"data.train_size={TRAIN_BATCH * R_STEPS}", f"data.val_size={VAL_BATCH}",
+            f"data.batch_size={TRAIN_BATCH}", f"data.val_batch_size={VAL_BATCH}", "data.num_workers=6",
+            "data.emit_source=true", "data.source_size=[640,480]",
+            "train.device_augment=" + json.dumps(R_AUGMENT), f"train.steps_per_dispatch={k}",
+            "train.epochs=1", "train.log_every_iter=1", "train.eval_every_iter=1000000"]
+
+
+@contextlib.contextmanager
+def augment_recorded(record: list):
+    """`train.apply_device_augment` patched to append each call's devices
+    (the sources', and every tensor's it returns) and the batch's keys."""
+    from gluefactory_tpu_torch import train
+
+    apply = train.apply_device_augment
+
+    def wrapped(batch, key, conf):
+        out = apply(batch, key, conf)
+        tensors = [out["H_0to1"]] + [out[v][k] for v in ("view0", "view1") for k in ("image", "image_size")]
+        record.append({"in_keys": sorted(batch), "source": str(batch["source_image"].device),
+                       "shape": list(batch["source_image"].shape),
+                       "devices": sorted({str(t.device) for t in tensors})})
+        return out
+
+    train.apply_device_augment = wrapped
+    try:
+        yield record
+    finally:
+        train.apply_device_augment = apply
+
+
+def _r_run(label: str, argv: list, k: int) -> tuple[dict, torch.nn.Module]:
+    """`train.main(argv)` with each step's launches and batch recorded: the
+    gates of path R's runs (the workers' items, the augmentation's devices,
+    finite losses, applied updates, 18 launches a step, 9 the validation
+    batch)."""
+    from gluefactory_tpu_torch import train
+
+    call, per_step, batches = train.TrainStep.__call__, [], []
+
+    def counted(self, batch, *args):
+        before = all_launches()
+        batches.append({"keys": sorted(batch), "views": "view0" in batch})
+        out = call(self, batch, *args)
+        after = all_launches()
+        per_step.append({n: after[n] - before.get(n, 0) for n in after})
+        return out
+
+    augments = []
+    train.TrainStep.__call__ = counted
+    try:
+        with augment_recorded(augments):
+            steps, seconds, launches, model = run_trainer(argv)
+    finally:
+        train.TrainStep.__call__ = call
+    if len(steps) != R_STEPS:
+        fail(f"{label}: {len(steps)} train steps, expected {R_STEPS}")
+    if any(b["views"] or "source_image" not in b["keys"] for b in batches):
+        fail(f"{label}: the workers shipped more than the source: {batches[:2]}")
+    card = str(torch.empty(0, device=DEVICE).device)
+    if len(augments) != R_STEPS + 1 or any(a["devices"] != [card] or a["source"] != card
+                                           or a["shape"] != [TRAIN_BATCH, 480, 640, 3] and a is not augments[-1]
+                                           for a in augments):
+        fail(f"{label}: augmentation calls {augments}")
+    for i, n in enumerate(per_step):
+        _check_launches(f"{label} step {i}", n, STEP_LAUNCHES)
+    _check_launches(label, launches, {n: R_STEPS * c + VAL_LAUNCHES[n] for n, c in STEP_LAUNCHES.items()})
+    losses = [{n: float(v) for n, v in r[0].items()} for r in steps]
+    for i, (step_losses, (_, _, info)) in enumerate(zip(losses, steps)):
+        if not all(math.isfinite(v) for v in step_losses.values()) or not bool(info["ok"]):
+            fail(f"{label}: step {i}: losses {step_losses}, update applied {bool(info['ok'])}")
+    dispatches = [{n: sum(p[n] for p in per_step[j:j + k]) for n in per_step[0]}
+                  for j in range(0, R_STEPS, k)]
+    return {"argv": argv, "seconds": seconds, "launches": launches, "launches_per_step": per_step[0],
+            "launches_per_dispatch": dispatches, "losses": losses,
+            "grad_norms": [float(r[2]["grad_norm"]) for r in steps],
+            "worker_items": batches[0]["keys"], "augment_calls": augments[:2]}, model
+
+
+def _r_card_vs_cpu(sources: np.ndarray) -> dict:
+    """`generate_homography_pairs` on the card against the host's CPU on
+    one key and the same sources: each view's lambda equal, H_0to1 within
+    R_TOL relative, the images within R_TOL."""
+    from gluefactory_tpu_torch import train
+    from gluefactory_tpu_torch.data.device_homography import generate_homography_pairs
+
+    key = train.augment_keys(train.train_key(0), 0, 1)[0]
+    kw = {"patch_size": tuple(R_AUGMENT["patch_size"]), "difficulty": R_AUGMENT["difficulty"],
+          "max_angle": R_AUGMENT["max_angle"]}
+    out, details = {}, {}
+    for dev in (DEVICE, "cpu"):
+        details[dev] = {}
+        with torch.no_grad():
+            out[dev] = generate_homography_pairs(torch.from_numpy(sources).to(dev), key, details=details[dev], **kw)
+    lam = {dev: [details[dev][v]["lambda"].cpu().tolist() for v in ("view0", "view1")] for dev in details}
+    H = [out[d]["H_0to1"].double().cpu() for d in (DEVICE, "cpu")]
+    res = {"lambda": lam["cpu"], "lambda_equal": lam[DEVICE] == lam["cpu"],
+           "H_0to1_rel_err": float(((H[0] - H[1]).abs().amax((1, 2)) / H[1].abs().amax((1, 2))).max()),
+           "image_max_abs_err": max(float((out[DEVICE][v]["image"].cpu() - out["cpu"][v]["image"]).abs().max())
+                                    for v in ("view0", "view1")),
+           "tol": R_TOL, "window": list(details["cpu"]["window"])}
+    if not (res["lambda_equal"] and res["H_0to1_rel_err"] <= R_TOL["H_0to1"]
+            and res["image_max_abs_err"] <= R_TOL["image"]):
+        fail(f"path R: the card's augmentation differs from the CPU's: {res} (card lambdas {lam[DEVICE]})")
+    return res
+
+
+def _r_photoconsistency(sources: np.ndarray) -> dict:
+    """A point of view0 mapped by H_0to1 sees the same content in view1
+    (no jitter), on the card: the median difference below 0.05."""
+    from gluefactory_tpu_torch.data.device_homography import generate_homography_pairs
+    from gluefactory_tpu_torch.geometry.homography import warp_points
+    from gluefactory_tpu_torch.ops.grid_sample import grid_sample_nd
+
+    w, h = R_AUGMENT["patch_size"]
+    with torch.no_grad():
+        b = generate_homography_pairs(torch.from_numpy(sources).to(DEVICE), 1, (w, h), R_AUGMENT["difficulty"],
+                                      photometric_strength=0.0, max_angle=R_AUGMENT["max_angle"])
+        rng = np.random.default_rng(0)
+        pts0 = torch.from_numpy(rng.uniform([0.2 * w, 0.2 * h], [0.8 * w, 0.8 * h],
+                                            (len(sources), 500, 2)).astype(np.float32)).to(DEVICE)
+        pts1 = warp_points(pts0, b["H_0to1"])
+        inb = (pts1[..., 0] > 2) & (pts1[..., 0] < w - 2) & (pts1[..., 1] > 2) & (pts1[..., 1] < h - 2)
+        diff = (grid_sample_nd(b["view0"]["image"], pts0) - grid_sample_nd(b["view1"]["image"], pts1)).abs()
+    med = float(diff[inb].median())
+    res = {"median_abs_diff": med, "points_inside": int(inb.sum()), "limit": 0.05}
+    if not (med < 0.05 and int(inb.sum()) > 0):
+        fail(f"path R: views inconsistent under H_0to1: {res}")
+    return res
+
+
+def _r_timing(model, sources: list, device_info: dict) -> dict:
+    """ms a train step with the augmentation in it (TrainStep with
+    device_augment, a fresh optimizer, the keys of the trainer's chain;
+    CUDA events over TIMED_STEPS after WARMUP_STEPS), samples/s, peak
+    memory, one step's device ms and busy share; and the augmentation of a
+    batch alone (CUDA events, and its device ms)."""
+    from gluefactory_tpu_torch import train
+    from gluefactory_tpu_torch.core.config import Config
+
+    conf = train_conf(r_argv(R_EXPERIMENTS[0]))
+    optimizer, schedule = train.build_optimizer(conf.train, model, R_STEPS)
+    step = train.TrainStep(model, optimizer, schedule, max_updates=WARMUP_STEPS + TIMED_STEPS + 1,
+                           device_augment=conf.train.device_augment)
+    gen, rng_key = torch.Generator(device=DEVICE), train.train_key(0)
+    keys = train.augment_keys(rng_key, 0, WARMUP_STEPS + TIMED_STEPS + 1)
+    for i in range(WARMUP_STEPS):
+        step(sources[i % len(sources)], gen.manual_seed(i), keys[i])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_launches()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(TIMED_STEPS):
+        losses, _, info = step(sources[i % len(sources)], gen.manual_seed(i), keys[WARMUP_STEPS + i])
+    end.record()
+    torch.cuda.synchronize()
+    _check_launches("path R timed steps", all_launches(), {n: TIMED_STEPS * c for n, c in STEP_LAUNCHES.items()})
+    if not (bool(info["ok"]) and math.isfinite(float(losses["total"]))):
+        fail("path R: a timed step was not applied")
+    ms = start.elapsed_time(end) / TIMED_STEPS
+    res = {"ms_per_step": ms, "samples_per_s": TRAIN_BATCH * 1e3 / ms,
+           "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30, "batch": TRAIN_BATCH,
+           "steps": TIMED_STEPS, "card": device_info["nvidia_smi"]}
+    prof = profile_forward(lambda: step(sources[0], gen.manual_seed(0), keys[-1]), grad=True)
+    res.update(device_ms_per_step=prof["device_ms"], top_kernels=prof["top"][:8],
+               busy_share=None if prof["device_ms"] is None else prof["device_ms"] / ms)
+    aug = Config(R_AUGMENT)
+    res["augment_ms"] = cuda_time_ms(lambda: train.apply_device_augment(sources[0], keys[0], aug), reps=5)
+    aprof = profile_forward(lambda: train.apply_device_augment(sources[0], keys[0], aug))
+    res["augment_device_ms"] = aprof["device_ms"]
+    res["augment_top_kernels"] = aprof["top"][:6]
+    res["augment_share"] = res["augment_ms"] / ms
+    del step
+    return res
+
+
+def phase_device_augment(device_info: dict, path_e: dict | None = None) -> dict:
+    """Path R: stage 1 with `data.emit_source` and `train.device_augment`,
+    then `steps_per_dispatch`, cut as R_REDUCED says; `path_e`'s loader rate
+    beside this loader's."""
+    from gluefactory_tpu_torch import train
+    from gluefactory_tpu_torch.core.config import Config
+    from gluefactory_tpu_torch.settings import TRAINING_PATH
+
+    t0 = time.perf_counter()
+    card = device_info["nvidia_smi"]
+    print(f"path R reduced: {json.dumps(R_REDUCED)}", flush=True)
+    for e in R_EXPERIMENTS:
+        shutil.rmtree(Path(TRAINING_PATH, e), ignore_errors=True)
+    res = {"reduced": R_REDUCED}
+    res["run"], model = _r_run("path R", r_argv(R_EXPERIMENTS[0]), 1)
+    run = res["run"]
+    print(f"path R: {R_STEPS} steps and 1 validation batch in {run['seconds']:.1f} s, launches "
+          f"{json.dumps(run['launches'])}, workers ship {run['worker_items']}, augmentation on the card, "
+          f"losses finite, every update applied; total {run['losses'][0]['total']:.4f} -> "
+          f"{run['losses'][-1]['total']:.4f}", flush=True)
+    res["dispatch_run"], _ = _r_run("path R dispatch", r_argv(R_EXPERIMENTS[1], R_K), R_K)
+    d = res["dispatch_run"]
+    for j, n in enumerate(d["launches_per_dispatch"]):
+        _check_launches(f"path R dispatch {j}", n, {k: R_K * c for k, c in STEP_LAUNCHES.items()})
+    print(f"path R steps_per_dispatch={R_K}: {R_STEPS // R_K} dispatches in {d['seconds']:.1f} s, launches a "
+          f"dispatch {json.dumps(d['launches_per_dispatch'][0])}, losses finite", flush=True)
+    res["loader_samples_per_s"], sources = loader_rate(train_conf(r_argv(R_EXPERIMENTS[0])).data, keep=2,
+                                                       max_samples=2 * TRAIN_BATCH)
+    if any(set(b) != {"source_image"} for b in sources):
+        fail(f"path R loader: batches hold {[sorted(b) for b in sources]}")
+    raw = sources[0]["source_image"][:R_SOURCES].cpu().numpy()
+    res["card_vs_cpu"] = _r_card_vs_cpu(raw)
+    print(f"path R augmentation, card vs CPU: {json.dumps(res['card_vs_cpu'])}", flush=True)
+    res["photoconsistency"] = _r_photoconsistency(raw)
+    print(f"path R photoconsistency: {json.dumps(res['photoconsistency'])}", flush=True)
+    key = train.augment_keys(train.train_key(0), 1, 1)[0]
+    views = train.apply_device_augment(sources[0], key, Config(R_AUGMENT))
+    res["vs_plain"] = train_step_vs_plain(model, views, "path R")
+    print(f"path R step vs plain: {json.dumps(res['vs_plain'])}", flush=True)
+    del views
+    res["timing"] = t = _r_timing(model, sources, device_info)
+    e_rate = (path_e or {}).get("loader_samples_per_s")
+    res["path_e_loader_samples_per_s"] = e_rate
+    res["pace"] = "loader" if res["loader_samples_per_s"] < t["samples_per_s"] else "step"
+    print(f"path R timing: {t['ms_per_step']:.2f} ms/step, device {t['device_ms_per_step']} ms/step, "
+          f"{t['samples_per_s']:.1f} samples/s, busy share {t['busy_share']}, peak "
+          f"{t['peak_memory_gib']:.2f} GiB; augmentation of {TRAIN_BATCH}: {t['augment_ms']:.2f} ms, device "
+          f"{t['augment_device_ms']} ms ({card})", flush=True)
+    print(f"path R pace: the {res['pace']} sets it (emit_source loader {res['loader_samples_per_s']:.1f} "
+          f"samples/s, path E's lg loader {e_rate}, step {t['samples_per_s']:.1f} samples/s)", flush=True)
+    del model, sources
+    torch.cuda.empty_cache()
+    res["seconds"] = time.perf_counter() - t0
+    res["card"] = card
+    print(f"path R: {res['seconds']:.1f} s", flush=True)
+    return res
+
+
+# --------------------------------------------------------------------------
+# 23. path S: KeyNet + HardNet with the NN matcher
+# --------------------------------------------------------------------------
+
+S_CONF = {"extractor": {"name": "keynet_affnet_hardnet", "max_num_keypoints": 2048},
+          "matcher": {"name": "nearest_neighbor_matcher"}}  # two_view_pipeline's
+S_SMALL = (320, 240)  # (w, h) of the card-against-CPU pair
+S_SMALL_KEYPOINTS = 512  # its keypoints: 2048 at 320 x 240 would be mostly zero-score ties
+S_TOL = {"response": 1e-3, "margin": 1e-5}
+S_REDUCED = {
+    "S": f"keynet_affnet_hardnet (2048 keypoints, nms 4, patch scale 12, oriented) with the NN matcher "
+         f"on path N's procedural {N_SIZE[0]} x {N_SIZE[1]} pair; random weights from seed 0 (torch's "
+         f"init, BatchNorm statistics 0 / 1): no kornia checkpoint is on disk",
+}
+
+
+def _s_record(self, data, out) -> dict:
+    rec = _zoo_record(self, data, out)
+    rec["oris_in_range"] = bool(((out["oris"] >= -math.pi - 1e-5) & (out["oris"] <= math.pi + 1e-5)).all())
+    rec["finite"] = rec["finite"] and bool(torch.isfinite(out["oris"]).all())
+    return rec
+
+
+def _s_card_vs_cpu(model, views) -> dict:
+    """The extractor (its weights, S_SMALL_KEYPOINTS keypoints) on the card
+    against the host's CPU on a 320 x 240 pair: the responses within S_TOL,
+    the keypoints equal where the top-k's margin to the next score exceeds
+    S_TOL["margin"]."""
+    from gluefactory_tpu_torch.models.extractors.keynet_affnet_hardnet import GRAY
+
+    w, h = S_SMALL
+    small = np.stack([np.ascontiguousarray(v[:h * 5:5, :w * 5:5]) for v in views])  # every 5th pixel
+    gray = torch.from_numpy((small * np.float32(GRAY)).sum(-1, dtype=np.float32))[:, None]
+    conf = {**S_CONF["extractor"], "max_num_keypoints": S_SMALL_KEYPOINTS}
+    exts = {}
+    for dev in (DEVICE, "cpu"):
+        exts[dev] = get_model(conf["name"]).from_conf(conf, device=dev).eval()
+        exts[dev].load_state_dict(model.extractor.state_dict())
+    out = {}
+    with torch.no_grad():
+        for dev, ext in exts.items():
+            resp = ext.detector.model(gray.to(dev)).cpu()
+            pred = ext({"image": torch.from_numpy(small).to(dev)})
+            out[dev] = (resp, pred["keypoints"].cpu(), pred["keypoint_scores"].cpu())
+    resp_err = float((out[DEVICE][0] - out["cpu"][0]).abs().max())
+    scores = out["cpu"][2]
+    srt = scores.sort(dim=-1).values
+    gaps = torch.diff(srt, dim=-1)
+    margin = torch.minimum(torch.cat([torch.full_like(gaps[:, :1], float("inf")), gaps], -1),
+                           torch.cat([gaps, torch.full_like(gaps[:, :1], float("inf"))], -1))
+    margin = margin.gather(-1, scores.argsort(-1).argsort(-1))
+    clear = margin > S_TOL["margin"]
+    equal = (out[DEVICE][1] == out["cpu"][1]).all(-1)
+    res = {"response_max_abs_err": resp_err, "clear_keypoints": int(clear.sum()),
+           "clear_equal": int((equal & clear).sum()), "all_equal": int(equal.sum()),
+           "keypoints": int(equal.numel()), "tol": S_TOL, "size": [h, w]}
+    if not (resp_err <= S_TOL["response"] and bool(equal[clear].all())):
+        fail(f"path S: the card's KeyNet differs from the CPU's: {res}")
+    return res
+
+
+def phase_keynet(device_info: dict) -> dict:
+    """Path S: KeyNet + HardNet and the NN matcher through the pipeline's
+    entry point, cut as S_REDUCED says."""
+    t0 = time.perf_counter()
+    card = device_info["nvidia_smi"]
+    dev = torch.device(DEVICE)
+    print(f"path S reduced: {json.dumps(S_REDUCED)}", flush=True)
+    torch.manual_seed(0)
+    model = get_model("two_view_pipeline").from_conf(S_CONF, device="cpu").to(dev).eval()
+    views = _n_views()
+    batch = _l_batch(*views, dev)
+    forward = pipeline_forward(model, batch, torch.Generator(device=dev))
+    records = []
+    with recorded_forward(type(model.extractor), records, _s_record):
+        reset_all_launches()
+        with torch.no_grad():
+            pred = forward()
+            torch.cuda.synchronize()
+        _check_launches("path S", all_launches(), {})
+    if not records or not all(r["finite"] and r["inside"] and r["norm_err"] <= 1e-3 and r["oris_in_range"]
+                              for r in records):
+        fail(f"path S: extractor outputs not finite, not unit-norm, outside the image or orientations out "
+             f"of range: {records}")
+    for k, t in pred.items():
+        if t.is_floating_point() and not torch.isfinite(t).all():
+            fail(f"path S: {k} is not finite")
+    if list(pred["keypoints0"].shape) != [1, 2048, 2] or pred["descriptors0"].shape[-1] != 128:
+        fail(f"path S: keypoints {list(pred['keypoints0'].shape)}, descriptors {list(pred['descriptors0'].shape)}")
+    with torch.no_grad():
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(N_TIMED):
+            forward()
+        end.record()
+        torch.cuda.synchronize()
+        wall_ms = start.elapsed_time(end) / N_TIMED
+        stacked = torch.cat([batch["view0"]["image"], batch["view1"]["image"]])
+        gray = (stacked * torch.tensor((0.299, 0.587, 0.114), device=dev)).sum(-1)[:, None]
+        keynet_ms = cuda_time_ms(lambda: model.extractor.detector.model(gray), reps=5)
+        extractor_ms = cuda_time_ms(lambda: model.extractor({"image": stacked}), reps=3)
+    prof = profile_forward(forward)
+    res = {"reduced": S_REDUCED, "image": [N_SIZE[1], N_SIZE[0]], "keypoints": 2048, "wall_ms": wall_ms,
+           "device_ms": prof["device_ms"],
+           "busy_share": prof["device_ms"] / wall_ms if prof["device_ms"] else None,
+           "keynet_ms_two_views": keynet_ms, "extractor_ms_two_views": extractor_ms,
+           "matches": int((pred["matches0"] >= 0).sum()),
+           "valid_keypoints": [int(pred[f"keypoint_mask{i}"].sum()) for i in "01"],
+           "extractor_gates": records[0], "top_kernels": prof["top"][:8], "card": card}
+    res["card_vs_cpu"] = _s_card_vs_cpu(model, views)
+    print(f"path S: {json.dumps({k: v for k, v in res.items() if k != 'top_kernels'})}", flush=True)
+    del model, pred
+    torch.cuda.empty_cache()
+    res["seconds"] = time.perf_counter() - t0
+    print(f"path S: {res['seconds']:.1f} s", flush=True)
+    return res
+
+
 def main() -> None:
     t0 = time.perf_counter()
     seconds = {}
@@ -5339,6 +5748,8 @@ def main() -> None:
     path_o = timed("path_o", phase_sift, device_info)
     path_p = timed("path_p", phase_loftr, device_info)
     path_q = timed("path_q", phase_roma, device_info)
+    path_r = timed("path_r", phase_device_augment, device_info, path_e)
+    path_s = timed("path_s", phase_keynet, device_info)
     kernels += timed("conv_study", phase_conv_study, device_info)  # launches from the tools' runs
     OUT_DIR.mkdir(exist_ok=True)
     record = {"device": device_info, "build": build, "kernels": kernels, "gradients": gradients,
@@ -5349,6 +5760,7 @@ def main() -> None:
               "path_j_benchmarks": path_j, "path_k_superglue_training": path_k,
               "path_l_lines": path_l, "path_m_gluestick_training": path_m, "path_n_zoo": path_n,
               "path_o_sift": path_o, "path_p_loftr": path_p, "path_q_roma": path_q,
+              "path_r_device_augment": path_r, "path_s_keynet": path_s,
               "seconds_by_phase": seconds,
               "seconds": time.perf_counter() - t0}
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(record, indent=1))

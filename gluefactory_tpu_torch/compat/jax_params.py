@@ -21,7 +21,8 @@ and ALIKED also need the `batch_stats` collection (BatchNorm running mean
 and variance); ALIKED, DISK and the open SuperPoint go to the official
 layouts (`aliked-n16.pth`, kornia's DISK, `superpoint_v6_from_tf.pth`),
 the inverses of `convert_aliked`, `convert_disk` and
-`convert_superpoint_open`. SuperGlue's
+`convert_superpoint_open`; KeyNet + HardNet to kornia's `KeyNetHardNet`
+names (`convert_keynet_hardnet`). SuperGlue's
 attention heads go back from the JAX package's head-major channels to the
 official head-fastest packing (the inverse of `_head_permutation`). GlueStick
 likewise, under upstream GlueStick's names (`convert_gluestick`), LoFTR
@@ -138,10 +139,37 @@ def disk_state_dict(params: dict) -> dict:
     return sd
 
 
+def keynet_hardnet_state_dict(params: dict, batch_stats: dict) -> dict:
+    """KeyNet + HardNet -> kornia's `KeyNetHardNet` names (inverse of
+    `convert_keynet_hardnet`): KeyNet's block under
+    `detector.model.feature_extractor.lb_block.conv{i}.{0,1}`, its last conv
+    at `detector.model.last_conv.0`; HardNet's convs at
+    `descriptor.descriptor.features.{0,3,...,15}` and 19, each affine-free
+    BatchNorm right after."""
+    sd: dict = {}
+    kn, kn_stats = params["keynet"], batch_stats["keynet"]
+    for i in range(3):
+        prefix = f"detector.model.feature_extractor.lb_block.conv{i}"
+        _conv(kn["block"][f"conv{i}"], f"{prefix}.0", sd)
+        _batch_norm(kn["block"][f"bn{i}"], kn_stats["block"][f"bn{i}"], f"{prefix}.1", sd)
+    _conv(kn["last_conv"], "detector.model.last_conv.0", sd)
+    hn, hn_stats = params["hardnet"], batch_stats["hardnet"]
+    names = [(f"conv{i}", f"bn{i}", 3 * i) for i in range(6)] + [("conv_final", "bn_final", 19)]
+    for conv, bn, index in names:
+        _conv(hn[conv], f"descriptor.descriptor.features.{index}", sd)
+        prefix = f"descriptor.descriptor.features.{index + 1}"
+        sd[f"{prefix}.running_mean"] = _tensor(_np(hn_stats[bn]["mean"]))
+        sd[f"{prefix}.running_var"] = _tensor(_np(hn_stats[bn]["var"]))
+        sd[f"{prefix}.num_batches_tracked"] = torch.tensor(0)
+    return sd
+
+
 def _extractor_name(params: dict) -> str:
     """The extractor a pipeline's `extractor_model` params hold, by their
-    keys: ALIKED's `desc_head`, DISK's `unet`, the open SuperPoint's
-    `BatchNorm_0`, else the vanilla SuperPoint."""
+    keys: ALIKED's `desc_head`, DISK's `unet`, KeyNet's `keynet`, the open
+    SuperPoint's `BatchNorm_0`, else the vanilla SuperPoint."""
+    if "keynet" in params:
+        return "keynet_affnet_hardnet"
     if "desc_head" in params:
         return "aliked"
     if "unet" in params:
@@ -419,11 +447,11 @@ def _matcher_name(params: dict) -> str:
 def from_jax_params(params: dict, model: str, num_heads: int = 4,
                     batch_stats: dict | None = None) -> dict:
     """JAX `params` of `model` ("superpoint", "superpoint_open", "aliked",
-    "disk", "lightglue", "superglue", "gluestick", "loftr", "dinov2", "roma"
+    "disk", "keynet_affnet_hardnet", "lightglue", "superglue", "gluestick", "loftr", "dinov2", "roma"
     or "two_view_pipeline") -> the port's state dict. `num_heads` is the
     matcher's head count (its conf `num_heads`); `batch_stats` the JAX
     model's `batch_stats` collection (the BatchNorm statistics of
-    SuperPoint-open, ALIKED, SuperGlue, GlueStick, LoFTR's backbone and
+    SuperPoint-open, ALIKED, KeyNet + HardNet, SuperGlue, GlueStick, LoFTR's backbone and
     RoMa). A
     pipeline's extractor is told apart by its parameters
     (`_extractor_name`), or is the wireframe around SuperPoint; its matcher
@@ -434,9 +462,11 @@ def from_jax_params(params: dict, model: str, num_heads: int = 4,
         return superpoint_state_dict(params)
     if model == "disk":
         return disk_state_dict(params)
-    if model in ("superpoint_open", "aliked"):
+    if model in ("superpoint_open", "aliked", "keynet_affnet_hardnet"):
         if batch_stats is None:
             raise ValueError(f"{model}: its BatchNorm statistics (batch_stats) are needed")
+        if model == "keynet_affnet_hardnet":
+            return keynet_hardnet_state_dict(params, batch_stats)
         if model == "aliked":
             return aliked_state_dict(params, batch_stats)
         return superpoint_open_state_dict(params, batch_stats)

@@ -33,8 +33,12 @@ Lines (`detect_lines.do`): each view's LSD segments and wireframe junctions
 the photometric augmentation and the grey conversion, under the seven
 `WIREFRAME_KEYS`; they draw nothing from the item's generator. A one-channel
 view goes to the LSD as `(img[..., 0] * 255).astype(uint8)`, as in the JAX
-package. A failed detection raises in the worker. `emit_source` raises
-`NotImplementedError` for now.
+package. A failed detection raises in the worker.
+
+`emit_source`: an item is the source image alone (float32 (h, w, 3) at
+`source_size`, resized bilinearly as cv2.resize's INTER_LINEAR where the
+read image has another size), with `idx` and `name`, for the trainer's
+`device_augment`, which makes the two views on the device.
 """
 
 from __future__ import annotations
@@ -253,6 +257,13 @@ class _HomographySplit(torch.utils.data.Dataset):
             rng = np.random.default_rng()
         name = self.image_names[idx]
         img, upscale = self._read_image(idx)
+        if conf.emit_source:
+            # the source only: the warps and the photometric jitter run in
+            # the train step (train.device_augment, device_homography.py)
+            sw, sh = conf.source_size
+            if img.shape[:2] != (sh, sw):
+                img, _ = resize_image(img, (sw, sh), "linear")
+            return {"source_image": img.astype(np.float32), "idx": idx, "name": str(name)}
         features = None
         if self.parent.feature_loader is not None:
             features = self.parent.feature_loader({"name": self.cache_key(idx), "scales": upscale})
@@ -316,8 +327,6 @@ class HomographyDataset(BaseDataset):
     }
 
     def _init(self, conf):
-        if conf.emit_source:
-            raise NotImplementedError("homographies: emit_source (on-device augmentation) is not ported yet")
         names = list(range(conf.synthetic_images)) if conf.synthetic_images > 0 else self._list(conf)
         perm = np.random.default_rng(conf.shuffle_seed).permutation(len(names))
         names = [names[i] for i in perm]

@@ -17,7 +17,7 @@ from torch import nn
 
 
 def batch_norm(bn: nn.BatchNorm2d, x: torch.Tensor, by_batch: bool, momentum: float) -> torch.Tensor:
-    """`bn`'s parameters on x (B, C, H, W). `by_batch` False: by the running
+    """`bn`'s parameters (if affine) on x (B, C, H, W). `by_batch` False: by the running
     statistics. True: by the batch's statistics, after which the running
     ones move by flax's `momentum` (under no_grad, at once)."""
     if not by_batch:
@@ -26,8 +26,12 @@ def batch_norm(bn: nn.BatchNorm2d, x: torch.Tensor, by_batch: bool, momentum: fl
     xf = x.float()
     mean = xf.mean(dim=(0, 2, 3))
     var = ((xf * xf).mean(dim=(0, 2, 3)) - mean * mean).clamp(min=0.0)
-    scale = torch.rsqrt(var + bn.eps) * bn.weight.float()
-    y = (xf - mean[:, None, None]) * scale[:, None, None] + bn.bias.float()[:, None, None]
+    scale = torch.rsqrt(var + bn.eps)
+    if bn.weight is not None:  # an affine BatchNorm
+        scale = scale * bn.weight.float()
+    y = (xf - mean[:, None, None]) * scale[:, None, None]
+    if bn.bias is not None:
+        y = y + bn.bias.float()[:, None, None]
     with torch.no_grad():
         bn.running_mean.copy_(momentum * bn.running_mean + (1.0 - momentum) * mean)
         bn.running_var.copy_(momentum * bn.running_var + (1.0 - momentum) * var)

@@ -43,8 +43,24 @@ trainer keeps its `batch_stats`. Checkpoints hold the statistics (they are
 in the model's state dict), and validation (`train=False`) normalises by
 them.
 
-Not ported yet, each raising `NotImplementedError`: `steps_per_dispatch >
-1`, `device_augment`, `plot` with a writer, and more than one device (DDP).
+`device_augment` (a dict: `patch_size`, `difficulty`, `translation`,
+`photometric_strength`, `n_angles`, `max_angle`, with the JAX package's
+defaults) makes the two views of a batch of `source_image`s (the homography
+dataset's `emit_source`) inside the train step, on the batch's device,
+before the forward (`data/device_homography.py`), and in each validation
+batch. Its keys follow the JAX trainer's chain (`augment_keys`), so a
+step's batch is JAX's; the model's own sampling keeps the torch generator.
+
+`steps_per_dispatch` K makes K loader batches one dispatch (the tail padded
+with the last batch): K train steps back to back, with no host read between
+them, as JAX's one scanned dispatch. `total_iter` counts dispatches; the
+log fires where `it % log_every_iter < K`, with the last step's losses and
+the lr at `schedule(total_iter * K)` in micro-steps (`// grad_accumulation`
+in updates), as the JAX trainer logs it, and each dispatch adds K batches to
+the samples.
+
+Not ported yet, each raising `NotImplementedError`: `plot` with a writer,
+and more than one device (DDP).
 """
 
 from __future__ import annotations
@@ -70,6 +86,7 @@ from .eval.io import parse_config_path
 from .models import get_model
 from .optim import OPTIMIZERS
 from .settings import TRAINING_PATH
+from .utils import threefry
 from .utils.experiments import (
     delete_old_checkpoints,
     get_best_checkpoint,
@@ -243,14 +260,16 @@ class TrainStep:
     K-th step makes a parameter non-finite, leaves parameters, optimizer
     state, `micro` and `acc` as they were. `mixed_precision="bf16"` runs
     the forward and backward on bf16 copies of the float32 parameters and
-    of the views' images."""
+    of the views' images. With `device_augment`, a batch of `source_image`s
+    becomes its two views (`apply_device_augment`) on `key` first."""
 
     def __init__(self, model, optimizer, schedule, accum: int = 1, clip_grad=None, *,
-                 max_updates: int, mixed_precision=None):
+                 max_updates: int, mixed_precision=None, device_augment=None):
         if mixed_precision not in (None, "bf16"):
             raise NotImplementedError(f"mixed_precision {mixed_precision!r} is not ported")
         self.model = model
         self.mixed_precision = mixed_precision
+        self.device_augment = device_augment
         self._forward_backward = _ForwardBackward(model)
         self.optimizer = optimizer
         self.schedule = schedule
@@ -285,7 +304,9 @@ class TrainStep:
         for a, b in zip(self.acc, state.get("acc", [])):
             a.copy_(b)
 
-    def __call__(self, batch: dict, generator: torch.Generator | None = None):
+    def __call__(self, batch: dict, generator: torch.Generator | None = None, key=None):
+        if self.device_augment and "source_image" in batch:
+            batch = apply_device_augment(batch, key, self.device_augment)
         for p in self.params:
             p.grad = None
         if self.mixed_precision == "bf16":
@@ -359,11 +380,51 @@ class TrainStep:
 # ---------------------------------------------------------------------------
 
 
-def do_evaluation(model, loader, conf, device, seed: int, max_iters=None):
+def apply_device_augment(batch: dict, key, device_augment) -> dict:
+    """The batch with its `source_image`s replaced by two homography views
+    and `H_0to1` (`generate_homography_pairs` on `key`, the conf's settings
+    with the JAX package's defaults)."""
+    from .data.device_homography import generate_homography_pairs
+
+    with torch.no_grad():
+        gen = generate_homography_pairs(
+            batch["source_image"], key,
+            patch_size=tuple(device_augment.get("patch_size", (640, 480))),
+            difficulty=device_augment.get("difficulty", 0.5),
+            translation=device_augment.get("translation", 1.0),
+            photometric_strength=device_augment.get("photometric_strength", 0.5),
+            n_angles=device_augment.get("n_angles", 10),
+            max_angle=device_augment.get("max_angle", 90.0))
+    return {**{k: v for k, v in batch.items() if k != "source_image"}, **gen}
+
+
+def train_key(seed: int) -> torch.Tensor:
+    """The JAX trainer's `rng_key` after its init draws: the third of
+    `split(key(seed), 3)`."""
+    return threefry.split(seed, 3)[2]
+
+
+def augment_keys(rng_key, total_iter: int, k: int) -> list:
+    """The augmentation key of each of dispatch `total_iter`'s k steps, as
+    the JAX trainer derives them: `step_rng = fold_in(rng_key, total_iter)`,
+    split k ways under k > 1, and each step's key the second of its split."""
+    step_rng = threefry.fold_in(rng_key, total_iter)
+    rngs = [step_rng] if k == 1 else list(threefry.split(step_rng, k))
+    return [threefry.split(r)[1] for r in rngs]
+
+
+def eval_key(rng_key) -> torch.Tensor:
+    """The augmentation key of every validation batch: `fold_in(rng_key, 7)`."""
+    return threefry.fold_in(rng_key, 7)
+
+
+def do_evaluation(model, loader, conf, device, seed: int, max_iters=None, augment=None):
     """Validation loop (`train=False`) with streaming accumulators: losses
     under `loss/`, metrics, medians and recalls as `conf` asks, and the PR
     curves' (labels, predictions). Every batch draws its random keypoint
-    fill from a generator seeded with `seed`. Returns (results, pr_results)."""
+    fill from a generator seeded with `seed`. `augment`: (device_augment
+    conf, key), applied to every batch of `source_image`s. Returns
+    (results, pr_results)."""
     accums = {}
     pr_accums = defaultdict(PRMetric)
     gen = torch.Generator(device=device)
@@ -372,6 +433,8 @@ def do_evaluation(model, loader, conf, device, seed: int, max_iters=None):
             if max_iters is not None and i >= max_iters:
                 break
             batch = prepare_batch(batch, device)
+            if augment and "source_image" in batch:
+                batch = apply_device_augment(batch, augment[1], augment[0])
             pred, losses, metrics = model.forward_with_loss(batch, train=False,
                                                             generator=gen.manual_seed(seed))
             for name, spec in (conf.pr_curves or {}).items():
@@ -426,6 +489,15 @@ def step_generator(generator: torch.Generator, seed: int, step: int) -> torch.Ge
     return generator.manual_seed(int(np.random.SeedSequence((seed, step)).generate_state(1)[0]))
 
 
+def dispatch(step: TrainStep, batches: list, generators: list, keys: list | None = None):
+    """One dispatch: a train step on each batch in turn, with its generator
+    and augmentation key, no host read in between; the last step's (losses,
+    metrics, info)."""
+    for i, batch in enumerate(batches):
+        out = step(batch, generators[i]) if keys is None else step(batch, generators[i], keys[i])
+    return out
+
+
 def check_supported(conf, args) -> None:
     """Raise on the options that are not ported yet."""
     t = conf.train
@@ -433,10 +505,6 @@ def check_supported(conf, args) -> None:
         raise NotImplementedError("training on more than one device (DDP) is not ported yet")
     if t.mixed_precision not in (None, "bf16"):
         raise NotImplementedError(f"mixed_precision {t.mixed_precision!r} is not ported")
-    if int(t.steps_per_dispatch) > 1:
-        raise NotImplementedError("steps_per_dispatch > 1 is not ported yet")
-    if t.device_augment:
-        raise NotImplementedError("device_augment (on-device augmentation) is not ported yet")
     for name in t.run_benchmarks or []:
         if name not in ("hpatches", "megadepth1500", "scannet1500", "eth3d", "zeb"):
             raise NotImplementedError(f"benchmark {name}: the port has no such benchmark")
@@ -482,9 +550,13 @@ def training(conf: Config, output_dir: Path, args):
     optimizer, schedule = build_optimizer(conf.train, model, steps_per_epoch)
     clip = conf.train.clip_grad
     accum = int(conf.train.grad_accumulation)
+    k_steps = max(int(conf.train.steps_per_dispatch), 1)
+    augment = conf.train.device_augment or None
+    micro_per_epoch = math.ceil(steps_per_epoch / k_steps) * k_steps  # the tail padded
     step = TrainStep(model, optimizer, schedule, accum, None if clip is None else float(clip),
-                     max_updates=math.ceil(conf.train.epochs * steps_per_epoch / accum),
-                     mixed_precision=conf.train.mixed_precision)
+                     max_updates=math.ceil(conf.train.epochs * micro_per_epoch / accum),
+                     mixed_precision=conf.train.mixed_precision, device_augment=augment)
+    rng_key = train_key(seed)
 
     epoch0, total_iter, best_eval = 0, 0, None
     if args.restore:
@@ -524,13 +596,20 @@ def training(conf: Config, output_dir: Path, args):
             dataset.epoch = epoch
             t_start = time.time()
             n_samples = 0
+            pending: list = []
             for it, batch in enumerate(train_loader):
-                batch = prepare_batch(batch, device)
-                losses, metrics, info = step(batch, step_generator(gen, seed, total_iter))
-                n_samples += train_bs
-                if it % conf.train.log_every_iter == 0:
+                pending.append(prepare_batch(batch, device))
+                if len(pending) < k_steps and it < len(train_loader) - 1:
+                    continue
+                pending += pending[-1:] * (k_steps - len(pending))  # pad the tail
+                keys = augment_keys(rng_key, total_iter, k_steps) if augment else None
+                gens = [step_generator(gen, seed, total_iter * k_steps + i) for i in range(k_steps)]
+                losses, metrics, info = dispatch(step, pending, gens, keys)
+                pending = []
+                n_samples += train_bs * k_steps
+                if it % conf.train.log_every_iter < k_steps:
                     losses_np = {k: float(v) for k, v in losses.items()}  # the host read
-                    lr = float(step.lr())
+                    lr = schedule(total_iter * k_steps // accum)
                     sps = n_samples / (time.time() - t_start + 1e-9)
                     logger.info("[E %d | it %d] loss {%s} lr %.2e %.1f samples/s", epoch, it,
                                 ", ".join(f"{k} {v:.3f}" for k, v in losses_np.items()), lr, sps)
@@ -548,7 +627,8 @@ def training(conf: Config, output_dir: Path, args):
                 if ((total_iter % conf.train.eval_every_iter == 0 and total_iter > 0)
                         or it == len(train_loader) - 1):
                     results, pr_results = do_evaluation(model, val_loader, conf.train, device, seed,
-                                                        max_iters=args.max_val_iters)
+                                                        max_iters=args.max_val_iters,
+                                                        augment=augment and (augment, eval_key(rng_key)))
                     logger.info("[Validation] {%s}", ", ".join(
                         f"{k} {v:.4f}" for k, v in results.items() if np.isscalar(v)))
                     if writer:

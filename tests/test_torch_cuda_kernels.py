@@ -887,7 +887,7 @@ def test_threefry_on_the_card_equals_the_cpu(dev):
     from gluefactory_tpu_torch.utils import threefry
 
     for seed, shape in ((0, (1024, 64)), (7, (1024, 2048)), (-3, (5, 7))):
-        assert torch.equal(threefry.random_bits(seed, shape, dev).cpu(), threefry.random_bits(seed, shape))
+        assert torch.equal(threefry.bits(seed, shape, dev).cpu(), threefry.bits(seed, shape))
         assert torch.equal(threefry.uniform(seed, shape, dev).cpu(), threefry.uniform(seed, shape))
         got, want = threefry.gumbel(seed, shape, dev).cpu(), threefry.gumbel(seed, shape)
         # each device's float64 logs, rounded to float32: within an ulp a step

@@ -147,11 +147,12 @@ def test_view_options(options):
 @pytest.mark.parametrize("override,error", [
     ({"photometric": {"name": "lg"}}, None), ({"photometric": {"name": "dark"}}, None),
     ({"synthetic_images": 0}, FileNotFoundError), ({"load_features": {"do": True}}, None),
-    ({"detect_lines": {"do": True}}, None), ({"emit_source": True}, NotImplementedError),
+    ({"detect_lines": {"do": True}}, None), ({"emit_source": True}, None),
 ], ids=["lg", "dark", "folders", "load_features", "detect_lines", "emit_source"])
 def test_not_ported_options_raise(override, error, monkeypatch, tmp_path):
-    """`emit_source` raises NotImplementedError; every other option here is
-    ported. The photometric families `lg` and `dark` draw from the item's
+    """Every option here is ported: `emit_source` gives JAX's item (the
+    source image alone, `tests/test_torch_device_homography.py` holds it
+    closer). The photometric families `lg` and `dark` draw from the item's
     generator as JAX's do, so the next view's homography and `H_0to1` stay
     bit-equal to JAX's. `load_features` (a cache of every procedural image,
     keyed by its index in both packages) and `detect_lines` draw nothing;
@@ -178,6 +179,10 @@ def test_not_ported_options_raise(override, error, monkeypatch, tmp_path):
     ours = HomographyDataset({**CONF, **override}).get_dataset("train")
     theirs = JaxHomographyDataset({**CONF, **override}).get_dataset("train")
     for i in (0, 5):
+        if "emit_source" in override:
+            assert ours[i].keys() == theirs[i].keys() == {"source_image", "idx", "name"}
+            np.testing.assert_array_equal(ours[i]["source_image"], theirs[i]["source_image"])
+            continue
         np.testing.assert_array_equal(ours[i]["H_0to1"], theirs[i]["H_0to1"])
         if "detect_lines" in override:
             for v in ("view0", "view1"):

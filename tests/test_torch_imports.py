@@ -36,7 +36,7 @@ for name in names:
 leaked = sorted(m for m in sys.modules if m == "gluefactory_tpu" or m.startswith("gluefactory_tpu."))
 print(len(names), leaked)
 assert not leaked, leaked
-assert len(names) >= 118, names
+assert len(names) >= 121, names
 for name in ("train", "optim", "settings", "data.homographies", "data.base_dataset", "data.augmentations",
              "data.raster", "data.colour", "data.jpeg", "data.preprocess", "geometry.homography", "geometry.gt_generation", "models.losses",
              "models.metrics", "models.matchers.homography_matcher", "utils.experiments",
@@ -67,7 +67,8 @@ for name in ("train", "optim", "settings", "data.homographies", "data.base_datas
              "models.backbones", "models.backbones.resnet_fpn", "models.matchers.loftr",
              "models.backbones.dinov2", "models.matchers.roma_net", "models.matchers.roma",
              "models.extractors.grid_extractor", "models.extractors.mixed",
-             "models.matchers.lightglue_pretrained"):
+             "models.matchers.lightglue_pretrained", "models.extractors.keynet_affnet_hardnet",
+             "ops.warp", "data.device_homography"):
     assert pkg.__name__ + "." + name in names, name
 """
 

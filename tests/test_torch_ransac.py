@@ -36,7 +36,7 @@ def test_threefry_bits_and_noise_equal_jax(seed):
     for shape in SHAPES:
         k = jax.random.key(seed)
         bits = np.asarray(jax.random.bits(k, shape)).astype(np.int64)
-        np.testing.assert_array_equal(threefry.random_bits(seed, shape).numpy(), bits)
+        np.testing.assert_array_equal(threefry.bits(seed, shape).numpy(), bits)
         tiny = np.finfo(np.float32).tiny
         u = np.asarray(jax.random.uniform(k, shape, minval=tiny))
         np.testing.assert_array_equal(threefry.uniform(seed, shape).numpy(), u)

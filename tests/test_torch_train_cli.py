@@ -103,11 +103,9 @@ def test_default_device_is_cuda(monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize("override,flag", [
-    ({"train": {"steps_per_dispatch": 2}}, None),
-    ({"train": {"device_augment": {"name": "homography"}}}, None),
     ({"train": {"run_benchmarks": ["hpatches", "megadepth1500", "eth3d", "zeb", "nope"]}}, None),
     ({}, "--n_devices=2"),
-], ids=["steps_per_dispatch", "device_augment", "run_benchmarks", "n_devices"])
+], ids=["run_benchmarks", "n_devices"])
 def test_not_ported_options_raise(override, flag):
     """Each option the port lacks raises before training; of the
     benchmarks only a name that is none (all five are ported)."""
