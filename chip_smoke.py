@@ -311,7 +311,30 @@ Phases, in order; any failure exits non-zero before the last line:
    host's CPU on a 320 x 240 pair (responses within 1e-3, keypoints equal
    where the top-k's margin exceeds 1e-5); wall and device ms a pair,
    KeyNet's ms alone and the busy share. Paths R and S alone:
-   `phase_device`, `phase_build`, `phase_device_augment`, `phase_keynet`.
+   `phase_device`, `phase_build`, `phase_device_augment`, `phase_keynet`;
+24. path T, DeepLSD (after path S): `get_model("lines.deeplsd")` with
+   `backend: native` (channels 64/128/256) and `package-layout` (the
+   deeplsd_md.tar widths) on path N's 1600 x 1200 pair, 250 lines, random
+   weights from seed 0: fields finite and in range, lines inside the
+   image; wall and device ms, the net's ms against the host vectoriser's
+   (the probabilistic Hough of `csrc/hough.cpp`, built in phase 2, and
+   numpy), the Hough's ms alone, peak memory. GT fields of 250 random
+   segments an image from `fields_from_lines` on the card, vectorised: the
+   detections on a planted segment (at least 70%). Three Adam steps of the
+   native net on the GT fields' loss at batch 8, 640 x 480 (finite losses,
+   every update applied). The nets and the fields at narrow widths on the
+   card against the host's CPU (1e-4, 1e-5). No port kernel;
+25. path U, data-parallel training (after path T): a child process with
+   the environment torchrun gives rank 0 of 1 (started before path T, it
+   imports on the host meanwhile and waits for path T) runs `train.main` on path
+   E's config (batch 32, 6 workers, 2 steps; procedural sources rendered to
+   PPMs first, `lg` off, no validation split) in an NCCL group; its steps
+   replayed from the same state, batches and generators without the group
+   must equal it bit for bit (losses and parameters); 18 launches of each
+   attention kernel a step; ms a step with and without the group on the
+   same batches (beside path E's), one all-reduce of the flat gradient
+   buffer (bytes, ms). Paths T and U alone: `phase_device`, `phase_build`,
+   `phase_deeplsd`, `phase_ddp` (`build/path_tu.py` when present).
 
 Each path resets every launch count just before its timed run and reads
 them just after. Prints each phase's seconds, the script's, the kernel JSON line, the card
@@ -323,6 +346,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import importlib
 import json
 import math
 import os
@@ -442,11 +466,12 @@ def phase_build() -> dict:
     for name in _build.SOURCES:
         _build.load(name)
     t1 = time.perf_counter()
-    _build.load_host("lsd")
+    for name in _build.HOST_SOURCES:
+        _build.load_host(name)
     host_s = time.perf_counter() - t1
     print(f"build: {len(built)} kernels in {seconds:.1f} s "
           + json.dumps({n: round(b["seconds"], 1) for n, b in built.items()})
-          + f"; the host LSD in {host_s:.1f} s", flush=True)
+          + f"; the host LSD and Hough in {host_s:.1f} s", flush=True)
     return {"seconds": seconds, "host_lsd_seconds": host_s,
             "logs": {n: b["log"] for n, b in built.items()}}
 
@@ -1773,21 +1798,22 @@ def train_step_vs_plain(model, batch, label: str = "path E", step_launches: dict
 
 def _timed_micro_batches(model, batches, gen, accum: int, mixed_precision=None, conf=None,
                          label: str = "path E", timed: int = TIMED_STEPS,
-                         step_launches: dict = STEP_LAUNCHES):
+                         step_launches: dict = STEP_LAUNCHES, group=None,
+                         warmup: int = WARMUP_STEPS):
     """(TrainStep under `grad_accumulation` accum with a fresh optimizer,
     ms per micro-batch over TIMED_STEPS after WARMUP_STEPS by CUDA events,
     the last micro-batch's outputs); each kernel must launch
     `step_launches` a timed micro-batch. `conf`: the trainer's conf (path
-    E's by default)."""
+    E's by default); `group`: the data-parallel group of the step."""
     from gluefactory_tpu_torch import train
     from gluefactory_tpu_torch.core.config import merge
 
     conf = merge((conf or train_conf()).train, {"grad_accumulation": accum})
     optimizer, schedule = train.build_optimizer(conf, model, TRAIN_STEPS)
     step = train.TrainStep(model, optimizer, schedule, accum,
-                           max_updates=WARMUP_STEPS + timed + 1,
-                           mixed_precision=mixed_precision)
-    for i in range(WARMUP_STEPS):
+                           max_updates=warmup + timed + 1,
+                           mixed_precision=mixed_precision, group=group)
+    for i in range(warmup):
         step(batches[i % len(batches)], gen.manual_seed(i))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1989,20 +2015,40 @@ FOLDER_IMAGES, FOLDER_BATCH = 48, 16
 FOLDER_EXPERIMENT = "chip_smoke_folder"
 
 
+class _Procedural(torch.utils.data.Dataset):
+    """Procedural 640 x 480 images `offset` ... `offset + n - 1` (the
+    homography dataset's `synthetic_images` seeds) as uint8, rendered in a
+    loader's workers."""
+
+    def __init__(self, n: int, offset: int = 0):
+        self.n, self.offset = n, offset
+
+    def __len__(self):
+        return self.n
+
+    def __getitem__(self, i):
+        from gluefactory_tpu_torch.data.homographies import generate_synthetic_image
+
+        return (generate_synthetic_image(self.offset + i) * 255).astype(np.uint8)
+
+
+def procedural_images(n: int, offset: int = 0):
+    """`_Procedural(n, offset)`'s images in order, 6 workers rendering."""
+    loader = torch.utils.data.DataLoader(_Procedural(n, offset), batch_size=None, num_workers=6)
+    return (img.numpy() for img in loader)
+
+
 def write_image_folder(folder: Path) -> dict:
     """FOLDER_IMAGES procedural 640 x 480 images, JPEG (quality 95) through
     Pillow where it is importable, else binary PPM, and `list.txt` naming
     them."""
-    from gluefactory_tpu_torch.data.homographies import generate_synthetic_image
-
     try:
         from PIL import Image
     except ImportError:
         Image = None
     shutil.rmtree(folder, ignore_errors=True)
     folder.mkdir(parents=True)
-    for i in range(FOLDER_IMAGES):
-        img = (generate_synthetic_image(1000 + i) * 255).astype(np.uint8)
+    for i, img in enumerate(procedural_images(FOLDER_IMAGES, 1000)):
         if Image is not None:
             Image.fromarray(img).save(folder / f"{i:03d}.jpg", quality=95)
         else:
@@ -5707,6 +5753,425 @@ def phase_keynet(device_info: dict) -> dict:
     return res
 
 
+# path T: DeepLSD (gluefactory_tpu/models/lines/deeplsd.py's defaults)
+T_LINES = 250  # max_num_lines
+T_PLANTED = 250  # planted segments an image for the GT-field vectorisation
+T_TIMED = 3  # timed forwards a backend, after one warm-up
+T_TRAIN = (8, 480, 640)  # batch, h, w of the Adam steps
+T_STEPS = 3
+T_SMALL = {"channels": [8, 16, 32], "hw": (120, 160)}
+T_TOL = {"net": 1e-4, "fields": 1e-5}
+T_BACKENDS = {
+    "native": {"backend": "native", "channels": [64, 128, 256], "max_num_lines": T_LINES},
+    "package-layout": {"backend": "package-layout", "max_num_lines": T_LINES},
+}
+T_REDUCED = {
+    "T": f"both DeepLSD backends at their default widths (native channels 64/128/256; the package "
+         f"layout's deeplsd_md.tar widths) on path N's procedural {N_SIZE[0]} x {N_SIZE[1]} pair, "
+         f"{T_LINES} lines, random weights from seed 0 (no DeepLSD checkpoint is on disk); GT fields "
+         f"of {T_PLANTED} random segments an image vectorised; {T_STEPS} Adam steps of the native net "
+         f"at batch {T_TRAIN[0]}, {T_TRAIN[2]} x {T_TRAIN[1]}, on GT fields of random segments",
+}
+
+
+def _t_segments(rng, B, L, h, w) -> np.ndarray:
+    """Random segments of 20-300 px inside the image, (B, L, 2, 2) xy."""
+    a = rng.uniform([0, 0], [w, h], (B, L, 2))
+    ang = rng.uniform(0, 2 * math.pi, (B, L))
+    length = rng.uniform(20, 300, (B, L))
+    b = np.clip(a + length[..., None] * np.stack([np.cos(ang), np.sin(ang)], -1), 0,
+                [w - 1, h - 1])
+    return np.stack([a, b], 2).astype(np.float32)
+
+
+def _t_recovered(planted: np.ndarray, lines: np.ndarray, valid: np.ndarray, tol: float = 3.0) -> dict:
+    """Detections lying on a planted segment (both endpoints within `tol`
+    px of it) and planted segments covered by such a detection."""
+    hits, covered = 0, set()
+    for det in lines[valid]:
+        a, ab = planted[:, 0], planted[:, 1] - planted[:, 0]
+        len2 = np.maximum((ab ** 2).sum(-1), 1e-6)
+        d = []
+        for p in det:
+            t = np.clip(((p - a) * ab).sum(-1) / len2, 0, 1)
+            d.append(np.linalg.norm(p - (a + t[:, None] * ab), axis=-1))
+        on = np.flatnonzero(np.maximum(*d) <= tol)
+        hits += bool(len(on))
+        covered.update(on.tolist())
+    return {"detections": int(valid.sum()), "on_a_planted_segment": hits,
+            "planted_covered": len(covered), "planted": int(len(planted))}
+
+
+def _t_forward(label: str, images: torch.Tensor, device_info: dict) -> dict:
+    from gluefactory_tpu_torch.models.lines.deeplsd import lines_from_fields_host
+    from gluefactory_tpu_torch.ops.hough import hough_lines_p
+
+    dev = images.device
+    torch.manual_seed(0)
+    model = get_model("lines.deeplsd").from_conf(T_BACKENDS[label], device=dev).eval()
+    B, H, W = images.shape[:3]
+    forward = lambda: model({"image": images})  # noqa: E731
+    with torch.no_grad():
+        pred = forward()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(T_TIMED):
+            pred = forward()
+        end.record()
+        torch.cuda.synchronize()
+        wall_ms = start.elapsed_time(end) / T_TIMED
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        net_ms = cuda_time_ms(lambda: model.net(images), reps=T_TIMED, warmup=1)
+    df, ang = pred["df"].float().cpu().numpy(), pred["angle"].float().cpu().numpy()
+    t = time.perf_counter()
+    lines_from_fields_host(df, ang, T_LINES)
+    vec_ms = (time.perf_counter() - t) * 1e3
+    mask = (df[0] < 0.45).astype(np.uint8) * 255
+    t = time.perf_counter()
+    segs = hough_lines_p(mask, 1.0, math.pi / 180.0, 10, 15, 4)
+    hough_ms = (time.perf_counter() - t) * 1e3
+    prof = profile_forward(forward)
+    lines, valid = pred["lines"], pred["line_mask"]
+    inside = bool(((lines >= 0) & (lines <= torch.tensor([W, H], device=dev))).all())
+    finite = all(bool(torch.isfinite(pred[k]).all()) for k in ("df", "angle", "lines", "line_scores"))
+    in_range = (float(pred["df"].min()) >= 0 and float(pred["df"].max()) <= 1
+                and float(pred["angle"].min()) >= 0 and float(pred["angle"].max()) <= math.pi)
+    if not (finite and inside and in_range) or list(lines.shape) != [B, T_LINES, 2, 2]:
+        fail(f"path T {label}: outputs not finite, out of range or outside the image "
+             f"({finite}, {in_range}, {inside}, {list(lines.shape)})")
+    res = {"wall_ms": wall_ms, "device_ms": prof["device_ms"],
+           "busy_share": prof["device_ms"] / wall_ms if prof["device_ms"] else None,
+           "net_ms": net_ms, "vectorizer_ms": vec_ms, "hough_ms_one_image": hough_ms,
+           "hough_segments_one_image": int(len(segs)), "mask_density": float((df < 0.45).mean()),
+           "lines": [int(v) for v in valid.sum(-1)], "peak_memory_gib": peak,
+           "parameters": sum(p.numel() for p in model.parameters()), "top_kernels": prof["top"][:6]}
+    print(f"path T {label}: " + json.dumps({k: v for k, v in res.items() if k != "top_kernels"}),
+          flush=True)
+    del model, pred
+    torch.cuda.empty_cache()
+    return res
+
+
+def _t_planted(dev) -> dict:
+    """GT fields of T_PLANTED random segments an image, on the card,
+    vectorised on the host: the detections against the planted segments."""
+    from gluefactory_tpu_torch.models.lines.deeplsd import fields_from_lines, lines_from_fields_host
+
+    W, H = N_SIZE
+    planted = _t_segments(np.random.default_rng(3), 2, T_PLANTED, H, W)
+    lines = torch.from_numpy(planted).to(dev)
+    df, ang = fields_from_lines(lines, None, H, W)
+    fields_ms = cuda_time_ms(lambda: fields_from_lines(lines, None, H, W), reps=3, warmup=1)
+    df, ang = df.cpu().numpy(), ang.cpu().numpy()
+    t = time.perf_counter()
+    out, _, valid = lines_from_fields_host(df, ang, T_LINES)
+    vec_ms = (time.perf_counter() - t) * 1e3
+    rec = [_t_recovered(planted[b], out[b], valid[b]) for b in range(2)]
+    res = {"fields_ms": fields_ms, "vectorizer_ms": vec_ms, "mask_density": float((df < 0.45).mean()),
+           "recovered": rec}
+    if not all(r["detections"] >= 100 and r["on_a_planted_segment"] >= 0.7 * r["detections"] for r in rec):
+        fail(f"path T: the planted fields' detections do not lie on the planted segments: {res}")
+    print(f"path T planted: {json.dumps(res)}", flush=True)
+    return res
+
+
+def _t_training(dev) -> dict:
+    """T_STEPS Adam steps of the native net on the GT fields' loss."""
+    from gluefactory_tpu_torch.data.homographies import generate_synthetic_image
+    from gluefactory_tpu_torch.optim import Adam
+
+    B, H, W = T_TRAIN
+    torch.manual_seed(0)
+    model = get_model("lines.deeplsd").from_conf(T_BACKENDS["native"], device=dev).train()
+    images = torch.from_numpy(np.stack([generate_synthetic_image(9000 + i, (W, H)) for i in range(B)]))
+    data = {"image": images.to(dev),
+            "lines": torch.from_numpy(_t_segments(np.random.default_rng(4), B, T_LINES, H, W)).to(dev),
+            "line_mask": torch.ones(B, T_LINES, dtype=torch.bool, device=dev)}
+    opt = Adam(model.parameters(), lr=1e-3)
+    losses, moved, step_ms = [], [], []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(T_STEPS):
+        before = [p.detach().clone() for p in model.parameters()]
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        opt.zero_grad()
+        pred, loss, _ = model.forward_with_loss(data, train=True)
+        loss["total"].mean().backward()
+        opt.step()
+        end.record()
+        torch.cuda.synchronize()
+        step_ms.append(start.elapsed_time(end))
+        losses.append({k: float(v.detach().mean()) for k, v in loss.items()})
+        moved.append(all(not torch.equal(b, p) for b, p in zip(before, model.parameters())))
+        if set(pred) != {"df", "angle"}:
+            fail(f"path T: a train forward returned {sorted(pred)}")
+    res = {"losses": losses, "every_update_applied": moved, "ms_a_step": step_ms,
+           "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30}
+    if not (all(math.isfinite(v) for l in losses for v in l.values()) and all(moved)):
+        fail(f"path T: training losses not finite or an update not applied: {res}")
+    print(f"path T training: {json.dumps(res)}", flush=True)
+    del model, opt
+    torch.cuda.empty_cache()
+    return res
+
+
+def _t_card_vs_cpu(dev) -> dict:
+    """At narrow widths: the native and package-layout nets (the same
+    weights) and the GT fields on the card against the host's CPU, within
+    T_TOL; the lines the host vectorises from each are recorded (fields a
+    rounding apart may flip a median test or the order of two equal
+    scores, so they are not a gate)."""
+    from gluefactory_tpu_torch.models.lines.deeplsd import fields_from_lines, lines_from_fields_host
+
+    h, w = T_SMALL["hw"]
+    rng = np.random.default_rng(5)
+    img = torch.from_numpy(rng.uniform(0, 1, (2, h, w, 3)).astype(np.float32))
+    res = {}
+    for label, conf in (("native", {"channels": T_SMALL["channels"]}),
+                        ("package-layout", {"backend": "package-layout",
+                                            "package_spec": {"enc": [[8, 8], [16, 16], [16, 16]],
+                                                             "dec": [[8, 8], [8, 8]], "head": [8]}})):
+        torch.manual_seed(1)
+        cpu = get_model("lines.deeplsd").from_conf(conf, device="cpu").eval()
+        card = get_model("lines.deeplsd").from_conf(conf, device=dev).eval()
+        card.load_state_dict(cpu.state_dict())
+        with torch.no_grad():
+            a, b = cpu.net(img), card.net(img.to(dev))
+        res[label] = max(float((x - y.cpu()).abs().max()) for x, y in zip(a, b))
+    planted = torch.from_numpy(_t_segments(rng, 2, 60, h, w))
+    fc = fields_from_lines(planted, None, h, w)
+    fd = fields_from_lines(planted.to(dev), None, h, w)
+    res["fields"] = max(float((x - y.cpu()).abs().max()) for x, y in zip(fc, fd))
+    lc = lines_from_fields_host(fc[0].numpy(), fc[1].numpy(), 40)
+    ld = lines_from_fields_host(fd[0].cpu().numpy(), fd[1].cpu().numpy(), 40)
+    same = (lc[0] == ld[0]).all(axis=(-1, -2)) & (lc[2] == ld[2])
+    res["lines_equal"] = {"slots": int(same.sum()), "of": int(same.size),
+                          "valid": [int(lc[2].sum()), int(ld[2].sum())]}
+    res["tol"] = T_TOL
+    if not (res["native"] <= T_TOL["net"] and res["package-layout"] <= T_TOL["net"]
+            and res["fields"] <= T_TOL["fields"]):
+        fail(f"path T: the card differs from the CPU: {res}")
+    return res
+
+
+def phase_deeplsd(device_info: dict) -> dict:
+    """Path T: DeepLSD, both backends through `get_model("lines.deeplsd")`,
+    the planted fields, the Adam steps and the card against the CPU, cut as
+    T_REDUCED says."""
+    t0 = time.perf_counter()
+    dev = torch.device(DEVICE)
+    print(f"path T reduced: {json.dumps(T_REDUCED)}", flush=True)
+    images = torch.from_numpy(np.stack(_n_views())).to(dev)
+    reset_all_launches()
+    res = {"reduced": T_REDUCED, "image": [N_SIZE[1], N_SIZE[0]], "card": device_info["nvidia_smi"]}
+    res["seconds_by_part"] = {"views": time.perf_counter() - t0}
+    parts = [(label, lambda label=label: _t_forward(label, images, device_info)) for label in T_BACKENDS]
+    parts += [("planted", lambda: _t_planted(dev)), ("training", lambda: _t_training(dev)),
+              ("card_vs_cpu", lambda: _t_card_vs_cpu(dev))]
+    for name, fn in parts:
+        t = time.perf_counter()
+        res[name] = fn()
+        res["seconds_by_part"][name] = time.perf_counter() - t
+    _check_launches("path T", all_launches(), {})
+    res["seconds"] = time.perf_counter() - t0
+    print(f"path T: card vs CPU {json.dumps(res['card_vs_cpu'])}; {res['seconds']:.1f} s", flush=True)
+    return res
+
+
+# path U: data-parallel training (train.py under torchrun), world size 1 over NCCL
+U_EXPERIMENT = "chip_smoke_path_u"
+U_STEPS = 2
+U_ARGV = [a.replace(TRAIN_EXPERIMENT, U_EXPERIMENT) for a in TRAIN_ARGV
+          if not a.startswith(("data.synthetic_images", "data.val_size"))]
+U_ARGV[U_ARGV.index("--max_val_iters") + 1] = "0"
+U_ROOT = ROOT / "outputs" / "chip_smoke_path_u"
+U_ARGV += ["data.synthetic_images=0", f"data.image_dir={U_ROOT}", "data.image_list=list.txt",
+           "data.val_size=0", "data.photometric.name=identity"]
+U_TIMED, U_WARMUP = 3, 1  # timed steps with and without the group, after warm-ups
+U_TIMEOUT = 240  # seconds for the child, its start-up included
+U_REDUCED = {
+    "U": f"path E's run ({TRAIN_YAML}, f32, batch {TRAIN_BATCH}, 6 workers, {U_STEPS} steps) at world "
+         f"size 1 over NCCL, in a child process with the environment torchrun gives a rank: the card's "
+         f"machine has one GPU and NCCL takes no two ranks on one GPU, so no run crosses cards; an empty "
+         f"validation split, the {TRAIN_BATCH * U_STEPS} procedural sources rendered first, one a "
+         f"loader worker, into a folder of PPMs that the run reads (`data.image_dir`), and the `lg` "
+         f"photometry off: the run's loader builds a whole batch a worker (~20 s for 32 procedural "
+         f"images with `lg` on the card's host), which would be most of the path; the steps are "
+         f"timed on batches in memory. The child imports (and torch._dynamo) while path T runs, "
+         f"and touches the card only after it",
+}
+
+
+def path_u_child(out: Path, go: Path) -> None:
+    """Path U's child, a rank of world size 1 by its environment. It
+    imports torch._dynamo (which the first optimizer imports, ~10 s on the
+    card's host) and waits for `go` without touching the card (path T runs
+    meanwhile); then `train.main` on U_ARGV joins the NCCL group of that
+    environment;
+    its steps are replayed from the same state on the same batches and
+    generators by a TrainStep without the group, which must give the same
+    losses and parameters bit for bit. Then ms a step with and without the
+    group on those batches, one all-reduce of the flat gradient buffer, and
+    the group's facts, into `out` (JSON)."""
+    import torch.distributed as dist
+
+    from gluefactory_tpu_torch import train
+    from gluefactory_tpu_torch.settings import TRAINING_PATH
+    from gluefactory_tpu_torch.utils import distributed
+
+    importlib.import_module("torch._dynamo")
+    t0 = time.perf_counter()
+    while not go.exists():
+        if time.perf_counter() - t0 > U_TIMEOUT:
+            fail("path U: the parent never let the child train")
+        time.sleep(0.05)
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False  # as phase_device sets them in the parent
+    torch.backends.cudnn.allow_tf32 = False
+    shutil.rmtree(Path(TRAINING_PATH, U_EXPERIMENT), ignore_errors=True)
+    seen, call, marks = [], train.TrainStep.__call__, []
+
+    def recorded(self, batch, generator=None, *args):
+        marks.append(time.perf_counter() - t0)
+        seen.append((batch, generator.get_state().clone(), self))
+        return call(self, batch, generator, *args)
+
+    train.TrainStep.__call__ = recorded
+    first = []
+    try:
+        records, seconds, launches, model = run_trainer(U_ARGV, first_state=first)
+    finally:
+        train.TrainStep.__call__ = call
+    group = distributed.setup(DEVICE)
+    res = {"run_seconds": seconds, "launches": launches, "step_starts_s": marks,
+           "group": {"backend": dist.get_backend(), "world": dist.get_world_size(), "rank": dist.get_rank(),
+                     "device": str(group.device)},
+           "losses": [{k: float(v) for k, v in r[0].items()} for r in records],
+           "ok": [bool(r[2]["ok"]) for r in records]}
+    trainer_step = seen[0][2]
+    if trainer_step.group is not group or len(records) != U_STEPS:
+        fail(f"path U: the trainer's step is not on the group, or {len(records)} steps")
+    conf = train_conf(U_ARGV)
+
+    def replay(with_group):
+        m = get_model(conf.model.name).from_conf(
+            {k: v for k, v in conf.model.to_dict().items() if k != "name"}, device=group.device)
+        m.load_state_dict(first[0])
+        opt, _ = train.build_optimizer(conf.train, m, U_STEPS)
+        step = train.TrainStep(m, opt, trainer_step.schedule, max_updates=len(trainer_step.lr_table) - 1,
+                               group=group if with_group else None)
+        gen = torch.Generator(device=group.device)
+        outs = [step(b, gen.set_state(g)) for b, g, _ in seen]
+        return m, step, outs
+
+    plain, _, outs = replay(False)
+    res["replay_losses"] = [{k: float(v) for k, v in o[0].items()} for o in outs]
+    res["bit_equal"] = {
+        "losses": all(torch.equal(o[0][k], r[0][k]) for o, r in zip(outs, records) for k in r[0]),
+        "parameters": all(torch.equal(a, b) for a, b in zip(model.state_dict().values(),
+                                                            plain.state_dict().values())),
+    }
+    batches = [b for b, _, _ in seen]
+    gen = torch.Generator(device=group.device)
+    for label, g in (("with_group", group), ("without_group", None)):
+        step, ms, _ = _timed_micro_batches(model, batches, gen, 1, conf=conf, group=g,
+                                           label=f"path U {label}", timed=U_TIMED, warmup=U_WARMUP)
+        res[f"ms_per_step_{label}"] = ms
+        del step
+    grads = [torch.randn_like(p) for p in model.parameters() if p.requires_grad]
+    res["all_reduce"] = {"bytes": 4 * (sum(g.numel() for g in grads) + 1),
+                         "ms": cuda_time_ms(lambda: distributed.all_reduce_mean(grads, group), reps=10)}
+    res["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    distributed.teardown()
+    res["child_seconds"] = time.perf_counter() - t0
+    out.write_text(json.dumps(res))
+
+
+def write_sources(folder: Path, n: int) -> float:
+    """The first `n` procedural sources as PPMs in `folder` with
+    `list.txt`, one image a loader worker (6); returns the seconds."""
+    t0 = time.perf_counter()
+    shutil.rmtree(folder, ignore_errors=True)
+    folder.mkdir(parents=True)
+    for i, img in enumerate(procedural_images(n)):
+        h, w = img.shape[:2]
+        (folder / f"{i:03d}.ppm").write_bytes(f"P6\n{w} {h}\n255\n".encode() + img.tobytes())
+    (folder / "list.txt").write_text("\n".join(f"{i:03d}.ppm" for i in range(n)) + "\n")
+    return time.perf_counter() - t0
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def start_ddp_child() -> dict:
+    """Start path U's child (`path_u_child`) with torchrun's environment for
+    rank 0 of 1 (the rendezvous on a free port of 127.0.0.1), in a session of
+    its own; it starts up on the host's CPU and waits for `phase_ddp`.
+    `stop_ddp_child` ends it."""
+    OUT_DIR.mkdir(exist_ok=True)
+    child = {"out": OUT_DIR / "path_u.json", "go": OUT_DIR / "path_u.go", "t0": time.perf_counter()}
+    for f in (child["out"], child["go"]):
+        f.unlink(missing_ok=True)
+    env = {**os.environ, "RANK": "0", "LOCAL_RANK": "0", "WORLD_SIZE": "1", "LOCAL_WORLD_SIZE": "1",
+           "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(_free_port())}
+    child["proc"] = subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--path-u-child", str(child["out"]), str(child["go"])],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        start_new_session=True)
+    return child
+
+
+def stop_ddp_child(child: dict | None) -> None:
+    """Kill path U's child and its loader workers if it still runs."""
+    if child is not None and child["proc"].poll() is None:
+        with contextlib.suppress(ProcessLookupError):
+            os.killpg(child["proc"].pid, 9)
+        child["proc"].wait()
+
+
+def phase_ddp(device_info: dict, path_e: dict | None = None, child: dict | None = None) -> dict:
+    """Path U: path E's config at world size 1 over NCCL in a child process
+    (`path_u_child`, started by `start_ddp_child` before path T), cut as
+    U_REDUCED says."""
+    t0 = time.perf_counter()
+    print(f"path U reduced: {json.dumps(U_REDUCED)}", flush=True)
+    child = child or start_ddp_child()
+    try:
+        sources_s = write_sources(U_ROOT, TRAIN_BATCH * U_STEPS)
+        child["go"].touch()
+        log, _ = child["proc"].communicate(timeout=U_TIMEOUT)
+    finally:
+        stop_ddp_child(child)
+        shutil.rmtree(U_ROOT, ignore_errors=True)
+    (OUT_DIR / "path_u_child.log").write_text(log or "")
+    if child["proc"].returncode != 0 or not child["out"].exists():
+        fail(f"path U: the child exited {child['proc'].returncode}:\n{(log or '')[-4000:]}")
+    res = json.loads(child["out"].read_text())
+    res["sources_seconds"] = sources_s
+    res["child_started_s_before"] = t0 - child["t0"]
+    _check_launches("path U", res["launches"], {k: U_STEPS * n for k, n in STEP_LAUNCHES.items()})
+    if res["group"]["backend"] != "nccl" or res["group"]["world"] != 1:
+        fail(f"path U: the group is {res['group']}, expected NCCL of 1 rank")
+    if not (all(res["ok"]) and all(math.isfinite(v) for l in res["losses"] for v in l.values())):
+        fail(f"path U: a loss is not finite or an update was not applied: {res['losses']}")
+    if not all(res["bit_equal"].values()):
+        fail(f"path U: the steps under the group differ from the same steps without it: "
+             f"{res['bit_equal']}, {res['losses']} against {res['replay_losses']}")
+    if path_e is not None:
+        res["path_e_ms_per_step"] = path_e["timing"]["ms_per_step"]
+    res["reduced"], res["card"] = U_REDUCED, device_info["nvidia_smi"]
+    res["seconds"] = time.perf_counter() - t0
+    print(f"path U: {json.dumps(res)}", flush=True)
+    return res
+
+
 def main() -> None:
     t0 = time.perf_counter()
     seconds = {}
@@ -5750,6 +6215,12 @@ def main() -> None:
     path_q = timed("path_q", phase_roma, device_info)
     path_r = timed("path_r", phase_device_augment, device_info, path_e)
     path_s = timed("path_s", phase_keynet, device_info)
+    u_child = start_ddp_child()  # imports on the host's CPU while path T runs
+    try:
+        path_t = timed("path_t", phase_deeplsd, device_info)
+        path_u = timed("path_u", phase_ddp, device_info, path_e, u_child)
+    finally:
+        stop_ddp_child(u_child)
     kernels += timed("conv_study", phase_conv_study, device_info)  # launches from the tools' runs
     OUT_DIR.mkdir(exist_ok=True)
     record = {"device": device_info, "build": build, "kernels": kernels, "gradients": gradients,
@@ -5760,7 +6231,8 @@ def main() -> None:
               "path_j_benchmarks": path_j, "path_k_superglue_training": path_k,
               "path_l_lines": path_l, "path_m_gluestick_training": path_m, "path_n_zoo": path_n,
               "path_o_sift": path_o, "path_p_loftr": path_p, "path_q_roma": path_q,
-              "path_r_device_augment": path_r, "path_s_keynet": path_s,
+              "path_r_device_augment": path_r, "path_s_keynet": path_s, "path_t_deeplsd": path_t,
+              "path_u_ddp": path_u,
               "seconds_by_phase": seconds,
               "seconds": time.perf_counter() - t0}
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(record, indent=1))
@@ -5777,4 +6249,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--path-u-child"]:
+        path_u_child(Path(sys.argv[2]), Path(sys.argv[3]))
+    else:
+        main()

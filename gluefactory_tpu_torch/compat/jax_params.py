@@ -28,7 +28,9 @@ official head-fastest packing (the inverse of `_head_permutation`). GlueStick
 likewise, under upstream GlueStick's names (`convert_gluestick`), LoFTR
 under the official names (`convert_loftr`), DINOv2 under the torch-hub
 names (`convert_dinov2`) and RoMa under romatch's (`convert_roma`, the
-anchor decoder's flax attention fused back into `attn.qkv`).
+anchor decoder's flax attention fused back into `attn.qkv`), DeepLSD to the
+port's native net or to the official package layout that `convert_deeplsd`
+reads.
 """
 
 from __future__ import annotations
@@ -429,6 +431,52 @@ def roma_state_dict(params: dict, batch_stats: dict) -> dict:
     return sd
 
 
+def deeplsd_state_dict(params: dict, batch_stats: dict | None) -> dict:
+    """DeepLSD (`{"net": ...}` or the net's own tree; `net.`-prefixed keys
+    for the former) -> the port's `DeepLSDNet` (the native flax names
+    `_ConvBlock_i` / `Conv_i` in creation order: the down blocks, the
+    bottleneck, then each decoder conv before its block, then the two
+    heads) or `DeepLSDPackageNet` (`enc{i}_conv{j}` / `_bn{j}` ->
+    `backbone.enc{i}.{3j}` / `.{3j+1}`; the heads' `{df|angle}_conv{j}` /
+    `_bn{j}` / `_out` -> `{df|angle}_head.{3j}` / `.{3j+2}` / last),
+    told apart by `enc0_conv0`."""
+    if "net" in params:
+        stats = (batch_stats or {}).get("net")
+        return {f"net.{k}": v for k, v in deeplsd_state_dict(params["net"], stats).items()}
+    sd: dict = {}
+    if "enc0_conv0" in params:
+        if batch_stats is None:
+            raise ValueError("deeplsd package-layout: its BatchNorm statistics (batch_stats) are needed")
+        for name in params:
+            part, unit = name.rsplit("_", 1)
+            if unit == "out" or not unit.startswith(("conv", "bn")):
+                continue
+            j = int(unit[2:]) if unit.startswith("bn") else int(unit[4:])
+            if part in ("df", "angle"):
+                prefix = f"{part}_head.{3 * j + (2 if unit.startswith('bn') else 0)}"
+            else:
+                prefix = f"backbone.{part}.{3 * j + (1 if unit.startswith('bn') else 0)}"
+            if unit.startswith("bn"):
+                _batch_norm(params[name], batch_stats[name], prefix, sd)
+            else:
+                _conv(params[name], prefix, sd)
+        for part in ("df", "angle"):
+            n_units = sum(k.startswith(f"{part}_conv") for k in params)
+            _conv(params[f"{part}_out"], f"{part}_head.{3 * n_units}", sd)
+        return sd
+    n_blocks = sum(k.startswith("_ConvBlock_") for k in params)
+    n = (n_blocks - 1) // 2
+    for i in range(n_blocks):
+        prefix = f"down.{i}" if i < n else "bottleneck" if i == n else f"up_blocks.{i - n - 1}"
+        _conv(params[f"_ConvBlock_{i}"]["Conv_0"], f"{prefix}.0", sd)
+        _conv(params[f"_ConvBlock_{i}"]["Conv_1"], f"{prefix}.2", sd)
+    for i in range(n):
+        _conv(params[f"Conv_{i}"], f"up.{i}", sd)
+    _conv(params[f"Conv_{n}"], "df_head", sd)
+    _conv(params[f"Conv_{n + 1}"], "angle_head", sd)
+    return sd
+
+
 def _matcher_name(params: dict) -> str:
     """The matcher a pipeline's `matcher_model` params hold, by their keys."""
     if "line_bin_score" in params:
@@ -447,12 +495,12 @@ def _matcher_name(params: dict) -> str:
 def from_jax_params(params: dict, model: str, num_heads: int = 4,
                     batch_stats: dict | None = None) -> dict:
     """JAX `params` of `model` ("superpoint", "superpoint_open", "aliked",
-    "disk", "keynet_affnet_hardnet", "lightglue", "superglue", "gluestick", "loftr", "dinov2", "roma"
-    or "two_view_pipeline") -> the port's state dict. `num_heads` is the
+    "disk", "keynet_affnet_hardnet", "lightglue", "superglue", "gluestick", "loftr", "dinov2", "roma",
+    "deeplsd" or "two_view_pipeline") -> the port's state dict. `num_heads` is the
     matcher's head count (its conf `num_heads`); `batch_stats` the JAX
     model's `batch_stats` collection (the BatchNorm statistics of
-    SuperPoint-open, ALIKED, KeyNet + HardNet, SuperGlue, GlueStick, LoFTR's backbone and
-    RoMa). A
+    SuperPoint-open, ALIKED, KeyNet + HardNet, SuperGlue, GlueStick, LoFTR's backbone,
+    RoMa and DeepLSD's package layout). A
     pipeline's extractor is told apart by its parameters
     (`_extractor_name`), or is the wireframe around SuperPoint; its matcher
     likewise (GlueStick's `line_bin_score`, SuperGlue's `kenc` and
@@ -490,6 +538,8 @@ def from_jax_params(params: dict, model: str, num_heads: int = 4,
         if batch_stats is None:
             raise ValueError("roma: its BatchNorm statistics (batch_stats) are needed")
         return roma_state_dict(params, batch_stats)
+    if model == "deeplsd":
+        return deeplsd_state_dict(params, batch_stats)
     if model == "two_view_pipeline":
         sd: dict = {}
         for comp, sub in params.items():

@@ -112,9 +112,11 @@ class BaseDataset:
         """The split's loader: shuffled from a generator seeded with
         `conf.seed` for training (the JAX package's order), the last partial
         training batch dropped. `pin_memory` for batches bound to a CUDA
-        device. `distributed` (one shard per process) waits for DDP."""
-        if distributed:
-            raise NotImplementedError("distributed data loading comes with DDP (stage 2)")
+        device. `distributed`: this process's shard of the initialised
+        process group, through a `DistributedSampler` seeded with
+        `conf.seed` (`set_epoch` reshuffles; `drop_last` on the training
+        split keeps the shards disjoint, the other splits pad the last
+        shard with repeated items), `batch_size` items a process."""
         dataset = self.get_dataset(split)
         if shuffle is None:
             shuffle = split == "train" and self.conf.shuffle_training
@@ -124,6 +126,13 @@ class BaseDataset:
             kwargs["worker_init_fn"] = worker_init_fn
         generator = torch.Generator()
         generator.manual_seed(self.conf.seed)
+        if distributed:
+            import torch.distributed as dist
+
+            kwargs["sampler"] = torch_data.distributed.DistributedSampler(
+                dataset, num_replicas=dist.get_world_size(), rank=dist.get_rank(), shuffle=shuffle,
+                seed=self.conf.seed, drop_last=split == "train")
+            shuffle = False
         return torch_data.DataLoader(
             dataset, batch_size=self.batch_size(split), shuffle=shuffle,
             num_workers=self.conf.num_workers, collate_fn=collate, drop_last=split == "train",

@@ -210,14 +210,18 @@ def generate_homography_pairs(source_images: torch.Tensor, key, patch_size=(640,
                               difficulty: float = 0.5, translation: float = 1.0,
                               photometric_strength: float = 0.5, warp_impl: str = "tiled",
                               n_angles: int = 10, max_angle: float = 90.0,
-                              details: dict | None = None) -> dict:
+                              details: dict | None = None, shard: tuple[int, int] = (0, 1)) -> dict:
     """source_images (B, H, W, C) -> a two-view batch with its exact
     `H_0to1`, on the images' device. `warp_impl`: "tiled" (the window-safe
     sampler and `warp_perspective_tiled`, the JAX package's default) or
     "gather" (`sample_corner_homographies` and `warp_perspective`).
     `details`, where given, receives the two views' sampler details (the
-    tiled route's `_sample_window_safe_homography`) and the window."""
-    B = source_images.shape[0]
+    tiled route's `_sample_window_safe_homography`, for the global batch)
+    and the window. `shard` (rank, world): the images are rows rank * B ... of a global batch
+    of world * B; every draw is made for the global batch and this shard's
+    rows kept, so the views are the global batch's."""
+    B = source_images.shape[0] * shard[1]
+    rows = slice(shard[0] * source_images.shape[0], (shard[0] + 1) * source_images.shape[0])
     sh, sw = source_images.shape[1:3]
     dev = source_images.device
     k0, k1, kp0, kp1 = threefry.split(key, 4)
@@ -242,11 +246,13 @@ def generate_homography_pairs(source_images: torch.Tensor, key, patch_size=(640,
             return warp_perspective(im, H, patch_size)
     else:
         raise ValueError(f"warp_impl {warp_impl!r}: 'tiled' or 'gather'")
+    H0, H1 = H0[rows], H1[rows]
     img0, img1 = warp(source_images, H0), warp(source_images, H1)
     if photometric_strength > 0:
-        img0 = photometric_jitter(img0, kp0, photometric_strength)
-        img1 = photometric_jitter(img1, kp1, photometric_strength)
-    size = torch.tensor([[float(patch_size[0]), float(patch_size[1])]], device=dev).expand(B, 2)
+        img0 = photometric_jitter(img0, kp0, photometric_strength, shard)
+        img1 = photometric_jitter(img1, kp1, photometric_strength, shard)
+    size = torch.tensor([[float(patch_size[0]), float(patch_size[1])]],
+                        device=dev).expand(source_images.shape[0], 2)
     return {
         "view0": {"image": img0.to(source_images.dtype), "image_size": size},
         "view1": {"image": img1.to(source_images.dtype), "image_size": size},

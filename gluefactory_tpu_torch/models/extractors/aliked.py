@@ -30,6 +30,7 @@ from torch import nn
 from ...ops.batch_norm import batch_norm
 from ...ops.grid_sample import grid_sample_nd
 from ...ops.nms import simple_nms, top_k_keypoints
+from ...utils.distributed import batch_rand
 from ..base_model import BaseModel
 
 CFGS = {
@@ -283,7 +284,7 @@ class ALIKED(BaseModel):
             size = true_size
             if size is None:
                 size = torch.tensor([[W, H]], dtype=torch.float32, device=image.device).expand(B, 2)
-            u = torch.rand((B, k, 2), generator=generator, device=image.device, dtype=kpts.dtype)
+            u = batch_rand((B, k, 2), generator, image.device, kpts.dtype)
             kpts = torch.where(valid[..., None], kpts, u * size[:, None, :].to(kpts.dtype))
             valid = torch.ones_like(valid)
         desc = self.desc_head(fmap, kpts - 0.5)

@@ -26,6 +26,7 @@ from torch import nn
 
 from ...ops.grid_sample import sample_descriptors
 from ...ops.nms import simple_nms, top_k_keypoints
+from ...utils.distributed import batch_rand
 from ..base_model import BaseModel
 
 DOWN = (16, 32, 64, 64, 64)
@@ -121,7 +122,7 @@ class DISK(BaseModel):
             size = true_size
             if size is None:
                 size = torch.tensor([[W, H]], dtype=torch.float32, device=image.device).expand(B, 2)
-            u = torch.rand((B, k, 2), generator=generator, device=image.device, dtype=kpts.dtype)
+            u = batch_rand((B, k, 2), generator, image.device, kpts.dtype)
             kpts = torch.where(valid[..., None], kpts, u * size[:, None, :].to(kpts.dtype))
             valid = torch.ones_like(valid)
         desc = sample_descriptors(kpts, desc_map, stride=1)

@@ -44,6 +44,7 @@ from torch import nn
 
 from ...ops.batch_norm import batch_norm
 from ...ops.nms import simple_nms, top_k_keypoints
+from ...utils.distributed import batch_rand
 from ..base_model import BaseModel
 
 GRAY = (0.299, 0.587, 0.114)
@@ -276,7 +277,7 @@ class KeyNetAffNetHardNet(BaseModel):
             size = data.get("image_size")
             if size is None:
                 size = torch.tensor([[W, H]], dtype=torch.float32, device=image.device).expand(B, 2)
-            u = torch.rand((B, k, 2), generator=generator, device=image.device, dtype=kpts.dtype)
+            u = batch_rand((B, k, 2), generator, image.device, kpts.dtype)
             kpts = torch.where(valid[..., None], kpts, u * size[:, None, :].to(kpts.dtype))
             scores = torch.where(valid, scores, torch.zeros_like(scores))
             valid = torch.ones_like(valid)

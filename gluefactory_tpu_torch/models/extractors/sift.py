@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from ...ops.sift import sift_detect
+from ...utils.distributed import batch_rand
 from ..base_model import BaseModel
 
 
@@ -146,7 +147,7 @@ class SIFT(BaseModel):
             size = data.get("image_size")
             if size is None:
                 size = torch.tensor([[W, H]], dtype=torch.float32, device=image.device).expand(B, 2)
-            u = torch.rand((B, K, 2), generator=generator, device=image.device, dtype=kpts.dtype)
+            u = batch_rand((B, K, 2), generator, image.device, kpts.dtype)
             pred["keypoints"] = torch.where(valid[..., None], kpts, u * size[:, None, :].to(kpts.dtype))
             pred["keypoint_mask"] = torch.ones_like(valid)
         return pred

@@ -54,6 +54,7 @@ from ...ops.cuda_detect import detect_keypoints, fused_detect_available
 from ...ops.grid_sample import sample_descriptors
 from ...ops.nms import (mask_outside, remove_borders, simple_nms, soft_argmax_refinement,
                         top_k_keypoints)
+from ...utils.distributed import batch_rand
 from ..base_model import BaseModel
 
 
@@ -101,7 +102,7 @@ def sample_k_keypoints(nmsed: torch.Tensor, k: int, threshold: float, generator:
     candidates)."""
     B, H, W = nmsed.shape
     tiny = torch.finfo(torch.float32).tiny
-    u = torch.rand(nmsed.shape, generator=generator, device=nmsed.device).clamp(min=tiny)
+    u = batch_rand(nmsed.shape, generator, nmsed.device).clamp(min=tiny)
     g = -torch.log(-torch.log(u))
     pert = torch.where(nmsed > threshold, torch.log(nmsed.float().clamp(min=1e-20)) + g,
                        torch.tensor(-float("inf"), device=nmsed.device))
@@ -309,7 +310,7 @@ class SuperPoint(BaseModel):
             if size is None:
                 h, w = image.shape[1:3]
                 size = torch.tensor([[w, h]], dtype=torch.float32, device=kpts.device).expand(B, 2)
-            u = torch.rand((B, k, 2), generator=generator, device=kpts.device, dtype=kpts.dtype)
+            u = batch_rand((B, k, 2), generator, kpts.device, kpts.dtype)
             rand_kpts = u * size[:, None, :]
             kpts = torch.where(valid[..., None], kpts, rand_kpts)
             kpt_scores = torch.where(valid, kpt_scores, torch.zeros_like(kpt_scores))

@@ -47,6 +47,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ...ops.assignment import filter_matches, log_optimal_transport
 from ...ops.attention import mha
+from ...utils.distributed import batch_mean
 from ..base_model import BaseModel
 from ..losses import nll_components
 from ..metrics import matcher_metrics
@@ -80,8 +81,8 @@ def _batch_norm(bn: nn.BatchNorm1d, x: torch.Tensor, stats: list | None = None) 
                          bn.bias, training=False, eps=bn.eps)
         return y.reshape(x.shape)
     flat = x.reshape(-1, x.shape[-1]).float()
-    mean = flat.mean(0)
-    var = ((flat * flat).mean(0) - mean * mean).clamp(min=0.0)
+    mean = batch_mean(flat.mean(0))  # the global batch's under data parallelism
+    var = (batch_mean((flat * flat).mean(0)) - mean * mean).clamp(min=0.0)
     y = (flat - mean) * (torch.rsqrt(var + bn.eps) * bn.weight.float()) + bn.bias.float()
     stats.append((mean.detach(), var.detach()))
     return y.to(x.dtype).reshape(x.shape)

@@ -6,7 +6,9 @@ channels, both in float32 (E[x^2] - E[x]^2, at least 0), and sets each
 running statistic to `momentum` x old + (1 - momentum) x batch, the biased
 variance included (PyTorch's own training mode would store the unbiased
 one). Its `momentum` is the weight of the old value (0.9 or 0.99), the
-complement of PyTorch's.
+complement of PyTorch's. Under data-parallel training the batch's
+statistics are the global batch's (`utils/distributed.batch_mean`), as XLA
+computes them over a sharded batch.
 """
 
 from __future__ import annotations
@@ -14,6 +16,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..utils.distributed import batch_mean
 
 
 def batch_norm(bn: nn.BatchNorm2d, x: torch.Tensor, by_batch: bool, momentum: float) -> torch.Tensor:
@@ -24,8 +28,8 @@ def batch_norm(bn: nn.BatchNorm2d, x: torch.Tensor, by_batch: bool, momentum: fl
         return F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight, bn.bias,
                             training=False, eps=bn.eps)
     xf = x.float()
-    mean = xf.mean(dim=(0, 2, 3))
-    var = ((xf * xf).mean(dim=(0, 2, 3)) - mean * mean).clamp(min=0.0)
+    mean = batch_mean(xf.mean(dim=(0, 2, 3)))
+    var = (batch_mean((xf * xf).mean(dim=(0, 2, 3))) - mean * mean).clamp(min=0.0)
     scale = torch.rsqrt(var + bn.eps)
     if bn.weight is not None:  # an affine BatchNorm
         scale = scale * bn.weight.float()

@@ -99,17 +99,22 @@ def warp_perspective_tiled(image: torch.Tensor, H: torch.Tensor, out_size,
     return (top * (1 - fy) + bottom * fy).to(image.dtype)
 
 
-def photometric_jitter(image: torch.Tensor, key, strength: float = 0.5) -> torch.Tensor:
+def photometric_jitter(image: torch.Tensor, key, strength: float = 0.5,
+                       shard: tuple[int, int] = (0, 1)) -> torch.Tensor:
     """Brightness, contrast, gamma and Gaussian noise of each (B, H, W, C)
     image, drawn from `key` (`utils/threefry.py`) as the JAX package draws
-    them."""
+    them. `shard` (rank, world): the images are rows rank * B ... of a
+    global batch of world * B, whose draws are made and sliced."""
     k1, k2, k3, k4 = threefry.split(key, 4)
     B, dev = image.shape[0], image.device
-    brightness = 1.0 + strength * threefry.uniform(k1, (B, 1, 1, 1), dev, -0.3, 0.3)
-    contrast = 1.0 + strength * threefry.uniform(k2, (B, 1, 1, 1), dev, -0.3, 0.3)
-    gamma = 1.0 + strength * threefry.uniform(k3, (B, 1, 1, 1), dev, -0.4, 0.6)
+    rank, world = shard
+    rows = slice(rank * B, (rank + 1) * B)
+    G = B * world
+    brightness = 1.0 + strength * threefry.uniform(k1, (G, 1, 1, 1), dev, -0.3, 0.3)[rows]
+    contrast = 1.0 + strength * threefry.uniform(k2, (G, 1, 1, 1), dev, -0.3, 0.3)[rows]
+    gamma = 1.0 + strength * threefry.uniform(k3, (G, 1, 1, 1), dev, -0.4, 0.6)[rows]
     mean = image.mean(dim=(1, 2, 3), keepdim=True)
     out = (image - mean) * contrast + mean * brightness
     out = out.clamp(0.0, 1.0) ** gamma
-    noise = strength * 0.02 * threefry.normal(k4, image.shape, dev)
+    noise = strength * 0.02 * threefry.normal(k4, (G, *image.shape[1:]), dev)[rows]
     return (out + noise).clamp(0.0, 1.0)

@@ -59,8 +59,24 @@ the lr at `schedule(total_iter * K)` in micro-steps (`// grad_accumulation`
 in updates), as the JAX trainer logs it, and each dispatch adds K batches to
 the samples.
 
-Not ported yet, each raising `NotImplementedError`: `plot` with a writer,
-and more than one device (DDP).
+Data-parallel training (`utils/distributed.py`) has the semantics of the
+JAX trainer's pjit step over a sharded batch: a rank's result is its slice
+of the one-process result on the global batch. Launched by torchrun
+(`torchrun --nproc_per_node=N -m gluefactory_tpu_torch.train ...`), every
+process joins the group of its environment (NCCL on `cuda:LOCAL_RANK`,
+gloo with `--device cpu`); `--n_devices`, where given, must equal the
+group's size. With more than one rank each loads its shard of every split
+(`DistributedSampler`, `set_epoch` every epoch) and `data.batch_size`
+items a step, as each JAX process loads its own. The gradients of every
+micro-batch, and its loss, are all-reduced to their mean in one flat
+buffer before the NaN-skip, so the skip and the lr count agree on every
+rank; BatchNorm's batch statistics are the global batch's; random draws
+for the batch (the keypoint fill, `device_augment`) are made for the global
+batch and sliced. Logged losses and validation results are the global
+batch's. Rank 0 alone writes the log, the writer, the config and the
+checkpoints; `--restore` loads on every rank.
+
+Not ported yet, raising `NotImplementedError`: `plot` with a writer.
 """
 
 from __future__ import annotations
@@ -86,7 +102,7 @@ from .eval.io import parse_config_path
 from .models import get_model
 from .optim import OPTIMIZERS
 from .settings import TRAINING_PATH
-from .utils import threefry
+from .utils import distributed, threefry
 from .utils.experiments import (
     delete_old_checkpoints,
     get_best_checkpoint,
@@ -261,15 +277,21 @@ class TrainStep:
     state, `micro` and `acc` as they were. `mixed_precision="bf16"` runs
     the forward and backward on bf16 copies of the float32 parameters and
     of the views' images. With `device_augment`, a batch of `source_image`s
-    becomes its two views (`apply_device_augment`) on `key` first."""
+    becomes its two views (`apply_device_augment`) on `key` first. With a
+    data-parallel `group`, the forward runs `sharded` over it and the
+    gradients and the loss are all-reduced to their global mean before
+    anything reads them, so `grad_norm`, the NaN-skip and `ok` are the
+    global batch's on every rank."""
 
     def __init__(self, model, optimizer, schedule, accum: int = 1, clip_grad=None, *,
-                 max_updates: int, mixed_precision=None, device_augment=None):
+                 max_updates: int, mixed_precision=None, device_augment=None,
+                 group: distributed.Group | None = None):
         if mixed_precision not in (None, "bf16"):
             raise NotImplementedError(f"mixed_precision {mixed_precision!r} is not ported")
         self.model = model
         self.mixed_precision = mixed_precision
         self.device_augment = device_augment
+        self.group = group
         self._forward_backward = _ForwardBackward(model)
         self.optimizer = optimizer
         self.schedule = schedule
@@ -305,19 +327,22 @@ class TrainStep:
             a.copy_(b)
 
     def __call__(self, batch: dict, generator: torch.Generator | None = None, key=None):
-        if self.device_augment and "source_image" in batch:
-            batch = apply_device_augment(batch, key, self.device_augment)
-        for p in self.params:
-            p.grad = None
-        if self.mixed_precision == "bf16":
-            cast = {"model." + n: p.to(torch.bfloat16) if p.dtype == torch.float32 else p
-                    for n, p in self.model.named_parameters()}
-            losses, metrics = torch.func.functional_call(self._forward_backward, cast,
-                                                         (bf16_batch(batch), generator))
-        else:
-            losses, metrics = self._forward_backward(batch, generator)
+        with distributed.sharded(self.group):
+            if self.device_augment and "source_image" in batch:
+                batch = apply_device_augment(batch, key, self.device_augment)
+            for p in self.params:
+                p.grad = None
+            if self.mixed_precision == "bf16":
+                cast = {"model." + n: p.to(torch.bfloat16) if p.dtype == torch.float32 else p
+                        for n, p in self.model.named_parameters()}
+                losses, metrics = torch.func.functional_call(self._forward_backward, cast,
+                                                             (bf16_batch(batch), generator))
+            else:
+                losses, metrics = self._forward_backward(batch, generator)
         loss = losses["total"].detach().mean()
         grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in self.params]
+        if self.group is not None:  # one all-reduce: the global batch's gradients and loss
+            *grads, loss = distributed.all_reduce_mean(grads + [loss], self.group)
         grad_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
         # a gradient tensor with any non-finite entry is zeroed
         safe = {p: torch.where(torch.isfinite(n), g, torch.zeros_like(g))
@@ -383,7 +408,8 @@ class TrainStep:
 def apply_device_augment(batch: dict, key, device_augment) -> dict:
     """The batch with its `source_image`s replaced by two homography views
     and `H_0to1` (`generate_homography_pairs` on `key`, the conf's settings
-    with the JAX package's defaults)."""
+    with the JAX package's defaults; under data parallelism this rank's
+    rows of the global batch's draws)."""
     from .data.device_homography import generate_homography_pairs
 
     with torch.no_grad():
@@ -394,7 +420,7 @@ def apply_device_augment(batch: dict, key, device_augment) -> dict:
             translation=device_augment.get("translation", 1.0),
             photometric_strength=device_augment.get("photometric_strength", 0.5),
             n_angles=device_augment.get("n_angles", 10),
-            max_angle=device_augment.get("max_angle", 90.0))
+            max_angle=device_augment.get("max_angle", 90.0), shard=distributed.batch_shard())
     return {**{k: v for k, v in batch.items() if k != "source_image"}, **gen}
 
 
@@ -418,13 +444,17 @@ def eval_key(rng_key) -> torch.Tensor:
     return threefry.fold_in(rng_key, 7)
 
 
-def do_evaluation(model, loader, conf, device, seed: int, max_iters=None, augment=None):
+def do_evaluation(model, loader, conf, device, seed: int, max_iters=None, augment=None,
+                  group: distributed.Group | None = None):
     """Validation loop (`train=False`) with streaming accumulators: losses
     under `loss/`, metrics, medians and recalls as `conf` asks, and the PR
     curves' (labels, predictions). Every batch draws its random keypoint
     fill from a generator seeded with `seed`. `augment`: (device_augment
-    conf, key), applied to every batch of `source_image`s. Returns
-    (results, pr_results)."""
+    conf, key), applied to every batch of `source_image`s. With a `group`
+    of several ranks, each batch's numbers are gathered from every rank (in
+    rank order) before they are accumulated, so every rank returns the
+    global results. Returns (results, pr_results)."""
+    gather = group is not None and group.world > 1
     accums = {}
     pr_accums = defaultdict(PRMetric)
     gen = torch.Generator(device=device)
@@ -433,16 +463,25 @@ def do_evaluation(model, loader, conf, device, seed: int, max_iters=None, augmen
             if max_iters is not None and i >= max_iters:
                 break
             batch = prepare_batch(batch, device)
-            if augment and "source_image" in batch:
-                batch = apply_device_augment(batch, augment[1], augment[0])
-            pred, losses, metrics = model.forward_with_loss(batch, train=False,
-                                                            generator=gen.manual_seed(seed))
-            for name, spec in (conf.pr_curves or {}).items():
-                pr_accums[name].update(pred[spec["labels"]], pred[spec["predictions"]],
-                                       mask=pred[spec["mask"]] if "mask" in spec else None)
+            with distributed.sharded(group):
+                if augment and "source_image" in batch:
+                    batch = apply_device_augment(batch, augment[1], augment[0])
+                pred, losses, metrics = model.forward_with_loss(batch, train=False,
+                                                                generator=gen.manual_seed(seed))
+            curves = {name: [pred[spec["labels"]], pred[spec["predictions"]],
+                             pred[spec["mask"]] if "mask" in spec else None]
+                      for name, spec in (conf.pr_curves or {}).items()}
             numbers = {**{f"loss/{k}": v for k, v in losses.items()}, **metrics}
+            numbers = {k: v.detach().float().cpu().numpy() for k, v in numbers.items()}
+            if gather:
+                curves = {k: [None if t is None else t.cpu() for t in c] for k, c in curves.items()}
+                ranks = distributed.gather_rank_major((numbers, curves))
+                numbers = {k: np.concatenate([r[0][k] for r in ranks]) for k in numbers}
+                curves = {k: [None if c[i] is None else torch.cat([r[1][k][i] for r in ranks])
+                              for i in range(3)] for k, c in curves.items()}
+            for name, (labels, predictions, mask) in curves.items():
+                pr_accums[name].update(labels, predictions, mask=mask)
             for k, v in numbers.items():
-                v = v.detach().float().cpu().numpy()
                 if k not in accums:
                     if k in conf.median_metrics:
                         accums[k] = MedianMetric()
@@ -498,11 +537,17 @@ def dispatch(step: TrainStep, batches: list, generators: list, keys: list | None
     return out
 
 
-def check_supported(conf, args) -> None:
-    """Raise on the options that are not ported yet."""
+def check_supported(conf, args, group: distributed.Group | None = None) -> None:
+    """Raise on the options that are not ported yet, and on `--n_devices`
+    that is not the process group's size (1 without a group)."""
     t = conf.train
-    if args.n_devices not in (None, 1):
-        raise NotImplementedError("training on more than one device (DDP) is not ported yet")
+    world = 1 if group is None else group.world
+    if args.n_devices is not None and args.n_devices != world:
+        if group is None:
+            raise ValueError(f"--n_devices {args.n_devices}: one process trains on one device; launch "
+                             f"{args.n_devices} processes with torchrun --nproc_per_node="
+                             f"{args.n_devices} -m gluefactory_tpu_torch.train ...")
+        raise ValueError(f"--n_devices {args.n_devices} is not the process group's size {world}")
     if t.mixed_precision not in (None, "bf16"):
         raise NotImplementedError(f"mixed_precision {t.mixed_precision!r} is not ported")
     for name in t.run_benchmarks or []:
@@ -511,17 +556,24 @@ def check_supported(conf, args) -> None:
 
 
 def training(conf: Config, output_dir: Path, args):
-    """Train `conf.model` on `conf.data` into `output_dir`; returns the model."""
-    check_supported(conf, args)
-    output_dir = Path(output_dir)
-    output_dir.mkdir(parents=True, exist_ok=True)
+    """Train `conf.model` on `conf.data` into `output_dir`; returns the model.
+    Under torchrun, data-parallel over the environment's process group."""
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda: no CUDA device; pass --device cpu to train on the CPU")
+    group = distributed.setup(device)
+    check_supported(conf, args, group)
+    main_rank = group is None or group.is_main
+    shard = group is not None and group.world > 1  # each rank loads its shard
+    world = 1 if group is None else group.world
+    if group is not None:
+        device = group.device
+    output_dir = Path(output_dir)
+    output_dir.mkdir(parents=True, exist_ok=True)
     seed = conf.train.seed
     gen = set_seed(seed, device)
     writer = None
-    if not args.no_tensorboard:
+    if not args.no_tensorboard and main_rank:
         try:
             from tensorboardX import SummaryWriter
 
@@ -538,8 +590,8 @@ def training(conf: Config, output_dir: Path, args):
         train_loader = dataset.get_overfit_loader("train", pin_memory=pin)
         val_loader = dataset.get_overfit_loader("val", pin_memory=pin)
     else:
-        train_loader = dataset.get_data_loader("train", pin_memory=pin)
-        val_loader = dataset.get_data_loader("val", pin_memory=pin)
+        train_loader = dataset.get_data_loader("train", distributed=shard, pin_memory=pin)
+        val_loader = dataset.get_data_loader("val", distributed=shard, pin_memory=pin)
     steps_per_epoch = max(len(train_loader), 1)
     logger.info("Training loader has %d batches", steps_per_epoch)
 
@@ -555,7 +607,8 @@ def training(conf: Config, output_dir: Path, args):
     micro_per_epoch = math.ceil(steps_per_epoch / k_steps) * k_steps  # the tail padded
     step = TrainStep(model, optimizer, schedule, accum, None if clip is None else float(clip),
                      max_updates=math.ceil(conf.train.epochs * micro_per_epoch / accum),
-                     mixed_precision=conf.train.mixed_precision, device_augment=augment)
+                     mixed_precision=conf.train.mixed_precision, device_augment=augment,
+                     group=group)
     rng_key = train_key(seed)
 
     epoch0, total_iter, best_eval = 0, 0, None
@@ -580,7 +633,8 @@ def training(conf: Config, output_dir: Path, args):
             logger.info("Warm start: skipped %d tensors the model lacks: %s", len(unexpected),
                         ", ".join(unexpected))
         logger.info("Warm-started from experiment %s", conf.train.load_experiment)
-    (output_dir / "config.yaml").write_text(conf.to_yaml())
+    if main_rank:
+        (output_dir / "config.yaml").write_text(conf.to_yaml())
 
     stop = False
     results: dict = {}
@@ -592,8 +646,12 @@ def training(conf: Config, output_dir: Path, args):
             cb = conf.train.dataset_callback_fn
             if cb and hasattr(dataset, cb):
                 getattr(dataset, cb)(seed + epoch)
-                train_loader = dataset.get_data_loader("train", pin_memory=pin)
+                train_loader = dataset.get_data_loader("train", distributed=shard and not args.overfit,
+                                                       pin_memory=pin)
             dataset.epoch = epoch
+            sampler = getattr(train_loader, "sampler", None)
+            if hasattr(sampler, "set_epoch"):  # a new order every epoch
+                sampler.set_epoch(epoch)
             t_start = time.time()
             n_samples = 0
             pending: list = []
@@ -606,8 +664,11 @@ def training(conf: Config, output_dir: Path, args):
                 gens = [step_generator(gen, seed, total_iter * k_steps + i) for i in range(k_steps)]
                 losses, metrics, info = dispatch(step, pending, gens, keys)
                 pending = []
-                n_samples += train_bs * k_steps
+                n_samples += train_bs * k_steps * world
                 if it % conf.train.log_every_iter < k_steps:
+                    if shard:  # the global batch's losses
+                        losses = dict(zip(losses, distributed.all_reduce_mean(list(losses.values()),
+                                                                              group)))
                     losses_np = {k: float(v) for k, v in losses.items()}  # the host read
                     lr = schedule(total_iter * k_steps // accum)
                     sps = n_samples / (time.time() - t_start + 1e-9)
@@ -628,7 +689,8 @@ def training(conf: Config, output_dir: Path, args):
                         or it == len(train_loader) - 1):
                     results, pr_results = do_evaluation(model, val_loader, conf.train, device, seed,
                                                         max_iters=args.max_val_iters,
-                                                        augment=augment and (augment, eval_key(rng_key)))
+                                                        augment=augment and (augment, eval_key(rng_key)),
+                                                        group=group)
                     logger.info("[Validation] {%s}", ", ".join(
                         f"{k} {v:.4f}" for k, v in results.items() if np.isscalar(v)))
                     if writer:
@@ -643,6 +705,8 @@ def training(conf: Config, output_dir: Path, args):
                     break
                 total_iter += 1
 
+            if not main_rank:
+                continue
             for bench_name in conf.train.run_benchmarks or []:
                 run_benchmark_hook(bench_name, conf, model, output_dir, args.device, writer,
                                    total_iter)
@@ -717,8 +781,9 @@ def main(argv=None):
         conf = merge(conf, from_dotlist(args.dotlist))
     output_dir = Path(TRAINING_PATH, args.experiment)
     output_dir.mkdir(parents=True, exist_ok=True)
+    group = distributed.setup(args.device)  # under torchrun: rank 0 alone captures the log
     capture = contextlib.nullcontext()
-    if not args.no_capture:
+    if not args.no_capture and (group is None or group.is_main):
         from .utils.stdout_capturing import capture_outputs
 
         capture = capture_outputs(output_dir / "log.txt")

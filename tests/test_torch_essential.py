@@ -48,6 +48,18 @@ from gluefactory_tpu_torch.ops import ransac as transac
 from gluefactory_tpu_torch.robust_estimators import load_estimator as tload
 from gluefactory_tpu_torch.scripts_dev.posed_scenes import synthetic_correspondences
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch thread for the file's tests and fixtures: the suite runs 6
+    workers on the host's cores, and torch's default pool oversubscribes
+    them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 N_SAMPLES = 256
 SET_TOL = 1e-3  # normalized E, matched against +-E
 SOLVES = 1e-4  # epipolar, det and trace residuals of a solving candidate
@@ -114,16 +126,16 @@ def test_essential_5pt_stages_on_one_basis():
     A = np.stack([x1 * x0, x1 * y0, x1, y1 * x0, y1 * y0, y1, x0, y0, np.ones_like(x0)], -1)
     basis = torch.linalg.svd(torch.from_numpy(A), full_matrices=True).Vh[:, 5:]
     Mt = T5._constraint_matrix(basis)
-    Mj = np.asarray(J5._constraint_matrix(jnp.asarray(basis.numpy())))
+    Mj = np.asarray(jax.jit(J5._constraint_matrix)(jnp.asarray(basis.numpy())))
     np.testing.assert_allclose(Mt.numpy(), Mj, atol=1e-5 * np.abs(Mj).max(), rtol=0)
     Mt = Mt / (torch.linalg.vector_norm(Mt, dim=-1, keepdim=True) + 1e-30)
     Mj = jnp.asarray(Mt.numpy())
     Ms_t = T5._z_matrices(Mt)
-    Ms_j = J5._z_matrices(Mj)
+    Ms_j = jax.jit(J5._z_matrices)(Mj)
     for k in range(4):
         np.testing.assert_array_equal(Ms_t[k].numpy(), np.asarray(Ms_j[k]))
     zt, vt = T5._real_roots(Ms_t)
-    zj, vj = J5._real_roots(Ms_j)
+    zj, vj = jax.jit(J5._real_roots)(Ms_j)
     np.testing.assert_array_equal(vt.numpy(), np.asarray(vj))
     zt, zj = zt.numpy(), np.asarray(zj)
     valid = np.asarray(vj)
@@ -132,7 +144,7 @@ def test_essential_5pt_stages_on_one_basis():
     np.testing.assert_allclose(np.arctan(zt[valid]), np.arctan(zj[valid]), rtol=0, atol=2e-5)
     s = np.stack([np.full_like(zj, 0.1), np.full_like(zj, -0.2), np.where(valid, zj, 0.0)], -1)
     st = T5._polish(Mt, torch.from_numpy(s))
-    sj = jax.vmap(jax.vmap(J5._polish, in_axes=(None, 0)))(Mj, jnp.asarray(s))
+    sj = jax.jit(jax.vmap(jax.vmap(J5._polish, in_axes=(None, 0))))(Mj, jnp.asarray(s))
     ok = np.isfinite(np.asarray(sj)).all(-1) & (np.abs(np.asarray(sj)).max(-1) < 1e3)
     np.testing.assert_allclose(st.numpy()[ok], np.asarray(sj)[ok], rtol=1e-3, atol=1e-4)
 

@@ -25,6 +25,17 @@ from test_torch_eval_hpatches import DATA, H, MODEL, PAIRS, W, _assert_summaries
 from test_torch_eval_hpatches import fake_hpatches  # noqa: F401  (the fixture)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch thread for the file's tests and fixtures: the suite runs 6
+    workers on the host's cores, and torch's default pool oversubscribes
+    them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _planted(Hs, seed=0, n=80, n_out=20):
     """Per pair: keypoints, matches under the true homography within 0.3 px
     and `n_out` outlier matches; the outliers' scores 1e-3, so that the

@@ -45,6 +45,18 @@ from gluefactory_tpu_torch.utils.tensor import rbd
 from test_torch_eval_hpatches import MODEL, _assert_summaries_close, _best_threshold, random_models
 from test_torch_eval_posed import MD_CONF, PAIRS_CONF, write_layouts
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch thread for the file's tests and fixtures: the suite runs 6
+    workers on the host's cores, and torch's default pool oversubscribes
+    them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 BENCH = {
     "megadepth1500": (megadepth1500.MegaDepth1500Pipeline, jax_md.MegaDepth1500Pipeline, MD_CONF, 5),
     "scannet1500": (scannet1500.ScanNet1500Pipeline, jax_sn.ScanNet1500Pipeline, PAIRS_CONF, 3),

@@ -2,7 +2,8 @@
 and weights: `log_double_softmax`, the weight conversions (JAX params and
 upstream's state dict), the forward in both line-message modes with padded
 and scattered masks, inter-layer supervision and an input projection, and the
-loss and eval metrics' values."""
+loss and eval metrics' values. Each (conf, masks, seed) is built and
+applied once per file."""
 
 import jax
 import jax.numpy as jnp
@@ -16,6 +17,18 @@ from gluefactory_tpu.ops import assignment as jax_assignment
 from gluefactory_tpu_torch.compat.jax_params import from_jax_params
 from gluefactory_tpu_torch.models import get_model
 from gluefactory_tpu_torch.ops import assignment
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch thread for the file's tests and fixtures: the suite runs 6
+    workers on the host's cores, and torch's default pool oversubscribes
+    them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 ATOL = 1e-4
 
@@ -92,7 +105,17 @@ def _data(rng, masks: str, D=64, B=2, L=10, K=30):
     }
 
 
+_PAIRS: dict = {}
+
+
 def _pair(conf, masks, seed):
+    key = (repr(sorted(conf.items())), masks, seed)
+    if key not in _PAIRS:
+        _PAIRS[key] = _build_pair(conf, masks, seed)
+    return _PAIRS[key]
+
+
+def _build_pair(conf, masks, seed):
     rng = np.random.default_rng(seed)
     data = _data(rng, masks, D=conf["input_dim"])
     gs_j = jax_get_model("gluestick").from_conf(conf)
@@ -227,7 +250,8 @@ def test_gluestick_loss_and_metrics_match_jax(train):
     gt = _gt(np.random.default_rng(12), data)
     pred_j = {k: jnp.asarray(v) for k, v in ref.items()}
     dj = {**{k: jnp.asarray(v) for k, v in data.items()}, **{k: jnp.asarray(v) for k, v in gt.items()}}
-    losses_j, metrics_j = gs_j.apply(variables, pred_j, dj, train=train, method="loss")
+    losses_j, metrics_j = jax.jit(lambda v, p, d: gs_j.apply(v, p, d, train=train, method="loss"))(
+        variables, pred_j, dj)
     dt = {**{k: torch.from_numpy(v) for k, v in data.items()},
           **{k: torch.from_numpy(v) for k, v in gt.items()}}
     pred_t = {k: torch.from_numpy(np.asarray(v)) for k, v in ref.items()}

@@ -34,6 +34,18 @@ from test_torch_eval_eth3d import DATA as ETH3D_DATA
 from test_torch_eval_eth3d import data_path, layout  # noqa: F401 (fixtures)
 from test_torch_lsd import polygons
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch thread for the file's tests and fixtures: the suite runs 6
+    workers on the host's cores, and torch's default pool oversubscribes
+    them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 W, H = 160, 120
 EXTRACTOR = {
     "name": "wireframe",
@@ -79,7 +91,7 @@ def test_pipeline_equals_jax():
     data = {"view0": {"image": imgs, "image_size": size},
             "view1": {"image": img1, "image_size": size}}
     pj, variables, pt = random_models(MODEL)
-    ref = {k: np.asarray(v) for k, v in pj.apply(variables, jax.tree_util.tree_map(
+    ref = {k: np.asarray(v) for k, v in jax.jit(pj.apply)(variables, jax.tree_util.tree_map(
         jnp.asarray, data)).items()}
     with torch.no_grad():
         out = pt(jax.tree_util.tree_map(torch.from_numpy, data))
@@ -115,22 +127,33 @@ def write_sequence(root, seq="i_lines", seed=0, pairs=5):
         np.savetxt(str(d / f"H_1_{q}"), Hq)
 
 
+@pytest.fixture(scope="module")
+def hpatches_exports(tmp_path_factory):
+    """One HPatches sequence and each package's export of it, shared by the
+    estimators' cases (each case runs its own eval loop on the caches)."""
+    root = tmp_path_factory.mktemp("hpatches")
+    write_sequence(root / "hpatches-sequences-release")
+    return {"root": root, "exported": False}
+
+
 @pytest.mark.parametrize("estimator", ["xla_ransac", "homography_est"])
-def test_hpatches_equals_jax(tmp_path, monkeypatch, estimator):
+def test_hpatches_equals_jax(hpatches_exports, monkeypatch, estimator):
     import gluefactory_tpu.data.hpatches as jhp
     import gluefactory_tpu.settings as jsettings
     import gluefactory_tpu_torch.settings as tsettings
 
-    write_sequence(tmp_path / "hpatches-sequences-release")
+    root = hpatches_exports["root"]
     for mod in (jsettings, jhp, tsettings):
-        monkeypatch.setattr(mod, "DATA_PATH", tmp_path)
+        monkeypatch.setattr(mod, "DATA_PATH", root)
     conf = {"data": {"num_workers": 0, "preprocessing": {"resize": H, "side": "short"}},
             "model": MODEL, "eval": {"estimator": estimator, "ransac_th": [2.0]}}
     pj, variables, pt = random_models(MODEL)
+    export = not hpatches_exports["exported"]
     sj, _, rj = jax_hpatches.HPatchesPipeline(conf).run(
-        tmp_path / "jax", model=pj, variables=variables, overwrite=True, overwrite_eval=True)
+        root / "jax", model=pj, variables=variables, overwrite=export, overwrite_eval=True)
     st, _, rt = hpatches.HPatchesPipeline(conf, device="cpu").run(
-        tmp_path / "port", model=pt, overwrite=True, overwrite_eval=True)
+        root / "port", model=pt, overwrite=export, overwrite_eval=True)
+    hpatches_exports["exported"] = True
     assert set(st) == set(sj)
     for k in sj:
         np.testing.assert_allclose(st[k], sj[k], rtol=1e-3, atol=1e-9, err_msg=k)

@@ -42,6 +42,18 @@ from gluefactory_tpu_torch.compat.jax_params import from_jax_params
 from gluefactory_tpu_torch.models import get_model
 from gluefactory_tpu_torch.optim import OPTIMIZERS
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch thread for the file's tests and fixtures: the suite runs 6
+    workers on the host's cores, and torch's default pool oversubscribes
+    them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 HEADS = 2
 GS_CONF = {"descriptor_dim": 64, "input_dim": 64, "keypoint_encoder": [8, 16], "n_layers": 2,
            "num_heads": HEADS, "filter_threshold": 0.01, "inter_supervision": [0, 1],

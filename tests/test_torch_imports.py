@@ -36,7 +36,7 @@ for name in names:
 leaked = sorted(m for m in sys.modules if m == "gluefactory_tpu" or m.startswith("gluefactory_tpu."))
 print(len(names), leaked)
 assert not leaked, leaked
-assert len(names) >= 121, names
+assert len(names) >= 132, names
 for name in ("train", "optim", "settings", "data.homographies", "data.base_dataset", "data.augmentations",
              "data.raster", "data.colour", "data.jpeg", "data.preprocess", "geometry.homography", "geometry.gt_generation", "models.losses",
              "models.metrics", "models.matchers.homography_matcher", "utils.experiments",
@@ -68,7 +68,8 @@ for name in ("train", "optim", "settings", "data.homographies", "data.base_datas
              "models.backbones.dinov2", "models.matchers.roma_net", "models.matchers.roma",
              "models.extractors.grid_extractor", "models.extractors.mixed",
              "models.matchers.lightglue_pretrained", "models.extractors.keynet_affnet_hardnet",
-             "ops.warp", "data.device_homography"):
+             "ops.warp", "data.device_homography", "models.lines.deeplsd", "ops.hough",
+             "utils.distributed"):
     assert pkg.__name__ + "." + name in names, name
 """
 
@@ -92,14 +93,15 @@ def test_no_module_imports_h5py_jax_or_the_jax_package_anywhere():
 
 
 def test_lines_and_the_host_build_never_import_cv2():
-    """The LSD path is the port's own C++: no OpenCV in `models/lines/` or
-    `ops/_build.py`, not even inside a function."""
+    """The LSD and the Hough are the port's own C++: no OpenCV in
+    `models/lines/`, `ops/hough.py` or `ops/_build.py`, not even inside a
+    function."""
     import re
 
     pattern = re.compile(r"^\s*(import|from)\s+cv2\b", re.M)
     files = sorted((ROOT / "gluefactory_tpu_torch" / "models" / "lines").rglob("*.py"))
-    files.append(ROOT / "gluefactory_tpu_torch" / "ops" / "_build.py")
-    assert len(files) >= 4
+    files += [ROOT / "gluefactory_tpu_torch" / "ops" / name for name in ("_build.py", "hough.py")]
+    assert len(files) >= 6
     assert not [str(p) for p in files if pattern.search(p.read_text())]
 
 

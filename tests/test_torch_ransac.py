@@ -27,6 +27,18 @@ from gluefactory_tpu_torch.robust_estimators import load_estimator
 from gluefactory_tpu_torch.robust_estimators.homography.xla_ransac import bucket_pad
 from gluefactory_tpu_torch.utils import threefry
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch thread for the file's tests and fixtures: the suite runs 6
+    workers on the host's cores, and torch's default pool oversubscribes
+    them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 SEEDS = [0, 1, 7, 12345, 2**31 - 1, -3]
 SHAPES = [(1,), (5,), (3, 7), (2, 3, 5), (1024, 64)]
 

@@ -37,6 +37,18 @@ from gluefactory_tpu_torch.compat.jax_params import from_jax_params
 from gluefactory_tpu_torch.models import get_model
 from gluefactory_tpu_torch.optim import OPTIMIZERS
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch thread for the file's tests and fixtures: the suite runs 6
+    workers on the host's cores, and torch's default pool oversubscribes
+    them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 HEADS = 2
 SG_CONF = {"descriptor_dim": 64, "keypoint_encoder": [8, 16], "n_layers": 2, "num_heads": HEADS,
            "sinkhorn_iterations": 20, "filter_threshold": 0.01, "checkpointed": False}
@@ -145,9 +157,9 @@ def jax_ref():
         return losses["total"].mean(), (pred, losses, updates["batch_stats"])
 
     (_, (pred, losses, new_stats)), grads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(params)
-    (_, eval_losses, eval_metrics), _ = sg.apply({"params": params, "batch_stats": stats}, dj,
-                                                 train=False, method="forward_with_loss",
-                                                 mutable=["batch_stats"])
+    (_, eval_losses, eval_metrics), _ = jax.jit(lambda v, d: sg.apply(
+        v, d, train=False, method="forward_with_loss", mutable=["batch_stats"]))(
+        {"params": params, "batch_stats": stats}, dj)
     to_np = lambda t: jax.tree.map(np.asarray, t)  # noqa: E731
     return {"data": data, "params": to_np(params), "stats": to_np(stats), "pred": to_np(pred),
             "losses": to_np(losses), "new_stats": to_np(new_stats), "grads": to_np(grads),

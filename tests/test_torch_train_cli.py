@@ -102,16 +102,19 @@ def test_default_device_is_cuda(monkeypatch, tmp_path):
         train.training(conf, tmp_path, args)
 
 
-@pytest.mark.parametrize("override,flag", [
-    ({"train": {"run_benchmarks": ["hpatches", "megadepth1500", "eth3d", "zeb", "nope"]}}, None),
-    ({}, "--n_devices=2"),
+@pytest.mark.parametrize("override,flag,error", [
+    ({"train": {"run_benchmarks": ["hpatches", "megadepth1500", "eth3d", "zeb", "nope"]}}, None,
+     NotImplementedError),
+    ({}, "--n_devices=2", ValueError),
 ], ids=["run_benchmarks", "n_devices"])
-def test_not_ported_options_raise(override, flag):
+def test_not_ported_options_raise(override, flag, error):
     """Each option the port lacks raises before training; of the
-    benchmarks only a name that is none (all five are ported)."""
+    benchmarks only a name that is none (all five are ported). More than
+    one device without a process group raises a ValueError that names
+    torchrun (`tests/test_torch_ddp.py` trains under one)."""
     conf = merge(Config(train.default_conf), override)
     args = train.main_args(["x"] + ([flag] if flag else []))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(error, match="torchrun" if error is ValueError else None):
         train.check_supported(conf, args)
 
 

@@ -46,6 +46,18 @@ from gluefactory_tpu_torch.models import get_model
 from gluefactory_tpu_torch.scripts_dev.posed_scenes import write_megadepth_scene
 from gluefactory_tpu_torch.utils import experiments
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch thread for the file's tests and fixtures: the suite runs 6
+    workers on the host's cores, and torch's default pool oversubscribes
+    them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ROOT = Path(__file__).resolve().parents[1]
 CONF = ROOT / "gluefactory_tpu_torch/configs/superpoint+lightglue_megadepth.yaml"
 STAGE1 = ROOT / "gluefactory_tpu_torch/configs/superpoint+lightglue_homography.yaml"

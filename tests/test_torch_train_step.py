@@ -32,6 +32,18 @@ from gluefactory_tpu_torch.data.base_dataset import collate
 from gluefactory_tpu_torch.data.homographies import HomographyDataset
 from gluefactory_tpu_torch.models import get_model
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch thread for the file's tests and fixtures: the suite runs 6
+    workers on the host's cores, and torch's default pool oversubscribes
+    them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 K, HEADS, LR, STEPS, B = 32, 2, 1e-3, 3, 2
 MODEL = {
     "name": "two_view_pipeline",
