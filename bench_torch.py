@@ -26,6 +26,13 @@ repeats' range. Eager forwards include the host's launch time between
 kernels, which bench.py's single XLA program does not pay; `graphed`
 replays the captured forward, the port's counterpart of that program.
 
+`BENCH_QUANTIZE=int8` runs SuperPoint's dense pass in int8 and
+`BENCH_INT8_SIM=1` LightGlue's similarity in int8, as bench.py reads them
+(both through `csrc/int8_conv.cu`; the pruned run's matcher keeps its float
+similarity, as bench.py's). `gflops_per_pair` and `mfu` then count the
+int8 products too (by hand: the kernels are launched through ctypes), still
+against the bf16 peak.
+
 `main(device="cpu", ...)` runs every path once at a given size with the
 times null (the tests do); a CPU run has no device time.
 """
@@ -44,6 +51,7 @@ import torch
 from gluefactory_tpu_torch.models import get_model
 from gluefactory_tpu_torch.models.matchers.lightglue_serving import make_serving_fn
 from gluefactory_tpu_torch.ops import _build
+from gluefactory_tpu_torch.ops.int8_conv import dense_pass_work
 from gluefactory_tpu_torch.scripts_dev.timing import card
 
 ROOT = Path(__file__).resolve().parent
@@ -67,13 +75,28 @@ SWEEP = (3, 5, 7, 9)
 BF16_GATE = 2e-2
 
 
-def pipeline_conf(keypoints: int) -> dict:
+def pipeline_conf(keypoints: int, quantize: str = "none", int8_sim: str = "0") -> dict:
     return {
         "extractor": {"name": "superpoint", "max_num_keypoints": keypoints,
                       "detection_threshold": 0.0, "force_num_keypoints": True,
-                      "trainable": False},
-        "matcher": {"name": "lightglue", "n_layers": N_LAYERS, "checkpointed": False},
+                      "trainable": False, "quantize": None if quantize == "none" else quantize},
+        "matcher": {"name": "lightglue", "n_layers": N_LAYERS, "checkpointed": False,
+                    "int8_similarity": int8_sim == "1"},
     }
+
+
+def int8_ops(batch: int, image_size: int, keypoints: int, model) -> float:
+    """The int8 kernels' products a forward: SuperPoint's dense pass on 2B
+    images (`quantize`), LightGlue's last similarity (`int8_similarity`)."""
+    ops = 0.0
+    sp, lg = model.extractor.conf, model.matcher.conf
+    if sp.quantize == "int8":
+        work = dense_pass_work(2 * batch, image_size, image_size, sp.channels, sp.head_channels,
+                               sp.descriptor_dim)
+        ops += sum(w["ops"] for w in work.values())
+    if lg.int8_similarity:
+        ops += 2.0 * batch * keypoints * keypoints * lg.descriptor_dim
+    return ops
 
 
 def make_batch(device, batch: int, size: int) -> dict:
@@ -263,17 +286,16 @@ def failure(e: Exception) -> dict:
 
 def main(device: str | torch.device = "cuda", batch: int = BATCH, image_size: int = IMAGE_SIZE,
          keypoints: int = NUM_KEYPOINTS, iters: int = ITERS, exit_layers: int = EXIT_LAYERS) -> dict:
-    if QUANTIZE != "none" or INT8_SIM != "0":
-        raise NotImplementedError("BENCH_QUANTIZE and BENCH_INT8_SIM are not ported")
     device = torch.device(device)
     if device.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError("bench_torch: no CUDA device")
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-        _build.build_all(["fused_attention", "fused_bidirectional_attention"])
+        _build.build_all(["fused_attention", "fused_bidirectional_attention", "int8_conv"])
     torch.manual_seed(0)  # random weights from a seed
-    model = get_model("two_view_pipeline").from_conf(pipeline_conf(keypoints), device=device)
+    model = get_model("two_view_pipeline").from_conf(pipeline_conf(keypoints, QUANTIZE, INT8_SIM),
+                                                     device=device)
     model = model.to(torch.bfloat16).eval()
     data = make_batch(device, batch, image_size)
     gen = torch.Generator(device=device)
@@ -286,10 +308,14 @@ def main(device: str | torch.device = "cuda", batch: int = BATCH, image_size: in
         ms = time_forward(lambda: forward(gen.manual_seed(0)), iters, device)
         flops = count_flops(lambda: forward(gen.manual_seed(0)))
         flops += attention_flops(batch, keypoints, model.matcher.conf)
+        flops += int8_ops(batch, image_size, keypoints, model)
         head = rate(ms, batch)
         pps = head["pairs_per_sec"]
+        tag = "int8 extract, bf16 match" if QUANTIZE == "int8" else "bf16"
+        if INT8_SIM == "1":
+            tag += ", int8 similarity"
         result = {
-            "metric": (f"image pairs/s (SP+LightGlue, {keypoints} kpts, {image_size}px, bf16, "
+            "metric": (f"image pairs/s (SP+LightGlue, {keypoints} kpts, {image_size}px, {tag}, "
                        "PyTorch eager + CUDA kernels)"),
             "value": pps,
             "unit": "pairs/s",

@@ -334,7 +334,33 @@ Phases, in order; any failure exits non-zero before the last line:
    attention kernel a step; ms a step with and without the group on the
    same batches (beside path E's), one all-reduce of the flat gradient
    buffer (bytes, ms). Paths T and U alone: `phase_device`, `phase_build`,
-   `phase_deeplsd`, `phase_ddp` (`build/path_tu.py` when present).
+   `phase_deeplsd`, `phase_ddp` (`build/path_tu.py` when present);
+26. path V, the int8 serving options and the native estimators (after
+   path U, before phase 8): V1 the main path's configuration with
+   SuperPoint's `quantize: int8` and LightGlue's `int8_similarity` (the
+   main path's weights, checked equal) through `two_view_pipeline`: 12
+   `int8_conv`, 12 `int8_requant` and 1 `int8_bmm` launches a forward
+   beside 9 + 9 attention, outputs checked; timed in turns with the bf16
+   main path (pairs/s), profiled (device ms, busy share, top items); every
+   int8 layer at bench's shapes against its plain version (float64 on the
+   card): the int32 accumulators, the codes and their scale, the bf16
+   heads all equal; the forward's similarity against its plain version,
+   equal; int8 against bf16 at tests/test_int8.py's bounds (score map
+   correlation > 0.99, dense descriptor cosine min > 0.98 and mean > 0.995,
+   each image's keypoint overlap > 0.5, LightGlue's matches with and
+   without `int8_similarity` agreeing > 0.95); `int8_conv` (the dense pass)
+   and `int8_bmm` timed against their bounds, plain versions and, for the
+   similarity, `torch._int_mm` per item. V2 SuperPoint with `s2d_block1`
+   against the plain SuperPoint in bf16 within twice the bf16 rounding gap
+   (plain bf16 against plain f32), both timed. V3 the eval loops alone on
+   paths F and G's caches (`--overwrite_eval`): HPatches with
+   `eval.estimator=poselib`, MegaDepth-1500 with `poselib` and with
+   `two_view_native` (its RANSACs on the card): seconds, ms a pair, finite
+   AUCs; then `two_view_native` on 512 planted matches of a known pose
+   (30% outliers): the essential model, R and t within 1 degree, both
+   RANSACs on the card. Path V alone needs paths F and G's caches: `phase_device`,
+   `phase_build`, `phase_hpatches`, `phase_megadepth`, then `phase_int8`
+   with `make_batch(torch.device("cuda"))` (`build/path_v.py` when present).
 
 Each path resets every launch count just before its timed run and reads
 them just after. Prints each phase's seconds, the script's, the kernel JSON line, the card
@@ -362,7 +388,7 @@ import torch
 from gluefactory_tpu_torch.core.config import merge
 from gluefactory_tpu_torch.models import get_model
 from gluefactory_tpu_torch.ops import (_build, cuda_attention, cuda_conv, cuda_conv3x3, cuda_detect,
-                                       cuda_sinkhorn)
+                                       cuda_sinkhorn, int8_conv)
 from gluefactory_tpu_torch.ops.assignment import log_optimal_transport
 from gluefactory_tpu_torch.scripts_dev import profile_npack, profile_stream_conv
 from gluefactory_tpu_torch.scripts_dev.conv_study import bf16_step
@@ -380,7 +406,7 @@ PEAK_BYTES = 3.35e12
 # x 1.98 GHz boost clock
 PEAK_SFU = 16 * 132 * 1.98e9
 
-KERNEL_MODULES = (cuda_attention, cuda_sinkhorn, cuda_detect, cuda_conv, cuda_conv3x3)
+KERNEL_MODULES = (cuda_attention, cuda_sinkhorn, cuda_detect, cuda_conv, cuda_conv3x3, int8_conv)
 SMS = 132  # replaced by the card's SM count in phase_device
 
 # main path (bench.py's configuration)
@@ -471,7 +497,7 @@ def phase_build() -> dict:
     host_s = time.perf_counter() - t1
     print(f"build: {len(built)} kernels in {seconds:.1f} s "
           + json.dumps({n: round(b["seconds"], 1) for n, b in built.items()})
-          + f"; the host LSD and Hough in {host_s:.1f} s", flush=True)
+          + f"; the host LSD, Hough and LO-RANSAC in {host_s:.1f} s", flush=True)
     return {"seconds": seconds, "host_lsd_seconds": host_s,
             "logs": {n: b["log"] for n, b in built.items()}}
 
@@ -1210,7 +1236,8 @@ def phase_main_path(device_info: dict, batch: dict):
 
 # device-kernel names of the port's kernels, by family
 KERNEL_SYMBOLS = {"attention": ("gf::attention",), "sinkhorn": ("sinkhorn_",),
-                  "detect": ("nms_tile_kernel",), "vgg": ("conv3x3_relu", "NpackBody")}
+                  "detect": ("nms_tile_kernel",), "vgg": ("conv3x3_relu", "NpackBody"),
+                  "int8": ("igemm_kernel", "requant_kernel")}
 
 
 def profile_forward(forward, grad: bool = False) -> dict:
@@ -2402,33 +2429,36 @@ def run_hpatches(argv: list, export_only: bool = False) -> dict:
                         export_only)
 
 
-def run_eval_cli(main_fn, pipeline_cls, estimator_module, ransac_name: str, argv: list,
+def run_eval_cli(main_fn, pipeline_cls, estimator_module, ransac_name, argv: list,
                  export_only: bool = False) -> dict:
     """A benchmark CLI's `main(argv)` with every launch count reset just
     before and read just after; the export's and the eval loop's seconds,
-    and each call of the estimator module's RANSAC (`ransac_name`; none
-    without an `estimator_module`): its devices and time (CUDA events).
-    `export_only`: the eval loop returns nothing (a run whose cache alone is
-    compared)."""
+    and each call of the estimator module's RANSAC (`ransac_name`, or each
+    of a tuple of names; none without an `estimator_module`): its devices
+    and time (CUDA events). `export_only`: the eval loop returns nothing (a
+    run whose cache alone is compared)."""
     calls, seconds = [], {}
-    ransac = getattr(estimator_module, ransac_name) if estimator_module is not None else None
+    names = (ransac_name,) if isinstance(ransac_name, str) else tuple(ransac_name)
+    ransacs = {n: getattr(estimator_module, n) for n in names} if estimator_module is not None else {}
     original = {k: getattr(pipeline_cls, k) for k in ("get_predictions", "run_eval")}
     methods = dict(original)
     if export_only:
         methods["run_eval"] = lambda self, loader, pred_file: ({}, {}, {})
 
-    def recorded(*args, **kw):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        t0 = time.perf_counter()
-        start.record()
-        out = ransac(*args, **kw)
-        end.record()
-        torch.cuda.synchronize()
-        tensors = [a for a in (*args, *out.values()) if torch.is_tensor(a)]
-        calls.append({"devices": sorted({str(t.device) for t in tensors}),
-                      "ms": start.elapsed_time(end), "host_ms": 1e3 * (time.perf_counter() - t0),
-                      "points": int(args[2].shape[0])})
-        return out
+    def recorder(name):
+        def recorded(*args, **kw):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            out = ransacs[name](*args, **kw)
+            end.record()
+            torch.cuda.synchronize()
+            tensors = [a for a in (*args, *out.values()) if torch.is_tensor(a)]
+            calls.append({"ransac": name, "devices": sorted({str(t.device) for t in tensors}),
+                          "ms": start.elapsed_time(end), "host_ms": 1e3 * (time.perf_counter() - t0),
+                          "points": int(args[2].shape[0])})
+            return out
+        return recorded
 
     def timed(name):
         def wrapper(self, *a, **k):
@@ -2439,8 +2469,8 @@ def run_eval_cli(main_fn, pipeline_cls, estimator_module, ransac_name: str, argv
             return out
         return wrapper
 
-    if estimator_module is not None:
-        setattr(estimator_module, ransac_name, recorded)
+    for name in ransacs:
+        setattr(estimator_module, name, recorder(name))
     for name in methods:
         setattr(pipeline_cls, name, timed(name))
     reset_all_launches()
@@ -2448,8 +2478,8 @@ def run_eval_cli(main_fn, pipeline_cls, estimator_module, ransac_name: str, argv
         s, _, r = main_fn(argv)
         launches = all_launches()
     finally:
-        if estimator_module is not None:
-            setattr(estimator_module, ransac_name, ransac)
+        for name, fn in ransacs.items():
+            setattr(estimator_module, name, fn)
         for name, m in original.items():
             setattr(pipeline_cls, name, m)
     return {"summaries": s, "results": {k: np.asarray(v).tolist() for k, v in r.items()},
@@ -2986,20 +3016,18 @@ S2_ARGV = [
 
 
 def write_stage2_data(root: Path) -> dict:
-    """The procedural scenes under `root/megadepth` (each scene's views by
-    S2_WORKERS processes) and `scene_lists/valid_pairs.txt`: the
+    """The procedural scenes under `root/megadepth` (all scenes' views by one
+    pool of S2_WORKERS processes) and `scene_lists/valid_pairs.txt`: the
     validation scene's S2_VAL_BATCH pairs of highest overlap within the
     config's (0.1, 0.7]. Each training scene must fill the three bins (at
     least twice the quota of ordered pairs in each). Returns each scene's
     `write_megadepth_scene` record (the depths' SHA-256)."""
-    from gluefactory_tpu_torch.scripts_dev.posed_scenes import write_megadepth_scene
+    from gluefactory_tpu_torch.scripts_dev.posed_scenes import write_megadepth_scenes
 
     shutil.rmtree(root, ignore_errors=True)
     base = root / "megadepth"
-    written = {}
-    for scene in (*S2_TRAIN_SCENES, S2_VAL_SCENE):
-        written[scene] = write_megadepth_scene(base, scene, S2_VIEWS, S2_SIZE, seed=S2_SEEDS[scene],
-                                               workers=S2_WORKERS)
+    written = write_megadepth_scenes(base, {s: S2_SEEDS[s] for s in (*S2_TRAIN_SCENES, S2_VAL_SCENE)},
+                                     S2_VIEWS, S2_SIZE, workers=S2_WORKERS)
     for scene in S2_TRAIN_SCENES:
         m = np.load(base / "scene_info" / f"{scene}.npz", allow_pickle=True)["overlap_matrix"]
         counts = [int(((m > lo) & (m <= hi)).sum()) for lo, hi in ((0.1, 0.3), (0.3, 0.5), (0.5, 0.7))]
@@ -6172,6 +6200,424 @@ def phase_ddp(device_info: dict, path_e: dict | None = None, child: dict | None 
     return res
 
 
+# --------------------------------------------------------------------------
+# 26. path V: the int8 serving options and the native estimators
+# --------------------------------------------------------------------------
+
+# V1: bench's configuration with SuperPoint's `quantize: int8` and
+# LightGlue's `int8_similarity`, against the main path's bf16 forward
+V_CONF = {"extractor": {**MAIN_CONF["extractor"], "quantize": "int8"},
+          "matcher": {**MAIN_CONF["matcher"], "int8_similarity": True}}
+# a forward: 8 backbone convs and 4 heads, each a conv and a requant launch;
+# the similarity at the last layer only
+INT8_LAUNCHES = {**MAIN_LAUNCHES, "int8_conv": 12, "int8_requant": 12, "int8_bmm": 1}
+# tests/test_int8.py's bounds of the int8 path against the float one
+INT8_BOUNDS = {"score_corr": 0.99, "desc_cos_min": 0.98, "desc_cos_mean": 0.995,
+               "keypoint_overlap": 0.5, "matches_agree": 0.95}
+INT8_PEAK_OPS = 1979e12  # H100 SXM dense int8 tensor-core operations a second
+V_TIMED = 10  # timed forwards of each of the bf16 and int8 pipelines, in turns
+V_ESTIMATORS = (("hpatches", "poselib"), ("megadepth1500", "poselib"), ("megadepth1500", "two_view_native"))
+V_REDUCED = {
+    "V1": "none: bench's configuration (4 pairs of 1024^2, SuperPoint 2048 keypoints, LightGlue-9, "
+          "bf16) with quantize int8 and int8_similarity, random weights from seed 0 (the main path's)",
+    "V2": "SuperPoint alone on the main path's 8 images, s2d_block1 against the plain blocks",
+    "V3": "the eval loops alone on paths F and G's caches (40 HPatches pairs, 6 MegaDepth-1500 pairs), "
+          "not the 540 and 1500 pairs of the benchmarks",
+}
+
+
+def _v_extractors(model, dev, **confs) -> dict:
+    """SuperPoints with the pipeline extractor's weights and dense outputs,
+    one a conf overlay of `confs` (dtype key "dtype")."""
+    base = {k: v for k, v in MAIN_CONF["extractor"].items() if k != "name"}
+    out = {}
+    for label, overlay in confs.items():
+        overlay = dict(overlay)
+        dtype = overlay.pop("dtype", torch.bfloat16)
+        sp = get_model("superpoint").from_conf({**base, "dense_outputs": True, **overlay}, device=dev)
+        sp.load_state_dict(model.extractor.state_dict(), strict=True)
+        out[label] = sp.to(dtype).eval()
+    return out
+
+
+def _v_images(batch) -> torch.Tensor:
+    """The pipeline's extractor input: both views stacked (8 images)."""
+    return torch.cat([batch["view0"]["image"], batch["view1"]["image"]])
+
+
+def _v_layers(sp, images) -> dict:
+    """Each int8 layer of the dense pass at bench's shapes, kernel against
+    plain version, the kernel's output feeding the next layer: the int32
+    accumulators (the kernel's core alone) and the codes with their scale
+    (or the bf16 heads) must be equal. The plain version computes in
+    float64 on the card. Times by CUDA events, one call each."""
+    from gluefactory_tpu_torch.ops import int8_conv as I
+
+    def timed(fn):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        torch.cuda.synchronize()
+        return out, start.elapsed_time(end)
+
+    n_blocks = len(sp.conf.channels)
+    backbone = [(f"conv{i+1}{t}", t == "b" and i < n_blocks - 1) for i in range(n_blocks) for t in "ab"]
+    x8, s = I.quantize_activation(images)
+    layers, heads_in = [], None
+    for name, pool, relu, requant, src in (
+            [(n, p, True, True, None) for n, p in backbone]
+            + [("convPa", False, True, True, "trunk"), ("convPb", False, False, False, None),
+               ("convDa", False, True, True, "trunk"), ("convDb", False, False, False, None)]):
+        if src == "trunk":
+            x8, s = heads_in
+        w, b = sp._packed(name)
+        acc_k = I.conv_accumulators(x8, w)
+        acc_p = I.plain_conv_acc(x8, w.w8)
+        acc_equal = bool(torch.equal(acc_k, acc_p))
+        del acc_k, acc_p
+        out_k, ms = timed(lambda: I.int8_conv(x8, s, w, b, relu, requant, pool))
+        out_p, plain_ms = timed(lambda: I.plain_int8_conv(x8, s, w, b, relu, requant, pool))
+        rec = {"layer": name, "in": list(x8.shape), "cout": w.cout, "pool": pool, "acc_equal": acc_equal,
+               "ms": ms, "plain_ms": plain_ms}
+        if requant:
+            diff = (out_k[0].int() - out_p[0].int()).abs()
+            rec.update(codes_differ=int(diff.gt(0).sum()), max_code_diff=int(diff.max()),
+                       scale_equal=bool(torch.equal(out_k[1], out_p[1])), out=list(out_k[0].shape))
+            x8, s = out_k
+        else:
+            rec.update(bf16_differ=int((out_k != out_p).sum()),
+                       max_abs_err=float((out_k.float() - out_p.float()).abs().max()), out=list(out_k.shape))
+        if name == f"conv{n_blocks}b":
+            heads_in = (x8, s)
+        layers.append(rec)
+        del out_k, out_p
+    torch.cuda.empty_cache()
+    bad = [r for r in layers if not r["acc_equal"] or r.get("codes_differ", 0) or r.get("bf16_differ", 0)
+           or not r.get("scale_equal", True)]
+    if bad:
+        fail(f"path V1: int8 layers differ from their plain versions: {json.dumps(bad)}")
+    return {"layers": layers, "max_abs_err": max(r.get("max_code_diff", r.get("max_abs_err", 0.0)) for r in layers),
+            "ms": sum(r["ms"] for r in layers), "plain_ms": sum(r["plain_ms"] for r in layers)}
+
+
+def _v_similarity(model, batch, gen) -> dict:
+    """The int8 similarity's inputs as one forward gives them, the kernel
+    against the plain version: equal (the integer sums are exact in both,
+    the dequantization rounds in the same order)."""
+    from gluefactory_tpu_torch.models.matchers import lightglue as lg_mod
+    from gluefactory_tpu_torch.ops import int8_conv as I
+
+    seen = []
+    real = lg_mod.int8_bmm
+    lg_mod.int8_bmm = lambda *a: seen.append(a) or real(*a)
+    try:
+        with torch.no_grad():
+            model(batch, generator=gen.manual_seed(0))
+    finally:
+        lg_mod.int8_bmm = real
+    if len(seen) != 1:
+        fail(f"path V1: {len(seen)} int8 similarities in a forward, expected 1")
+    q0, q1, s0, s1, c = seen[0]
+    got, want = I.int8_bmm(q0, q1, s0, s1, c), I.plain_int8_bmm(q0, q1, s0, s1, c)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        fail(f"path V1: int8_bmm differs from its plain version by {float((got - want).abs().max())}")
+    return {"args": (q0, q1, s0, s1, c), "shape": [*q0.shape[:2], q1.shape[1], q0.shape[2]],
+            "max_abs_err": 0.0}
+
+
+def _v_agreement(model, main_model, batch, gen) -> dict:
+    """int8 against bf16 at tests/test_int8.py's bounds: the dense score
+    maps' correlation, the dense descriptors' cosine (min, mean), each
+    image's keypoint overlap (SuperPoint with and without `quantize`); the
+    matches of LightGlue with and without `int8_similarity` on the bf16
+    extractor's features."""
+    dev = torch.device(DEVICE)
+    sps = _v_extractors(model, dev, bf16={}, int8={"quantize": "int8"})
+    images = _v_images(batch)
+    with torch.no_grad():
+        a, b = (sps[k]({"image": images}, generator=gen.manual_seed(0)) for k in ("bf16", "int8"))
+        sa = a["dense_score_map"].double().flatten()
+        sb = b["dense_score_map"].double().flatten()
+        corr = float(torch.corrcoef(torch.stack([sa, sb]))[0, 1])
+        cos = (a["dense_descriptors"].double() * b["dense_descriptors"].double()).sum(-1)
+        overlap = []
+        for i in range(images.shape[0]):
+            ka, kb = (p["keypoints"][i].round().long() for p in (a, b))
+            ia, ib = ka[:, 1] * 8 * IMAGE + ka[:, 0], kb[:, 1] * 8 * IMAGE + kb[:, 0]
+            overlap.append(float(torch.isin(ia, ib).float().mean()))
+        feats = main_model(batch, generator=gen.manual_seed(0))
+        data = {**batch, **{k: v for k, v in feats.items() if not k.startswith(("matches", "matching",
+                                                                                 "log_assignment"))}}
+        m_int8 = model.matcher(data)
+        agree = float((m_int8["matches0"] == feats["matches0"]).float().mean())
+    res = {"score_corr": corr, "desc_cos_min": float(cos.min()), "desc_cos_mean": float(cos.mean()),
+           "keypoint_overlap": min(overlap), "keypoint_overlap_by_image": overlap, "matches_agree": agree,
+           "bounds": INT8_BOUNDS}
+    ok = (corr > INT8_BOUNDS["score_corr"] and res["desc_cos_min"] > INT8_BOUNDS["desc_cos_min"]
+          and res["desc_cos_mean"] > INT8_BOUNDS["desc_cos_mean"]
+          and res["keypoint_overlap"] > INT8_BOUNDS["keypoint_overlap"] and agree > INT8_BOUNDS["matches_agree"])
+    if not ok:
+        fail(f"path V1: int8 against bf16 outside tests/test_int8.py's bounds: {json.dumps(res)}")
+    del sps
+    torch.cuda.empty_cache()
+    return res
+
+
+def _v_s2d(model, batch, device_info) -> dict:
+    """V2: SuperPoint with `s2d_block1` against the plain SuperPoint in bf16,
+    held to twice the gap that bf16 rounding alone opens (plain bf16 against
+    plain f32) on the dense score map and descriptors, and at least to two
+    bf16 steps at the output's largest value (two bf16 results of sums
+    taken in another order may round one step apart each); both timed."""
+    sps = _v_extractors(model, torch.device(DEVICE), plain={}, s2d={"s2d_block1": True},
+                        f32={"dtype": torch.float32})
+    images = _v_images(batch)
+    gen = torch.Generator(device=DEVICE)
+    with torch.no_grad():
+        out = {k: sps[k]({"image": images.float() if k == "f32" else images}, generator=gen.manual_seed(0))
+               for k in sps}
+
+    def gap(a, b, key):
+        return float((out[a][key].float() - out[b][key].float()).abs().max())
+
+    res = {}
+    for key in ("dense_score_map", "dense_descriptors"):
+        rounding = gap("plain", "f32", key)
+        step = 2.0 ** (math.floor(math.log2(float(out["f32"][key].abs().max()))) - 7)
+        res[key] = {"s2d_vs_plain": gap("s2d", "plain", key), "plain_bf16_vs_f32": rounding,
+                    "bf16_step_at_max": step, "tol": max(2 * rounding, 2 * step)}
+        if not res[key]["s2d_vs_plain"] <= res[key]["tol"]:
+            fail(f"path V2: s2d_block1 against the plain SuperPoint on {key}: {json.dumps(res[key])}")
+    del out
+    with torch.no_grad():
+        ms = {k: [] for k in ("plain", "s2d")}
+        for k in ("plain", "s2d", "s2d", "plain"):
+            ms[k].append(cuda_time_ms(lambda: sps[k]({"image": images}, generator=gen.manual_seed(0)), reps=5))
+    res["ms"] = {k: min(v) for k, v in ms.items()}
+    res["ms_runs"] = ms
+    res["card"] = device_info["nvidia_smi"]
+    del sps
+    torch.cuda.empty_cache()
+    return res
+
+
+def _v_bmm_record(sim: dict) -> dict:
+    from gluefactory_tpu_torch.ops import int8_conv as I
+
+    q0, q1, s0, s1, c = sim["args"]
+    B, M, N, D = sim["shape"]
+    n_bytes = B * M * D + B * N * D + 4 * (B * M + B * N) + 4 * B * M * N
+    t_ops, t_bytes = 2.0 * B * M * N * D / INT8_PEAK_OPS * 1e3, n_bytes / PEAK_BYTES * 1e3
+    try:  # one cuBLASLt int8 product per item: the int32 sums, without the dequantization
+        library_ms = device_time_ms(lambda: [torch._int_mm(q0[b], q1[b].t()) for b in range(B)])
+        library_note = "torch._int_mm per item (int32 sums only)"
+    except RuntimeError as e:
+        library_ms, library_note = None, f"torch._int_mm refused these shapes: {str(e)[:200]}"
+    return {"name": "int8_bmm", "route": "cuda", "source": "gluefactory_tpu_torch/csrc/int8_conv.cu",
+            "replaces": "none: the XLA int8 einsum of gluefactory_tpu/models/matchers/lightglue.py:202",
+            "launches": 0, "max_abs_err": sim["max_abs_err"], "tol": 0.0,
+            "ms": device_time_ms(lambda: I.int8_bmm(q0, q1, s0, s1, c)),
+            "plain_ms": cuda_time_ms(lambda: I.plain_int8_bmm(q0, q1, s0, s1, c), reps=5),
+            "library_ms": library_ms, "library_note": library_note,
+            "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "timed_shape": sim["shape"]}
+
+
+def _v_conv_record(sp, images, layers: dict) -> dict:
+    """The int8 dense pass as one record: `ms` the 12 convs with their
+    requant passes and the input's quantization (CUDA events over 5
+    passes), `plain_ms` the plain versions' layers summed (one call each),
+    the bound from `dense_pass_work` (int8 operations at the int8 peak,
+    int8 in and out once a layer)."""
+    from gluefactory_tpu_torch.ops.int8_conv import dense_pass_work
+
+    c = sp.conf
+    work = dense_pass_work(images.shape[0], images.shape[1], images.shape[2], c.channels, c.head_channels,
+                           c.descriptor_dim)
+    ops, n_bytes = sum(w["ops"] for w in work.values()), sum(w["bytes"] for w in work.values())
+    t_ops, t_bytes = ops / INT8_PEAK_OPS * 1e3, n_bytes / PEAK_BYTES * 1e3
+    with torch.no_grad():
+        ms = cuda_time_ms(lambda: sp._int8_dense(images), reps=5)
+    return {"name": "int8_conv", "route": "cuda", "source": "gluefactory_tpu_torch/csrc/int8_conv.cu",
+            "replaces": "none: the XLA int8 conv of gluefactory_tpu/ops/int8_conv.py:52",
+            "launches": 0, "max_abs_err": layers["max_abs_err"], "tol": 0.0, "ms": ms,
+            "plain_ms": layers["plain_ms"], "library_ms": None,
+            "library_note": "none: PyTorch has no CUDA int8 conv",
+            "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "bound_detail": {"ops": ops, "bytes": n_bytes, "ops_ms": t_ops, "bytes_ms": t_bytes},
+            "timed_shape": [images.shape[0], images.shape[1], images.shape[2]],
+            "layers_ms": {r["layer"]: r["ms"] for r in layers["layers"]}}
+
+
+def _v_eval(device_info: dict) -> dict:
+    """V3: the eval loops alone (`--overwrite_eval`) on the caches paths F
+    and G exported, with `poselib` (HPatches, MegaDepth-1500) and
+    `two_view_native` (MegaDepth-1500, its RANSACs on the card): seconds, ms
+    a pair, finite AUCs, the RANSAC calls' devices."""
+    import gluefactory_tpu_torch.settings as tsettings
+    from gluefactory_tpu_torch.eval import hpatches, megadepth1500
+    from gluefactory_tpu_torch.robust_estimators.relative_pose import two_view_native
+
+    card_device = str(torch.empty(0, device=DEVICE).device)
+    out = {}
+    for bench, estimator in V_ESTIMATORS:
+        tag = f"chip_smoke_{estimator}"
+        src = Path(tsettings.EVAL_PATH, bench, "chip_smoke", "predictions.h5")
+        dst = Path(tsettings.EVAL_PATH, bench, tag, "predictions.h5")
+        dst.parent.mkdir(parents=True, exist_ok=True)
+        shutil.copyfile(src, dst)
+        if bench == "hpatches":
+            root, argv, pairs, main_fn, cls = HPATCHES_ROOT, HPATCHES_ARGV, HPATCHES_PAIRS, hpatches.main, \
+                hpatches.HPatchesPipeline
+            aucs = [f"H_error_ransac@{t}px" for t in (1, 3, 5)]
+        else:
+            root, argv, pairs, main_fn, cls = MD_ROOT, MD_ARGV, MD_PAIRS, megadepth1500.main, \
+                megadepth1500.MegaDepth1500Pipeline
+            aucs = [f"rel_pose_error@{t}°" for t in (5, 10, 20)]
+        module = two_view_native if estimator == "two_view_native" else None
+        data_path, tsettings.DATA_PATH = tsettings.DATA_PATH, root
+        try:
+            run = run_eval_cli(main_fn, cls, module, ("ransac_essential", "ransac_homography"),
+                               [*argv, f"eval.estimator={estimator}", "--tag", tag, "--overwrite_eval"])
+        finally:
+            tsettings.DATA_PATH = data_path
+        s = run["summaries"]
+        vals = {k: s.get(k) for k in aucs}
+        if not all(isinstance(v, float) and math.isfinite(v) for v in vals.values()):
+            fail(f"path V3 {bench} {estimator}: AUCs not finite: {vals}")
+        _check_launches(f"path V3 {bench} {estimator}", run["launches"], {})
+        calls = run["ransac_calls"]  # none for a pair of fewer than 8 matches
+        if any(c["devices"] != [card_device] for c in calls):
+            fail(f"path V3 {estimator}: the RANSACs ran on {[c['devices'] for c in calls]}, expected the card")
+        eval_s = run["seconds"]["run_eval"]
+        out[f"{bench}/{estimator}"] = {
+            "pairs": pairs, "eval_seconds": eval_s, "ms_per_pair": 1e3 * eval_s / pairs, "aucs": vals,
+            "summaries": s, "ransac_calls": len(calls),
+            "ransac_calls_by_name": {n: sum(c["ransac"] == n for c in calls)
+                                     for n in ("ransac_essential", "ransac_homography")},
+            "ransac_ms_per_call": float(np.mean([c["ms"] for c in calls])) if calls else None,
+            "ransac_devices": sorted({d for c in calls for d in c["devices"]})}
+        print(f"path V3 {bench} {estimator}: eval loop {eval_s:.2f} s ({1e3 * eval_s / pairs:.1f} ms a pair), "
+              f"AUCs {json.dumps(vals)}, RANSAC calls {len(calls)} on "
+              f"{out[f'{bench}/{estimator}']['ransac_devices']} ({device_info['nvidia_smi']})", flush=True)
+    return out
+
+
+def _v_two_view_on_card() -> dict:
+    """`two_view_native` at its defaults on planted pixel matches of a known
+    pose (a general scene, 512 matches, 30% outliers, 1600 x 1200 pinhole
+    cameras): the essential model chosen, R and t within MD_SYNTH's degree
+    of the truth, its two RANSACs' tensors on the card. The eval loop's
+    random-weight matches may give it no pair of 8 matches."""
+    from gluefactory_tpu_torch.eval.utils import angle_error_mat_np, angle_error_vec_np
+    from gluefactory_tpu_torch.geometry.wrappers import Camera
+    from gluefactory_tpu_torch.robust_estimators import load_estimator
+    from gluefactory_tpu_torch.robust_estimators.relative_pose import two_view_native
+    from gluefactory_tpu_torch.scripts_dev.posed_scenes import synthetic_correspondences
+
+    p0, p1, R, t, _, _ = synthetic_correspondences(np.random.default_rng(12), 512, 3e-4, 0.3)
+    cam = Camera.from_colmap({"model": "PINHOLE", "width": 1600, "height": 1200,
+                              "params": [1200.0, 1200.0, 800.0, 600.0]})
+    k0, k1 = (cam.denormalize(torch.from_numpy(p)[None])[0].numpy() for p in (p0, p1))
+    calls, planar = [], []
+    names = ("ransac_essential", "ransac_homography", "decompose_homography")
+    real = {n: getattr(two_view_native, n) for n in names}
+
+    def recorded(name):
+        def call(*args, **kw):
+            out = real[name](*args, **kw)
+            if name == "decompose_homography":
+                planar.append(True)
+            else:
+                calls.append(sorted({str(v.device) for v in out.values() if torch.is_tensor(v)}))
+            return out
+        return call
+
+    for n in names:
+        setattr(two_view_native, n, recorded(n))
+    try:
+        est = load_estimator("relative_pose", "two_view_native")({"ransac_th": 1.0, "device": DEVICE})
+        out = est({"m_kpts0": k0, "m_kpts1": k1, "camera0": cam, "camera1": cam})
+    finally:
+        for n, fn in real.items():
+            setattr(two_view_native, n, fn)
+    card = [str(torch.empty(0, device=DEVICE).device)]
+    res = {"matches": len(k0), "success": bool(out["success"]), "planar": bool(planar),
+           "ransac_devices": calls, "inliers": int(out["inliers"].sum()),
+           "R_err_deg": float(angle_error_mat_np(out["M_0to1"].R.double().numpy(), R)),
+           "t_err_deg": float(angle_error_vec_np(out["M_0to1"].t.double().numpy(), t))}
+    if not (res["success"] and not planar and calls == [card, card]
+            and max(res["R_err_deg"], res["t_err_deg"]) <= MD_SYNTH["truth_deg"]):
+        fail(f"path V3: two_view_native on planted matches: {res}")
+    return res
+
+
+def phase_int8(device_info: dict, batch: dict) -> dict:
+    """Path V: V1 bench's configuration with `quantize: int8` and
+    `int8_similarity` driven through the pipeline (exact launches, outputs
+    checked), timed in turns with the bf16 main path and profiled; each
+    int8 layer and the similarity against their plain versions; int8
+    against bf16 at tests/test_int8.py's bounds. V2 `s2d_block1`. V3 the
+    native estimators' eval loops. Returns the path's record with the
+    `int8_conv` and `int8_bmm` kernel records."""
+    card = device_info["nvidia_smi"]
+    print(f"path V reduced: {json.dumps(V_REDUCED)}", flush=True)
+    t0 = time.perf_counter()
+    dev = torch.device(DEVICE)
+    model, main_model = build_pipeline(dev, V_CONF), build_pipeline(dev, MAIN_CONF)
+    for k, v in main_model.state_dict().items():
+        if not torch.equal(v, model.state_dict()[k]):
+            fail(f"path V1: the int8 pipeline's {k} differs from the main path's")
+    gen = torch.Generator(device=dev)
+    forward = pipeline_forward(model, batch, gen)
+    res, _ = drive_path("path V1 (int8)", forward, INT8_LAUNCHES, device_info)
+    main_forward = pipeline_forward(main_model, batch, torch.Generator(device=dev))
+    with torch.no_grad():
+        turns = {"bf16": [], "int8": []}
+        for k in ("bf16", "int8", "int8", "bf16"):
+            turns[k].append(cuda_time_ms(main_forward if k == "bf16" else forward, reps=V_TIMED))
+    ms = {k: min(v) for k, v in turns.items()}
+    res["vs_main"] = {"ms_per_forward": ms, "runs_ms": turns,
+                      "pairs_per_s": {k: PAIRS * 1e3 / v for k, v in ms.items()},
+                      "int8_over_bf16": ms["bf16"] / ms["int8"], "card": card}
+    print(f"path V1: int8 {PAIRS * 1e3 / ms['int8']:.2f} pairs/s against bf16 {PAIRS * 1e3 / ms['bf16']:.2f} "
+          f"in turns ({card})", flush=True)
+    res["profile"] = profile_forward(forward)
+    dms = res["profile"]["device_ms"]
+    res["busy_share"] = None if dms is None else dms / ms["int8"]
+    print(f"path V1 top device items: {json.dumps(res['profile']['top'][:8])}", flush=True)
+    images = _v_images(batch)
+    layers = _v_layers(model.extractor, images)
+    res["layers"] = layers["layers"]
+    print(f"path V1 layers, kernel against plain: accumulators, codes and bf16 heads equal; "
+          f"{json.dumps([{k: r[k] for k in ('layer', 'ms', 'plain_ms')} for r in layers['layers']])}",
+          flush=True)
+    sim = _v_similarity(model, batch, gen)
+    res["agreement"] = _v_agreement(model, main_model, batch, gen)
+    print(f"path V1 int8 against bf16: {json.dumps(res['agreement'])}", flush=True)
+    kernels = [_v_conv_record(model.extractor, images, layers), _v_bmm_record(sim)]
+    for k in kernels:
+        k["launches"] = res["launches"][k["name"]]
+        print(f"kernel {k['name']}: {k['ms']:.3f} ms (plain {k['plain_ms']:.3f}, library {k['library_ms']}, "
+              f"bound {k['bound_ms']:.4f} {k['bound_by']}), {k['launches']} launches on path V1 ({card})",
+              flush=True)
+    del sim
+    res["s2d"] = _v_s2d(model, batch, device_info)
+    print(f"path V2 s2d_block1: {json.dumps(res['s2d'])}", flush=True)
+    del model, main_model
+    torch.cuda.empty_cache()
+    res["eval"] = _v_eval(device_info)
+    res["two_view_planted"] = _v_two_view_on_card()
+    print(f"path V3 two_view_native on planted matches: {json.dumps(res['two_view_planted'])}", flush=True)
+    res["kernels"] = kernels
+    res["reduced"] = V_REDUCED
+    res["seconds"] = time.perf_counter() - t0
+    res["card"] = card
+    return res
+
+
 def main() -> None:
     t0 = time.perf_counter()
     seconds = {}
@@ -6221,6 +6667,8 @@ def main() -> None:
         path_u = timed("path_u", phase_ddp, device_info, path_e, u_child)
     finally:
         stop_ddp_child(u_child)
+    path_v = timed("path_v", phase_int8, device_info, batch)
+    kernels += path_v["kernels"]  # launches from path V1's run
     kernels += timed("conv_study", phase_conv_study, device_info)  # launches from the tools' runs
     OUT_DIR.mkdir(exist_ok=True)
     record = {"device": device_info, "build": build, "kernels": kernels, "gradients": gradients,
@@ -6232,7 +6680,7 @@ def main() -> None:
               "path_l_lines": path_l, "path_m_gluestick_training": path_m, "path_n_zoo": path_n,
               "path_o_sift": path_o, "path_p_loftr": path_p, "path_q_roma": path_q,
               "path_r_device_augment": path_r, "path_s_keynet": path_s, "path_t_deeplsd": path_t,
-              "path_u_ddp": path_u,
+              "path_u_ddp": path_u, "path_v_int8": {k: v for k, v in path_v.items() if k != "kernels"},
               "seconds_by_phase": seconds,
               "seconds": time.perf_counter() - t0}
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(record, indent=1))

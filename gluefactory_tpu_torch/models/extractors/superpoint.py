@@ -40,6 +40,19 @@ hand-written CUDA kernels on the card:
     under the test hook `cuda_detect.FORCE_FUSED`. The fused decode keeps
     one of two equal survivors in a 4x4 tile where the non-fused one may
     keep both, so where it runs decides the keypoints.
+
+Two serving options of the JAX package, vanilla variant only (`open`
+raises, as with `fused_backbone`; the JAX package quietly ignores them):
+  - `quantize: "int8"` (inference only: under `train` the float path
+    runs): the whole dense pass, the 8 backbone convs with their pools in
+    the int8 domain and both heads, as `ops/int8_conv.py::int8_conv`
+    (per-channel weights, one dynamic activation scale over the batch),
+    through `csrc/int8_conv.cu` on the card, 12 conv launches and 12
+    requant launches a forward; the 1x1 heads return bf16 as in JAX. It
+    takes precedence over `fused_backbone`;
+  - `s2d_block1`: block 1 at half resolution by space-to-depth
+    (`ops/s2d_conv.py`) when H and W are even; the other blocks keep their
+    route (plain or `fused_backbone`).
 """
 
 from __future__ import annotations
@@ -52,8 +65,10 @@ from ...ops.batch_norm import batch_norm
 from ...ops.cuda_conv import fused_vgg_block, vgg_kernel_available
 from ...ops.cuda_detect import detect_keypoints, fused_detect_available
 from ...ops.grid_sample import sample_descriptors
+from ...ops.int8_conv import int8_conv, pack_weight, quantize_activation
 from ...ops.nms import (mask_outside, remove_borders, simple_nms, soft_argmax_refinement,
                         top_k_keypoints)
+from ...ops.s2d_conv import vgg_block1_s2d
 from ...utils.distributed import batch_rand
 from ..base_model import BaseModel
 
@@ -149,10 +164,14 @@ class SuperPoint(BaseModel):
         "head_channels": 256,
         "fused_detect": False,  # the decode through csrc/nms_tile_reduce.cu
         "fused_backbone": False,  # the VGG blocks through csrc/vgg_block.cu
+        "s2d_block1": False,  # block 1 by space-to-depth (ops/s2d_conv.py)
+        "quantize": None,  # None | "int8": the dense pass through csrc/int8_conv.cu
     }
     required_data_keys = ["image"]
 
     def _init(self, conf):
+        if conf.quantize not in (None, "int8"):
+            raise ValueError(f"SuperPoint quantize must be None or 'int8', got {conf.quantize!r}")
         if conf.variant == "open":
             self._init_open(conf)
             return
@@ -168,11 +187,15 @@ class SuperPoint(BaseModel):
         self.convDa = nn.Conv2d(c, conf.head_channels, 3, padding=1)
         self.convDb = nn.Conv2d(conf.head_channels, conf.descriptor_dim, 1)
         self._kernel_weights: dict = {}  # `_hwio`'s copies, by conv name
+        self._int8_weights: dict = {}  # `_packed`'s quantized weights, by conv name
 
     def _init_open(self, conf):
         if conf.fused_backbone:
             raise ValueError("fused_backbone takes the vanilla variant only: the VGG block kernel "
                              "has no BatchNorm")
+        if conf.quantize or conf.s2d_block1:
+            raise ValueError("quantize and s2d_block1 take the vanilla variant only: the open "
+                             "variant's BatchNorm sits between the convs")
         chans = [1, *conf.channels]
         self.backbone = nn.ModuleList(
             nn.ModuleList([OpenVGGBlock(chans[i], chans[i + 1]), OpenVGGBlock(chans[i + 1], chans[i + 1])])
@@ -209,12 +232,18 @@ class SuperPoint(BaseModel):
         if self.conf.variant == "open":
             logits, dense_desc = self._open_dense(x, train)
             return self._decode(data, image, logits, dense_desc, generator, train)
+        if self.conf.quantize == "int8" and not train:
+            logits, dense_desc = self._int8_dense(image)
+            return self._decode(data, image, logits, dense_desc, generator, train)
         relu = torch.relu
+        n_blocks = len(self.conf.channels)
+        s2d = bool(self.conf.s2d_block1 and n_blocks > 1 and x.shape[2] % 2 == 0
+                   and x.shape[3] % 2 == 0)
         if self.conf.fused_backbone:
-            x = self._fused_backbone(x)
+            x = self._fused_backbone(x, s2d)
         else:
-            for i in range(len(self.conf.channels)):
-                x = self._plain_block(x, i)
+            for i in range(n_blocks):
+                x = self._s2d_block1(x) if i == 0 and s2d else self._plain_block(x, i)
         logits = self.convPb(relu(self.convPa(x)))  # (B, 65, Hc, Wc)
         dense_desc = self.convDb(relu(self.convDa(x)))  # (B, D, Hc, Wc)
         return self._decode(data, image, logits, dense_desc, generator, train)
@@ -228,6 +257,43 @@ class SuperPoint(BaseModel):
         if i < len(self.conf.channels) - 1:
             x = nn.functional.max_pool2d(x, 2, 2)
         return x
+
+    def _s2d_block1(self, x: torch.Tensor) -> torch.Tensor:
+        """Block 1 by space-to-depth (`ops/s2d_conv.py`), NCHW in and out."""
+        a, b = self.conv1a, self.conv1b
+        out = vgg_block1_s2d(x.permute(0, 2, 3, 1), a.weight.permute(2, 3, 1, 0), a.bias,
+                             b.weight.permute(2, 3, 1, 0), b.bias)
+        return out.permute(0, 3, 1, 2)
+
+    def _packed(self, name: str):
+        """Conv `name`'s weight quantized and packed for `int8_conv`, kept
+        until the weight changes (in place, moved or cast), and its bias."""
+        conv = getattr(self, name)
+        w = conv.weight
+        key = (w.data_ptr(), w._version, w.dtype, w.device)
+        hit = self._int8_weights.get(name)
+        if hit is None or hit[0] != key:
+            hit = (key, pack_weight(w.detach().permute(2, 3, 1, 0)))
+            self._int8_weights[name] = hit
+        return hit[1], conv.bias.detach()
+
+    def _int8_dense(self, image: torch.Tensor):
+        """The dense pass (backbone and both heads) in int8 on image (B, H, W,
+        1): the JAX package's `_int8_dense`, each pool fused into the conv
+        before it. Returns (logits (B, 65, Hc, Wc), raw dense descriptors
+        (B, D, Hc, Wc)), both bf16."""
+        x8, s = quantize_activation(image)
+        n_blocks = len(self.conf.channels)
+        for i in range(n_blocks):
+            for tag in "ab":
+                pool = tag == "b" and i < n_blocks - 1
+                x8, s = int8_conv(x8, s, *self._packed(f"conv{i+1}{tag}"), pool=pool)
+        heads = []
+        for name in "PD":
+            h8, sh = int8_conv(x8, s, *self._packed(f"conv{name}a"))
+            out = int8_conv(h8, sh, *self._packed(f"conv{name}b"), relu=False, requant=False)
+            heads.append(out.permute(0, 3, 1, 2))
+        return heads[0], heads[1]
 
     def _hwio(self, name: str):
         """Conv `name`'s weight as a contiguous HWIO copy, the layout the
@@ -245,17 +311,21 @@ class SuperPoint(BaseModel):
             self._kernel_weights[name] = hit
         return hit[1], conv.bias
 
-    def _fused_backbone(self, x: torch.Tensor) -> torch.Tensor:
+    def _fused_backbone(self, x: torch.Tensor, s2d: bool = False) -> torch.Tensor:
         """The VGG blocks through `fused_vgg_block`, NHWC inside: conv1a as
         an `nn.Conv2d` (channels-last, so its output is NHWC without a
         copy), conv1b + pool as the single-conv variant, blocks 2-4 as the
         two-conv variant, block 4 without pool. A block whose shape the
         kernel does not take (`vgg_kernel_available`) runs `_plain_block`,
-        as the JAX package sends it to XLA. NCHW view out."""
-        x = torch.relu(self.conv1a(x.contiguous(memory_format=torch.channels_last)))
+        as the JAX package sends it to XLA. With `s2d`, block 1 runs
+        `_s2d_block1` instead. NCHW view out."""
+        if s2d:
+            x = self._s2d_block1(x).contiguous(memory_format=torch.channels_last)
+        else:
+            x = torch.relu(self.conv1a(x.contiguous(memory_format=torch.channels_last)))
         x = x.permute(0, 2, 3, 1)
         n_blocks = len(self.conf.channels)
-        for i in range(n_blocks):
+        for i in range(1 if s2d else 0, n_blocks):
             pool = i < n_blocks - 1
             H, W, c_in = x.shape[1:]
             c_mid = getattr(self, f"conv{i+1}a").out_channels

@@ -30,6 +30,12 @@ Training (`train=True`): no pruning, every layer's descriptors stacked as
 `checkpointed` each TransformerLayer under `torch.utils.checkpoint`
 (non-reentrant) while autograd records: its activations are recomputed in
 the backward, the attention kernels included.
+
+`int8_similarity` (the JAX package's int8 assignment head): each token's
+unscaled `final_proj` output quantized per token in f32, the similarity
+as an int8 product with int32 sums, dequantized by the outer product of
+the row scales times scale^2 (`ops/int8_conv.py::int8_bmm`, through
+`csrc/int8_conv.cu` on the card). The serving path takes the same head.
 """
 
 from __future__ import annotations
@@ -40,6 +46,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
+
+from ...ops.int8_conv import int8_bmm, quantize_rows
 
 from ...ops.assignment import filter_matches, sigmoid_log_double_softmax
 from ...ops.attention import apply_rotary, bidirectional_attention, mha
@@ -169,18 +177,24 @@ class TransformerLayer(nn.Module):
 
 
 class MatchAssignment(nn.Module):
-    def __init__(self, dim: int):
+    def __init__(self, dim: int, int8_sim: bool = False):
         super().__init__()
         self.dim = dim
+        self.int8_sim = int8_sim
         self.matchability = nn.Linear(dim, 1)
         self.final_proj = nn.Linear(dim, dim)
 
     def forward(self, desc0, desc1, mask0=None, mask1=None):
         scale = 1.0 / self.dim**0.25
-        mdesc0 = self.final_proj(desc0) * scale
-        mdesc1 = self.final_proj(desc1) * scale
-        # similarity in f32 (the products of bf16 values are exact in f32)
-        sim = torch.einsum("bmd,bnd->bmn", mdesc0.float(), mdesc1.float())
+        if self.int8_sim:
+            q0, s0 = quantize_rows(self.final_proj(desc0))
+            q1, s1 = quantize_rows(self.final_proj(desc1))
+            sim = int8_bmm(q0, q1, s0, s1, scale * scale)
+        else:
+            mdesc0 = self.final_proj(desc0) * scale
+            mdesc1 = self.final_proj(desc1) * scale
+            # similarity in f32 (the products of bf16 values are exact in f32)
+            sim = torch.einsum("bmd,bnd->bmn", mdesc0.float(), mdesc1.float())
         z0 = self.matchability(desc0).squeeze(-1).float()
         z1 = self.matchability(desc1).squeeze(-1).float()
         scores = sigmoid_log_double_softmax(sim, z0, z1, mask0, mask1)
@@ -247,15 +261,14 @@ class LightGlue(BaseModel):
     required_data_keys = ["keypoints0", "keypoints1", "descriptors0", "descriptors1"]
 
     def _init(self, conf):
-        if conf.int8_similarity:
-            raise NotImplementedError("int8_similarity is not ported yet")
         d = conf.descriptor_dim
         self.input_proj = nn.Linear(conf.input_dim, d)
         self.posenc = LearnableFourierPosEnc(2 + 2 * bool(conf.add_scale_ori), d // conf.num_heads)
         self.transformers = nn.ModuleList(
             [TransformerLayer(d, conf.num_heads, bool(conf.flash)) for _ in range(conf.n_layers)]
         )
-        self.log_assignment = nn.ModuleList([MatchAssignment(d) for _ in range(conf.n_layers)])
+        self.log_assignment = nn.ModuleList(
+            [MatchAssignment(d, bool(conf.int8_similarity)) for _ in range(conf.n_layers)])
         self.token_confidence = nn.ModuleList([TokenConfidence(d) for _ in range(conf.n_layers - 1)])
         self.register_load_state_dict_pre_hook(_identity_input_proj)
 

@@ -8,12 +8,13 @@ its sources and flags: an edited source rebuilds, an unchanged one loads the
 library already built. `build_all` starts one nvcc per source, all at once.
 A build that fails raises with nvcc's output; nothing falls back.
 
-Host code (`HOST_SOURCES`: the LSD line detector and the probabilistic
-Hough) is C++17 built by the host compiler (`$CXX`, else `c++`) into the
-same directory under the same hash-named scheme (`build_host`,
-`load_host`). Its flags keep the arithmetic as written (`-ffp-contract=off`:
-no fused multiply-adds the source does not ask for, no -ffast-math, no
--march=native), so a library gives the same results on every host. Several processes may build one library at once
+Host code (`HOST_SOURCES`: the LSD line detector, the probabilistic
+Hough and the LO-RANSAC estimators) is C++17 built by the host compiler
+(`$CXX`, else `c++`) into the same directory under the same hash-named
+scheme (`build_host`, `load_host`). Its flags keep the arithmetic as
+written (`-ffp-contract=off`: no fused multiply-adds the source does not
+ask for, no -ffast-math, no -march=native), so a library gives the same
+results on every host. Several processes may build one library at once
 (pytest-xdist workers): the build runs under a file lock and lands by
 `os.replace` of a private temporary file.
 """
@@ -50,9 +51,10 @@ SOURCES = {
     "fused_vgg_block": "vgg_block.cu",
     "stream_conv3x3": "conv3x3_stream.cu",
     "npack_conv3x3": "conv3x3_npack.cu",
+    "int8_conv": "int8_conv.cu",
 }
 HOST_FLAGS = ["-O2", "-std=c++17", "-shared", "-fPIC", "-ffp-contract=off"]
-HOST_SOURCES = {"lsd": "lsd.cpp", "hough": "hough.cpp"}
+HOST_SOURCES = {"lsd": "lsd.cpp", "hough": "hough.cpp", "fastransac": "fastransac.cpp"}
 MAX_SHARED_BYTES = 232448  # opt-in shared memory per block on the H100 (227 KiB)
 
 _libs: dict[str, ctypes.CDLL] = {}

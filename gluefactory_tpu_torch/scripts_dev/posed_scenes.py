@@ -14,7 +14,8 @@ posed-images layout (`<root>/<scene>/images/*.jpg`, `depths/*.png` as
 `write_megadepth_scene(root, scene, ...)` writes MegaDepth's D2-Net layout
 for training (`Undistorted_SfM/<scene>/images/*.jpg`,
 `depth_undistorted/<scene>/*.h5` through `utils/hdf5_write.py`,
-`scene_info/<scene>.npz` with the overlap matrix of the geometry);
+`scene_info/<scene>.npz` with the overlap matrix of the geometry;
+`write_megadepth_scenes` several at once, one pool rendering all views);
 `write_eth3d_scene(root, scene, ...)` writes ETH3D's undistorted DSLR
 layout (`images/dslr_images_undistorted/*.JPG` at the DSLR size,
 `ground_truth_depth/undistorted_depth/*.png` at the downsized size, COLMAP
@@ -319,16 +320,8 @@ def _write_md_view(args) -> tuple:
     return hashlib.sha256(depth.tobytes()).hexdigest(), depth
 
 
-def write_megadepth_scene(root: Path, scene: str, n_views: int = 12, size=(1600, 1200),
-                          seed: int = 0, workers: int = 1) -> dict:
-    """One scene in MegaDepth's D2-Net layout under `root`: the views'
-    JPEGs, their depths as HDF5 (`/depth`, float32, 0 where no plane is
-    hit) and `scene_info/<scene>.npz` (`image_paths` and `depth_paths`
-    relative to `root` as object arrays, world-to-camera `poses` (n, 4, 4),
-    `intrinsics` (n, 3, 3), `overlap_matrix` (`overlap_matrix`)). Views are
-    rendered by `workers` processes. Returns the image paths and the
-    SHA-256 of each depth array written."""
-    root = Path(root)
+def _md_scene_plan(root: Path, scene: str, n_views: int, size, seed: int):
+    """A MegaDepth scene's directories, cameras, view names and render jobs."""
     img_dir = root / "Undistorted_SfM" / scene / "images"
     depth_dir = root / "depth_undistorted" / scene
     img_dir.mkdir(parents=True, exist_ok=True)
@@ -338,16 +331,23 @@ def write_megadepth_scene(root: Path, scene: str, n_views: int = 12, size=(1600,
     names = [f"{scene}_im{i:02d}" for i in range(n_views)]
     jobs = [(seed, cam, R, t, img_dir / f"{n}.jpg", depth_dir / f"{n}.h5")
             for n, (cam, R, t) in zip(names, cameras)]
-    if workers > 1:
-        # one torch thread a child, as in a DataLoader's workers: a child
-        # forked after torch's OpenMP pool ran hangs in its first parallel
-        # region otherwise
-        fork = multiprocessing.get_context("fork")
-        with ProcessPoolExecutor(min(workers, n_views), mp_context=fork,
-                                 initializer=torch.set_num_threads, initargs=(1,)) as pool:
-            written = list(pool.map(_write_md_view, jobs))
-    else:
-        written = [_write_md_view(job) for job in jobs]
+    return cameras, names, jobs
+
+
+def _render_md_views(jobs: list, workers: int) -> list:
+    """`_write_md_view` of each job, by `workers` processes."""
+    if workers <= 1:
+        return [_write_md_view(job) for job in jobs]
+    # one torch thread a child, as in a DataLoader's workers: a child forked
+    # after torch's OpenMP pool ran hangs in its first parallel region
+    # otherwise
+    fork = multiprocessing.get_context("fork")
+    with ProcessPoolExecutor(min(workers, len(jobs)), mp_context=fork,
+                             initializer=torch.set_num_threads, initargs=(1,)) as pool:
+        return list(pool.map(_write_md_view, jobs))
+
+
+def _md_scene_finish(root: Path, scene: str, cameras, names, written) -> dict:
     poses = np.stack([np.concatenate([np.concatenate([R, t[:, None]], 1), [[0, 0, 0, 1]]])
                       for _, R, t in cameras])
     image_paths = [f"Undistorted_SfM/{scene}/images/{n}.jpg" for n in names]
@@ -357,6 +357,32 @@ def write_megadepth_scene(root: Path, scene: str, n_views: int = 12, size=(1600,
              poses=poses, intrinsics=np.stack([_K(cam) for cam, _, _ in cameras]),
              overlap_matrix=overlap_matrix(cameras, [d for _, d in written]))
     return {"image_paths": image_paths, "depth_sha256": [h for h, _ in written]}
+
+
+def write_megadepth_scene(root: Path, scene: str, n_views: int = 12, size=(1600, 1200),
+                          seed: int = 0, workers: int = 1) -> dict:
+    """One scene in MegaDepth's D2-Net layout under `root`: the views'
+    JPEGs, their depths as HDF5 (`/depth`, float32, 0 where no plane is
+    hit) and `scene_info/<scene>.npz` (`image_paths` and `depth_paths`
+    relative to `root` as object arrays, world-to-camera `poses` (n, 4, 4),
+    `intrinsics` (n, 3, 3), `overlap_matrix` (`overlap_matrix`)). Views are
+    rendered by `workers` processes. Returns the image paths and the
+    SHA-256 of each depth array written."""
+    return write_megadepth_scenes(root, {scene: seed}, n_views, size, workers)[scene]
+
+
+def write_megadepth_scenes(root: Path, seeds: dict, n_views: int = 12, size=(1600, 1200),
+                           workers: int = 1) -> dict:
+    """`write_megadepth_scene` for each scene of `seeds` (scene -> seed),
+    every scene's views rendered by one pool of `workers` processes, so that
+    no worker waits for a scene's last views. Returns each scene's record."""
+    root = Path(root)
+    plans = {scene: _md_scene_plan(root, scene, n_views, size, seed) for scene, seed in seeds.items()}
+    written = _render_md_views([job for _, _, jobs in plans.values() for job in jobs], workers)
+    out = {}
+    for k, (scene, (cameras, names, _)) in enumerate(plans.items()):
+        out[scene] = _md_scene_finish(root, scene, cameras, names, written[k * n_views:(k + 1) * n_views])
+    return out
 
 
 def rotmat2qvec(R: np.ndarray) -> np.ndarray:

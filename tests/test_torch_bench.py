@@ -43,9 +43,17 @@ def test_attention_flops_are_counted_by_hand():
 
 @pytest.mark.parametrize("name", ["QUANTIZE", "INT8_SIM"])
 def test_unported_options_raise(monkeypatch, name):
+    """The int8 switches once raised (not ported); now each runs its int8
+    path (the kernels' plain versions on the CPU), names it in the metric
+    and counts its int8 products in `gflops_per_pair`."""
     monkeypatch.setattr(bench_torch, name, "int8" if name == "QUANTIZE" else "1")
-    with pytest.raises(NotImplementedError):
-        bench_torch.main(device="cpu", batch=1, image_size=64, keypoints=32, iters=1)
+    line = bench_torch.main(device="cpu", batch=1, image_size=64, keypoints=32, iters=1)
+    assert ("int8 extract" if name == "QUANTIZE" else "int8 similarity") in line["metric"]
+    conf = bench_torch.pipeline_conf(32, bench_torch.QUANTIZE, bench_torch.INT8_SIM)
+    assert (conf["extractor"]["quantize"] == "int8") == (name == "QUANTIZE")
+    assert conf["matcher"]["int8_similarity"] == (name == "INT8_SIM")
+    model = bench_torch.get_model("two_view_pipeline").from_conf(conf, device="cpu")
+    assert bench_torch.int8_ops(1, 64, 32, model) > 0
 
 
 def test_forced_exit_biases_as_bench_py():

@@ -1229,3 +1229,59 @@ def test_superpoint_open_fused_detect_against_plain_decode(dev):
     assert torch.equal(a["keypoints"], b["keypoints"])
     assert (a["keypoint_scores"] - b["keypoint_scores"]).abs().max() <= 1e-6
     assert (a["descriptors"] - b["descriptors"]).abs().max() <= 1e-5
+
+
+# (B, H, W, cin, cout, k, relu, requant, pool): SuperPoint's layers (cin 1,
+# 64 -> 64 pooled, 128 -> 256, the 1x1 heads to 65 and 256), odd sizes and
+# a row strip across blocks
+INT8_LAYERS = [(2, 37, 53, 1, 64, 3, True, True, False), (2, 37, 53, 64, 64, 3, True, True, True),
+               (1, 130, 200, 64, 128, 3, True, True, True), (2, 16, 20, 128, 256, 3, True, True, False),
+               (2, 16, 20, 256, 65, 1, False, False, False), (2, 16, 20, 256, 256, 1, False, False, False),
+               (1, 9, 7, 24, 40, 3, True, True, True)]
+
+
+@pytest.mark.parametrize("layer", INT8_LAYERS)
+def test_int8_conv_matches_plain(dev, layer):
+    """The int32 accumulators equal; the int8 codes, their scale and the
+    bf16 outputs equal (the epilogue rounds as the plain version does)."""
+    from gluefactory_tpu_torch.ops import int8_conv as I
+
+    B, H, W, cin, cout, k, relu, requant, pool = layer
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x8, s = I.quantize_activation(torch.randn(B, H, W, cin, generator=gen, device=dev) * 2)
+    w = I.pack_weight(torch.randn(k, k, cin, cout, generator=gen, device=dev) * 0.1)
+    b = torch.randn(cout, generator=gen, device=dev) * 0.1
+    assert torch.equal(I.conv_accumulators(x8, w), I.plain_conv_acc(x8, w.w8))
+    got = I.int8_conv(x8, s, w, b, relu, requant, pool)
+    want = I.plain_int8_conv(x8, s, w, b, relu, requant, pool)
+    torch.cuda.synchronize()
+    if requant:
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    else:
+        assert got.dtype == torch.bfloat16 and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("B,M,N,D", [(2, 300, 517, 256), (1, 5, 3, 32), (3, 129, 64, 48), (4, 2048, 2048, 256)])
+def test_int8_bmm_matches_plain(dev, B, M, N, D):
+    """Bit-equal: the integer sums are exact in both, the dequantization
+    rounds in the same order."""
+    from gluefactory_tpu_torch.ops import int8_conv as I
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    q0, s0 = I.quantize_rows(torch.randn(B, M, D, generator=gen, device=dev))
+    q1, s1 = I.quantize_rows(torch.randn(B, N, D, generator=gen, device=dev))
+    got = I.int8_bmm(q0, q1, s0, s1, 1 / 16)
+    torch.cuda.synchronize()
+    assert torch.equal(got, I.plain_int8_bmm(q0, q1, s0, s1, 1 / 16))
+
+
+def test_int8_launches_are_counted(dev):
+    from gluefactory_tpu_torch.ops import int8_conv as I
+
+    I.reset_launches()
+    x8 = torch.zeros(1, 8, 8, 16, dtype=torch.int8, device=dev)
+    w = I.pack_weight(torch.ones(3, 3, 16, 8, device=dev))
+    I.int8_conv(x8, torch.tensor(1.0, device=dev), w, None)
+    q = torch.zeros(1, 4, 16, dtype=torch.int8, device=dev)
+    I.int8_bmm(q, q, torch.ones(1, 4, device=dev), torch.ones(1, 4, device=dev), 1.0)
+    assert I.launches == {"int8_conv": 1, "int8_requant": 1, "int8_bmm": 1}

@@ -438,10 +438,12 @@ def test_gluestick_training_configs_match_jax(name):
         sub = {k: v for k, v in conf["model"][comp].items() if k != "name"}
         want = jax_get_model(conf["model"][comp]["name"]).from_conf(sub).conf.to_dict()
         got = get_model(conf["model"][comp]["name"]).resolve_conf(sub).to_dict()
-        if comp == "extractor":  # SuperPoint's int8 serving options are not ported
-            for c in (want, got):
-                c["point_extractor"] = {k: v for k, v in c["point_extractor"].items()
-                                        if k not in ("quantize", "s2d_block1")}
+        if comp == "extractor":  # the point extractor merged with SuperPoint's
+            # defaults: the int8 serving options are the port's keys too
+            pe = {k: v for k, v in got["point_extractor"].items() if k != "name"}
+            pe_got = get_model("superpoint").resolve_conf(pe).to_dict()
+            assert pe_got == jax_get_model("superpoint").from_conf(pe).conf.to_dict()
+            assert {"quantize", "s2d_block1"} <= set(pe_got)
         assert got == want, comp
     data_name = conf["data"]["name"]
     jax_default = jax_get_dataset(data_name).default_conf["detect_lines"]

@@ -22,8 +22,9 @@ CONFIGS = [f"{e}+{m}" for e in ("aliked", "disk")
 CONFIGS += [f"superpoint-open+{m}" for m in ("NN", "lightglue_homography", "lightglue_megadepth")]
 CONFIGS += [f"sift+{m}" for m in ("NN", "lightglue-official", "lightglue_homography", "lightglue_megadepth")]
 CONFIGS += ["loftr"]
-# the JAX SuperPoint's int8 / space-to-depth serving options, not ported
-NOT_PORTED = ("quantize", "s2d_block1")
+# the JAX SuperPoint's int8 / space-to-depth serving options: the port's
+# SuperPoint (and SuperPoint-open, its subclass) carries them too
+SERVING_KEYS = ("quantize", "s2d_block1")
 DESC_DIM = {"aliked": 128, "disk": 128, "superpoint_open": 256, "sift": 128}
 
 
@@ -54,9 +55,10 @@ def test_config_resolves_by_name_and_runs(name):
     comp = "extractor" if conf.model.get("extractor") else "matcher"
     sub_conf = conf.model[comp]
     sub = {k: v for k, v in sub_conf.to_dict().items() if k != "name"}
-    want = {k: v for k, v in jax_get_model(sub_conf.name).from_conf(sub).conf.to_dict().items()
-            if k not in NOT_PORTED}
-    assert get_model(sub_conf.name).resolve_conf(sub).to_dict() == want
+    want = jax_get_model(sub_conf.name).from_conf(sub).conf.to_dict()
+    got = get_model(sub_conf.name).resolve_conf(sub).to_dict()
+    assert got == want
+    assert all(k in got for k in SERVING_KEYS) == sub_conf.name.startswith("superpoint")
     # 64 slots: keypoints, or LoFTR's matches (its 8 x 12 coarse cells here hold fewer than 2048)
     cut = {comp: {"max_num_keypoints" if comp == "extractor" else "max_num_matches": 64}}
     sections = [conf] + [extract_benchmark_conf(conf, b) for b in conf.get("benchmarks", {})]
