@@ -213,8 +213,8 @@ Phases, in order; any failure exits non-zero before the last line:
    stage-1 step through the kernel against the plain versions (gradients
    and statistics), the kernel at (32, 4, 1500, 64) with a batch's node
    mask forward and under autograd; then ms / device ms a step, busy
-   share, samples/s and peak memory of both stages, the loaders with and
-   without lines and the LSD's ms an image in the workers, and the
+   share, samples/s and peak memory of both stages, the loaders with
+   lines and the LSD's ms an image in the workers, and the
    attention's forward and forward + backward against its bound, the
    plain version and SDPA. Path M alone: `phase_device`, `phase_build`,
    `write_stage2_data(S2_ROOT)`, `phase_gluestick_training`;
@@ -360,7 +360,23 @@ Phases, in order; any failure exits non-zero before the last line:
    (30% outliers): the essential model, R and t within 1 degree, both
    RANSACs on the card. Path V alone needs paths F and G's caches: `phase_device`,
    `phase_build`, `phase_hpatches`, `phase_megadepth`, then `phase_int8`
-   with `make_batch(torch.device("cuda"))` (`build/path_v.py` when present).
+   with `make_batch(torch.device("cuda"))` (`build/path_v.py` when present);
+27. path W, plotting and inspection (after path V, before phase 8): W1 the
+   trainer's figure hook (`train.plot_hook`) with path E's best checkpoint
+   on a batch of 4 of path E's items on the card, the figure function
+   resolved from the shipped config's `train.plot` (`train.resolve_plot`)
+   and a recording writer: the train-mode forward on the card (9 + 9
+   attention launches), every parameter and buffer, a trainer's generator
+   and torch's global generators bit-equal before and after; the numpy
+   part of `make_match_figures` (`match_data`, with the homography GT of
+   the forward's keypoints) finite for each of its pairs, with the counts
+   of matches and correct ones; and either the ImportError warning logged
+   (no matplotlib on the host) or `n_pairs` figures written. W2
+   `eval.inspect.load_experiments` on path F's `chip_smoke` experiment:
+   its results equal `load_eval`'s and every pair's predictions those of
+   the experiment's `predictions.h5` as `load_predictions` reads it. Path
+   W alone needs paths E and F: `phase_device`, `phase_build`,
+   `drive_training`, `phase_hpatches`, `phase_plotting`.
 
 Each path resets every launch count just before its timed run and reads
 them just after. Prints each phase's seconds, the script's, the kernel JSON line, the card
@@ -4331,15 +4347,14 @@ def lsd_in_workers(images: list, workers: int, conf) -> dict:
 def m_loader(label: str, conf, dataset: str, batch: int, loader_batch: int) -> tuple[dict, list]:
     """The training loader's samples/s over the first two steps' samples,
     in its own batches of `loader_batch`, with `detect_lines` on (those two
-    batches of `batch` kept on the card), and off over one step's samples;
-    the LSD's ms an image in
-    the workers on the first batch's views; the kept batches' wireframe
-    keys with their dtypes on the card."""
+    batches of `batch` kept on the card); the LSD's ms an image in the
+    workers on the first batch's views; the kept batches' wireframe keys
+    with their dtypes on the card. The LSD's cost is its ms in the workers:
+    a rate with `detect_lines` off over one step's samples would measure
+    the workers' start-up."""
     data = merge(conf.data, {"batch_size": loader_batch})
     rate, batches = loader_rate(data, keep=2, dataset=dataset, merge=batch // loader_batch,
                                 max_samples=2 * batch)
-    off, _ = loader_rate(merge(data, {"detect_lines": {"do": False}}), dataset=dataset,
-                         max_samples=batch)
     for b in batches:
         for v in ("view0", "view1"):
             view = b[v]
@@ -4350,9 +4365,9 @@ def m_loader(label: str, conf, dataset: str, batch: int, loader_batch: int) -> t
     images = [b[v]["image"][i].cpu().numpy() for b in batches[:1] for v in ("view0", "view1")
               for i in range(b[v]["image"].shape[0])]
     lsd_ms = lsd_in_workers(images, conf.data.num_workers, conf.data.detect_lines)
-    res = {"samples_per_s": rate, "samples_per_s_without_lines": off, "lsd_in_workers": lsd_ms,
+    res = {"samples_per_s": rate, "lsd_in_workers": lsd_ms,
            "workers": int(conf.data.num_workers), "loader_batch": loader_batch}
-    print(f"{label} loader: {rate:.2f} samples/s with detect_lines, {off:.2f} without "
+    print(f"{label} loader: {rate:.2f} samples/s with detect_lines "
           f"({conf.data.num_workers} workers, {os.cpu_count()} cores); LSD + clustering in the "
           f"workers {json.dumps(lsd_ms)}", flush=True)
     return res, batches
@@ -6618,6 +6633,131 @@ def phase_int8(device_info: dict, batch: dict) -> dict:
     return res
 
 
+# --------------------------------------------------------------------------
+# 27. path W: the trainer's figure hook and the inspector's loading
+# --------------------------------------------------------------------------
+
+W_ITEMS = 4  # path E's items in the hook's batch
+W_STEP = 5  # total_iter the hook is called at
+
+
+class RecordingWriter:
+    """The writer's `add_figure`, recorded; the figures closed."""
+
+    def __init__(self):
+        self.figures = []
+
+    def add_figure(self, tag, fig, step):
+        self.figures.append((tag, step))
+        import matplotlib.pyplot as plt
+
+        plt.close(fig)
+
+
+def _w_hook(device_info: dict) -> dict:
+    """W1: `train.plot_hook` on the card with path E's best checkpoint."""
+    from gluefactory_tpu_torch import train
+    from gluefactory_tpu_torch.data import get_dataset
+    from gluefactory_tpu_torch.data.base_dataset import collate, prepare_batch
+    from gluefactory_tpu_torch.utils.experiments import get_best_checkpoint, load_checkpoint
+    from gluefactory_tpu_torch.visualization.visualize_batch import match_data
+
+    conf = train_conf()
+    every, fig_fn = train.resolve_plot(conf.train.plot)
+    dev = torch.device(DEVICE)
+    model = get_model(conf.model.name).from_conf(
+        {k: v for k, v in conf.model.to_dict().items() if k != "name"}, device=dev)
+    model.load_state_dict(load_checkpoint(get_best_checkpoint(TRAIN_EXPERIMENT), map_location=dev)["model"])
+    items = get_dataset(conf.data.name)(conf.data).get_dataset("train")
+    batch = prepare_batch(collate([items[i] for i in range(W_ITEMS)]), dev)
+    trainer_gen = torch.Generator(device=dev).manual_seed(conf.train.seed)
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    rng = (trainer_gen.get_state(), torch.get_rng_state(), torch.cuda.get_rng_state(dev))
+    writer = RecordingWriter()
+    torch.cuda.synchronize()
+    reset_all_launches()
+    t0 = time.perf_counter()
+    out = train.plot_hook(model, batch, fig_fn, writer, W_STEP,
+                          train.generator_seed(conf.train.seed, W_STEP))
+    torch.cuda.synchronize()
+    hook_s = time.perf_counter() - t0
+    launches = all_launches()
+    _check_launches("path W1", launches, VAL_LAUNCHES)
+    if out["pred"] is None or out["pred"]["matches0"].device.type != "cuda":
+        fail(f"path W1: the hook's forward did not run on the card: {out['error']}")
+    changed = [k for k, v in model.state_dict().items() if not torch.equal(v, before[k])]
+    now = (trainer_gen.get_state(), torch.get_rng_state(), torch.cuda.get_rng_state(dev))
+    if changed or not all(torch.equal(a, b) for a, b in zip(rng, now)):
+        fail(f"path W1: the hook changed {changed or 'a generator'}")
+    pred = out["pred"]
+    with torch.no_grad():  # the flags against the homography GT of the forward's keypoints
+        pred = {**pred, **model.ground_truth({**batch, **pred})}
+    pairs = match_data(pred, batch)
+    counts = []
+    for i, pair in enumerate(pairs):
+        kpts = [*pair["keypoints"], *pair["matches"]]
+        if not all(np.isfinite(k).all() for k in kpts) or pair["correct"] is None:
+            fail(f"path W1: pair {i}'s keypoints are not finite or it has no correctness flags")
+        counts.append({"keypoints": [len(k) for k in pair["keypoints"]],
+                       "matches": len(pair["matches"][0]), "correct": int(pair["correct"].sum())})
+    n_pairs = len(pairs)
+    if out["error"] is not None:  # ModuleNotFoundError is an ImportError
+        if out["error"].split(":")[0] not in ("ImportError", "ModuleNotFoundError") or writer.figures:
+            fail(f"path W1: the figure function failed with {out['error']}")
+        drawn = f"the ImportError warning logged ({out['error']})"
+    elif [t for t, _ in writer.figures] != [f"figures/match_{i}" for i in range(n_pairs)]:
+        fail(f"path W1: the writer got {writer.figures}, expected {n_pairs} figures")
+    else:
+        drawn = f"{n_pairs} figures written"
+    res = {"launches": launches, "state_equal": True, "generators_equal": True, "pairs": counts,
+           "figures": [t for t, _ in writer.figures], "error": out["error"], "drawn": drawn,
+           "every": every, "hook_seconds": hook_s}
+    print(f"path W1: hook on the card in {hook_s:.2f} s, launches {json.dumps(launches)}, state and "
+          f"generators bit-equal, pairs {json.dumps(counts)}, {drawn} ({device_info['nvidia_smi']})",
+          flush=True)
+    return res
+
+
+def _same_array(a, b) -> bool:
+    a, b = np.asarray(a), np.asarray(b)
+    return a.shape == b.shape and np.array_equal(a, b, equal_nan=a.dtype.kind in "fc")
+
+
+def _w_inspect() -> dict:
+    """W2: the inspector's loading on path F's experiment."""
+    import gluefactory_tpu_torch.settings as tsettings
+    from gluefactory_tpu_torch.eval.eval_pipeline import load_eval
+    from gluefactory_tpu_torch.eval.inspect import load_experiments
+
+    results, predictions = load_experiments("hpatches", ["chip_smoke"], tsettings.EVAL_PATH)
+    _, want = load_eval(Path(tsettings.EVAL_PATH, "hpatches", "chip_smoke"))
+    got = results["chip_smoke"]
+    if set(got) != set(want) or any(not _same_array(got[k], v) for k, v in want.items()):
+        fail("path W2: the inspector's results differ from load_eval's")
+    cache = _cache("chip_smoke")
+    names = [str(n) for n in got["names"]]
+    if sorted(names) != sorted(cache):
+        fail(f"path W2: {len(names)} names in the results, {len(cache)} items in predictions.h5")
+    for name in names:
+        pred = predictions["chip_smoke"](name)
+        if set(pred) != set(cache[name]) or any(not _same_array(v, cache[name][k]) for k, v in pred.items()):
+            fail(f"path W2: the inspector's predictions of {name} differ from predictions.h5's")
+    res = {"pairs": len(names), "metrics": sorted(k for k in got if k != "names"), "equal": True}
+    print(f"path W2: inspector's loading on path F's experiment: {len(names)} pairs, results and "
+          f"predictions equal", flush=True)
+    return res
+
+
+def phase_plotting(device_info: dict) -> dict:
+    """Path W: W1 the trainer's figure hook on the card, W2 the inspector's
+    loading on path F's outputs."""
+    t0 = time.perf_counter()
+    res = {"W1": _w_hook(device_info), "W2": _w_inspect()}
+    res["seconds"] = time.perf_counter() - t0
+    print(f"path W: {res['seconds']:.1f} s", flush=True)
+    return res
+
+
 def main() -> None:
     t0 = time.perf_counter()
     seconds = {}
@@ -6669,6 +6809,7 @@ def main() -> None:
         stop_ddp_child(u_child)
     path_v = timed("path_v", phase_int8, device_info, batch)
     kernels += path_v["kernels"]  # launches from path V1's run
+    path_w = timed("path_w", phase_plotting, device_info)
     kernels += timed("conv_study", phase_conv_study, device_info)  # launches from the tools' runs
     OUT_DIR.mkdir(exist_ok=True)
     record = {"device": device_info, "build": build, "kernels": kernels, "gradients": gradients,
@@ -6681,6 +6822,7 @@ def main() -> None:
               "path_o_sift": path_o, "path_p_loftr": path_p, "path_q_roma": path_q,
               "path_r_device_augment": path_r, "path_s_keynet": path_s, "path_t_deeplsd": path_t,
               "path_u_ddp": path_u, "path_v_int8": {k: v for k, v in path_v.items() if k != "kernels"},
+              "path_w_plotting": path_w,
               "seconds_by_phase": seconds,
               "seconds": time.perf_counter() - t0}
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(record, indent=1))

@@ -378,3 +378,27 @@ class HomographyDataset(BaseDataset):
 
     def get_dataset(self, split: str):
         return _HomographySplit(self, split)
+
+
+def main(argv=None):
+    """Write a grid of the first items' two views: synthetic images (no
+    data on disk), the dataset's default augmentation."""
+    import argparse
+
+    from ..visualization.viz2d import save_image_grid
+
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--num_items", type=int, default=4)
+    parser.add_argument("--synthetic", type=int, default=8)
+    parser.add_argument("--out", type=str, default="homographies_samples.png")
+    args = parser.parse_args(argv)
+    ds = HomographyDataset({"synthetic_images": args.synthetic, "train_size": args.num_items,
+                            "val_size": 2})
+    tds = ds.get_dataset("train")
+    rows = [[tds[i]["view0"]["image"], tds[i]["view1"]["image"]]
+            for i in range(min(args.num_items, len(tds)))]
+    save_image_grid(args.out, rows, save_dpi=120)
+
+
+if __name__ == "__main__":
+    main()

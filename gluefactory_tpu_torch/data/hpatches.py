@@ -95,3 +95,24 @@ class HPatchesDataset(BaseDataset):
         if split not in ("val", "test"):
             raise ValueError(f"HPatches has the splits val and test, not {split!r}")
         return _HPatchesItems(self, self.items)
+
+
+def main(argv=None):
+    """Write a grid of the first test pairs' two views (HPatches under
+    DATA_PATH)."""
+    import argparse
+
+    from ..visualization.viz2d import save_image_grid
+
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--num_items", type=int, default=4)
+    parser.add_argument("--out", type=str, default="hpatches_samples.png")
+    args = parser.parse_args(argv)
+    tds = HPatchesDataset({}).get_dataset("test")
+    rows = [[tds[i]["view0"]["image"], tds[i]["view1"]["image"]]
+            for i in range(min(args.num_items, len(tds)))]
+    save_image_grid(args.out, rows, save_dpi=120)
+
+
+if __name__ == "__main__":
+    main()

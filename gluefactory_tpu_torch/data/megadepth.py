@@ -367,3 +367,38 @@ class _MegaDepthItems:
         data["scene"] = scene
         data["idx"] = idx if isinstance(idx, int) else 0
         return data
+
+
+def main(argv=None):
+    """Write a grid of the first items' views of a split, with their depths
+    over them where every view has one (MegaDepth under DATA_PATH; dotlist
+    overrides of the dataset's conf)."""
+    import argparse
+
+    from ..core.config import from_dotlist, merge
+    from ..visualization.viz2d import save_image_grid
+
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--split", type=str, default="val")
+    parser.add_argument("--num_items", type=int, default=4)
+    parser.add_argument("--dpi", type=int, default=100)
+    parser.add_argument("--out", type=str, default="megadepth_samples.png")
+    parser.add_argument("dotlist", nargs="*")
+    args = parser.parse_intermixed_args(argv)
+    conf = {"min_overlap": 0.1, "max_overlap": 0.7, "num_overlap_bins": 3,
+            "sort_by_overlap": False, "train_num_per_scene": 5, "batch_size": 1,
+            "num_workers": 0}
+    dataset = MegaDepth(merge(conf, from_dotlist(args.dotlist)))
+    ds = dataset.get_dataset(args.split)
+    nviews = dataset.conf.views
+    images, depths = [], []
+    for i in range(min(args.num_items, len(ds))):
+        data = ds[i]
+        views = [data] if nviews == 1 else [data[f"view{v}"] for v in range(nviews)]
+        images.append([v["image"] for v in views])
+        depths.append([v.get("depth") for v in views])  # absent without read_depth
+    save_image_grid(args.out, images, depths, dpi=args.dpi)
+
+
+if __name__ == "__main__":
+    main()

@@ -164,3 +164,36 @@ class PosedImageDataset(BaseDataset):
 
     def get_dataset(self, split):
         return _PosedItems(self)
+
+
+def main(argv=None):
+    """Write a grid of the first pairs' views with their depths over them
+    (MegaDepth-1500's layout under DATA_PATH by default; dotlist overrides
+    of the dataset's conf)."""
+    import argparse
+
+    from ..core.config import from_dotlist, merge
+    from ..visualization.viz2d import save_image_grid
+
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--num_items", type=int, default=4)
+    parser.add_argument("--dpi", type=int, default=100)
+    parser.add_argument("--out", type=str, default="posed_images_samples.png")
+    parser.add_argument("dotlist", nargs="*")
+    args = parser.parse_intermixed_args(argv)
+    conf = {"root": "megadepth1500", "depth_dir": "{scene}/depths",
+            "preprocessing": {"resize": 1600, "side": "long", "interpolation": "area",
+                              "antialias": False},
+            "num_workers": 0, "batch_size": 1}
+    ds = PosedImageDataset(merge(conf, from_dotlist(args.dotlist))).get_dataset("test")
+    images, depths = [], []
+    for i in range(min(args.num_items, len(ds))):
+        data = ds[i]
+        views = [data[k] for k in sorted(data) if k.startswith("view")]
+        images.append([v["image"] for v in views])
+        depths.append([v.get("depth") for v in views])
+    save_image_grid(args.out, images, depths, dpi=args.dpi)
+
+
+if __name__ == "__main__":
+    main()

@@ -134,3 +134,29 @@ class ZEBPairs(BaseDataset):
 
     def get_dataset(self, split):
         return _ZEBItems(self)
+
+
+def main(argv=None):
+    """Write a grid of the first pairs (ZEB under DATA_PATH, one pair a
+    scene by default; dotlist overrides of the dataset's conf)."""
+    import argparse
+
+    from ..core.config import from_dotlist, merge
+    from ..visualization.viz2d import save_image_grid
+
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--num_items", type=int, default=12)
+    parser.add_argument("--dpi", type=int, default=300)
+    parser.add_argument("--out", type=str, default="zeb_pairs.png")
+    parser.add_argument("dotlist", nargs="*")
+    args = parser.parse_intermixed_args(argv)
+    conf = {"root": "zeb", "scene_list": None, "batch_size": 1, "num_workers": 0,
+            "shuffle": False, "max_per_scene": 1}
+    ds = ZEBPairs(merge(conf, from_dotlist(args.dotlist))).get_dataset("test")
+    images = [[ds[i]["view0"]["image"], ds[i]["view1"]["image"]]
+              for i in range(min(args.num_items, len(ds)))]
+    save_image_grid(args.out, images, dpi=args.dpi, bbox_inches="tight")
+
+
+if __name__ == "__main__":
+    main()

@@ -76,7 +76,15 @@ batch and sliced. Logged losses and validation results are the global
 batch's. Rank 0 alone writes the log, the writer, the config and the
 checkpoints; `--restore` loads on every rank.
 
-Not ported yet, raising `NotImplementedError`: `plot` with a writer.
+`plot: [every, "<dotted path>"]` draws figures to the writer (only with
+one) in the evaluation of every `every`-th `eval_every_iter` window:
+`plot_hook` runs the model in train mode on the dispatch's last batch and
+sends what the figure function gives to `figures/<name>`. With a writer the
+path is resolved before training starts, and one that does not resolve, or
+names the JAX package, raises `ValueError`. The hook leaves the model's
+buffers and every generator as it found them, so a run trains bit for bit
+as without it; a figure function that raises (ImportError without
+matplotlib) is logged and training goes on.
 """
 
 from __future__ import annotations
@@ -523,9 +531,14 @@ class SigIntHandler:
         signal.signal(signal.SIGINT, self._prev)
 
 
+def generator_seed(seed: int, step: int) -> int:
+    """The seed of step `step`'s generator."""
+    return int(np.random.SeedSequence((seed, step)).generate_state(1)[0])
+
+
 def step_generator(generator: torch.Generator, seed: int, step: int) -> torch.Generator:
     """`generator` reseeded from (seed, step)."""
-    return generator.manual_seed(int(np.random.SeedSequence((seed, step)).generate_state(1)[0]))
+    return generator.manual_seed(generator_seed(seed, step))
 
 
 def dispatch(step: TrainStep, batches: list, generators: list, keys: list | None = None):
@@ -580,8 +593,7 @@ def training(conf: Config, output_dir: Path, args):
             writer = SummaryWriter(str(output_dir))
         except ImportError:
             pass
-    if conf.train.plot and writer is not None:
-        raise NotImplementedError("train.plot (figures to the writer) is not ported yet")
+    plot = resolve_plot(conf.train.plot) if writer is not None else None
 
     # data
     dataset = get_dataset(conf.data.name)(conf.data)
@@ -663,7 +675,7 @@ def training(conf: Config, output_dir: Path, args):
                 keys = augment_keys(rng_key, total_iter, k_steps) if augment else None
                 gens = [step_generator(gen, seed, total_iter * k_steps + i) for i in range(k_steps)]
                 losses, metrics, info = dispatch(step, pending, gens, keys)
-                pending = []
+                last_batch, pending = pending[-1], []
                 n_samples += train_bs * k_steps * world
                 if it % conf.train.log_every_iter < k_steps:
                     if shard:  # the global batch's losses
@@ -700,6 +712,11 @@ def training(conf: Config, output_dir: Path, args):
                         for k, (labels, predictions) in pr_results.items():
                             if len(labels):
                                 writer.add_pr_curve(f"val/{k}", labels, predictions, total_iter)
+                    window = total_iter // max(conf.train.eval_every_iter, 1)
+                    if plot and window % plot[0] == 0:  # plot is set only with a writer
+                        plot_hook(model, last_batch, plot[1], writer, total_iter,
+                                  generator_seed(seed, total_iter * k_steps + k_steps - 1),
+                                  augment and (augment, keys[-1]))
                 if stop or sig.stop:
                     stop = True
                     break
@@ -723,6 +740,54 @@ def training(conf: Config, output_dir: Path, args):
     if writer:
         writer.close()
     return model
+
+
+def resolve_plot(plot_conf) -> tuple | None:
+    """(every, figure function) of `train.plot` = [every, dotted path], or
+    None where it is unset. A path that does not resolve, or that names the
+    JAX package, raises ValueError."""
+    if not plot_conf:
+        return None
+    every, path = plot_conf
+    if str(path).split(".")[0] == "gluefactory_tpu":
+        raise ValueError(f"train.plot: {path!r} is in the JAX package; the port's is "
+                         "gluefactory_tpu_torch.visualization.visualize_batch.make_match_figures")
+    fn = pydoc.locate(str(path))
+    if fn is None:
+        raise ValueError(f"train.plot: {path!r} does not resolve to a figure function")
+    return int(every), fn
+
+
+def plot_hook(model, batch: dict, fig_fn, writer, total_iter: int, seed: int, augment=None) -> dict:
+    """`fig_fn(pred, batch)`'s figures to `writer` as `figures/<name>` at
+    `total_iter`, pred the model's train-mode forward on `batch` under
+    no_grad, drawing from a generator of its own seeded with `seed`.
+    `augment`: (device_augment conf, key) for a batch of `source_image`s.
+    Every buffer of the model (BatchNorm's running statistics) is put back
+    and torch's global generators are forked, so training goes on as if the
+    hook had not run. A failure is logged and training goes on. Returns
+    {"pred", "figures" (names written), "error" (None, or what was logged)}."""
+    device = next(model.parameters()).device
+    buffers = [b.detach().clone() for b in model.buffers()]
+    out = {"pred": None, "figures": [], "error": None}
+    try:
+        with torch.random.fork_rng(devices=[device] if device.type == "cuda" else []), \
+                torch.no_grad():
+            if augment and "source_image" in batch:
+                batch = apply_device_augment(batch, augment[1], augment[0])
+            gen = torch.Generator(device=device).manual_seed(seed)
+            out["pred"] = model(batch, train=True, generator=gen)
+        for name, fig in fig_fn(out["pred"], batch).items():
+            writer.add_figure(f"figures/{name}", fig, total_iter)
+            out["figures"].append(name)
+    except Exception as e:  # a figure must never stop training
+        out["error"] = f"{type(e).__name__}: {e}"
+        logger.warning("plot hook failed: %s", out["error"])
+    finally:
+        with torch.no_grad():
+            for b, saved in zip(model.buffers(), buffers):
+                b.copy_(saved)
+    return out
 
 
 def run_benchmark_hook(name: str, conf, model, output_dir: Path, device, writer, total_iter: int):

@@ -29,6 +29,19 @@ def map_tensor(input_, func):
     return input_
 
 
+def to_numpy(batch):
+    """Every tensor leaf as a numpy array on the host, from any device
+    (bfloat16 as float32); numpy arrays pass through."""
+
+    def _np(x):
+        if not torch.is_tensor(x):
+            return np.asarray(x)
+        x = x.detach()
+        return (x.float() if x.dtype == torch.bfloat16 else x).cpu().numpy()
+
+    return map_tensor(batch, _np)
+
+
 def batch_to_device(batch, device, non_blocking: bool = True):
     """Every leaf to `device` as a tensor. A tensor in pinned host memory
     (the loader pins batches for a CUDA device) is copied asynchronously

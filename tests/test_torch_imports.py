@@ -1,5 +1,6 @@
 """The port stands alone (no JAX, nothing of `gluefactory_tpu`, no OpenCV,
-no Pillow, no h5py at import),
+no Pillow, no h5py, no matplotlib at import; no config names a module of
+the JAX package),
 and every kernel wrapper sends CUDA tensors to its kernel with no fallback."""
 
 import subprocess
@@ -28,6 +29,7 @@ sys.modules["flax"] = None
 sys.modules["cv2"] = None
 sys.modules["PIL"] = None
 sys.modules["h5py"] = None
+sys.modules["matplotlib"] = None
 import gluefactory_tpu_torch.train, gluefactory_tpu_torch.data.homographies
 import gluefactory_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
@@ -71,7 +73,9 @@ for name in ("train", "optim", "settings", "data.homographies", "data.base_datas
              "ops.warp", "data.device_homography", "models.lines.deeplsd", "ops.hough",
              "utils.distributed", "ops.int8_conv", "ops.s2d_conv", "robust_estimators.native",
              "robust_estimators.homography.poselib", "robust_estimators.relative_pose.poselib",
-             "robust_estimators.relative_pose.two_view_native", "utils.benchmark", "utils.patches"):
+             "robust_estimators.relative_pose.two_view_native", "utils.benchmark", "utils.patches",
+             "visualization.tools", "visualization.two_view_frame", "visualization.global_frame",
+             "visualization.visualize_batch", "eval.inspect"):
     assert pkg.__name__ + "." + name in names, name
 """
 
@@ -91,6 +95,19 @@ def test_no_module_imports_h5py_jax_or_the_jax_package_anywhere():
     files = sorted((ROOT / "gluefactory_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     found = [f"{p.relative_to(ROOT)}: {m.group(0).strip()}" for p in files
              for m in pattern.finditer(p.read_text())]
+    assert not found, found
+
+
+def test_no_config_names_the_jax_package():
+    """A dotted path in a config (`train.plot`, an `lr_schedule` type) is
+    resolved by import: none may name a module of `gluefactory_tpu`."""
+    import re
+
+    pattern = re.compile(r"\bgluefactory_tpu\.")
+    files = sorted((ROOT / "gluefactory_tpu_torch" / "configs").glob("*.yaml"))
+    assert len(files) >= 20
+    found = [f"{p.name}:{i + 1}: {line.strip()}" for p in files
+             for i, line in enumerate(p.read_text().splitlines()) if pattern.search(line)]
     assert not found, found
 
 

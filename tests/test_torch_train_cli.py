@@ -83,14 +83,20 @@ def test_train_checkpoint_and_restore(tmp_path):
 
 def test_port_config_copy_parses_as_the_jax_one():
     """The port's copy of the stage-1 config (the one chip_smoke.py trains
-    on) parses to the same config as the JAX package's file."""
+    on) parses to the same config as the JAX package's file, but for the
+    figure hook, which names the port's function in place of the JAX
+    package's."""
     from gluefactory_tpu.core.config import from_yaml as jax_from_yaml
     from gluefactory_tpu_torch.core.config import from_yaml
 
     ours = from_yaml(str(ROOT / "gluefactory_tpu_torch/configs/superpoint+lightglue_homography.yaml"))
     theirs = jax_from_yaml(str(ROOT / CONF))
-    assert ours.to_dict() == theirs.to_dict()
-    assert ours.train.lr_schedule.type == "exp" and ours.model.matcher.checkpointed
+    assert list(ours.train.plot) == [5, "gluefactory_tpu_torch.visualization.visualize_batch.make_match_figures"]
+    assert list(theirs.train.plot) == [5, "gluefactory_tpu.visualization.visualize_batch.make_match_figures"]
+    ours, theirs = ours.to_dict(), theirs.to_dict()
+    ours["train"]["plot"] = theirs["train"]["plot"]
+    assert ours == theirs
+    assert ours["train"]["lr_schedule"]["type"] == "exp" and ours["model"]["matcher"]["checkpointed"]
 
 
 def test_default_device_is_cuda(monkeypatch, tmp_path):

@@ -50,7 +50,13 @@ def test_config_resolves_by_name_and_runs(name):
     assert path.parent.name == "configs" and path.parent.parent.name == "gluefactory_tpu_torch"
     jax_conf = jax_from_yaml(str(Path(gluefactory_tpu.__file__).parent / "configs" / f"{name}.yaml"))
     conf = from_yaml(str(path))
-    assert conf.to_dict() == jax_conf.to_dict()
+    ours, theirs = conf.to_dict(), jax_conf.to_dict()
+    if "plot" in theirs.get("train", {}):  # the figure hook names the port's function
+        hook = "visualization.visualize_batch.make_match_figures"
+        assert theirs["train"]["plot"] == [5, f"gluefactory_tpu.{hook}"]
+        assert ours["train"]["plot"] == [5, f"gluefactory_tpu_torch.{hook}"]
+        ours["train"]["plot"] = theirs["train"]["plot"]
+    assert ours == theirs
     # the component that holds the config's model: its extractor, else (LoFTR) its matcher
     comp = "extractor" if conf.model.get("extractor") else "matcher"
     sub_conf = conf.model[comp]
